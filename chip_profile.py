@@ -1,0 +1,132 @@
+#!/usr/bin/env python3
+"""Where the time of the port's paged serving step goes, on one NVIDIA GPU.
+
+    python3 chip_profile.py      # from the root of a checkout, one CUDA card
+
+Runs ``chip_smoke.py``'s main path (llama-7b, full width and depth, random
+bf16 weights, the same requests), then traces with ``torch.profiler``:
+
+- 5 decode steps of the requests still live (the ``max_seqs``-row shape);
+- 1 prefill step (a fresh 256-token prompt: the ``token_budget``-row shape).
+
+For each it prints the step's host-clock time, the device time summed over
+its kernels, the device's idle share of the step, and the kernel time by
+group (the paged-attention kernel, matrix products, the K/V scatter, the
+rest) with the top kernels by device time.
+
+Last, the paged-attention kernel on the engine's pool (layer 0) at the
+decode step's rows, timed with CUDA events three ways: all rows, the
+longest row alone, and every row but the longest. If the longest row alone
+takes about as long as all rows, the kernel's time is the serial work of
+that row's CTAs, not a shortage of CTAs. Nothing here is checked against a
+reference: ``chip_smoke.py`` does that.
+"""
+
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _group(name: str) -> str:
+    n = name.lower()
+    if "paged_decode_kernel" in n:
+        return "paged_decode_attention"
+    if any(k in n for k in ("gemm", "gemv", "nvjet", "cutlass", "xmma", "cublas")):
+        return "matmul"
+    if "index_put" in n or "indexing_backward" in n or "scatter" in n:
+        return "kv_scatter"
+    return "other"
+
+
+def profile(fn, label, steps):
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = {}
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = e.self_cuda_time_total
+        if dev_us > 0 and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            kernels[e.key] = (dev_us / 1e3 / steps, e.count // steps)
+    busy = sum(ms for ms, _ in kernels.values())
+    groups = {}
+    for name, (ms, n) in kernels.items():
+        g = groups.setdefault(_group(name), [0.0, 0])
+        g[0] += ms
+        g[1] += n
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    result = {
+        "phase": label, "steps": steps, "step_ms": wall_ms, "device_ms": busy,
+        "idle_share": 1.0 - busy / wall_ms,
+        "kernels_per_step": sum(n for _, n in kernels.values()),
+        "groups_ms": {g: round(v[0], 4) for g, v in sorted(groups.items(), key=lambda kv: -kv[1][0])},
+        "top": [(name[:90], round(ms, 4), n) for name, (ms, n) in top],
+    }
+    print(json.dumps(result), flush=True)
+    if busy == 0.0:
+        raise SystemExit("the profiler recorded no device time")
+    return result
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
+    sys.path.insert(0, HERE)
+    import chip_smoke
+    from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    engine, _, _, real_pool, summary = chip_smoke.main_path(pa, dev)
+    print(json.dumps({"main_path": {k: summary[k] for k in (
+        "decode_step_ms_median", "prefill_tokens_per_s", "ragged_steps")}}), flush=True)
+    live = {uid: 0 for uid in engine.state.seqs}  # any valid token will do here
+
+    def decode():
+        nonlocal live
+        live = engine.decode_step(live, greedy=True)
+
+    profile(decode, "decode (6 live rows, max_seqs=8 row shape)", steps=5)
+    rng = np.random.default_rng(3)
+    prompt = rng.integers(0, engine.cfg.vocab_size, engine.token_budget).tolist()
+    profile(lambda: engine.put([99], [prompt], greedy=True),
+            f"prefill ({engine.token_budget}-token prompt, token_budget rows)", steps=1)
+    kernel_rows(pa, real_pool, engine.cfg, dev)
+
+
+def kernel_rows(pa, real_pool, cfg, dev):
+    """The kernel at the decode step's rows: all of them, the longest alone,
+    and all but the longest (each a contiguous batch of its own)."""
+    import chip_smoke
+
+    kp, vp, tables, lens = real_pool
+    rng = np.random.default_rng(2)
+    q = torch.from_numpy(rng.standard_normal(
+        (tables.shape[0], cfg.num_heads, cfg.head_dim)).astype(np.float32)).to(dev, kp.dtype)
+    longest = int(lens.argmax())
+    rest = [r for r in range(tables.shape[0]) if r != longest]
+    result = {"lens": lens.tolist()}
+    for label, rows in (("all_rows", list(range(tables.shape[0]))),
+                        ("longest_row_only", [longest]), ("all_but_longest", rest)):
+        idx = torch.tensor(rows, device=dev)
+        args = (q[idx].contiguous(), kp, vp, tables[idx].contiguous(), lens[idx].contiguous())
+        result[f"{label}_ms"] = chip_smoke.time_cuda(lambda: pa.paged_decode_attention(*args))
+    print(json.dumps({"paged_decode_attention_rows": result}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

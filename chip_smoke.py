@@ -1,0 +1,395 @@
+#!/usr/bin/env python3
+"""Drive the port's main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py        # from the root of a checkout, one CUDA card
+
+It imports ``deepspeed_tpu_torch`` from this checkout (never JAX) and runs,
+in order; any failure exits non-zero and prints no result:
+
+1. the card's name and power limit (``nvidia-smi``); the CUDA kernels are
+   built from the checkout's sources into ``build/kernels/`` (set-up time);
+2. each kernel against its plain PyTorch version at the slice's shapes
+   (llama-7b's heads, llama-70b's GQA heads, a head_dim-64 model), bfloat16
+   at atol/rtol 1e-2 and float32 at atol 1e-5, ragged lens with 1, a
+   non-multiple of the block size, a full table and 0;
+3. the slice at a small size: the paged engine on the card against the same
+   engine on the CPU (plain attention), same weights and requests, float32
+   logits at atol 1e-4;
+4. the main path: llama-7b at full width and depth, random bf16 weights
+   from a seeded generator, served by ``InferenceEngineV2(paged=True)``:
+   prompts of 37, 300, 1000 and 2100 tokens, a 640-token arrival after
+   decode step 4, a request repeating that prompt after step 8 (a
+   full-prompt prefix hit, so a copy-on-write block copy), 32 greedy decode
+   steps, then a flush of every request. The kernels' launch counts are
+   set to 0 just before and read just after;
+5. the paged-attention kernel on the engine's own pool (layer 0) with the
+   tables and lens of the last decode step: checked against the plain
+   version and timed with CUDA events beside the plain version,
+   ``scaled_dot_product_attention`` over the gathered cache, and the bound.
+
+The line before the last is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
+TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-2, 1e-2)}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def time_cuda(fn, warmup=5, iters=25):
+    """Median device milliseconds of one ``fn`` call over ``iters`` calls.
+    A sleep kernel holds the stream while the host enqueues every call with
+    a CUDA event between each two, so each interval is device time only,
+    not the host's launch overhead."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
+    torch.cuda._sleep(100_000_000)  # ~50 ms of clock cycles: longer than the enqueueing
+    events[0].record()
+    for i in range(iters):
+        fn()
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    return float(np.median([events[i].elapsed_time(events[i + 1]) for i in range(iters)]))
+
+
+def paged_case(B, nh, kvh, hd, BS, MAXB, lens, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    NB = 1 + B * MAXB
+    q = torch.from_numpy(rng.standard_normal((B, nh, hd)).astype(np.float32))
+    kp = torch.from_numpy(rng.standard_normal((kvh, NB, BS, hd)).astype(np.float32))
+    vp = torch.from_numpy(rng.standard_normal((kvh, NB, BS, hd)).astype(np.float32))
+    tables = np.zeros((B, MAXB), np.int32)
+    perm = rng.permutation(np.arange(1, NB)).astype(np.int32)
+    for b, n in enumerate(lens):
+        nb = -(-n // BS)
+        tables[b, :nb] = perm[b * MAXB:b * MAXB + nb]
+    return (q.to(dev, dtype), kp.to(dev, dtype), vp.to(dev, dtype),
+            torch.from_numpy(tables).to(dev), torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def compare(out, ref, dtype):
+    """Max abs error; raises if any element is outside atol + rtol * |ref|."""
+    atol, rtol = TOL[dtype]
+    err = (out.float() - ref.float()).abs()
+    bad = err > atol + rtol * ref.float().abs()
+    check(out.shape == ref.shape and out.dtype == ref.dtype,
+          f"shape/dtype {tuple(out.shape)}/{out.dtype} vs {tuple(ref.shape)}/{ref.dtype}")
+    check(torch.isfinite(out.float()).all().item(), "non-finite kernel output")
+    check(not bad.any().item(),
+          f"{int(bad.sum())} elements outside atol {atol} rtol {rtol} (max err {err.max():.3g})")
+    return float(err.max())
+
+
+def kernels_vs_plain(pa, dev):
+    """Phase 2: the paged-attention kernel against its plain version."""
+    BS, MAXB = 64, 16
+    lens = [1, 100, MAXB * BS, 0, 777, BS]
+    worst = 0.0
+    for label, nh, kvh, hd in (("llama-7b heads", 32, 32, 128),
+                               ("llama-70b GQA heads", 64, 8, 128),
+                               ("gpt2-125m heads (hd 64)", 12, 12, 64)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kp, vp, tables, ln = paged_case(len(lens), nh, kvh, hd, BS, MAXB, lens,
+                                               dtype, dev)
+            out = pa.paged_decode_attention(q, kp, vp, tables, ln)
+            torch.cuda.synchronize()
+            ref = pa.paged_decode_attention_plain(q, kp, vp, tables, ln)
+            err = compare(out, ref, dtype)
+            check(not out[lens.index(0)].any().item(), "lens == 0 row is not zero")
+            worst = max(worst, err)
+            log(f"kernel vs plain: paged_decode_attention {label} nh={nh} kvh={kvh} "
+                f"hd={hd} BS={BS} {str(dtype)[6:]}: max_abs_err {err:.3g} ok")
+    return worst
+
+
+def serve(engine, prompts, arrival, decode_steps, greedy, choices=None, stats=None,
+          launches=None):
+    """The main path through the engine's public surface: ``put`` the
+    prompts, then ``decode_step`` rounds; ``arrival`` arrives after step 4
+    and again (the same prompt, a full prefix hit) after step 8. Returns
+    the per-call outputs and the tokens fed (``choices`` replays another
+    run's tokens). ``stats`` collects host-clock times (each call ends in
+    the step's device-to-host copy) and, with ``launches`` (a function
+    reading the kernel's count), the launches of each decode step."""
+    records, fed = [], []
+    it = iter(choices or ())
+
+    def choose(out):
+        toks = {u: (v if greedy else int(np.argmax(v))) for u, v in sorted(out.items())}
+        toks = next(it) if choices is not None else toks
+        fed.append(toks)
+        return dict(toks)
+
+    t0 = time.perf_counter()
+    out = engine.put(list(prompts), [list(p) for p in prompts.values()], greedy=greedy)
+    if stats is not None:
+        stats["prefill_s"] = time.perf_counter() - t0
+    records.append(out)
+    uid = max(prompts)
+    for step in range(decode_steps):
+        toks = choose(out)
+        if arrival is not None and step in (4, 8):
+            uid += 1
+            arrived = engine.put([uid], [list(arrival)], greedy=greedy)
+            records.append(arrived)
+            toks.update(choose(arrived))
+        t0, n0 = time.perf_counter(), launches() if launches else 0
+        out = engine.decode_step(toks, greedy=greedy)
+        if stats is not None:
+            stats.setdefault("decode_s", []).append(time.perf_counter() - t0)
+            if launches:
+                stats.setdefault("decode_launches", []).append(launches() - n0)
+        records.append(out)
+    return records, fed
+
+
+def small_slice_vs_cpu(dev):
+    """Phase 3: the slice on the card against the plain path on the CPU."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models import build_model
+
+    model = build_model("llama-tiny", vocab_size=1024, hidden_size=256, num_layers=2,
+                        num_heads=4, num_kv_heads=2, intermediate_size=512,
+                        max_seq_len=512)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    opts = dict(paged=True, dtype=torch.float32, max_seqs=4, block_size=16,
+                prefill_chunk=64, token_budget=64, prefix_cache=True)
+    rng = np.random.default_rng(1)
+    prompts = {1: rng.integers(0, 1024, 20), 2: rng.integers(0, 1024, 150)}
+    arrival = rng.integers(0, 1024, 48)
+    ref, fed = serve(InferenceEngineV2(model, params, device="cpu", **opts),
+                     prompts, arrival, 12, greedy=False)
+    got, _ = serve(InferenceEngineV2(model, params, device=dev, **opts),
+                   prompts, arrival, 12, greedy=False, choices=fed)
+    worst = 0.0
+    for g, r in zip(got, ref):
+        check(sorted(g) == sorted(r), "card and CPU engines returned different uids")
+        for u in r:
+            err = float(np.abs(g[u] - r[u]).max())
+            check(np.isfinite(g[u]).all() and err <= 1e-4,
+                  f"uid {u}: card vs CPU logits differ by {err:.3g} (atol 1e-4)")
+            worst = max(worst, err)
+    log(f"slice on the card vs CPU (llama 256-wide, 2 layers, fp32): "
+        f"{len(got)} calls, max_abs_err {worst:.3g} ok")
+
+
+def main_path(pa, dev):
+    """Phase 4: llama-7b at full width and depth through the paged engine."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models import build_model
+
+    model = build_model("llama-7b")
+    cfg = model.config
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               dtype=torch.bfloat16)
+    engine = InferenceEngineV2(model, params, paged=True, dtype=torch.bfloat16,
+                               max_seqs=8, block_size=64, prefill_chunk=256,
+                               token_budget=256, prefix_cache=True, device=dev)
+    del params
+    torch.cuda.synchronize()
+    log(f"set-up: llama-7b ({cfg.num_layers} layers, hidden {cfg.hidden_size}) random "
+        f"bf16 weights and a {engine.block_mgr.num_blocks}x{engine.block_mgr.block_size}"
+        f" block pool in {time.perf_counter() - t0:.3f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    free0 = engine.block_mgr.free_blocks
+    # warm-up: one step at each of the engine's two row shapes, all rows
+    # padding (table of zeros), so their K/V land in trash block 0; the
+    # timed prefill and decode steps then pay no first-call cost
+    for T in (engine.token_budget, engine.max_seqs):
+        zeros = torch.zeros(T, dtype=torch.int32, device=dev)
+        model.forward_paged(engine.params, zeros[:, None], engine.kv,
+                            torch.zeros((T, engine.block_mgr.max_blocks_per_seq),
+                                        dtype=torch.int32, device=dev), zeros,
+                            logit_rows=zeros[:engine.max_seqs])
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(0)
+    prompts = {u: rng.integers(0, cfg.vocab_size, n)
+               for u, n in zip((1, 2, 3, 4), (37, 300, 1000, 2100))}
+    arrival = rng.integers(0, cfg.vocab_size, 640)
+    stats = {}
+    steps0 = engine.ragged_steps
+    pa.launches = 0  # every kernel's count, just before the main path
+    records, _ = serve(engine, prompts, arrival, 32, greedy=True, stats=stats,
+                       launches=lambda: pa.launches)
+    torch.cuda.synchronize()
+    launches = pa.launches  # read just after
+    ragged = engine.ragged_steps - steps0
+    per_step = stats["decode_launches"]
+
+    tokens = [t for rec in records for t in rec.values()]
+    check(len(tokens) > 0 and all(0 <= t < cfg.vocab_size for t in tokens),
+          "a generated token lies outside [0, vocab)")
+    check(launches == cfg.num_layers * ragged and launches > 0,
+          f"paged_decode_attention launched {launches} times in {ragged} ragged steps "
+          f"(expected num_layers x steps = {cfg.num_layers * ragged})")
+    check(set(per_step) == {cfg.num_layers},
+          f"launches per decode step {sorted(set(per_step))} != {cfg.num_layers}")
+    pc = engine.prefix_cache_stats()
+    check(pc["hits"] >= 1 and pc["cow_copies"] >= 1,
+          f"the repeated prompt gave no prefix hit / copy-on-write: {pc}")
+
+    # the last decode step's rows, as the engine built them: live rows, then
+    # padding rows (all-zero table, position 0)
+    M = engine.max_seqs
+    live = sorted(engine.state.seqs.values(), key=lambda d: d.slot)
+    tables = np.zeros((M, engine.block_mgr.max_blocks_per_seq), np.int32)
+    lens = np.ones(M, np.int32)
+    for r, d in enumerate(live):
+        engine.block_mgr.fill_table_row(d, tables[r])
+        lens[r] = d.seen_tokens
+    real_pool = (engine.kv[0][0], engine.kv[1][0], torch.from_numpy(tables).to(dev),
+                 torch.from_numpy(lens).to(dev))
+
+    decode_ms = [s * 1e3 for s in stats["decode_s"]]
+    n_prefill = sum(len(p) for p in prompts.values())
+    summary = {
+        "model": "llama-7b", "layers": cfg.num_layers, "dtype": "bfloat16",
+        "requests": len(live), "ragged_steps": ragged,
+        "prefill_tokens": n_prefill, "prefill_s": stats["prefill_s"],
+        "prefill_tokens_per_s": n_prefill / stats["prefill_s"],
+        "decode_steps": len(decode_ms), "decode_step_ms_median": float(np.median(decode_ms)),
+        "decode_step_ms_p90": float(np.percentile(decode_ms, 90)),
+        "decode_rows": len(live), "launches_per_decode_step": cfg.num_layers,
+        "prefix_cache": {k: pc[k] for k in ("lookups", "hits", "hit_blocks",
+                                              "skipped_prefill_tokens", "cow_copies")},
+    }
+    log(f"main path: {len(tokens)} tokens, {ragged} ragged steps, paged_decode_attention "
+        f"launched {launches} times (= {cfg.num_layers} layers x {ragged} steps)")
+    return engine, free0, launches, real_pool, summary
+
+
+def kernel_on_real_pool(pa, real_pool, cfg, dev):
+    """Phase 5: the kernel on the engine's pool at the last decode step."""
+    import torch.nn.functional as F
+
+    kp, vp, tables, lens = real_pool
+    B, nh, hd = tables.shape[0], cfg.num_heads, cfg.head_dim
+    kvh, _, BS, _ = kp.shape
+    rng = np.random.default_rng(2)
+    q = torch.from_numpy(rng.standard_normal((B, nh, hd)).astype(np.float32)).to(
+        dev, kp.dtype)
+    out = pa.paged_decode_attention(q, kp, vp, tables, lens)
+    torch.cuda.synchronize()
+    ref = pa.paged_decode_attention_plain(q, kp, vp, tables, lens)
+    err = compare(out, ref, kp.dtype)
+
+    kernel_ms = time_cuda(lambda: pa.paged_decode_attention(q, kp, vp, tables, lens))
+    plain_ms = time_cuda(lambda: pa.paged_decode_attention_plain(q, kp, vp, tables, lens))
+    # the library yardstick: SDPA over the cache already gathered to (B, nh, T, hd)
+    T = int(lens.max())
+    idx = tables.long()
+    gk = kp[:, idx].permute(1, 0, 2, 3, 4).reshape(B, kvh, -1, hd)[:, :, :T]
+    gv = vp[:, idx].permute(1, 0, 2, 3, 4).reshape(B, kvh, -1, hd)[:, :, :T]
+    gk = gk.repeat_interleave(nh // kvh, dim=1).contiguous()
+    gv = gv.repeat_interleave(nh // kvh, dim=1).contiguous()
+    mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    qs = q[:, :, None, :]
+    lib = F.scaled_dot_product_attention(qs, gk, gv, attn_mask=mask)[:, :, 0]
+    compare(lib, ref, kp.dtype)
+    library_ms = time_cuda(lambda: F.scaled_dot_product_attention(qs, gk, gv, attn_mask=mask))
+
+    # the bound: K and V of the keys this data needs, each read once (a block
+    # shared by rows or holding keys only up to its row's length counts what
+    # is needed of it), q read and the output written once
+    elt = kp.element_size()
+    need = {}
+    tab, ln = tables.cpu().numpy(), lens.cpu().numpy()
+    for r in range(B):
+        for j in range(-(-int(ln[r]) // BS)):
+            need[tab[r, j]] = max(need.get(tab[r, j], 0), min(BS, int(ln[r]) - j * BS))
+    nbytes = (2 * sum(need.values()) * kvh * hd * elt + 2 * q.numel() * elt
+              + tables.numel() * 4 + lens.numel() * 4)
+    flops = 4 * int(ln.sum()) * nh * hd
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[kp.dtype] * 1e3
+    log(f"paged_decode_attention on the engine's pool (layer 0, B={B}, lens "
+        f"{ln.tolist()}): max_abs_err {err:.3g}; kernel {kernel_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+        f"({nbytes} bytes, {flops} flops)")
+    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false: this script needs an "
+                           "NVIDIA GPU")
+    if not os.path.isdir(os.path.join(HERE, "deepspeed_tpu_torch")):
+        raise SmokeFailure("deepspeed_tpu_torch/ is not beside this script: run it from "
+                           "the root of a checkout")
+    sys.path.insert(0, HERE)
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops.op_builder import PagedAttentionBuilder
+    from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
+
+    check(os.path.dirname(os.path.abspath(deepspeed_tpu_torch.__file__))
+          == os.path.join(HERE, "deepspeed_tpu_torch"),
+          f"imported deepspeed_tpu_torch from {deepspeed_tpu_torch.__file__}, "
+          "not from this checkout")
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 checks in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader", "-i", "0"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    log(smi.stdout.strip())
+    t0 = time.perf_counter()
+    PagedAttentionBuilder().build()
+    log(f"set-up: CUDA kernels built in {time.perf_counter() - t0:.1f} s "
+        f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
+
+    kernels_vs_plain(pa, dev)
+    small_slice_vs_cpu(dev)
+    engine, free0, launches, real_pool, summary = main_path(pa, dev)
+    k = kernel_on_real_pool(pa, real_pool, engine.cfg, dev)
+    for uid in list(engine.state.seqs):
+        engine.flush(uid)
+    check(engine.block_mgr.free_blocks == free0,
+          f"free blocks {engine.block_mgr.free_blocks} != {free0} after flushing")
+    summary["kernel"] = {"decode_rows": int(real_pool[2].shape[0]), **k}
+    log(json.dumps({"summary": summary}))
+    log(json.dumps({"kernels": [dict(
+        name="paged_decode_attention", route="cuda",
+        source="deepspeed_tpu_torch/csrc/paged_attention.cu",
+        replaces="deepspeed_tpu/ops/transformer/paged_attention.py:76",
+        launches=launches, **k)]}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    try:
+        main()
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

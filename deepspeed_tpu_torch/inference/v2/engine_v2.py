@@ -1,0 +1,391 @@
+"""Continuous-batching inference engine, paged mode (counterpart of ``deepspeed_tpu/inference/v2/engine_v2.py``).
+
+``InferenceEngineV2(paged=True)`` keeps the KV cache as one blocked pool
+``(L, kvh, num_blocks, block_size, hd)`` shared by all sequences through
+per-sequence block tables (``ragged_manager.BlockedKVCache``). Every engine
+step is one ragged forward over a fixed number of token rows: prefill-chunk
+tokens and decode tokens mixed, each row a length-1 segment with its own
+position and its sequence's block table. Two row counts exist, as in the JAX
+engine: ``token_budget`` and, for a pure decode round, ``max_seqs``.
+
+``put(uids, tokens)`` is the reference surface: new sequences join, pending
+tokens advance, and per-uid last-token logits (or greedy tokens) come back.
+"""
+
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ...accelerator import resolve_device
+from ...models.transformer import sample_or_argmax
+from ...ops.transformer.paged_attention import check_kernel_config
+from ...resilience.errors import (ContextOverflowError, EngineUsageError,
+                                  PoolExhaustedError)
+from ...utils.logging import log_dist
+from .ragged_manager import BlockedKVCache, DSStateManager
+
+# the ROADMAP.md items that lift each unported part of the engine
+_ENGINE_ITEM = "ROADMAP.md Queue 1 item 5, the rest of the paged engine"
+_TIER_ITEM = "ROADMAP.md Queue 1 item 9, KV tiers and swap"
+_SAMPLING_ITEM = "ROADMAP.md Queue 1 item 3, threefry sampling"
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to deepspeed_tpu_torch ({item})")
+
+
+class InferenceEngineV2:
+    """Continuous-batching engine over a ``TransformerLM``, paged mode.
+
+    The pool ``self.kv`` is updated in place: ``forward_paged`` writes each
+    step's K/V with ``index_put_`` and the copy-on-write block copy uses
+    ``copy_``, where the JAX engine donates the pool to each compiled
+    program and gets a new one back (``engine_v2.py:422``).
+
+    Runs on ``device`` (default ``"cuda"``); without CUDA it raises unless
+    ``device="cpu"`` is passed, which runs the plain attention. On CUDA the
+    model's attention shape must be one the paged-attention kernel takes;
+    otherwise construction raises.
+    """
+
+    def __init__(self, model, params=None, *, max_seqs: Optional[int] = None,
+                 max_seq_len: Optional[int] = None, prefill_chunk: int = 256,
+                 dtype: torch.dtype = torch.float32, paged: bool = False,
+                 block_size: int = 64, num_blocks: Optional[int] = None,
+                 token_budget: int = 0, prefix_cache: bool = True,
+                 decode_horizon: int = 1, host_tier_blocks: int = 0,
+                 nvme_tier_blocks: int = 0, nvme_tier_dir: Optional[str] = None,
+                 device: Union[str, torch.device] = "cuda"):
+        if not paged:
+            raise _not_ported("slot mode (paged=False)", _ENGINE_ITEM)
+        if decode_horizon != 1:
+            raise _not_ported(f"fused multi-token decode (decode_horizon="
+                              f"{decode_horizon})", _ENGINE_ITEM)
+        if host_tier_blocks or nvme_tier_blocks or nvme_tier_dir:
+            raise _not_ported("the host and NVMe KV tiers", _TIER_ITEM)
+        self.device = resolve_device(device)
+        self.model = model
+        self.cfg = model.config
+        if self.device.type == "cuda":
+            check_kernel_config(self.cfg.num_heads, self.cfg.kv_heads,
+                                self.cfg.head_dim, dtype)
+        if max_seqs is None:
+            max_seqs = 32
+        self.max_seqs = max_seqs
+        self.max_seq_len = max_seq_len or model.config.max_seq_len
+        self.prefill_chunk = prefill_chunk
+        self.dtype = dtype
+        # every step is ONE ragged forward over exactly token_budget rows
+        # (prefill chunks and decodes mixed); a pure decode round uses the
+        # max_seqs-row shape instead
+        self.token_budget = token_budget or max(max_seqs, min(prefill_chunk, 256))
+        if params is None:
+            params = model.init_params(
+                torch.Generator(device=self.device).manual_seed(0))
+        self.params = self._cast_params(params)
+        self.state = DSStateManager(max_seqs, self.max_seq_len)
+        self.flush_noops = 0  # idempotent-flush debug counter (see flush())
+        #: rows deferred out of a ragged dispatch because their blocks could
+        #: not be allocated
+        self.plan_deferrals = 0
+        #: ragged forwards dispatched (each runs every layer's attention once)
+        self.ragged_steps = 0
+        # per-shape host scratch for the step inputs, zeroed in place
+        self._scratch: Dict[Tuple, Tuple[np.ndarray, ...]] = {}
+        self.prefix_cache = bool(prefix_cache)
+        max_blocks_per_seq = -(-self.max_seq_len // block_size)
+        if num_blocks is None:
+            num_blocks = 1 + max_seqs * max_blocks_per_seq  # = slot capacity
+        self.block_mgr = BlockedKVCache(num_blocks, block_size, max_blocks_per_seq,
+                                        prefix_cache=self.prefix_cache)
+        self.kv = model.init_kv_pool(num_blocks, block_size, dtype=dtype,
+                                     device=self.device)
+        log_dist(
+            f"InferenceEngineV2(paged): blocks={num_blocks}x{block_size} "
+            f"seqs<={max_seqs} ctx={self.max_seq_len} chunk={prefill_chunk} "
+            f"token_budget={self.token_budget} "
+            f"prefix_cache={'on' if self.prefix_cache else 'off'} "
+            f"device={self.device}",
+            ranks=[0],
+        )
+
+    def _cast_params(self, params):
+        def cast(name, a):
+            a = torch.as_tensor(a)
+            if not a.is_floating_point():
+                raise _not_ported(f"non-float parameter '{name}' (weight-only "
+                                  "quantization)", "ROADMAP.md Queue 1 item 14")
+            return a.to(device=self.device, dtype=self.dtype)
+
+        def walk(tree):
+            return {k: walk(v) if isinstance(v, dict) else cast(k, v)
+                    for k, v in tree.items()}
+
+        return walk(params)
+
+    def _cow(self, src: int, dst: int) -> None:
+        """Copy-on-write: duplicate pool block ``src`` into ``dst`` in every
+        layer and KV head, in place (the JAX ``_get_cow`` program)."""
+        for pool in self.kv:  # (L, kvh, NB, BS, hd); block axis = 2
+            pool[:, :, dst].copy_(pool[:, :, src])
+
+    def _ragged(self, ids, tables, starts, logit_rows, greedy: bool):
+        """THE paged-mode step (``_get_ragged``): one ragged forward over the
+        rows, projecting only ``logit_rows`` through the vocabulary head.
+        Each host array moves to the device in one copy."""
+        dev = self.device
+        lg = self.model.forward_paged(
+            self.params, torch.from_numpy(ids).to(dev), self.kv,
+            torch.from_numpy(tables).to(dev), torch.from_numpy(starts).to(dev),
+            logit_rows=torch.from_numpy(logit_rows).to(dev))
+        self.ragged_steps += 1
+        if greedy:
+            return sample_or_argmax(lg)
+        return lg.float()
+
+    def _scratch_for(self, key: Tuple, shapes, dtypes) -> Tuple[np.ndarray, ...]:
+        """Per-shape preallocated host arrays, zeroed in place."""
+        bufs = self._scratch.get(key)
+        if bufs is None:
+            bufs = tuple(np.zeros(s, dt) for s, dt in zip(shapes, dtypes))
+            self._scratch[key] = bufs
+        else:
+            for a in bufs:
+                a.fill(0)
+        return bufs
+
+    def _put_paged(self, out: Dict[int, object], greedy: bool = False) -> None:
+        """Advance every pending token through fixed-budget ragged steps
+        (``engine_v2.py:1007``): sequences with the fewest pending tokens go
+        first, so live decodes always beat prefill chunks."""
+        while True:
+            work = [d for d in self.state.seqs.values() if d.in_flight > 0]
+            if not work:
+                return
+            work.sort(key=lambda d: (d.in_flight, d.slot))
+            # decode-round shape: every pending item is one token and they fit
+            # in max_seqs rows, so the step does not pay the budget's padding
+            if (self.token_budget > self.max_seqs
+                    and len(work) <= self.max_seqs
+                    and all(d.in_flight == 1 for d in work)):
+                T = self.max_seqs
+            else:
+                T = self.token_budget
+            plan: List[Tuple] = []
+            used = 0
+            for d in work:
+                if used >= T:
+                    break
+                take = min(d.in_flight, self.prefill_chunk, T - used)
+                if d.seen_tokens + take > self.max_seq_len:
+                    raise ContextOverflowError(
+                        f"uid {d.uid}: prompt exceeds context "
+                        f"({d.seen_tokens}+{take} > {self.max_seq_len})",
+                        uid=d.uid)
+                plan.append((d, take))
+                used += take
+            # allocate blocks for the whole step before mutating any sequence;
+            # a row whose blocks cannot be allocated is deferred, and the step
+            # raises only when nothing at all can run
+            ready: List[Tuple] = []
+            pool_exhausted: Optional[PoolExhaustedError] = None
+            for d, take in plan:
+                try:
+                    self.block_mgr.ensure(d, d.seen_tokens + take)
+                except PoolExhaustedError as e:
+                    pool_exhausted = e
+                    self.plan_deferrals += 1
+                    continue
+                ready.append((d, take))
+            if not ready:
+                raise pool_exhausted
+            plan = ready
+            if self.prefix_cache:
+                # copy-on-write: a write landing inside a block another
+                # sequence also references must first detach a private copy
+                bs = self.block_mgr.block_size
+                for d, take in plan:
+                    first = d.seen_tokens // bs
+                    last = min((d.seen_tokens + take - 1) // bs, len(d.blocks) - 1)
+                    for j in range(first, last + 1):
+                        if self.block_mgr.refcount(d.blocks[j]) > 1:
+                            src, dst = self.block_mgr.copy_on_write(d, j)
+                            self._cow(src, dst)
+            ids, tables, starts, logit_rows = self._scratch_for(
+                ("ragged", T),
+                ((T, 1), (T, self.block_mgr.max_blocks_per_seq), (T,),
+                 (self.max_seqs,)),
+                (np.int32,) * 4)
+            finals = []
+            r = 0
+            for d, take in plan:
+                completes = take == d.in_flight
+                r0 = r
+                self.block_mgr.fill_table_row(d, tables[r0])
+                if take > 1:
+                    tables[r0 + 1:r0 + take] = tables[r0]
+                for j in range(take):
+                    ids[r, 0] = d.pending[j]
+                    starts[r] = d.seen_tokens + j
+                    r += 1
+                if completes:
+                    logit_rows[len(finals)] = r - 1
+                    finals.append(d)
+                if self.prefix_cache:
+                    d.history.extend(d.pending[:take])
+                del d.pending[:take]
+                d.seen_tokens += take
+            lg = self._ragged(ids, tables, starts, logit_rows, greedy)
+            if self.prefix_cache:
+                # the step's writes are issued: every block it filled holds
+                # valid prefix content, publish it to the content index
+                for d, _ in plan:
+                    self.block_mgr.register(d)
+            # the step's one device-to-host transfer
+            lg = lg[:len(finals)].cpu().numpy()
+            for i, d in enumerate(finals):
+                out[d.uid] = int(lg[i]) if greedy else lg[i]
+
+    # ------------------------------------------------------------------
+    # reference surface
+    # ------------------------------------------------------------------
+    def put(self, batch_uids: Sequence[int], batch_tokens: Sequence[Sequence[int]],
+            greedy: bool = False) -> Dict[int, object]:
+        """Advance the engine with new/continuing requests (``engine_v2.py:1150``).
+
+        For each uid the tokens are queued (chunked prefill); pending tokens
+        then advance through ragged steps. Returns {uid: (V,) float32 numpy
+        logits} for every sequence whose pending tokens were all consumed,
+        or with ``greedy=True`` {uid: int token} selected on the device.
+        """
+        if len(batch_uids) > self.state.max_seqs:
+            raise EngineUsageError(
+                f"batch of {len(batch_uids)} exceeds {self.state.max_seqs} slots")
+        for uid, toks in zip(batch_uids, batch_tokens):
+            desc = self.state.get_or_create_sequence(uid)
+            if toks is not None and len(toks):
+                fresh = (self.prefix_cache and desc.seen_tokens == 0
+                         and not desc.blocks and not desc.pending)
+                desc.pending.extend(int(t) for t in toks)
+                if fresh and len(desc.pending) > 1:
+                    # prefix-cache admission: map every fully-cached prompt
+                    # block into the table and skip those tokens' prefill
+                    skipped = self.block_mgr.lookup(desc, desc.pending)
+                    if skipped:
+                        desc.history.extend(desc.pending[:skipped])
+                        del desc.pending[:skipped]
+                        desc.seen_tokens = skipped
+        out: Dict[int, object] = {}
+        self._put_paged(out, greedy=greedy)
+        return out
+
+    def decode_step(self, tokens: Dict[int, int],
+                    greedy: bool = False) -> Dict[int, object]:
+        """One continuous-batching decode step (``engine_v2.py:1250``): feed
+        each live uid its sampled token and get next-token logits (or, with
+        ``greedy=True``, the on-device argmax token) for all of them."""
+        # all-or-nothing validation before any state is touched
+        for uid in tokens:
+            d = self.state.seqs[uid]
+            if d.seen_tokens + d.in_flight >= self.max_seq_len:
+                raise ContextOverflowError(
+                    f"uid {uid}: context full ({d.seen_tokens} >= "
+                    f"{self.max_seq_len}); flush the sequence or raise "
+                    "max_seq_len", uid=uid)
+        for uid in tokens:
+            d = self.state.seqs[uid]
+            self.block_mgr.ensure(d, d.seen_tokens + d.in_flight + 1)
+        uids = list(tokens)
+        return self.put(uids, [[tokens[u]] for u in uids], greedy=greedy)
+
+    def set_sampling(self, uid: int, params, bias_row=None) -> None:
+        """Accept a request's sampling record (duck-typed ``.temperature``).
+        Only greedy records (``temperature == 0``, or ``params=None``) are
+        ported, and greedy is what every step already does."""
+        if bias_row is not None:
+            raise _not_ported("the logit-bias pool", _ENGINE_ITEM)
+        if params is not None and params.temperature > 0:
+            raise _not_ported("sampling with temperature > 0", _SAMPLING_ITEM)
+
+    def flush(self, uid: int) -> None:
+        """Release a sequence's slot and KV blocks. Idempotent: flushing an
+        unknown uid is a counted no-op, never a double free."""
+        if uid not in self.state.seqs:
+            self.flush_noops += 1
+            log_dist(f"flush({uid}): unknown uid (no-op #{self.flush_noops})",
+                     ranks=[0], level=10)  # DEBUG
+            return
+        self.block_mgr.free(self.state.seqs[uid])
+        self.state.flush_sequence(uid)
+
+    def preempt(self, uid: int) -> int:
+        """Evict a live sequence under pool pressure; returns how many blocks
+        it held. With the prefix cache on, its full blocks stay indexed."""
+        desc = self.state.seqs.get(uid)
+        freed = len(desc.blocks) if desc is not None else 0
+        self.flush(uid)
+        return freed
+
+    def query(self) -> Tuple[int, int]:
+        """(free sequence slots, per-sequence token capacity bounded by the
+        free block pool)."""
+        free_slots = self.state.max_seqs - self.state.n_active
+        return free_slots, min(self.max_seq_len,
+                               self.block_mgr.free_blocks * self.block_mgr.block_size)
+
+    def prefix_cache_stats(self) -> Dict[str, float]:
+        """Prefix-cache counters: lookups, hits, hit_rate, hit_blocks,
+        skipped_prefill_tokens, cow_copies, dedup_blocks, evicted_blocks,
+        cached_blocks, free_blocks. Empty when the cache is off."""
+        if not self.prefix_cache:
+            return {}
+        s = dict(self.block_mgr.stats)
+        s["hit_rate"] = (s["hits"] / s["lookups"]) if s["lookups"] else 0.0
+        s["cached_blocks"] = self.block_mgr.cached_blocks
+        s["free_blocks"] = self.block_mgr.free_blocks
+        return s
+
+    def can_schedule(self, n_new: int = 1) -> bool:
+        """Admit only if every new sequence gets a slot and one prefill
+        chunk of blocks."""
+        if not self.state.can_allocate(n_new):
+            return False
+        per_seq = self.block_mgr.blocks_needed(min(self.prefill_chunk, self.max_seq_len))
+        return self.block_mgr.free_blocks >= n_new * per_seq
+
+    # ------------------------------------------------------------------
+    # not in this slice
+    # ------------------------------------------------------------------
+    def decode_multi(self, tokens, horizon):
+        raise _not_ported("decode_multi (fused multi-token decode)", _ENGINE_ITEM)
+
+    def verify_multi(self, tokens, drafts):
+        raise _not_ported("verify_multi (speculative verification)", _ENGINE_ITEM)
+
+    def decode_dispatch(self, tokens):
+        raise _not_ported("decode_dispatch (pipelined dispatch)", _ENGINE_ITEM)
+
+    def commit_step(self, uid, drop=0, retain=0):
+        raise _not_ported("commit_step (pipelined dispatch)", _ENGINE_ITEM)
+
+    def rollback(self, uid, n=0):
+        raise _not_ported("rollback", _ENGINE_ITEM)
+
+    def rebuild(self):
+        raise _not_ported("rebuild (engine-loss recovery)", _ENGINE_ITEM)
+
+    def load_params(self, params, version=None):
+        raise _not_ported("load_params (hot weight swap)", _ENGINE_ITEM)
+
+    def swap_out(self, uid):
+        raise _not_ported("swap_out", _TIER_ITEM)
+
+    def swap_in(self, uid):
+        raise _not_ported("swap_in", _TIER_ITEM)
+
+    def export_swap(self, uid):
+        raise _not_ported("export_swap (cross-engine KV handoff)", _TIER_ITEM)
+
+    def import_swap(self, uid, payload):
+        raise _not_ported("import_swap (cross-engine KV handoff)", _TIER_ITEM)

@@ -1,0 +1,398 @@
+"""Decoder-only transformer LM, paged-serving subset (counterpart of ``deepspeed_tpu/models/transformer.py``).
+
+The same functional design as the JAX package: ``TransformerLM`` holds a
+``TransformerConfig`` and works on a plain dictionary of parameters with
+the JAX package's leaf names and shapes. Block leaves stay stacked along a
+leading layer axis ``(L, ...)``; each layer reads its slice as a view.
+
+Ported: ``init_params``, ``init_kv_pool``, ``forward_paged`` (with
+``n_valid`` and ``logit_rows``) and greedy ``sample_or_argmax``, for the
+branches the gpt2 and llama presets take: pre-LN; learned or RoPE
+positions; LayerNorm (with its biases) or RMSNorm; tanh-GELU or SwiGLU;
+tied or untied head. Configurations that need anything else raise
+``NotImplementedError`` naming the field at construction.
+"""
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Union
+
+import torch
+import torch.nn.functional as F
+
+from ..accelerator import resolve_device
+from ..ops.transformer.paged_attention import paged_decode_attention
+
+# the ROADMAP.md items that lift each unported branch
+_MODEL_ITEM = "ROADMAP.md Queue 1 item 2, the remaining TransformerLM branches"
+_MOE_ITEM = "ROADMAP.md Queue 1 item 17, moe/"
+_SAMPLING_ITEM = "ROADMAP.md Queue 1 item 3, threefry sampling"
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 50304
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    num_kv_heads: Optional[int] = None  # GQA; None = MHA
+    head_dim_override: Optional[int] = None
+    intermediate_size: Optional[int] = None  # None -> 4*H (gelu) or 8/3*H (swiglu)
+    max_seq_len: int = 1024
+    causal: bool = True
+    norm_position: str = "pre"
+    token_type_embedding: int = 0
+    mlm_head: bool = False
+    pos_embedding: str = "learned"  # "learned" | "rope" | "alibi" | "none"
+    norm: str = "layernorm"  # "layernorm" | "rmsnorm"
+    activation: str = "gelu"  # "gelu" (tanh) | "gelu_exact" | "relu" | "swiglu" | "geglu"
+    tie_embeddings: bool = True
+    qkv_bias: bool = False
+    attn_out_bias: bool = False
+    norm_eps: float = 1e-5
+    norm_weight_offset: float = 0.0
+    embed_scale: Optional[float] = None
+    rope_theta: float = 10000.0
+    rotary_dim: Optional[int] = None
+    parallel_block: bool = False
+    parallel_shared_ln: bool = True
+    embed_layernorm: bool = False
+    alibi_slope_scale: float = 1.0
+    lm_head_bias: bool = False
+    dropout: float = 0.0
+    num_experts: int = 0
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.25
+    moe_aux_loss_coef: float = 0.01
+    moe_drop_tokens: bool = True
+    moe_use_residual: bool = False
+    progressive_layer_drop: bool = False
+    random_ltd: bool = False
+    random_ltd_skip_ends: int = 1
+    scan_layers: bool = True
+    remat: bool = False
+    remat_policy: str = "full"
+    param_dtype: Any = torch.float32
+    logit_softcap: float = 0.0
+    name: str = "transformer"
+
+    @property
+    def kv_heads(self) -> int:
+        return self.num_kv_heads or self.num_heads
+
+    @property
+    def head_dim(self) -> int:
+        return self.head_dim_override or (self.hidden_size // self.num_heads)
+
+    @property
+    def mlp_dim(self) -> int:
+        if self.intermediate_size is not None:
+            return self.intermediate_size
+        if self.activation == "swiglu":
+            d = int(8 * self.hidden_size / 3)
+            return ((d + 255) // 256) * 256
+        return 4 * self.hidden_size
+
+
+# ----------------------------------------------------------------------------
+# presets (the JAX package's, ``transformer.py:181-233``)
+# ----------------------------------------------------------------------------
+
+def gpt2_config(size: str = "125m", **kw) -> TransformerConfig:
+    tbl = {
+        "125m": dict(hidden_size=768, num_layers=12, num_heads=12),
+        "350m": dict(hidden_size=1024, num_layers=24, num_heads=16),
+        "760m": dict(hidden_size=1536, num_layers=24, num_heads=16),
+        "1.3b": dict(hidden_size=2048, num_layers=24, num_heads=16),
+        "2.7b": dict(hidden_size=2560, num_layers=32, num_heads=32),
+        "6.7b": dict(hidden_size=4096, num_layers=32, num_heads=32),
+        "13b": dict(hidden_size=5120, num_layers=40, num_heads=40),
+    }
+    base = dict(
+        vocab_size=50304, max_seq_len=1024, pos_embedding="learned",
+        norm="layernorm", activation="gelu", tie_embeddings=True,
+        name=f"gpt2-{size}",
+    )
+    base.update(tbl[size])
+    base.update(kw)
+    return TransformerConfig(**base)
+
+
+def llama_config(size: str = "7b", **kw) -> TransformerConfig:
+    tbl = {
+        "tiny": dict(hidden_size=256, num_layers=4, num_heads=8, num_kv_heads=4,
+                     intermediate_size=688, max_seq_len=2048),
+        "7b": dict(hidden_size=4096, num_layers=32, num_heads=32,
+                   intermediate_size=11008, max_seq_len=4096),
+        "13b": dict(hidden_size=5120, num_layers=40, num_heads=40,
+                    intermediate_size=13824, max_seq_len=4096),
+        "70b": dict(hidden_size=8192, num_layers=80, num_heads=64, num_kv_heads=8,
+                    intermediate_size=28672, max_seq_len=4096),
+    }
+    base = dict(
+        vocab_size=32000, pos_embedding="rope", norm="rmsnorm",
+        activation="swiglu", tie_embeddings=False, norm_eps=1e-5,
+        name=f"llama-{size}",
+    )
+    base.update(tbl[size])
+    base.update(kw)
+    return TransformerConfig(**base)
+
+
+MODEL_PRESETS = {
+    "gpt2-125m": lambda **kw: gpt2_config("125m", **kw),
+    "gpt2-350m": lambda **kw: gpt2_config("350m", **kw),
+    "gpt2-760m": lambda **kw: gpt2_config("760m", **kw),
+    "gpt2-1.3b": lambda **kw: gpt2_config("1.3b", **kw),
+    "gpt2-2.7b": lambda **kw: gpt2_config("2.7b", **kw),
+    "gpt2-6.7b": lambda **kw: gpt2_config("6.7b", **kw),
+    "llama-tiny": lambda **kw: llama_config("tiny", **kw),
+    "llama-7b": lambda **kw: llama_config("7b", **kw),
+    "llama-13b": lambda **kw: llama_config("13b", **kw),
+    "llama-70b": lambda **kw: llama_config("70b", **kw),
+}
+
+
+# ----------------------------------------------------------------------------
+# functional pieces
+# ----------------------------------------------------------------------------
+
+def _norm(x, scale, bias, kind: str, eps: float):
+    xf = x.float()
+    if kind == "rmsnorm":
+        var = xf.square().mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps) * scale.float()
+    else:
+        mean = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, correction=0)
+        y = (xf - mean) * torch.rsqrt(var + eps) * scale.float()
+        if bias is not None:
+            y = y + bias.float()
+    return y.to(x.dtype)
+
+
+def _rope(q, k, positions, head_dim, theta):
+    """Rotary embedding (rotate-half) applied to (B,S,h,d) q/k at integer
+    positions (B,S)."""
+    half = head_dim // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=q.device) / half))
+    ang = positions[..., None].float() * freqs  # (B,S,half)
+    cos = ang.cos()[:, :, None, :]
+    sin = ang.sin()[:, :, None, :]
+
+    def rot(x):
+        x1, x2 = x.float().chunk(2, dim=-1)
+        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+    return rot(q), rot(k)
+
+
+def _check_supported(cfg: TransformerConfig) -> None:
+    unsupported = (
+        ("pos_embedding", cfg.pos_embedding not in ("learned", "rope"), _MODEL_ITEM),
+        ("norm_position", cfg.norm_position != "pre", _MODEL_ITEM),
+        ("parallel_block", cfg.parallel_block, _MODEL_ITEM),
+        ("num_experts", cfg.num_experts > 0, _MOE_ITEM),
+        ("embed_layernorm", cfg.embed_layernorm, _MODEL_ITEM),
+        ("token_type_embedding", cfg.token_type_embedding > 0, _MODEL_ITEM),
+        ("mlm_head", cfg.mlm_head, _MODEL_ITEM),
+        ("logit_softcap", bool(cfg.logit_softcap), _MODEL_ITEM),
+        ("norm", cfg.norm not in ("layernorm", "rmsnorm"), _MODEL_ITEM),
+        ("activation", cfg.activation not in ("gelu", "swiglu"), _MODEL_ITEM),
+        ("qkv_bias", cfg.qkv_bias, _MODEL_ITEM),
+        ("attn_out_bias", cfg.attn_out_bias, _MODEL_ITEM),
+        ("lm_head_bias", cfg.lm_head_bias, _MODEL_ITEM),
+        ("norm_weight_offset", cfg.norm_weight_offset != 0.0, _MODEL_ITEM),
+        ("embed_scale", cfg.embed_scale is not None, _MODEL_ITEM),
+        ("rotary_dim", cfg.rotary_dim not in (None, cfg.head_dim), _MODEL_ITEM),
+    )
+    for field_name, bad, item in unsupported:
+        if bad:
+            raise NotImplementedError(
+                f"TransformerConfig.{field_name}={getattr(cfg, field_name)!r} is "
+                f"not ported to deepspeed_tpu_torch ({item})")
+
+
+class TransformerLM:
+    """Functional decoder LM over a parameter dictionary, the paged-serving
+    subset of the JAX ``TransformerLM``."""
+
+    def __init__(self, config: TransformerConfig):
+        _check_supported(config)
+        self.config = config
+
+    # ------------------------------------------------------------------
+    def init_params(self, generator: torch.Generator,
+                    dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+        """Random parameters with the JAX package's leaf names and shapes
+        (``transformer.py:312-402``), drawn from ``generator`` on its device
+        in ``dtype`` (default ``config.param_dtype``). The values differ from
+        the JAX package's for the same seed: tests convert the JAX
+        parameters with ``models.weights.params_from_jax`` instead."""
+        cfg = self.config
+        H, L, V, I = cfg.hidden_size, cfg.num_layers, cfg.vocab_size, cfg.mlp_dim
+        nh, kvh, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+        dt = dtype or cfg.param_dtype
+        dev = generator.device
+        resid_std = 0.02 / (2 * L) ** 0.5  # depth-scaled residual projections
+
+        def normal(shape, std=0.02):
+            return torch.randn(shape, generator=generator, device=dev, dtype=dt).mul_(std)
+
+        def ones(shape):
+            return torch.ones(shape, device=dev, dtype=dt)
+
+        def zeros(shape):
+            return torch.zeros(shape, device=dev, dtype=dt)
+
+        blocks: Dict[str, torch.Tensor] = {
+            "ln1_scale": ones((L, H)),
+            "wq": normal((L, H, nh * hd)),
+            "wk": normal((L, H, kvh * hd)),
+            "wv": normal((L, H, kvh * hd)),
+            "wo": normal((L, nh * hd, H), resid_std),
+            "ln2_scale": ones((L, H)),
+            "w_down": normal((L, I, H), resid_std),
+        }
+        params: Dict[str, Any] = {"wte": normal((V, H)), "blocks": blocks,
+                                  "lnf_scale": ones((H,))}
+        if cfg.activation == "swiglu":
+            blocks["w_gate"] = normal((L, H, I))
+        blocks["w_up"] = normal((L, H, I))
+        if cfg.norm == "layernorm":
+            blocks["ln1_bias"] = zeros((L, H))
+            blocks["ln2_bias"] = zeros((L, H))
+            blocks["attn_bias"] = zeros((L, H))
+            blocks["mlp_bias"] = zeros((L, H))
+            if cfg.activation != "swiglu":
+                blocks["mlp_up_bias"] = zeros((L, I))
+            params["lnf_bias"] = zeros((H,))
+        if cfg.pos_embedding == "learned":
+            params["wpe"] = normal((cfg.max_seq_len, H))
+        if not cfg.tie_embeddings:
+            params["lm_head"] = normal((H, V))
+        return params
+
+    # ------------------------------------------------------------------
+    def init_kv_pool(self, num_blocks: int, block_size: int,
+                     dtype: torch.dtype = torch.bfloat16,
+                     device: Union[str, torch.device] = "cuda"):
+        """Blocked KV pool ``(L, kvh, NB, BS, hd)``, kv-head-major so a pool
+        block is one contiguous (BS, hd) tile per KV head; block 0 is the
+        reserved trash block that padded writes land in."""
+        cfg = self.config
+        dev = resolve_device(device)
+        shape = (cfg.num_layers, cfg.kv_heads, num_blocks, block_size, cfg.head_dim)
+        return (torch.zeros(shape, dtype=dtype, device=dev),
+                torch.zeros(shape, dtype=dtype, device=dev))
+
+    # ------------------------------------------------------------------
+    def _embed(self, params, input_ids, positions, dtype):
+        cfg = self.config
+        x = params["wte"][input_ids].to(dtype)
+        if cfg.pos_embedding == "learned":
+            x = x + params["wpe"][positions].to(dtype)
+        return x
+
+    def _head(self, params, x):
+        cfg = self.config
+        x = _norm(x, params["lnf_scale"], params.get("lnf_bias"), cfg.norm, cfg.norm_eps)
+        w = params["wte"].T if cfg.tie_embeddings else params["lm_head"]
+        return x @ w.to(x.dtype)
+
+    def _block_paged(self, x, blk, positions, kp, vp, tables):
+        """One pre-LN block on (B, S, H) against one layer of the blocked
+        pool (``kp``/``vp`` (kvh, NB, BS, hd)), in the JAX block's order
+        (``transformer.py:528-548, 563-607, 631-688``):
+
+        1. the K/V of every row is scattered into the pool at its
+           block/offset, in place;
+        2. attention: each (row, position) is a one-token query against its
+           row's block table with ``lens = position + 1``, so prefill rows of
+           one chunk see each other's keys only through step 1;
+        3. the MLP.
+        """
+        cfg = self.config
+        nh, kvh, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+        B, S, _ = x.shape
+        h = _norm(x, blk["ln1_scale"], blk.get("ln1_bias"), cfg.norm, cfg.norm_eps)
+        q = (h @ blk["wq"].to(h.dtype)).reshape(B, S, nh, hd)
+        kk = (h @ blk["wk"].to(h.dtype)).reshape(B, S, kvh, hd)
+        v = (h @ blk["wv"].to(h.dtype)).reshape(B, S, kvh, hd)
+        if cfg.pos_embedding == "rope":
+            q, kk = _rope(q, kk, positions, hd, cfg.rope_theta)
+
+        BS = kp.shape[2]
+        blk_idx = tables.gather(1, (positions // BS).long())  # (B, S)
+        off = positions % BS
+        kp[:, blk_idx, off] = kk.to(kp.dtype).permute(2, 0, 1, 3)
+        vp[:, blk_idx, off] = v.to(vp.dtype).permute(2, 0, 1, 3)
+
+        rows = tables if S == 1 else tables.repeat_interleave(S, dim=0)
+        lens = (positions + 1).reshape(B * S).to(torch.int32)
+        attn = paged_decode_attention(q.reshape(B * S, nh, hd), kp, vp, rows, lens)
+        attn_out = attn.reshape(B, S, nh * hd) @ blk["wo"].to(h.dtype)
+        if "attn_bias" in blk:
+            attn_out = attn_out + blk["attn_bias"].to(h.dtype)
+
+        x = x + attn_out
+        h2 = _norm(x, blk["ln2_scale"], blk.get("ln2_bias"), cfg.norm, cfg.norm_eps)
+        if cfg.activation == "swiglu":
+            inter = F.silu(h2 @ blk["w_gate"].to(h.dtype)) * (h2 @ blk["w_up"].to(h.dtype))
+        else:  # tanh-approximated GELU, as jax.nn.gelu's default
+            up = h2 @ blk["w_up"].to(h.dtype)
+            if "mlp_up_bias" in blk:
+                up = up + blk["mlp_up_bias"].to(h.dtype)
+            inter = F.gelu(up, approximate="tanh")
+        mlp_out = inter @ blk["w_down"].to(h.dtype)
+        if "mlp_bias" in blk:
+            mlp_out = mlp_out + blk["mlp_bias"].to(h.dtype)
+        return x + mlp_out
+
+    def forward_paged(self, params, input_ids, kv_pool, tables, starts,
+                      n_valid=None, logit_rows=None):
+        """Run a (B, S) segment against the blocked pool.
+
+        ``kv_pool`` is the (k, v) pair from :meth:`init_kv_pool`; the
+        segment's K/V are written into it in place (the JAX function returns
+        a new pool instead). tables: (B, MAXB) int32 pool block ids per
+        sequence (0-padded); starts: (B,) int32 first logical position of the
+        segment. Returns (B, V) logits at each sequence's last valid position
+        (``n_valid``, default S); with ``logit_rows`` ((R,) indices) only
+        those rows go through the vocabulary head and (R, V) comes back.
+        """
+        B, S = input_ids.shape
+        positions = starts[:, None] + torch.arange(S, dtype=starts.dtype,
+                                                   device=starts.device)
+        kp_all, vp_all = kv_pool
+        x = self._embed(params, input_ids, positions, kp_all.dtype)
+        blocks = params["blocks"]
+        for i in range(self.config.num_layers):
+            blk = {k: w[i] for k, w in blocks.items()}
+            x = self._block_paged(x, blk, positions, kp_all[i], vp_all[i], tables)
+        if n_valid is None:
+            last = torch.full((B,), S - 1, dtype=torch.long, device=x.device)
+        else:
+            last = (n_valid - 1).clamp(0, S - 1).long()
+        x_last = x[torch.arange(B, device=x.device), last]  # (B, H)
+        if logit_rows is not None:
+            x_last = x_last[logit_rows]
+        return self._head(params, x_last)
+
+
+def sample_or_argmax(lg, temps=None):
+    """Per-row token selection (``transformer.py:1233``), greedy part: rows
+    with ``temps == 0`` (every row when ``temps`` is None) take
+    ``torch.argmax``, the first index on ties as ``jnp.argmax``. Any row with
+    ``temps > 0`` raises: sampling needs the port of JAX's threefry keys.
+    Returns (R,) int32 token ids."""
+    if temps is not None and bool((torch.as_tensor(temps) > 0).any()):
+        raise NotImplementedError(
+            f"sampled token selection (temperature > 0) is not ported ({_SAMPLING_ITEM})")
+    return torch.argmax(lg, dim=-1).to(torch.int32)
+
+
+def build_model(preset: str, **overrides) -> TransformerLM:
+    if preset not in MODEL_PRESETS:
+        raise ValueError(f"unknown model preset '{preset}' (known: {sorted(MODEL_PRESETS)})")
+    return TransformerLM(MODEL_PRESETS[preset](**overrides))

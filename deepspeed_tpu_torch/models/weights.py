@@ -1,0 +1,39 @@
+"""Parameters from the JAX package.
+
+``params_from_jax`` turns the JAX ``TransformerLM``'s parameter pytree, given
+as numpy arrays, into the port's parameter dictionary, so both packages
+compute the same function on the same weights. Both multiply ``x @ W``, so
+no leaf is transposed. The stacked ``(L, ...)`` block leaves stay stacked:
+the port's ``forward_paged`` reads layer ``i`` as the view ``leaf[i]``.
+"""
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+_WOQ_ITEM = "ROADMAP.md Queue 1 item 14, quantization"
+
+
+def _to_tensor(name: str, a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: reinterpret the bits
+        return torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(torch.bfloat16)
+    if not np.issubdtype(a.dtype, np.floating):
+        raise NotImplementedError(
+            f"parameter '{name}' has dtype {a.dtype}: weight-only-quantized leaves "
+            f"are not ported ({_WOQ_ITEM})")
+    return torch.from_numpy(np.ascontiguousarray(a).copy())
+
+
+def params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """Nested dict of numpy arrays (e.g. ``jax.tree.map(np.asarray, params)``)
+    -> nested dict of CPU tensors with the same keys. The engine moves and
+    casts them to its device and dtype."""
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if "::" in k:
+            raise NotImplementedError(
+                f"parameter '{k}' is a weight-only-quantized leaf ({_WOQ_ITEM})")
+        out[k] = params_from_jax(v) if isinstance(v, dict) else _to_tensor(k, v)
+    return out

@@ -1,0 +1,95 @@
+"""Builder for the port's CUDA kernels (counterpart of ``deepspeed_tpu/ops/op_builder.py``).
+
+Each kernel source under ``deepspeed_tpu_torch/csrc/`` has a plain C entry
+point. ``CUDAOpBuilder`` compiles it with ``nvcc`` for Hopper (``sm_90a``)
+into a shared library, at first use, and loads it with ``ctypes``. No
+PyTorch header is compiled, so a build takes seconds, not minutes. The
+library lands in ``build/kernels/`` at the root of the checkout (listed in
+``.gitignore``), under a name that carries the hash of the source and the
+flags: an edited source builds anew, an unchanged one is loaded as it is.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import List
+
+from ..utils.logging import logger
+
+_PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_BUILD_DIR = os.path.join(os.path.dirname(_PKG_ROOT), "build", "kernels")
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on the PATH, else the toolkit's
+    default location. Raises when there is none: a kernel is never replaced
+    by its plain version because the compiler is missing."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(found)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on the PATH); "
+                       "the CUDA kernels are built from source at first use")
+
+
+class CUDAOpBuilder:
+    """Compile-on-first-use builder for one CUDA source with a C interface."""
+
+    NAME = "base"
+    SOURCE = ""  # path under deepspeed_tpu_torch/
+    _lock = threading.Lock()
+
+    def nvcc_flags(self) -> List[str]:
+        return ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                "-shared", "-Xcompiler", "-fPIC"]
+
+    def source_path(self) -> str:
+        return os.path.join(_PKG_ROOT, self.SOURCE)
+
+    def lib_path(self) -> str:
+        h = hashlib.sha256(" ".join(self.nvcc_flags()).encode())
+        with open(self.source_path(), "rb") as f:
+            h.update(f.read())
+        return os.path.join(_BUILD_DIR, f"lib{self.NAME}-{h.hexdigest()[:16]}.so")
+
+    def build(self, verbose: bool = False) -> str:
+        """Path of the built library, compiling it first if needed.
+        ``verbose`` adds ``-Xptxas -v`` (registers, shared memory and spills
+        of each kernel) and logs the compiler's output."""
+        with CUDAOpBuilder._lock:
+            out = self.lib_path()
+            if os.path.exists(out) and not verbose:
+                return out
+            os.makedirs(_BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = ([find_nvcc()] + self.nvcc_flags()
+                   + (["-Xptxas", "-v"] if verbose else [])
+                   + [self.source_path(), "-o", tmp])
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {self.SOURCE} "
+                                   f"(exit {proc.returncode}):\n{proc.stderr}")
+            os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+            msg = f"built {os.path.basename(out)} in {time.perf_counter() - t0:.1f} s"
+            logger.info(msg + (f"\n{proc.stderr}" if verbose else ""))
+            return out
+
+    def load(self, verbose: bool = False) -> ctypes.CDLL:
+        return ctypes.CDLL(self.build(verbose=verbose))
+
+
+class PagedAttentionBuilder(CUDAOpBuilder):
+    NAME = "paged_attention"
+    SOURCE = os.path.join("csrc", "paged_attention.cu")
+

@@ -1,0 +1,63 @@
+"""The port stands alone: importing every module of ``deepspeed_tpu_torch``
+pulls in neither ``jax`` nor ``deepspeed_tpu``, and its entry points run on
+the card unless asked for the CPU."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from deepspeed_tpu_torch.accelerator import get_accelerator, resolve_device
+from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+from deepspeed_tpu_torch.models import build_model
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import deepspeed_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "deepspeed_tpu"))
+print(len(names), bad)
+"""
+
+
+def test_package_imports_neither_jax_nor_the_jax_package():
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=_REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    n, bad = proc.stdout.strip().split(" ", 1)
+    assert int(n) >= 15 and bad == "[]"
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without CUDA")
+
+
+def test_entry_points_raise_without_cuda_unless_asked_for_cpu(no_cuda):
+    model = build_model("llama-tiny", vocab_size=64, hidden_size=64, num_layers=1,
+                        num_heads=1, intermediate_size=64, max_seq_len=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferenceEngineV2(model, paged=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_kv_pool(4, 16)
+    with pytest.raises(RuntimeError, match="not available"):
+        get_accelerator().device()
+    assert resolve_device("cpu").type == "cpu"
+    eng = InferenceEngineV2(model, paged=True, device="cpu", max_seqs=2,
+                            block_size=16)
+    assert eng.kv[0].device.type == "cpu"
+
+
+def test_accelerator_defaults_to_cuda():
+    assert get_accelerator().name == "cuda"
+    assert get_accelerator("cpu").device().type == "cpu"
+    with pytest.raises(ValueError):
+        get_accelerator("tpu")
