@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Where the time of the port's paged serving step goes, on one NVIDIA GPU.
+"""Where the time of the port's paged serving step and training step goes, on one NVIDIA GPU.
 
     python3 chip_profile.py      # from the root of a checkout, one CUDA card
 
-Runs ``chip_smoke.py``'s main path (llama-7b, full width and depth, random
-bf16 weights, the same requests), then traces with ``torch.profiler``:
+Runs ``chip_smoke.py``'s serving main path (llama-7b, full width and depth,
+random bf16 weights, the same requests), then traces with ``torch.profiler``:
 
 - 5 decode steps of the requests still live (the ``max_seqs``-row shape);
 - 1 prefill step (a fresh 256-token prompt: the ``token_budget``-row shape).
@@ -14,12 +14,20 @@ its kernels, the device's idle share of the step, and the kernel time by
 group (the paged-attention kernel, matrix products, the K/V scatter, the
 rest) with the top kernels by device time.
 
-Last, the paged-attention kernel on the engine's pool (layer 0) at the
+Then the paged-attention kernel on the engine's pool (layer 0) at the
 decode step's rows, timed with CUDA events three ways: all rows, the
 longest row alone, and every row but the longest. If the longest row alone
 takes about as long as all rows, the kernel's time is the serial work of
-that row's CTAs, not a shortage of CTAs. Nothing here is checked against a
-reference: ``chip_smoke.py`` does that.
+that row's CTAs, not a shortage of CTAs.
+
+Last, the training main path of ``chip_smoke.py`` (llama-7b width, 4
+layers, bf16 with an fp32 master, one 2 x 2048 batch): after 2 warm-up
+steps, 2 ``train_batch`` steps traced the same way, grouped into the flash
+forward and backward kernels, matrix products and the rest; then the
+optimizer update alone (``step_fn``'s unscale, norm, clip, AdamW and cast
+back), traced in a window of its own, which splits the rest into the
+optimizer and the model's elementwise work. Nothing here is checked against
+a reference: ``chip_smoke.py`` does that.
 """
 
 import json
@@ -37,6 +45,10 @@ def _group(name: str) -> str:
     n = name.lower()
     if "paged_decode_kernel" in n:
         return "paged_decode_attention"
+    if "flash_fwd_kernel" in n:
+        return "flash_fwd"
+    if "flash_bwd" in n:
+        return "flash_bwd"
     if any(k in n for k in ("gemm", "gemv", "nvjet", "cutlass", "xmma", "cublas")):
         return "matmul"
     if "index_put" in n or "indexing_backward" in n or "scatter" in n:
@@ -106,6 +118,41 @@ def main():
     profile(lambda: engine.put([99], [prompt], greedy=True),
             f"prefill ({engine.token_budget}-token prompt, token_budget rows)", steps=1)
     kernel_rows(pa, real_pool, engine.cfg, dev)
+    del engine, real_pool
+    torch.cuda.empty_cache()
+    train_profile(dev)
+
+
+def train_profile(dev):
+    """The training main path: 2 traced steps, then the optimizer alone."""
+    import chip_smoke
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import build_model
+
+    model = build_model("llama-7b", num_layers=4)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    cfg = dict(chip_smoke.TRAIN_CONFIG, steps_per_print=0)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, model_parameters=params,
+                                                     config=cfg, device=dev)
+    del params
+    batch = {"input_ids": torch.randint(0, model.config.vocab_size, (2, 2048),
+                                        dtype=torch.int32, device=dev,
+                                        generator=torch.Generator(device=dev).manual_seed(0))}
+    for _ in range(2):
+        engine.train_batch(iter([batch]))
+    step = profile(lambda: engine.train_batch(iter([batch])),
+                   "train_batch (llama-7b width, 4 layers, B 2 x S 2048, bf16)", steps=2)
+    loss = engine._loss_of(engine._apply_fn(engine.params, batch, train=True, rng=None))
+    grads = engine._grads_of(loss.float() * engine.scaler_state.cur_scale)
+    del loss
+    opt = profile(lambda: engine._apply_update(grads, engine.get_lr()[0]),
+                  "optimizer update alone (unscale, norm, clip, AdamW, cast back)", steps=1)
+    groups = dict(step["groups_ms"])
+    groups["optimizer"] = opt["device_ms"]
+    groups["elementwise"] = groups.pop("other", 0.0) - opt["device_ms"]
+    print(json.dumps({"train_step_breakdown": {
+        "step_ms": step["step_ms"], "device_ms": step["device_ms"],
+        "idle_share": step["idle_share"], "groups_ms": groups}}), flush=True)
 
 
 def kernel_rows(pa, real_pool, cfg, dev):

@@ -27,6 +27,28 @@ in order; any failure exits non-zero and prints no result:
    version and timed with CUDA events beside the plain version,
    ``scaled_dot_product_attention`` over the gathered cache, and the bound.
 
+Then the training slice (the serving engine is freed first):
+
+a. the flash-attention forward (out, lse) and backward (dq, dk, dv) kernels
+   against their plain versions: llama-7b's heads (B 2, S 2048), llama-70b's
+   GQA heads (nh 64, kvh 8, S 1024), head_dim 64 and 256, S 1000 (a tail
+   tile), causal and not; float32 at atol 1e-5 (gradients at 1e-5 of
+   max(1, their max)), bfloat16 at atol/rtol 1e-2 (gradients at 1e-2 of
+   their max);
+b. the training engine small (llama, hd 64, GQA group 2, fp32, Adam eps
+   1e-6) on the card against the same engine on the CPU: 3 ``train_batch``
+   steps, losses at rtol 1e-5, parameters at atol 1e-5;
+c. the training main path: ``initialize`` -> ``train_batch`` x 6 on llama-7b
+   at full width and 4 of its 32 layers, random weights from a seeded
+   generator, bf16 with an fp32 master, AdamW, WarmupLR, one fixed 2 x 2048
+   batch. The kernels' launch counts are set to 0 just before and read just
+   after: 4 layers x 6 steps of each flash kernel. The losses must be finite
+   and fall, and the eval loss on a fresh random batch stay above ln(V)/2
+   (the fall is memorisation of the fixed batch, not a causal leak);
+d. the flash kernels at the main path's shape timed with CUDA events beside
+   their plain versions, ``scaled_dot_product_attention`` (forward, and the
+   backward of its graph) and their bounds.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -337,6 +359,252 @@ def kernel_on_real_pool(pa, real_pool, cfg, dev):
             "library_ms": library_ms}
 
 
+def rel_err(out, ref, floor=0.0):
+    """Max abs error over max(floor, the reference's max magnitude)."""
+    return float((out.float() - ref.float()).abs().max()
+                 / max(floor, float(ref.float().abs().max()) + 1e-6))
+
+
+def flash_case(B, S, nh, kvh, hd, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+                   for shape in ((B, S, nh, hd), (B, S, kvh, hd), (B, S, kvh, hd),
+                                 (B, S, nh, hd)))
+    return q, k, v, do
+
+
+def flash_vs_plain(fa, B, S, nh, kvh, hd, causal, dtype, dev):
+    """One case of phase a: (fwd max abs err, bwd max abs err)."""
+    q, k, v, do = flash_case(B, S, nh, kvh, hd, dtype, dev)
+    g = nh // kvh
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, num_kv_groups=g)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, num_kv_groups=g)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_attention_plain(q, k, v, causal=causal, num_kv_groups=g)
+    ref_grads = fa.flash_attention_bwd_plain(q, k, v, ref_out, ref_lse, do, causal=causal,
+                                             num_kv_groups=g)
+    fwd_err = max(compare(out, ref_out, dtype), compare(lse, ref_lse, dtype))
+    # gradients: bf16 at 1e-2 of their max; fp32 at 1e-5, of their max where
+    # that exceeds 1 (dk/dv sum g * S products in an order the plain
+    # version's GEMM does not share)
+    tol, floor = (1e-5, 1.0) if dtype == torch.float32 else (1e-2, 0.0)
+    bwd_err = 0.0
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref_grads):
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{name} shape/dtype {tuple(got.shape)}/{got.dtype}")
+        check(torch.isfinite(got.float()).all().item(), f"non-finite {name}")
+        r = rel_err(got, want, floor)
+        check(r <= tol, f"{name}: max err {r:.3g} of max({floor}, its max) > {tol}")
+        bwd_err = max(bwd_err, float((got.float() - want.float()).abs().max()))
+    return fwd_err, bwd_err
+
+
+def flash_kernels_vs_plain(fa, dev):
+    """Phase a: the flash kernels against their plain versions."""
+    cases = (("llama-7b heads", 2, 2048, 32, 32, 128, True),
+             ("llama-70b GQA heads", 1, 1024, 64, 8, 128, True),
+             ("head_dim 64, non-causal", 2, 512, 8, 4, 64, False),
+             ("head_dim 256, GQA 4", 1, 512, 8, 2, 256, True),
+             ("S 1000 (tail tile)", 2, 1000, 8, 8, 128, True),
+             ("S 1000 (tail tile), non-causal", 1, 1000, 4, 2, 64, False))
+    for label, B, S, nh, kvh, hd, causal in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            fe, be = flash_vs_plain(fa, B, S, nh, kvh, hd, causal, dtype, dev)
+            log(f"kernel vs plain: flash attention {label} B={B} S={S} nh={nh} kvh={kvh} "
+                f"hd={hd} causal={causal} {str(dtype)[6:]}: fwd max_abs_err {fe:.3g}, "
+                f"bwd max_abs_err {be:.3g} ok")
+
+
+TRAIN_CONFIG = {
+    "train_micro_batch_size_per_gpu": 2,
+    "gradient_accumulation_steps": 1,
+    "bf16": {"enabled": True},
+    "gradient_clipping": 1.0,
+    "optimizer": {"type": "AdamW", "params": {"lr": 3e-4, "weight_decay": 0.1}},
+    "scheduler": {"type": "WarmupLR", "params": {"warmup_min_lr": 0, "warmup_max_lr": 3e-4,
+                                                 "warmup_num_steps": 2}},
+    "zero_optimization": {"stage": 0},
+    "steps_per_print": 1,
+    "seed": 0,
+}
+
+
+def small_train_vs_cpu(fa, dev):
+    """Phase b: the training engine on the card against the same on the CPU."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import build_model
+
+    model = build_model("llama-tiny", vocab_size=512, hidden_size=256, num_layers=2,
+                        num_heads=4, num_kv_heads=2, intermediate_size=512, max_seq_len=256)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    cfg = dict(TRAIN_CONFIG, bf16={"enabled": False}, steps_per_print=0,
+               train_micro_batch_size_per_gpu=4,
+               optimizer={"type": "AdamW", "params": {"lr": 1e-3, "weight_decay": 0.1,
+                                                      "eps": 1e-6}})
+    engines = [deepspeed_tpu_torch.initialize(model=model, model_parameters=params,
+                                              config=dict(cfg), device=d)[0]
+               for d in ("cpu", dev)]
+    rng = np.random.default_rng(3)
+    f0 = fa.fwd_launches
+    for step in range(3):
+        batch = {"input_ids": rng.integers(0, 512, (4, 256)).astype(np.int32)}
+        ref, got = (float(e.train_batch(iter([batch]))) for e in engines)
+        check(np.isfinite(got) and abs(got - ref) <= 1e-5 * abs(ref),
+              f"step {step + 1}: card loss {got!r} vs CPU {ref!r} (rtol 1e-5)")
+    ref, got = (e.get_fp32_params() for e in engines)
+    pairs = ([(f"blocks/{k}", ref["blocks"][k], got["blocks"][k]) for k in ref["blocks"]]
+             + [(k, ref[k], got[k]) for k in ref if k != "blocks"])
+    worst = 0.0
+    for name, a, b in pairs:
+        err = float((a - b).abs().max())
+        check(err <= 1e-5, f"parameter {name}: card vs CPU differ by {err:.3g} (atol 1e-5)")
+        worst = max(worst, err)
+    check(fa.fwd_launches - f0 == 2 * 3, "the card engine did not run the flash kernel")
+    log(f"training slice on the card vs CPU (llama 256-wide, hd 64, GQA 2, 2 layers, fp32, "
+        f"3 steps): losses within rtol 1e-5, parameters max_abs_err {worst:.3g} ok")
+
+
+def train_main_path(fa, pa, dev):
+    """Phase c: llama-7b width, 4 layers, 6 train_batch steps."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import build_model
+
+    model = build_model("llama-7b", num_layers=4)
+    cfg = model.config
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, model_parameters=params,
+                                                     config=dict(TRAIN_CONFIG), device=dev)
+    del params
+    B, S = TRAIN_CONFIG["train_micro_batch_size_per_gpu"], 2048
+    batch = {"input_ids": torch.randint(0, cfg.vocab_size, (B, S), dtype=torch.int32,
+                                        device=dev,
+                                        generator=torch.Generator(device=dev).manual_seed(0))}
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in engine.params["blocks"].values()) + sum(
+        engine.params[k].numel() for k in ("wte", "lm_head", "lnf_scale"))
+    log(f"set-up: llama-7b width ({cfg.num_layers} of 32 layers, hidden {cfg.hidden_size}), "
+        f"{n_params} params, bf16 + fp32 master + Adam state in "
+        f"{time.perf_counter() - t0:.3f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+
+    steps, losses, step_s, lrs = 6, [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    fa.fwd_launches = fa.bwd_launches = pa.launches = 0  # every count, just before
+    for _ in range(steps):
+        lrs.append(engine.get_lr()[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(engine.train_batch(iter([batch])))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = {"fwd": fa.fwd_launches, "bwd": fa.bwd_launches, "paged": pa.launches}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    # the loss on a fresh batch of random tokens: nothing there can be
+    # learned, so a fall on the fixed batch is memorisation; were causal
+    # masking leaking future tokens, this would fall as well
+    engine.eval()
+    held_out = float(engine({"input_ids": torch.randint(
+        0, cfg.vocab_size, (B, S), dtype=torch.int32, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(1))}))
+    engine.train()
+
+    check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    check(held_out > 0.5 * np.log(cfg.vocab_size),
+          f"loss {held_out:.4f} on a fresh random batch: the model sees future tokens")
+    check(lrs == [3e-4, 0.0, 3e-4, 3e-4, 3e-4, 3e-4], f"lr sequence {lrs}")
+    want = cfg.num_layers * steps
+    check(launches["fwd"] == want and launches["bwd"] == want and launches["paged"] == 0,
+          f"launches {launches}; expected {want} forward and {want} backward flash launches "
+          f"(num_layers x steps) and no paged launch")
+    ms = [s * 1e3 for s in step_s[1:]]  # step 1 is the warm-up
+    tokens = B * S
+    # model FLOPs a step: 6 per parameter per token (every weight but the
+    # embedding lookup, forward and backward), plus causal attention's
+    # QK^T and PV forward (2 * 2 * S^2/2 * hd a head) three times over
+    flops = (6 * (n_params - engine.params["wte"].numel()) * tokens
+             + 3 * 2 * 2 * B * cfg.num_heads * cfg.head_dim * S * S // 2 * cfg.num_layers)
+    med = float(np.median(ms))
+    summary = {
+        "model": "llama-7b", "layers": cfg.num_layers, "reduced": "depth 32 -> 4",
+        "params": n_params, "dtype": "bfloat16 (fp32 master)", "batch": [B, S],
+        "steps": steps, "losses": losses, "lrs": lrs, "held_out_loss": held_out,
+        "step_ms_median": med, "step_ms_p90": float(np.percentile(ms, 90)),
+        "step_ms": ms, "tokens_per_s": tokens / (med / 1e3),
+        "model_flops_per_step": flops, "mfu_of_989_tflops": flops / (med / 1e3) / 989e12,
+        "max_memory_allocated_gib": peak / 2**30, "launches": launches,
+    }
+    log(f"training main path: losses {[round(x, 4) for x in losses]}, step median "
+        f"{med:.2f} ms, flash fwd/bwd launched {launches['fwd']}/{launches['bwd']} times "
+        f"(= {cfg.num_layers} layers x {steps} steps)")
+    del engine
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def flash_timing(fa, dev):
+    """Phase d: the flash kernels at the main path's attention shape."""
+    import torch.nn.functional as F
+
+    B, S, nh, hd, dtype = 2, 2048, 32, 128, torch.bfloat16
+    q, k, v, do = flash_case(B, S, nh, nh, hd, dtype, dev, seed=5)
+    kw = dict(causal=True, num_kv_groups=1)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_attention_plain(q, k, v, **kw)
+    ref_grads = fa.flash_attention_bwd_plain(q, k, v, ref_out, ref_lse, do, **kw)
+    fwd_err = compare(out, ref_out, dtype)
+    bwd_err = 0.0
+    for got, want in zip(grads, ref_grads):
+        check(rel_err(got, want) <= 1e-2, "flash backward disagrees at the main shape")
+        bwd_err = max(bwd_err, float((got.float() - want.float()).abs().max()))
+
+    fwd_ms = time_cuda(lambda: fa.flash_attention_fwd(q, k, v, **kw))
+    bwd_ms = time_cuda(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **kw))
+    plain_fwd_ms = time_cuda(lambda: fa.flash_attention_plain(q, k, v, **kw), warmup=2, iters=5)
+    plain_bwd_ms = time_cuda(lambda: fa.flash_attention_bwd_plain(q, k, v, ref_out, ref_lse,
+                                                                  do, **kw), warmup=2, iters=5)
+    # the library yardstick, on (B, nh, S, hd) copies made beforehand
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    compare(lib_out.transpose(1, 2), ref_out, dtype)
+    lib_fwd_ms = time_cuda(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+    lib_graph = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    lib_bwd_ms = time_cuda(lambda: torch.autograd.grad(lib_graph, (qg, kg, vg), dot,
+                                                       retain_graph=True))
+
+    def fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        torch.autograd.grad(o, (qg, kg, vg), dot)
+
+    lib_fwd_bwd_ms = time_cuda(fwd_bwd)
+
+    # bounds: operations at the bf16 tensor-core peak against bytes at HBM's rate
+    elt = q.element_size()
+    fwd_flops = 2 * 2 * B * nh * S * S * hd // 2  # causal: half the scores
+    fwd_bytes = 4 * q.numel() * elt + lse.numel() * 4  # q, k, v read; o, lse written
+    bwd_flops = fwd_flops * 5 // 2  # S recomputed, dP, dV, dK, dQ: 5 products to 2
+    bwd_bytes = 8 * q.numel() * elt + lse.numel() * 4  # q, k, v, o, do, lse in; dq, dk, dv out
+    bounds = []
+    for flops, nbytes in ((fwd_flops, fwd_bytes), (bwd_flops, bwd_bytes)):
+        t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bounds.append((max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"))
+    log(f"flash attention at the main shape (B={B} S={S} nh={nh} hd={hd} bf16 causal): "
+        f"fwd {fwd_ms:.4f} ms (plain {plain_fwd_ms:.4f}, SDPA {lib_fwd_ms:.4f}, bound "
+        f"{bounds[0][0]:.4f}); bwd {bwd_ms:.4f} ms (plain {plain_bwd_ms:.4f}, SDPA backward "
+        f"{lib_bwd_ms:.4f}, bound {bounds[1][0]:.4f}); SDPA fwd+bwd {lib_fwd_bwd_ms:.4f} ms")
+    fwd = {"max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": plain_fwd_ms,
+           "bound_ms": bounds[0][0], "bound_by": bounds[0][1], "library_ms": lib_fwd_ms}
+    bwd = {"max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": plain_bwd_ms,
+           "bound_ms": bounds[1][0], "bound_by": bounds[1][1], "library_ms": lib_bwd_ms}
+    return fwd, bwd, {"sdpa_fwd_bwd_ms": lib_fwd_bwd_ms, "fwd_flops": fwd_flops,
+                      "bwd_flops": bwd_flops}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: this script needs an "
@@ -346,7 +614,8 @@ def main():
                            "the root of a checkout")
     sys.path.insert(0, HERE)
     import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.ops.op_builder import PagedAttentionBuilder
+    from deepspeed_tpu_torch.ops.op_builder import build_all
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
     from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
 
     check(os.path.dirname(os.path.abspath(deepspeed_tpu_torch.__file__))
@@ -363,13 +632,15 @@ def main():
                          capture_output=True, text=True, timeout=60, check=True)
     log(smi.stdout.strip())
     t0 = time.perf_counter()
-    PagedAttentionBuilder().build()
+    build_all()  # one nvcc per source, all started together
     log(f"set-up: CUDA kernels built in {time.perf_counter() - t0:.1f} s "
         f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
 
     kernels_vs_plain(pa, dev)
     small_slice_vs_cpu(dev)
+    fa.fwd_launches = fa.bwd_launches = 0  # the serving path's counts start at 0 too
     engine, free0, launches, real_pool, summary = main_path(pa, dev)
+    check(fa.fwd_launches == fa.bwd_launches == 0, "the serving path launched flash kernels")
     k = kernel_on_real_pool(pa, real_pool, engine.cfg, dev)
     for uid in list(engine.state.seqs):
         engine.flush(uid)
@@ -377,11 +648,28 @@ def main():
           f"free blocks {engine.block_mgr.free_blocks} != {free0} after flushing")
     summary["kernel"] = {"decode_rows": int(real_pool[2].shape[0]), **k}
     log(json.dumps({"summary": summary}))
-    log(json.dumps({"kernels": [dict(
-        name="paged_decode_attention", route="cuda",
-        source="deepspeed_tpu_torch/csrc/paged_attention.cu",
-        replaces="deepspeed_tpu/ops/transformer/paged_attention.py:76",
-        launches=launches, **k)]}))
+    del engine, real_pool
+    torch.cuda.empty_cache()
+
+    flash_kernels_vs_plain(fa, dev)
+    small_train_vs_cpu(fa, dev)
+    train_launches, train_summary = train_main_path(fa, pa, dev)
+    fwd, bwd, extra = flash_timing(fa, dev)
+    train_summary["flash"] = {"fwd": fwd, "bwd": bwd, **extra}
+    log(json.dumps({"train_summary": train_summary}))
+    flash_src = "deepspeed_tpu_torch/csrc/flash_attention.cu"
+    log(json.dumps({"kernels": [
+        dict(name="paged_decode_attention", route="cuda",
+             source="deepspeed_tpu_torch/csrc/paged_attention.cu",
+             replaces="deepspeed_tpu/ops/transformer/paged_attention.py:76",
+             launches=launches, **k),
+        dict(name="flash_attention_fwd", route="cuda", source=flash_src,
+             replaces="deepspeed_tpu/ops/transformer/flash_attention.py:43",
+             launches=train_launches["fwd"], **fwd),
+        dict(name="flash_attention_bwd", route="cuda", source=flash_src,
+             replaces="deepspeed_tpu/ops/transformer/flash_attention.py:124",
+             launches=train_launches["bwd"], **bwd),
+    ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

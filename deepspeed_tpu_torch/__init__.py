@@ -8,7 +8,55 @@ run on the card (``device="cuda"``) unless the caller passes
 
 Ported so far: the paged serving step (``inference.v2.InferenceEngineV2``
 with ``paged=True`` over ``models.TransformerLM.forward_paged``) and its
-``paged_decode_attention`` CUDA kernel.
+``paged_decode_attention`` CUDA kernel; the training step (``initialize`` ->
+``runtime.engine.DeepSpeedEngine`` ``train_batch`` / ``forward`` /
+``backward`` / ``step`` over ``TransformerLM.apply``) at ZeRO stage 0 on
+one card, and its flash-attention forward and backward CUDA kernels.
 """
 
 __version__ = "0.1.0"
+
+_ZERO_ITEM = "ROADMAP.md Queue 1 item 13, ZeRO and multi-card"
+_MODEL_ITEM = "ROADMAP.md Queue 1 item 17, runtime/pipe"
+
+
+def initialize(args=None, model=None, optimizer=None, model_parameters=None,
+               training_data=None, lr_scheduler=None, distributed_port: int = 29500,
+               mpu=None, dist_init_required: bool = None, collate_fn=None, config=None,
+               mesh_config=None, config_params=None, device="cuda"):
+    """Build a training engine (``deepspeed_tpu/__init__.py:47``, the
+    ``DeepSpeedEngine`` branch).
+
+    Returns the 4-tuple ``(engine, optimizer, training_dataloader,
+    lr_scheduler)``. ``model`` is a (params, apply_fn) pair or an object
+    exposing ``.params``/``.apply`` or ``.init_params``/``.apply``;
+    ``model_parameters`` are its parameters as a nested dict of tensors (e.g.
+    from ``models.params_from_jax``). ``device`` as for every entry point of
+    the port: the card unless ``"cpu"`` is asked for.
+    """
+    from .runtime.config import DeepSpeedConfig
+    from .runtime.engine import DeepSpeedEngine
+    from .utils.logging import log_dist
+
+    log_dist(f"DeepSpeed-TPU (PyTorch port) info: version={__version__}", ranks=[0])
+    if model is None:
+        raise ValueError("deepspeed_tpu_torch.initialize: model is a required argument")
+    if config is None:
+        config = config_params
+    if config is None and args is not None and getattr(args, "deepspeed_config", None):
+        config = args.deepspeed_config
+    if config is None:
+        raise ValueError("DeepSpeed requires --deepspeed_config to specify configuration "
+                         "file, or a config= dict/path argument")
+    if mpu is not None:
+        raise NotImplementedError(
+            f"initialize(mpu=...) is not ported to deepspeed_tpu_torch ({_ZERO_ITEM})")
+    if type(model).__name__ in ("PipelinedLM", "PipelineModule"):
+        raise NotImplementedError(
+            f"pipeline models are not ported to deepspeed_tpu_torch ({_MODEL_ITEM})")
+    ds_config = DeepSpeedConfig(config, mesh_shape=mesh_config)
+    engine = DeepSpeedEngine(model=model, config=ds_config, optimizer=optimizer,
+                             lr_scheduler=lr_scheduler, training_data=training_data,
+                             collate_fn=collate_fn, model_params=model_parameters,
+                             device=device)
+    return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, paged-serving subset (counterpart of ``deepspeed_tpu/models/transformer.py``).
+"""Decoder-only transformer LM, paged-serving and training subsets (counterpart of ``deepspeed_tpu/models/transformer.py``).
 
 The same functional design as the JAX package: ``TransformerLM`` holds a
 ``TransformerConfig`` and works on a plain dictionary of parameters with
@@ -6,11 +6,14 @@ the JAX package's leaf names and shapes. Block leaves stay stacked along a
 leading layer axis ``(L, ...)``; each layer reads its slice as a view.
 
 Ported: ``init_params``, ``init_kv_pool``, ``forward_paged`` (with
-``n_valid`` and ``logit_rows``) and greedy ``sample_or_argmax``, for the
-branches the gpt2 and llama presets take: pre-LN; learned or RoPE
-positions; LayerNorm (with its biases) or RMSNorm; tanh-GELU or SwiGLU;
-tied or untied head. Configurations that need anything else raise
-``NotImplementedError`` naming the field at construction.
+``n_valid`` and ``logit_rows``), greedy ``sample_or_argmax``, and the
+training path: ``apply`` (the next-token loss), ``logits`` and the cacheless
+block, whose attention goes through ``attention()`` (the flash kernels on
+the card). All for the branches the gpt2 and llama presets take: pre-LN;
+learned or RoPE positions; LayerNorm (with its biases) or RMSNorm;
+tanh-GELU or SwiGLU; tied or untied head. Configurations that need anything
+else raise ``NotImplementedError`` naming the field: at construction, or
+for the training-only fields (dropout, remat, PLD, random-LTD) in ``apply``.
 """
 
 from dataclasses import dataclass
@@ -20,12 +23,16 @@ import torch
 import torch.nn.functional as F
 
 from ..accelerator import resolve_device
+from ..ops.transformer.attention import attention as _attention_op
 from ..ops.transformer.paged_attention import paged_decode_attention
+from ..utils.tree import tree_leaves
 
 # the ROADMAP.md items that lift each unported branch
 _MODEL_ITEM = "ROADMAP.md Queue 1 item 2, the remaining TransformerLM branches"
 _MOE_ITEM = "ROADMAP.md Queue 1 item 17, moe/"
 _SAMPLING_ITEM = "ROADMAP.md Queue 1 item 3, threefry sampling"
+_REMAT_ITEM = "ROADMAP.md Queue 1 item 17, activation checkpointing"
+_DATA_ITEM = "ROADMAP.md Queue 1 item 17, runtime/data_pipeline"
 
 
 @dataclass(frozen=True)
@@ -300,6 +307,55 @@ class TransformerLM:
         w = params["wte"].T if cfg.tie_embeddings else params["lm_head"]
         return x @ w.to(x.dtype)
 
+    def _qkv(self, x, blk, positions):
+        """The pre-LN block's input norm and q/k/v projections, with RoPE
+        (``transformer.py:528-548``): (B, S, nh, hd) q, (B, S, kvh, hd) k/v."""
+        cfg = self.config
+        nh, kvh, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+        B, S, _ = x.shape
+        h = _norm(x, blk["ln1_scale"], blk.get("ln1_bias"), cfg.norm, cfg.norm_eps)
+        q = (h @ blk["wq"].to(h.dtype)).reshape(B, S, nh, hd)
+        kk = (h @ blk["wk"].to(h.dtype)).reshape(B, S, kvh, hd)
+        v = (h @ blk["wv"].to(h.dtype)).reshape(B, S, kvh, hd)
+        if cfg.pos_embedding == "rope":
+            q, kk = _rope(q, kk, positions, hd, cfg.rope_theta)
+        return q, kk, v
+
+    def _block_out(self, x, attn, blk):
+        """The attention output projection, the residual adds and the MLP
+        (``transformer.py:631-688``), given attention's (B, S, nh, hd)."""
+        cfg = self.config
+        B, S, _ = x.shape
+        dt = x.dtype
+        attn_out = attn.reshape(B, S, cfg.num_heads * cfg.head_dim) @ blk["wo"].to(dt)
+        if "attn_bias" in blk:
+            attn_out = attn_out + blk["attn_bias"].to(dt)
+
+        x = x + attn_out
+        h2 = _norm(x, blk["ln2_scale"], blk.get("ln2_bias"), cfg.norm, cfg.norm_eps)
+        if cfg.activation == "swiglu":
+            inter = F.silu(h2 @ blk["w_gate"].to(dt)) * (h2 @ blk["w_up"].to(dt))
+        else:  # tanh-approximated GELU, as jax.nn.gelu's default
+            up = h2 @ blk["w_up"].to(dt)
+            if "mlp_up_bias" in blk:
+                up = up + blk["mlp_up_bias"].to(dt)
+            inter = F.gelu(up, approximate="tanh")
+        mlp_out = inter @ blk["w_down"].to(dt)
+        if "mlp_bias" in blk:
+            mlp_out = mlp_out + blk["mlp_bias"].to(dt)
+        return x + mlp_out
+
+    def _block(self, x, blk, positions):
+        """One pre-LN block on (B, S, H) without a cache, the training and
+        evaluation branch (``transformer.py:619-630``): causal self-attention
+        through ``attention()``, so the flash kernels on the card."""
+        cfg = self.config
+        q, kk, v = self._qkv(x, blk, positions)
+        attn = _attention_op(q, kk, v, causal=cfg.causal,
+                             num_kv_groups=cfg.num_heads // cfg.kv_heads,
+                             softcap=cfg.logit_softcap)
+        return self._block_out(x, attn, blk)
+
     def _block_paged(self, x, blk, positions, kp, vp, tables):
         """One pre-LN block on (B, S, H) against one layer of the blocked
         pool (``kp``/``vp`` (kvh, NB, BS, hd)), in the JAX block's order
@@ -313,14 +369,9 @@ class TransformerLM:
         3. the MLP.
         """
         cfg = self.config
-        nh, kvh, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+        nh, hd = cfg.num_heads, cfg.head_dim
         B, S, _ = x.shape
-        h = _norm(x, blk["ln1_scale"], blk.get("ln1_bias"), cfg.norm, cfg.norm_eps)
-        q = (h @ blk["wq"].to(h.dtype)).reshape(B, S, nh, hd)
-        kk = (h @ blk["wk"].to(h.dtype)).reshape(B, S, kvh, hd)
-        v = (h @ blk["wv"].to(h.dtype)).reshape(B, S, kvh, hd)
-        if cfg.pos_embedding == "rope":
-            q, kk = _rope(q, kk, positions, hd, cfg.rope_theta)
+        q, kk, v = self._qkv(x, blk, positions)
 
         BS = kp.shape[2]
         blk_idx = tables.gather(1, (positions // BS).long())  # (B, S)
@@ -331,23 +382,7 @@ class TransformerLM:
         rows = tables if S == 1 else tables.repeat_interleave(S, dim=0)
         lens = (positions + 1).reshape(B * S).to(torch.int32)
         attn = paged_decode_attention(q.reshape(B * S, nh, hd), kp, vp, rows, lens)
-        attn_out = attn.reshape(B, S, nh * hd) @ blk["wo"].to(h.dtype)
-        if "attn_bias" in blk:
-            attn_out = attn_out + blk["attn_bias"].to(h.dtype)
-
-        x = x + attn_out
-        h2 = _norm(x, blk["ln2_scale"], blk.get("ln2_bias"), cfg.norm, cfg.norm_eps)
-        if cfg.activation == "swiglu":
-            inter = F.silu(h2 @ blk["w_gate"].to(h.dtype)) * (h2 @ blk["w_up"].to(h.dtype))
-        else:  # tanh-approximated GELU, as jax.nn.gelu's default
-            up = h2 @ blk["w_up"].to(h.dtype)
-            if "mlp_up_bias" in blk:
-                up = up + blk["mlp_up_bias"].to(h.dtype)
-            inter = F.gelu(up, approximate="tanh")
-        mlp_out = inter @ blk["w_down"].to(h.dtype)
-        if "mlp_bias" in blk:
-            mlp_out = mlp_out + blk["mlp_bias"].to(h.dtype)
-        return x + mlp_out
+        return self._block_out(x, attn, blk)
 
     def forward_paged(self, params, input_ids, kv_pool, tables, starts,
                       n_valid=None, logit_rows=None):
@@ -378,6 +413,94 @@ class TransformerLM:
         if logit_rows is not None:
             x_last = x_last[logit_rows]
         return self._head(params, x_last)
+
+    # ------------------------------------------------------------------
+    # training and evaluation: the full sequence, no cache
+    # ------------------------------------------------------------------
+    def _check_trainable(self, train: bool) -> None:
+        cfg = self.config
+        unsupported = (
+            ("remat", cfg.remat, _REMAT_ITEM),
+            ("progressive_layer_drop", cfg.progressive_layer_drop, _DATA_ITEM),
+            ("random_ltd", cfg.random_ltd, _DATA_ITEM),
+            ("dropout", train and cfg.dropout > 0, _SAMPLING_ITEM),
+        )
+        for field_name, bad, item in unsupported:
+            if bad:
+                raise NotImplementedError(
+                    f"TransformerConfig.{field_name}={getattr(cfg, field_name)!r} is not "
+                    f"ported to the training path of deepspeed_tpu_torch ({item})")
+
+    def _trunk(self, params, x, positions):
+        """Every block in turn (``transformer.py:834-849`` with
+        ``scan_layers=False``: a Python loop over the stacked leaves, each
+        layer reading its slice as a view, so gradients land in the stacked
+        leaves)."""
+        blocks = params["blocks"]
+        for i in range(self.config.num_layers):
+            x = self._block(x, {k: w[i] for k, w in blocks.items()}, positions)
+        return x
+
+    def _logits_aux(self, params, input_ids, positions=None, train=False):
+        """(B, S, V) logits and the MoE aux loss, always 0 here
+        (``transformer.py:934-963``). The compute dtype is that of the first
+        floating leaf, in the JAX package's sorted-key order."""
+        self._check_trainable(train)
+        B, S = input_ids.shape
+        if positions is None:
+            positions = torch.arange(S, dtype=torch.int32,
+                                     device=input_ids.device).expand(B, S)
+        dtype = next((t.dtype for t in tree_leaves(params) if t.is_floating_point()),
+                     torch.float32)
+        x = self._embed(params, input_ids, positions, dtype)
+        x = self._trunk(params, x, positions)
+        return self._head(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def logits(self, params, input_ids, positions=None, train=False, rng=None,
+               attention_mask=None, token_type_ids=None):
+        if rng is not None or attention_mask is not None or token_type_ids is not None:
+            raise NotImplementedError(
+                "logits(rng / attention_mask / token_type_ids) is not ported "
+                f"({_MODEL_ITEM})")
+        return self._logits_aux(params, input_ids, positions, train)[0]
+
+    def apply(self, params, batch, train=True, rng=None):
+        """Next-token LM loss over the batch (the engine protocol,
+        ``transformer.py:971-1021``).
+
+        ``batch``: dict with ``input_ids`` (B, S) and optional ``labels``
+        (shifted internally when absent; -100 = ignore) and ``positions``,
+        or a bare (B, S) tensor, or an (input_ids, labels) pair. fp32
+        logits; the loss is the mean of ``logsumexp - gold`` over the
+        labelled tokens.
+        """
+        if isinstance(batch, dict):
+            extra = sorted(set(batch) - {"input_ids", "labels", "positions"})
+            if extra:
+                raise NotImplementedError(
+                    f"batch keys {extra} (attention masks, token types, PLD, LTD) are "
+                    f"not ported ({_MODEL_ITEM}; {_DATA_ITEM})")
+            input_ids, labels, positions = (batch["input_ids"], batch.get("labels"),
+                                            batch.get("positions"))
+        elif isinstance(batch, (tuple, list)):
+            (input_ids, labels), positions = batch, None
+        else:
+            input_ids, labels, positions = batch, None, None
+        lg, _ = self._logits_aux(params, input_ids, positions=positions, train=train)
+        if labels is None:
+            if not self.config.causal:
+                raise ValueError(
+                    "encoder (causal=False) models need explicit labels — "
+                    "next-token shifting only applies to causal LMs")
+            labels = torch.cat([input_ids[:, 1:], torch.full_like(input_ids[:, :1], -100)],
+                               dim=1)
+        lg = lg.float()
+        mask = labels != -100
+        safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
+        logz = torch.logsumexp(lg, dim=-1)
+        gold = lg.gather(-1, safe[..., None])[..., 0]
+        nll = (logz - gold) * mask
+        return nll.sum() / mask.sum().clamp(min=1)
 
 
 def sample_or_argmax(lg, temps=None):

@@ -1,4 +1,4 @@
-"""Parameters from the JAX package.
+"""Parameters from the JAX package, and back to numpy for comparisons.
 
 ``params_from_jax`` turns the JAX ``TransformerLM``'s parameter pytree, given
 as numpy arrays, into the port's parameter dictionary, so both packages
@@ -24,6 +24,20 @@ def _to_tensor(name: str, a) -> torch.Tensor:
             f"parameter '{name}' has dtype {a.dtype}: weight-only-quantized leaves "
             f"are not ported ({_WOQ_ITEM})")
     return torch.from_numpy(np.ascontiguousarray(a).copy())
+
+
+def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """Nested dict of tensors (the port's parameters, any device) -> nested
+    dict of numpy arrays with the same keys, for comparisons with the JAX
+    package; bfloat16 leaves come back as float32 (numpy has no bfloat16)."""
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = params_to_numpy(v)
+        else:
+            t = v.detach().cpu()
+            out[k] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return out
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:

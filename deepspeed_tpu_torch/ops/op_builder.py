@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import List
+from typing import Dict, List
 
 from ..utils.logging import logger
 
@@ -47,7 +47,8 @@ class CUDAOpBuilder:
 
     NAME = "base"
     SOURCE = ""  # path under deepspeed_tpu_torch/
-    _lock = threading.Lock()
+    _locks: Dict[str, threading.Lock] = {}  # one per source: sources build in parallel
+    _locks_guard = threading.Lock()
 
     def nvcc_flags(self) -> List[str]:
         return ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -66,7 +67,9 @@ class CUDAOpBuilder:
         """Path of the built library, compiling it first if needed.
         ``verbose`` adds ``-Xptxas -v`` (registers, shared memory and spills
         of each kernel) and logs the compiler's output."""
-        with CUDAOpBuilder._lock:
+        with CUDAOpBuilder._locks_guard:
+            lock = CUDAOpBuilder._locks.setdefault(self.NAME, threading.Lock())
+        with lock:
             out = self.lib_path()
             if os.path.exists(out) and not verbose:
                 return out
@@ -92,4 +95,21 @@ class CUDAOpBuilder:
 class PagedAttentionBuilder(CUDAOpBuilder):
     NAME = "paged_attention"
     SOURCE = os.path.join("csrc", "paged_attention.cu")
+
+
+class FlashAttentionBuilder(CUDAOpBuilder):
+    NAME = "flash_attention"
+    SOURCE = os.path.join("csrc", "flash_attention.cu")
+
+
+ALL_BUILDERS = (PagedAttentionBuilder, FlashAttentionBuilder)
+
+
+def build_all(verbose: bool = False) -> List[str]:
+    """Build every kernel source, one ``nvcc`` process per source, all
+    started together; returns the libraries' paths."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(ALL_BUILDERS)) as pool:
+        return list(pool.map(lambda b: b().build(verbose=verbose), ALL_BUILDERS))
 

@@ -1,16 +1,52 @@
-"""Plain attention (counterpart of ``xla_attention`` in ``deepspeed_tpu/ops/transformer/attention.py``).
+"""Attention: the plain version and the kernel dispatch (counterpart of ``deepspeed_tpu/ops/transformer/attention.py``).
 
-Named as in the JAX package, where it is the always-available einsum path.
-Here it serves the plain version of the paged kernel
-(``paged_attention.paged_decode_attention_plain``), which the CPU tests and
-the card's kernel-versus-plain checks run.
+``xla_attention`` is the always-available einsum path, named as in the JAX
+package (registered as ``"xla"``). It is the CPU path, the plain version the
+card's checks compare the kernels with, and the core of the paged kernel's
+plain version. On the card the flash kernel (``"pallas_flash"``, the JAX
+registry name, in ``flash_attention.py``) carries attention.
+
+``attention()`` picks the registered implementation: the one forced with
+``set_default_impl``, else ``"pallas_flash"`` for CUDA tensors and ``"xla"``
+for CPU tensors. Where the JAX dispatch catches the kernel's
+``NotImplementedError`` and runs XLA instead (``attention.py:100``), the port
+does so only on the CPU: on the card a call the kernel cannot serve (bias,
+softcap, a nonzero ``q_offset``, a head_dim outside 64/128/256) raises, and
+the plain version never runs in the kernel's place.
 """
 
 from typing import Optional
 
 import torch
 
+_IMPLS = {}
+_DEFAULT_IMPL = None
 
+
+def register_impl(name):
+    def deco(fn):
+        _IMPLS[name] = fn
+        return fn
+    return deco
+
+
+def set_default_impl(name: Optional[str]):
+    """Force an implementation (None = auto)."""
+    global _DEFAULT_IMPL
+    _DEFAULT_IMPL = name
+
+
+def get_default_impl() -> Optional[str]:
+    return _DEFAULT_IMPL
+
+
+def _auto_impl(q) -> str:
+    if _DEFAULT_IMPL is not None:
+        return _DEFAULT_IMPL
+    return "pallas_flash" if q.device.type == "cuda" else "xla"
+
+
+@register_impl("xla")
 def xla_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                   num_kv_groups: int = 1, softcap: float = 0.0, bias=None,
                   scale: Optional[float] = None):
@@ -36,3 +72,31 @@ def xla_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
     return out.reshape(B, Sq, nh, hd).to(q.dtype)
+
+
+def attention(q, k, v, *, causal=True, q_offset=0, num_kv_groups=1,
+              softcap=0.0, bias=None, scale=None, impl: Optional[str] = None):
+    """Multi-head attention with optional GQA / causal offset / softcap.
+
+    q: (B, Sq, num_heads, head_dim); k/v: (B, Skv, kv_heads, head_dim).
+    Returns (B, Sq, num_heads, head_dim) in q's dtype.
+    """
+    name = impl or _auto_impl(q)
+    if name not in _IMPLS:
+        raise ValueError(f"unknown attention implementation '{name}' "
+                         f"(registered: {sorted(_IMPLS)})")
+    on_card = q.device.type == "cuda"
+    if on_card and name == "xla":
+        raise ValueError("attention: the plain 'xla' version does not run in place of "
+                         "the flash kernel on the card")
+    kw = dict(causal=causal, q_offset=q_offset, num_kv_groups=num_kv_groups,
+              softcap=softcap, bias=bias, scale=scale)
+    if on_card:
+        return _IMPLS[name](q, k, v, **kw)
+    try:
+        return _IMPLS[name](q, k, v, **kw)
+    except NotImplementedError:
+        return xla_attention(q, k, v, **kw)
+
+
+from . import flash_attention  # noqa: E402,F401  (registers "pallas_flash")

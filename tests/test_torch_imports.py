@@ -9,6 +9,7 @@ import sys
 import pytest
 import torch
 
+import deepspeed_tpu_torch
 from deepspeed_tpu_torch.accelerator import get_accelerator, resolve_device
 from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
 from deepspeed_tpu_torch.models import build_model
@@ -23,16 +24,36 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "deepspeed_tpu"))
-print(len(names), bad)
+print(" ".join(names))
+print(bad)
 """
+
+# the training slice's modules: each must be among those the probe imported
+_TRAINING_MODULES = {
+    "deepspeed_tpu_torch.ops.transformer.attention",
+    "deepspeed_tpu_torch.ops.transformer.flash_attention",
+    "deepspeed_tpu_torch.ops.optimizers",
+    "deepspeed_tpu_torch.runtime.config",
+    "deepspeed_tpu_torch.runtime.config_utils",
+    "deepspeed_tpu_torch.runtime.constants",
+    "deepspeed_tpu_torch.runtime.zero.config",
+    "deepspeed_tpu_torch.runtime.lr_schedules",
+    "deepspeed_tpu_torch.runtime.fp16.loss_scaler",
+    "deepspeed_tpu_torch.runtime.dataloader",
+    "deepspeed_tpu_torch.runtime.engine",
+    "deepspeed_tpu_torch.utils.timer",
+    "deepspeed_tpu_torch.utils.tree",
+}
 
 
 def test_package_imports_neither_jax_nor_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=_REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    n, bad = proc.stdout.strip().split(" ", 1)
-    assert int(n) >= 15 and bad == "[]"
+    names, bad = proc.stdout.strip().splitlines()
+    names = set(names.split())
+    assert len(names) >= 28 and bad == "[]"
+    assert _TRAINING_MODULES <= names, sorted(_TRAINING_MODULES - names)
 
 
 @pytest.fixture
@@ -54,6 +75,19 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(no_cuda):
     eng = InferenceEngineV2(model, paged=True, device="cpu", max_seqs=2,
                             block_size=16)
     assert eng.kv[0].device.type == "cpu"
+
+
+def test_initialize_raises_without_cuda_unless_asked_for_cpu(no_cuda):
+    model = build_model("llama-tiny", vocab_size=64, hidden_size=64, num_layers=1,
+                        num_heads=1, intermediate_size=64, max_seq_len=64)
+    config = {"train_batch_size": 2, "optimizer": {"type": "adamw", "params": {}}}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        deepspeed_tpu_torch.initialize(model=model, config=config)
+    engine, opt, loader, sched = deepspeed_tpu_torch.initialize(model=model, config=config,
+                                                                device="cpu")
+    assert engine.device.type == "cpu" and loader is None and sched is None
+    assert opt is engine.optimizer
+    assert engine.params["wte"].device.type == "cpu"
 
 
 def test_accelerator_defaults_to_cuda():
