@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time of the port's paged serving step and training step goes, on one NVIDIA GPU.
+"""Where the time of the port's paged serving steps (bf16 and int8 WOQ) and training step goes, on one NVIDIA GPU.
 
     python3 chip_profile.py      # from the root of a checkout, one CUDA card
 
@@ -8,6 +8,11 @@ random bf16 weights, the same requests), then traces with ``torch.profiler``:
 
 - 5 decode steps of the requests still live (the ``max_seqs``-row shape);
 - 1 prefill step (a fresh 256-token prompt: the ``token_budget``-row shape).
+
+The same again over int8 weight-only-quantized weights
+(``quantize_model(num_bits=8, group_size=128)``), where the block
+projections run the WOQ kernel (group ``woq_matmul``) and only the
+vocabulary head stays a cuBLAS matmul.
 
 For each it prints the step's host-clock time, the device time summed over
 its kernels, the device's idle share of the step, and the kernel time by
@@ -43,6 +48,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 def _group(name: str) -> str:
     n = name.lower()
+    if "woq_" in n:
+        return "woq_matmul"
     if "paged_decode_kernel" in n:
         return "paged_decode_attention"
     if "flash_fwd_kernel" in n:
@@ -120,7 +127,33 @@ def main():
     kernel_rows(pa, real_pool, engine.cfg, dev)
     del engine, real_pool
     torch.cuda.empty_cache()
+    woq_profile(pa, dev)
     train_profile(dev)
+
+
+def woq_profile(pa, dev):
+    """The int8 weight-only-quantized serving path: the same traffic, then
+    5 decode steps and one prefill step traced."""
+    import chip_smoke
+    from deepspeed_tpu_torch.ops.quantizer import woq_gemm as wq
+
+    engine, _, _, _, summary = chip_smoke.main_path(pa, dev, bits=8, wq=wq)
+    print(json.dumps({"woq_main_path": {k: summary[k] for k in (
+        "decode_step_ms_median", "prefill_tokens_per_s", "ragged_steps")}}), flush=True)
+    live = {uid: 0 for uid in engine.state.seqs}
+
+    def decode():
+        nonlocal live
+        live = engine.decode_step(live, greedy=True)
+
+    profile(decode, "int8 WOQ decode (6 live rows, max_seqs=8 row shape)", steps=5)
+    prompt = np.random.default_rng(3).integers(0, engine.cfg.vocab_size,
+                                               engine.token_budget).tolist()
+    profile(lambda: engine.put([99], [prompt], greedy=True),
+            f"int8 WOQ prefill ({engine.token_budget}-token prompt, token_budget rows)",
+            steps=1)
+    del engine
+    torch.cuda.empty_cache()
 
 
 def train_profile(dev):

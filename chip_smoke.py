@@ -27,7 +27,28 @@ in order; any failure exits non-zero and prints no result:
    version and timed with CUDA events beside the plain version,
    ``scaled_dot_product_attention`` over the gathered cache, and the bound.
 
-Then the training slice (the serving engine is freed first):
+Then weight-only-quantized serving (the bf16 engine is freed first):
+
+q1. the WOQ kernel against its plain version: 8, 6 and 4 bits, bf16 and
+    fp32 x, rows 1, 8, 37 and 256, at llama-7b's (In, Out) with group 128;
+    then group 64, a group that is not a power of two, and codes holding
+    every byte value; atol 1e-4 and rtol 1e-5 for every x dtype (both form
+    the weight in fp32 and round it to x's dtype, so only an fp32 sum's
+    order differs);
+q2. the WOQ engine small (llama, hd 64, fp32, int8/int6/int4 at group 64)
+    on the card against the same on the CPU: logits at atol 1e-4, greedy
+    streams equal;
+q3. the WOQ main path: phase 4's model, engine and traffic over
+    ``quantize_model(num_bits=8, group_size=128)`` of the same random bf16
+    weights, quantized on the card; the WOQ and paged kernels' counts set to
+    0 just before and read just after: 7 projections x 32 layers and 32
+    layers a ragged step. Then int6 and int4 with 12 decode steps;
+q4. the WOQ kernel at the main path's shapes, decode (8) and prefill (256)
+    rows, each width, timed with CUDA events beside its plain version, a
+    bf16 ``torch.matmul`` on the weight dequantized beforehand, and its
+    bound.
+
+Then the training slice:
 
 a. the flash-attention forward (out, lse) and backward (dq, dk, dv) kernels
    against their plain versions: llama-7b's heads (B 2, S 2048), llama-70b's
@@ -220,25 +241,48 @@ def small_slice_vs_cpu(dev):
         f"{len(got)} calls, max_abs_err {worst:.3g} ok")
 
 
-def main_path(pa, dev):
-    """Phase 4: llama-7b at full width and depth through the paged engine."""
+def main_path(pa, dev, bits=None, decode_steps=32, wq=None):
+    """Phase 4 (and q3 with ``bits``): llama-7b at full width and depth
+    through the paged engine, bf16 weights, or with ``bits`` those weights
+    through ``quantize_model(num_bits=bits, group_size=128)`` on the card
+    (the bf16 tree is freed before the engine is built) and every block
+    projection through the WOQ kernel (``wq``, its module)."""
+    from deepspeed_tpu_torch.inference.quantization import quantize_model
     from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
     from deepspeed_tpu_torch.models import build_model
 
     model = build_model("llama-7b")
     cfg = model.config
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init_params(torch.Generator(device=dev).manual_seed(0),
                                dtype=torch.bfloat16)
+    woq = None
+    if bits is not None:
+        bf16_bytes = sum(t.numel() * t.element_size() for t in params["blocks"].values())
+        tq = time.perf_counter()
+        _, params = quantize_model(model, params, num_bits=bits, group_size=128)
+        torch.cuda.synchronize()
+        woq = {"bits": bits, "group_size": 128,
+               "quantize_s": time.perf_counter() - tq,
+               "blocks_bf16_bytes": bf16_bytes,
+               "blocks_quantized_bytes": sum(t.numel() * t.element_size()
+                                             for t in params["blocks"].values())}
     engine = InferenceEngineV2(model, params, paged=True, dtype=torch.bfloat16,
                                max_seqs=8, block_size=64, prefill_chunk=256,
                                token_budget=256, prefix_cache=True, device=dev)
     del params
     torch.cuda.synchronize()
+    label = f"int{bits} (group 128)" if bits else "bf16"
     log(f"set-up: llama-7b ({cfg.num_layers} layers, hidden {cfg.hidden_size}) random "
-        f"bf16 weights and a {engine.block_mgr.num_blocks}x{engine.block_mgr.block_size}"
+        f"{label} weights and a {engine.block_mgr.num_blocks}x{engine.block_mgr.block_size}"
         f" block pool in {time.perf_counter() - t0:.3f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    if woq is not None:
+        codes = {k: v for k, v in engine.params["blocks"].items() if "::" in k}
+        check(all(v.dtype == (torch.float32 if k.endswith("::scale") else torch.int8)
+                  and v.device.type == "cuda" for k, v in codes.items()) and len(codes) == 14,
+              "the engine did not keep int8 codes and fp32 scales on the card")
     free0 = engine.block_mgr.free_blocks
     # warm-up: one step at each of the engine's two row shapes, all rows
     # padding (table of zeros), so their K/V land in trash block 0; the
@@ -257,12 +301,16 @@ def main_path(pa, dev):
     stats = {}
     steps0 = engine.ragged_steps
     pa.launches = 0  # every kernel's count, just before the main path
-    records, _ = serve(engine, prompts, arrival, 32, greedy=True, stats=stats,
+    if wq is not None:
+        wq.launches = 0
+    records, _ = serve(engine, prompts, arrival, decode_steps, greedy=True, stats=stats,
                        launches=lambda: pa.launches)
     torch.cuda.synchronize()
     launches = pa.launches  # read just after
+    woq_launches = wq.launches if wq is not None else 0
     ragged = engine.ragged_steps - steps0
     per_step = stats["decode_launches"]
+    peak = torch.cuda.max_memory_allocated()
 
     tokens = [t for rec in records for t in rec.values()]
     check(len(tokens) > 0 and all(0 <= t < cfg.vocab_size for t in tokens),
@@ -272,6 +320,10 @@ def main_path(pa, dev):
           f"(expected num_layers x steps = {cfg.num_layers * ragged})")
     check(set(per_step) == {cfg.num_layers},
           f"launches per decode step {sorted(set(per_step))} != {cfg.num_layers}")
+    want_woq = 7 * cfg.num_layers * ragged if bits else 0
+    check(woq_launches == want_woq,
+          f"woq_matmul launched {woq_launches} times in {ragged} ragged steps "
+          f"(expected 7 projections x num_layers x steps = {want_woq})")
     pc = engine.prefix_cache_stats()
     check(pc["hits"] >= 1 and pc["cow_copies"] >= 1,
           f"the repeated prompt gave no prefix hit / copy-on-write: {pc}")
@@ -291,18 +343,23 @@ def main_path(pa, dev):
     decode_ms = [s * 1e3 for s in stats["decode_s"]]
     n_prefill = sum(len(p) for p in prompts.values())
     summary = {
-        "model": "llama-7b", "layers": cfg.num_layers, "dtype": "bfloat16",
+        "model": "llama-7b", "layers": cfg.num_layers,
+        "dtype": "bfloat16" + (f", int{bits} weights" if bits else ""),
         "requests": len(live), "ragged_steps": ragged,
         "prefill_tokens": n_prefill, "prefill_s": stats["prefill_s"],
         "prefill_tokens_per_s": n_prefill / stats["prefill_s"],
         "decode_steps": len(decode_ms), "decode_step_ms_median": float(np.median(decode_ms)),
         "decode_step_ms_p90": float(np.percentile(decode_ms, 90)),
         "decode_rows": len(live), "launches_per_decode_step": cfg.num_layers,
+        "max_memory_allocated_gib": peak / 2**30,
         "prefix_cache": {k: pc[k] for k in ("lookups", "hits", "hit_blocks",
                                               "skipped_prefill_tokens", "cow_copies")},
     }
-    log(f"main path: {len(tokens)} tokens, {ragged} ragged steps, paged_decode_attention "
-        f"launched {launches} times (= {cfg.num_layers} layers x {ragged} steps)")
+    if woq is not None:
+        summary["woq"] = dict(woq, woq_launches=woq_launches, paged_launches=launches)
+    log(f"main path ({label}): {len(tokens)} tokens, {ragged} ragged steps, "
+        f"paged_decode_attention launched {launches} times (= {cfg.num_layers} layers x "
+        f"{ragged} steps), woq_matmul {woq_launches} times")
     return engine, free0, launches, real_pool, summary
 
 
@@ -357,6 +414,170 @@ def kernel_on_real_pool(pa, real_pool, cfg, dev):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms}
+
+
+WOQ_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))  # (In, Out): wq/wk/wv/wo, w_gate/w_up, w_down
+WOQ_TOL = (1e-4, 1e-5)  # atol, rtol: the JAX package's own (tests/unit/test_woq.py:169)
+
+
+def woq_compare(out, ref):
+    """Max abs error of the WOQ kernel against its plain version. Both form
+    each weight as code * scale in fp32, round it to x's dtype and add fp32
+    products, so only the order of an fp32 sum differs: fp32 tolerances
+    for every x dtype."""
+    atol, rtol = WOQ_TOL
+    check(out.shape == ref.shape and out.dtype == ref.dtype == torch.float32,
+          f"shape/dtype {tuple(out.shape)}/{out.dtype} vs {tuple(ref.shape)}/{ref.dtype}")
+    check(torch.isfinite(out).all().item(), "non-finite kernel output")
+    err = (out - ref).abs()
+    bad = err > atol + rtol * ref.abs()
+    check(not bad.any().item(),
+          f"{int(bad.sum())} elements outside atol {atol} rtol {rtol} (max err {err.max():.3g})")
+    return float(err.max())
+
+
+def woq_kernels_vs_plain(wq, dev):
+    """Phase q1: the WOQ kernel against its plain version at the main
+    path's shapes, rows 1, 8, 37 and 256, bf16 and fp32 x, 8/6/4 bits; then
+    group 64, a group that is not a power of two, and every byte value."""
+    from deepspeed_tpu_torch.ops.quantizer import woq
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    worst = 0.0
+
+    def case(label, x, codes, scale, bits):
+        nonlocal worst
+        out = wq.woq_matmul(x, codes, scale, bits)
+        torch.cuda.synchronize()
+        err = woq_compare(out, wq.woq_matmul_plain(x, codes, scale, bits))
+        worst = max(worst, err)
+        log(f"kernel vs plain: woq_matmul {label} int{bits} x {str(x.dtype)[6:]} "
+            f"rows {x.shape[0]}: max_abs_err {err:.3g} ok")
+
+    cases = [(In, Out, 128) for In, Out in WOQ_SHAPES] + [(4096, 4096, 64), (4000, 1024, 128)]
+    for In, Out, group in cases:
+        w = torch.randn(In, Out, device=dev, generator=gen).mul_(0.02)
+        for bits in (8, 6, 4):
+            codes, scale = woq.quantize_leaf(w, bits, group)
+            g = woq.group_of(bits, codes.shape[1])
+            for dtype in (torch.bfloat16, torch.float32):
+                for rows in ((1, 8, 37, 256) if group == 128 and In != 4000 else (8, 256)):
+                    x = torch.randn(rows, In, device=dev, generator=gen).to(dtype)
+                    case(f"({In}, {Out}) group {g}", x, codes, scale, bits)
+        del w
+    # every byte value, in every column and many rows, scales of the model's size
+    for bits in (8, 6, 4):
+        In, Out = 1024, 512
+        g = 128
+        packed = {8: g, 6: g // 4 * 3, 4: g // 2}[bits]
+        codes = (torch.arange(In // g * packed * Out, device=dev) * 7919 % 256).to(torch.uint8)
+        codes = codes.view(torch.int8).reshape(In // g, packed, Out)
+        check(torch.unique(codes).numel() == 256, "the byte case misses a byte value")
+        scale = torch.rand(In // g, 1, Out, device=dev, generator=gen).add_(0.5).mul_(
+            0.02 / (2 ** (bits - 1) - 1))
+        for dtype in (torch.bfloat16, torch.float32):
+            for rows in (8, 256):
+                x = torch.randn(rows, In, device=dev, generator=gen).to(dtype)
+                case("every byte value", x, codes, scale, bits)
+    return worst
+
+
+def small_woq_vs_cpu(wq, dev):
+    """Phase q2: the WOQ engine on the card against the same on the CPU."""
+    from deepspeed_tpu_torch.inference.quantization import quantize_model
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models import build_model
+
+    model = build_model("llama-tiny", vocab_size=1024, hidden_size=256, num_layers=2,
+                        num_heads=4, num_kv_heads=2, intermediate_size=512,
+                        max_seq_len=512)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    opts = dict(paged=True, dtype=torch.float32, max_seqs=4, block_size=16,
+                prefill_chunk=64, token_budget=64, prefix_cache=True)
+    rng = np.random.default_rng(1)
+    prompts = {1: rng.integers(0, 1024, 20), 2: rng.integers(0, 1024, 150)}
+    arrival = rng.integers(0, 1024, 48)
+    for bits in (8, 6, 4):
+        _, qp = quantize_model(model, params, num_bits=bits, group_size=64)
+        l0 = wq.launches
+        ref, fed = serve(InferenceEngineV2(model, qp, device="cpu", **opts),
+                         prompts, arrival, 12, greedy=False)
+        got, _ = serve(InferenceEngineV2(model, qp, device=dev, **opts),
+                       prompts, arrival, 12, greedy=False, choices=fed)
+        check(wq.launches > l0, "the card engine did not launch the WOQ kernel")
+        worst = 0.0
+        for g, r in zip(got, ref):
+            check(sorted(g) == sorted(r), "card and CPU engines returned different uids")
+            for u in r:
+                err = float(np.abs(g[u] - r[u]).max())
+                check(np.isfinite(g[u]).all() and err <= 1e-4,
+                      f"int{bits} uid {u}: card vs CPU logits differ by {err:.3g} (atol 1e-4)")
+                worst = max(worst, err)
+        # greedy streams: identical wherever the CPU's top-2 margin exceeds 1e-3
+        margins = [min(float(np.diff(np.sort(v)[-2:])[0]) for v in rec.values())
+                   for rec in ref[:-1]]
+        n = next((i for i, m in enumerate(margins) if m <= 1e-3), len(margins))
+        _, cpu_toks = serve(InferenceEngineV2(model, qp, device="cpu", **opts),
+                            prompts, arrival, 12, greedy=True)
+        _, card_toks = serve(InferenceEngineV2(model, qp, device=dev, **opts),
+                             prompts, arrival, 12, greedy=True)
+        check(n > 0 and card_toks[:n] == cpu_toks[:n],
+              f"int{bits}: greedy streams differ within the first {n} decisions")
+        log(f"WOQ slice on the card vs CPU (llama 256-wide, hd 64, int{bits} group 64, fp32): "
+            f"{len(got)} calls, logits max_abs_err {worst:.3g}, greedy streams equal over "
+            f"{n} decisions ok")
+
+
+def woq_timing(wq, dev):
+    """Phase q4: the WOQ kernel at the main path's shapes, decode rows (8)
+    and prefill rows (256), each bit width, bf16 x, timed with CUDA events
+    over copies of the weights that together exceed the 50 MB L2 (each
+    layer's weights arrive cold on the main path). Beside it: the plain
+    version, and ``torch.matmul`` of x with the weight dequantized to bf16
+    beforehand (cuBLAS reading 2 B a weight, the dequant left out)."""
+    import itertools
+
+    from deepspeed_tpu_torch.ops.quantizer import woq
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows_all, results = (8, 256), []
+    for In, Out in WOQ_SHAPES:
+        w = torch.randn(In, Out, device=dev, generator=gen).mul_(0.02)
+        for bits in (8, 6, 4):
+            codes, scale = woq.quantize_leaf(w, bits, 128)
+            wbytes = codes.numel() + scale.numel() * 4
+            copies = [(codes, scale)] + [(codes.clone(), scale.clone())
+                                         for _ in range(-(-150_000_000 // wbytes))]
+            dense = woq.dequant_params({f"w::q{bits}": codes, "w::scale": scale},
+                                       torch.bfloat16)["w"]
+            dense_copies = [dense] + [dense.clone() for _ in range(-(-150_000_000 //
+                                                                        (dense.numel() * 2)))]
+            for rows in rows_all:
+                x = torch.randn(rows, In, device=dev, generator=gen).to(torch.bfloat16)
+                cyc, dcyc = itertools.cycle(copies), itertools.cycle(dense_copies)
+                ms = time_cuda(lambda: wq.woq_matmul(x, *next(cyc), bits))
+                plain_ms = time_cuda(lambda: wq.woq_matmul_plain(x, codes, scale, bits),
+                                     warmup=2, iters=10)
+                library_ms = time_cuda(lambda: torch.matmul(x, next(dcyc)))
+                err = woq_compare(wq.woq_matmul(x, codes, scale, bits),
+                                  wq.woq_matmul_plain(x, codes, scale, bits))
+                nbytes = wbytes + x.numel() * 2 + rows * Out * 4
+                flops = 2 * rows * In * Out
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+                r = {"bits": bits, "rows": rows, "in": In, "out": Out, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "bytes": nbytes, "flops": flops, "max_abs_err": err}
+                results.append(r)
+                log(f"woq_matmul int{bits} ({In}, {Out}) rows {rows}: {ms:.4f} ms, bound "
+                    f"{r['bound_ms']:.4f} ({r['bound_by']}), plain {plain_ms:.4f}, "
+                    f"bf16 matmul on a pre-dequantized weight {library_ms:.4f}")
+            del copies, dense_copies, dense
+        del w
+    torch.cuda.empty_cache()
+    return results
 
 
 def rel_err(out, ref, floor=0.0):
@@ -615,6 +836,7 @@ def main():
     sys.path.insert(0, HERE)
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.ops.op_builder import build_all
+    from deepspeed_tpu_torch.ops.quantizer import woq_gemm as wq
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
     from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
 
@@ -639,7 +861,7 @@ def main():
     kernels_vs_plain(pa, dev)
     small_slice_vs_cpu(dev)
     fa.fwd_launches = fa.bwd_launches = 0  # the serving path's counts start at 0 too
-    engine, free0, launches, real_pool, summary = main_path(pa, dev)
+    engine, free0, launches, real_pool, summary = main_path(pa, dev, wq=wq)
     check(fa.fwd_launches == fa.bwd_launches == 0, "the serving path launched flash kernels")
     k = kernel_on_real_pool(pa, real_pool, engine.cfg, dev)
     for uid in list(engine.state.seqs):
@@ -650,6 +872,26 @@ def main():
     log(json.dumps({"summary": summary}))
     del engine, real_pool
     torch.cuda.empty_cache()
+
+    woq_worst = woq_kernels_vs_plain(wq, dev)
+    small_woq_vs_cpu(wq, dev)
+    woq_summary = {}
+    for bits, steps in ((8, 32), (6, 12), (4, 12)):
+        engine, free0, _, real_pool, woq_summary[f"int{bits}"] = main_path(
+            pa, dev, bits=bits, decode_steps=steps, wq=wq)
+        check(fa.fwd_launches == fa.bwd_launches == 0, "the serving path launched flash kernels")
+        for uid in list(engine.state.seqs):
+            engine.flush(uid)
+        check(engine.block_mgr.free_blocks == free0,
+              f"free blocks {engine.block_mgr.free_blocks} != {free0} after flushing")
+        del engine, real_pool
+        torch.cuda.empty_cache()
+    woq_launches = woq_summary["int8"]["woq"]["woq_launches"]
+    woq_times = woq_timing(wq, dev)
+    log(json.dumps({"woq_summary": woq_summary}))
+    log(json.dumps({"woq_timing": woq_times}))
+    woq_k = next(r for r in woq_times if (r["bits"], r["rows"], r["in"], r["out"])
+                 == (8, 8, 4096, 11008))
 
     flash_kernels_vs_plain(fa, dev)
     small_train_vs_cpu(fa, dev)
@@ -669,6 +911,13 @@ def main():
         dict(name="flash_attention_bwd", route="cuda", source=flash_src,
              replaces="deepspeed_tpu/ops/transformer/flash_attention.py:124",
              launches=train_launches["bwd"], **bwd),
+        # int8 at decode rows (8) on w_gate/w_up's (4096, 11008); every shape,
+        # width and row count is on the woq_timing line
+        dict(name="woq_matmul", route="cuda", source="deepspeed_tpu_torch/csrc/woq_gemm.cu",
+             replaces="deepspeed_tpu/ops/quantizer/woq_gemm.py:39", launches=woq_launches,
+             max_abs_err=max(woq_worst, max(r["max_abs_err"] for r in woq_times)),
+             **{k: woq_k[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")}),
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

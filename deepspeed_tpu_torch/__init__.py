@@ -11,7 +11,9 @@ with ``paged=True`` over ``models.TransformerLM.forward_paged``) and its
 ``paged_decode_attention`` CUDA kernel; the training step (``initialize`` ->
 ``runtime.engine.DeepSpeedEngine`` ``train_batch`` / ``forward`` /
 ``backward`` / ``step`` over ``TransformerLM.apply``) at ZeRO stage 0 on
-one card, and its flash-attention forward and backward CUDA kernels.
+one card, and its flash-attention forward and backward CUDA kernels; and
+weight-only-quantized serving (``inference.quantization.quantize_model``
+into the paged engine) with its ``woq_matmul`` CUDA kernel.
 """
 
 __version__ = "0.1.0"

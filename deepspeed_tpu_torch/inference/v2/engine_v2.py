@@ -19,6 +19,8 @@ import torch
 
 from ...accelerator import resolve_device
 from ...models.transformer import sample_or_argmax
+from ...ops.quantizer.woq import group_of
+from ...ops.quantizer.woq_gemm import check_woq_config
 from ...ops.transformer.paged_attention import check_kernel_config
 from ...resilience.errors import (ContextOverflowError, EngineUsageError,
                                   PoolExhaustedError)
@@ -45,7 +47,8 @@ class InferenceEngineV2:
 
     Runs on ``device`` (default ``"cuda"``); without CUDA it raises unless
     ``device="cpu"`` is passed, which runs the plain attention. On CUDA the
-    model's attention shape must be one the paged-attention kernel takes;
+    model's attention shape must be one the paged-attention kernel takes,
+    and every weight-only-quantized leaf one the WOQ kernel takes;
     otherwise construction raises.
     """
 
@@ -84,6 +87,8 @@ class InferenceEngineV2:
             params = model.init_params(
                 torch.Generator(device=self.device).manual_seed(0))
         self.params = self._cast_params(params)
+        if self.device.type == "cuda":
+            self._check_woq_leaves()
         self.state = DSStateManager(max_seqs, self.max_seq_len)
         self.flush_noops = 0  # idempotent-flush debug counter (see flush())
         #: rows deferred out of a ragged dispatch because their blocks could
@@ -110,19 +115,34 @@ class InferenceEngineV2:
             ranks=[0],
         )
 
-    def _cast_params(self, params):
-        def cast(name, a):
+    def _cast_params(self, tree):
+        """Every leaf to the engine's device; float leaves to its dtype,
+        except weight-only-quantized leaves, which keep their storage dtype
+        (int8 codes, fp32 ``::scale``), as ``engine_v2.py:256-267``. A
+        method, not a recursive closure over ``self``: that closure would be
+        a reference cycle keeping a deleted engine's device memory until the
+        garbage collector runs."""
+        out = {}
+        for name, a in tree.items():
+            if isinstance(a, dict):
+                out[name] = self._cast_params(a)
+                continue
             a = torch.as_tensor(a)
-            if not a.is_floating_point():
-                raise _not_ported(f"non-float parameter '{name}' (weight-only "
-                                  "quantization)", "ROADMAP.md Queue 1 item 14")
-            return a.to(device=self.device, dtype=self.dtype)
+            if not a.is_floating_point() or name.endswith("::scale"):
+                out[name] = a.to(device=self.device)
+            else:
+                out[name] = a.to(device=self.device, dtype=self.dtype)
+        return out
 
-        def walk(tree):
-            return {k: walk(v) if isinstance(v, dict) else cast(k, v)
-                    for k, v in tree.items()}
-
-        return walk(params)
+    def _check_woq_leaves(self) -> None:
+        """Run the WOQ kernel's gate over every quantized leaf, stacked
+        (L, ng, packed, Out), so a tree the kernel cannot take raises here."""
+        for name, codes in self.params.get("blocks", {}).items():
+            if "::q" in name:
+                bits = int(name.rsplit("::q", 1)[1])
+                ng, packed, out = codes.shape[-3:]
+                group = group_of(bits, packed)
+                check_woq_config(ng * group, out, bits, group, self.dtype)
 
     def _cow(self, src: int, dst: int) -> None:
         """Copy-on-write: duplicate pool block ``src`` into ``dst`` in every

@@ -9,7 +9,9 @@ Ported: ``init_params``, ``init_kv_pool``, ``forward_paged`` (with
 ``n_valid`` and ``logit_rows``), greedy ``sample_or_argmax``, and the
 training path: ``apply`` (the next-token loss), ``logits`` and the cacheless
 block, whose attention goes through ``attention()`` (the flash kernels on
-the card). All for the branches the gpt2 and llama presets take: pre-LN;
+the card). ``forward_paged`` and ``logits`` take weight-only-quantized
+trees (``inference.quantization.quantize_model``): every ``::q{8,6,4}``
+projection runs through ``woq_matmul`` (the WOQ kernel on the card). All for the branches the gpt2 and llama presets take: pre-LN;
 learned or RoPE positions; LayerNorm (with its biases) or RMSNorm;
 tanh-GELU or SwiGLU; tied or untied head. Configurations that need anything
 else raise ``NotImplementedError`` naming the field: at construction, or
@@ -23,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..accelerator import resolve_device
+from ..ops.quantizer.woq_gemm import woq_matmul
 from ..ops.transformer.attention import attention as _attention_op
 from ..ops.transformer.paged_attention import paged_decode_attention
 from ..utils.tree import tree_leaves
@@ -33,6 +36,8 @@ _MOE_ITEM = "ROADMAP.md Queue 1 item 17, moe/"
 _SAMPLING_ITEM = "ROADMAP.md Queue 1 item 3, threefry sampling"
 _REMAT_ITEM = "ROADMAP.md Queue 1 item 17, activation checkpointing"
 _DATA_ITEM = "ROADMAP.md Queue 1 item 17, runtime/data_pipeline"
+_WOQ_TRAIN_ITEM = "ROADMAP.md Queue 1 item 14, training over a quantized tree"
+_WOQ_BITS = (8, 6, 4)
 
 
 @dataclass(frozen=True)
@@ -194,6 +199,24 @@ def _rope(q, k, positions, head_dim, theta):
     return rot(q), rot(k)
 
 
+def _project(h, blk, name: str):
+    """``h @ blk[name]`` for one projection: a float leaf as ``h @ w`` in
+    ``h``'s dtype; a weight-only-quantized one (``<name>::q{bits}`` with its
+    ``::scale``) through ``woq_matmul`` on ``h`` flattened to (rows, In),
+    fp32 out, cast back to ``h``'s dtype: the JAX block's
+    ``h @ _dequant_leaf(..., h.dtype)`` (``transformer.py:521, 537-539``)."""
+    w = blk.get(name)
+    if w is not None:
+        return h @ w.to(h.dtype)
+    for bits in _WOQ_BITS:
+        codes = blk.get(f"{name}::q{bits}")
+        if codes is not None:
+            lead = h.shape[:-1]
+            out = woq_matmul(h.reshape(-1, h.shape[-1]), codes, blk[f"{name}::scale"], bits)
+            return out.to(h.dtype).reshape(*lead, out.shape[-1])
+    raise KeyError(name)
+
+
 def _check_supported(cfg: TransformerConfig) -> None:
     unsupported = (
         ("pos_embedding", cfg.pos_embedding not in ("learned", "rope"), _MODEL_ITEM),
@@ -314,9 +337,9 @@ class TransformerLM:
         nh, kvh, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
         B, S, _ = x.shape
         h = _norm(x, blk["ln1_scale"], blk.get("ln1_bias"), cfg.norm, cfg.norm_eps)
-        q = (h @ blk["wq"].to(h.dtype)).reshape(B, S, nh, hd)
-        kk = (h @ blk["wk"].to(h.dtype)).reshape(B, S, kvh, hd)
-        v = (h @ blk["wv"].to(h.dtype)).reshape(B, S, kvh, hd)
+        q = _project(h, blk, "wq").reshape(B, S, nh, hd)
+        kk = _project(h, blk, "wk").reshape(B, S, kvh, hd)
+        v = _project(h, blk, "wv").reshape(B, S, kvh, hd)
         if cfg.pos_embedding == "rope":
             q, kk = _rope(q, kk, positions, hd, cfg.rope_theta)
         return q, kk, v
@@ -327,20 +350,20 @@ class TransformerLM:
         cfg = self.config
         B, S, _ = x.shape
         dt = x.dtype
-        attn_out = attn.reshape(B, S, cfg.num_heads * cfg.head_dim) @ blk["wo"].to(dt)
+        attn_out = _project(attn.reshape(B, S, cfg.num_heads * cfg.head_dim), blk, "wo")
         if "attn_bias" in blk:
             attn_out = attn_out + blk["attn_bias"].to(dt)
 
         x = x + attn_out
         h2 = _norm(x, blk["ln2_scale"], blk.get("ln2_bias"), cfg.norm, cfg.norm_eps)
         if cfg.activation == "swiglu":
-            inter = F.silu(h2 @ blk["w_gate"].to(dt)) * (h2 @ blk["w_up"].to(dt))
+            inter = F.silu(_project(h2, blk, "w_gate")) * _project(h2, blk, "w_up")
         else:  # tanh-approximated GELU, as jax.nn.gelu's default
-            up = h2 @ blk["w_up"].to(dt)
+            up = _project(h2, blk, "w_up")
             if "mlp_up_bias" in blk:
                 up = up + blk["mlp_up_bias"].to(dt)
             inter = F.gelu(up, approximate="tanh")
-        mlp_out = inter @ blk["w_down"].to(dt)
+        mlp_out = _project(inter, blk, "w_down")
         if "mlp_bias" in blk:
             mlp_out = mlp_out + blk["mlp_bias"].to(dt)
         return x + mlp_out
@@ -474,6 +497,10 @@ class TransformerLM:
         logits; the loss is the mean of ``logsumexp - gold`` over the
         labelled tokens.
         """
+        if any("::" in k for k in params.get("blocks", {})):
+            raise NotImplementedError(
+                "apply (training) over weight-only-quantized leaves is not ported: "
+                f"there is no gradient with respect to codes ({_WOQ_TRAIN_ITEM})")
         if isinstance(batch, dict):
             extra = sorted(set(batch) - {"input_ids", "labels", "positions"})
             if extra:

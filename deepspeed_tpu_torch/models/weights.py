@@ -5,6 +5,9 @@ as numpy arrays, into the port's parameter dictionary, so both packages
 compute the same function on the same weights. Both multiply ``x @ W``, so
 no leaf is transposed. The stacked ``(L, ...)`` block leaves stay stacked:
 the port's ``forward_paged`` reads layer ``i`` as the view ``leaf[i]``.
+Weight-only-quantized leaves (``<name>::q8|q6|q4`` int8 codes and
+``<name>::scale`` fp32 scales, ``ops/quantizer/woq.py``) come across bit
+for bit.
 """
 
 from typing import Any, Dict
@@ -12,24 +15,30 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-_WOQ_ITEM = "ROADMAP.md Queue 1 item 14, quantization"
+_WOQ_SUFFIXES = {"q8": np.int8, "q6": np.int8, "q4": np.int8, "scale": np.float32}
 
 
 def _to_tensor(name: str, a) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: reinterpret the bits
         return torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(torch.bfloat16)
-    if not np.issubdtype(a.dtype, np.floating):
-        raise NotImplementedError(
-            f"parameter '{name}' has dtype {a.dtype}: weight-only-quantized leaves "
-            f"are not ported ({_WOQ_ITEM})")
+    if "::" in name:
+        suffix = name.rsplit("::", 1)[1]
+        if suffix not in _WOQ_SUFFIXES or a.dtype != _WOQ_SUFFIXES[suffix]:
+            raise NotImplementedError(
+                f"parameter '{name}' ({a.dtype}) is not a weight-only-quantized leaf "
+                f"the port knows (::q8, ::q6, ::q4 int8 codes; ::scale float32)")
+    elif not np.issubdtype(a.dtype, np.floating):
+        raise NotImplementedError(f"parameter '{name}' has dtype {a.dtype}: only "
+                                  "floating leaves and quantized codes are ported")
     return torch.from_numpy(np.ascontiguousarray(a).copy())
 
 
 def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
     """Nested dict of tensors (the port's parameters, any device) -> nested
     dict of numpy arrays with the same keys, for comparisons with the JAX
-    package; bfloat16 leaves come back as float32 (numpy has no bfloat16)."""
+    package; bfloat16 leaves come back as float32 (numpy has no bfloat16),
+    int8 codes as int8."""
     out: Dict[str, Any] = {}
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -44,10 +53,5 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
     """Nested dict of numpy arrays (e.g. ``jax.tree.map(np.asarray, params)``)
     -> nested dict of CPU tensors with the same keys. The engine moves and
     casts them to its device and dtype."""
-    out: Dict[str, Any] = {}
-    for k, v in tree.items():
-        if "::" in k:
-            raise NotImplementedError(
-                f"parameter '{k}' is a weight-only-quantized leaf ({_WOQ_ITEM})")
-        out[k] = params_from_jax(v) if isinstance(v, dict) else _to_tensor(k, v)
-    return out
+    return {k: params_from_jax(v) if isinstance(v, dict) else _to_tensor(k, v)
+            for k, v in tree.items()}

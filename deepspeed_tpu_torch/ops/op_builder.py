@@ -102,7 +102,12 @@ class FlashAttentionBuilder(CUDAOpBuilder):
     SOURCE = os.path.join("csrc", "flash_attention.cu")
 
 
-ALL_BUILDERS = (PagedAttentionBuilder, FlashAttentionBuilder)
+class WoqGemmBuilder(CUDAOpBuilder):
+    NAME = "woq_gemm"
+    SOURCE = os.path.join("csrc", "woq_gemm.cu")
+
+
+ALL_BUILDERS = (PagedAttentionBuilder, FlashAttentionBuilder, WoqGemmBuilder)
 
 
 def build_all(verbose: bool = False) -> List[str]:

@@ -161,3 +161,21 @@ def test_sampling_with_temperature_raises(models):
         eng.set_sampling(2, Sampled())
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
         eng.swap_out(1)
+
+
+def test_deleted_engine_is_freed_without_the_garbage_collector(models):
+    # no reference cycle through the engine: its pool and weights leave the
+    # device as soon as the last reference goes, as a serving loop that
+    # swaps engines needs
+    import gc
+    import weakref
+
+    eng = torch_engine(models)
+    eng.put([1], [P1], greedy=True)
+    ref = weakref.ref(eng)
+    gc.disable()
+    try:
+        del eng
+        assert ref() is None
+    finally:
+        gc.enable()

@@ -28,7 +28,7 @@ print(" ".join(names))
 print(bad)
 """
 
-# the training slice's modules: each must be among those the probe imported
+# the training and WOQ slices' modules: each must be among those the probe imported
 _TRAINING_MODULES = {
     "deepspeed_tpu_torch.ops.transformer.attention",
     "deepspeed_tpu_torch.ops.transformer.flash_attention",
@@ -43,6 +43,10 @@ _TRAINING_MODULES = {
     "deepspeed_tpu_torch.runtime.engine",
     "deepspeed_tpu_torch.utils.timer",
     "deepspeed_tpu_torch.utils.tree",
+    # the WOQ serving slice
+    "deepspeed_tpu_torch.inference.quantization",
+    "deepspeed_tpu_torch.ops.quantizer.woq",
+    "deepspeed_tpu_torch.ops.quantizer.woq_gemm",
 }
 
 

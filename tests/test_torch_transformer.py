@@ -140,5 +140,11 @@ def test_params_from_jax_bfloat16_and_woq_leaves():
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.float().numpy(),
                                   np.asarray(a.astype(jnp.bfloat16).astype(jnp.float32)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 14"):
+    codes = np.arange(-128, 128, dtype=np.int8).reshape(2, 128, 1)
+    scale = np.full((2, 1, 1), 0.25, np.float32)
+    q = params_from_jax({"wq::q8": codes, "wq::scale": scale})
+    assert q["wq::q8"].dtype == torch.int8 and q["wq::scale"].dtype == torch.float32
+    np.testing.assert_array_equal(q["wq::q8"].numpy(), codes)
+    np.testing.assert_array_equal(q["wq::scale"].numpy(), scale)
+    with pytest.raises(NotImplementedError, match="weight-only-quantized leaf"):
         params_from_jax({"wq::codes": np.zeros((2, 2), np.int8)})

@@ -1,0 +1,204 @@
+"""The port's weight-only quantization and ``woq_matmul``.
+
+On the CPU, against the JAX package, on the same numpy inputs:
+
+- ``quantize_leaf`` / ``quantize_param_tree`` give the JAX package's codes
+  byte for byte and its scales exactly, for 4, 6 and 8 bits, with a group
+  that divides In and one that ``_group_size`` walks down to (a group that
+  is not a power of two); ``dequant_params`` agrees at atol 0, over every
+  byte value as well;
+- ``woq_matmul`` (its plain version on the CPU) matches the JAX Pallas
+  kernel in interpret mode at rtol 1e-5 / atol 1e-4, the JAX package's own
+  tolerance (``tests/unit/test_woq.py:169``).
+
+On a card (``cuda``-marked, skipped here): the CUDA kernel against the plain
+version. Both form each weight as ``code * scale`` in fp32, round it to x's
+dtype and sum products in fp32, so they differ only in the order of an fp32
+sum: rtol 1e-5 / atol 1e-4 for every x dtype. Run there with
+``python -m pytest --noconftest -m cuda tests/test_torch_woq.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu_torch.inference.quantization import quantize_model
+from deepspeed_tpu_torch.models import build_model, params_from_jax, params_to_numpy
+from deepspeed_tpu_torch.ops.quantizer import woq, woq_gemm
+
+# (In, Out, requested group): one group that divides In, one that the
+# quantizer walks down to (200 asks 128, gets 100 for int8/int4, 100 for int6)
+LEAF_CASES = [(256, 48, 128), (200, 40, 128), (384, 24, 96)]
+
+
+@pytest.fixture
+def jax_woq():
+    return pytest.importorskip("deepspeed_tpu.ops.quantizer.woq")
+
+
+@pytest.mark.parametrize("bits", [4, 6, 8])
+@pytest.mark.parametrize("In,Out,group", LEAF_CASES)
+def test_quantize_leaf_bytes_match_jax(bits, In, Out, group, jax_woq):
+    w = np.random.default_rng(bits).standard_normal((2, In, Out)).astype(np.float32)
+    w[1, :group] = 0.0  # an all-zero group: its scale becomes 1
+    jc, js = jax_woq.quantize_leaf(w, bits, group)
+    tc, ts = woq.quantize_leaf(torch.from_numpy(w), bits, group)
+    assert tc.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    want = jax_woq.dequant_params({"w::q%d" % bits: jc, "w::scale": js}, np.float32)["w"]
+    got = woq.dequant_params({"w::q%d" % bits: tc, "w::scale": ts}, torch.float32)["w"]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("bits", [4, 6, 8])
+def test_dequant_matches_jax_over_every_byte(bits, jax_woq):
+    import jax.numpy as jnp
+
+    # every byte value, several times, in random rows and columns
+    packed = {8: 256, 4: 256, 6: 768}[bits]
+    rng = np.random.default_rng(1)
+    codes = np.arange(packed * 3, dtype=np.int64).reshape(1, packed, 3)
+    codes = (rng.permutation(codes.size).reshape(codes.shape) % 256).astype(np.uint8)
+    codes = codes.view(np.int8)
+    scale = rng.uniform(0.5, 2.0, (1, 1, 3)).astype(np.float32)
+    want = jax_woq.dequant_params({"w::q%d" % bits: jnp.asarray(codes),
+                                   "w::scale": jnp.asarray(scale)}, np.float32)["w"]
+    got = woq.dequant_params({"w::q%d" % bits: torch.from_numpy(codes),
+                              "w::scale": torch.from_numpy(scale)}, torch.float32)["w"]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_unpack_every_byte_value_int4_sign_extension():
+    b = torch.arange(-128, 128, dtype=torch.int8).reshape(1, 256, 1)
+    w = woq._dequant_leaf(b, torch.ones(1, 1, 1), 4, torch.float32).reshape(256, 2)
+    ref = np.array([[((v & 15) ^ 8) - 8, v >> 4] for v in range(-128, 128)], np.float32)
+    np.testing.assert_array_equal(w.numpy(), ref)
+
+
+@pytest.mark.parametrize("bits", [4, 6, 8])
+def test_quantize_param_tree_matches_jax(bits, jax_woq):
+    import jax
+
+    from deepspeed_tpu.models import build_model as jax_build_model
+
+    kw = dict(vocab_size=64, hidden_size=64, num_layers=2, num_heads=4, num_kv_heads=2,
+              intermediate_size=96, max_seq_len=32)
+    jm = jax_build_model("llama-tiny", **kw)
+    jp = jax.tree.map(np.asarray, jm.init_params(jax.random.PRNGKey(0)))
+    jq = jax.tree.map(np.asarray, jax_woq.quantize_param_tree(jp, bits, 64))
+    _, tq = quantize_model(build_model("llama-tiny", **kw), params_from_jax(jp),
+                           num_bits=bits, group_size=64)
+    tq = params_to_numpy(tq)
+    assert sorted(tq["blocks"]) == sorted(jq["blocks"])
+    for k, v in jq["blocks"].items():
+        assert tq["blocks"][k].dtype == v.dtype, k
+        np.testing.assert_array_equal(tq["blocks"][k], v, err_msg=k)
+    np.testing.assert_array_equal(tq["wte"], jq["wte"])
+
+
+def test_quantize_param_tree_rejects_bad_bits_and_trees():
+    with pytest.raises(ValueError):
+        woq.quantize_param_tree({"blocks": {}}, num_bits=5)
+    with pytest.raises(ValueError):
+        woq.quantize_param_tree({"wte": torch.zeros(2, 2)})
+    with pytest.raises(ValueError):
+        woq._group_size(30, 16, 6)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 items 13 and 17"):
+        woq.quantized_tp_specs({}, {"blocks": {}})
+
+
+def _gemm_case(B, In, Out, group, bits, seed=0):
+    rng = np.random.default_rng(seed)
+    w = (0.02 * rng.standard_normal((In, Out))).astype(np.float32)
+    x = rng.standard_normal((B, In)).astype(np.float32)
+    codes, scale = woq.quantize_leaf(torch.from_numpy(w), bits, group)
+    return torch.from_numpy(x), codes, scale
+
+
+@pytest.mark.parametrize("bits", [4, 6, 8])
+@pytest.mark.parametrize("B", [1, 8, 37])
+@pytest.mark.parametrize("In,group", [(256, 128), (384, 96)])
+def test_woq_matmul_matches_jax_pallas_kernel(bits, B, In, group):
+    jax_gemm = pytest.importorskip("deepspeed_tpu.ops.quantizer.woq_gemm")
+    import jax.numpy as jnp
+
+    x, codes, scale = _gemm_case(B, In, 384, group, bits, seed=B)
+    assert woq.group_of(bits, codes.shape[1]) == group
+    ref = jax_gemm.woq_matmul(jnp.asarray(x.numpy()), jnp.asarray(codes.numpy()),
+                              jnp.asarray(scale.numpy()), bits)
+    before = woq_gemm.launches
+    out = woq_gemm.woq_matmul(x, codes, scale, bits)
+    assert woq_gemm.launches == before  # CPU tensors take the plain version
+    assert out.shape == (B, 384) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-4)
+
+
+def test_woq_matmul_rounds_the_weight_to_x_dtype():
+    x, codes, scale = _gemm_case(4, 256, 64, 128, 8)
+    xb = x.to(torch.bfloat16)
+    w = woq.dequant_params({"w::q8": codes, "w::scale": scale}, torch.bfloat16)["w"]
+    ref = xb.float() @ w.float()
+    torch.testing.assert_close(woq_gemm.woq_matmul(xb, codes, scale, 8), ref,
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_woq_matmul_rejects_mismatched_codes():
+    x, codes, scale = _gemm_case(2, 256, 64, 128, 8)
+    with pytest.raises(ValueError):
+        woq_gemm.woq_matmul(x[:, :128], codes, scale, 8)
+
+
+@pytest.mark.parametrize("In,Out,bits,group,dtype,ok", [
+    (4096, 11008, 8, 128, torch.bfloat16, True), (11008, 4096, 6, 128, torch.float32, True),
+    (200, 40, 4, 100, torch.float16, True), (4096, 4100, 8, 128, torch.bfloat16, False),
+    (4096, 4096, 8, 128, torch.float64, False), (4096, 4096, 6, 130, torch.bfloat16, False),
+    (4096, 4096, 5, 128, torch.bfloat16, False), (4096, 4096, 8, 96, torch.bfloat16, False),
+])
+def test_kernel_gate(In, Out, bits, group, dtype, ok):
+    if ok:
+        woq_gemm.check_woq_config(In, Out, bits, group, dtype)
+    else:
+        with pytest.raises(NotImplementedError):
+            woq_gemm.check_woq_config(In, Out, bits, group, dtype)
+
+
+@pytest.mark.parametrize("rows,In,Out,group", [
+    (1, 4096, 4096, 128), (8, 4096, 11008, 128), (8, 11008, 4096, 128),
+    (37, 4096, 4096, 128), (256, 4096, 11008, 128), (9, 200, 40, 100),
+])
+def test_plan_covers_k_exactly_once(rows, In, Out, group):
+    kind, splits, split_len = woq_gemm.plan(rows, In, Out, group)
+    assert kind == ("gemv" if rows <= woq_gemm.GEMV_MAX_ROWS else "tiled")
+    extent = In // group if kind == "gemv" else In
+    if kind == "tiled":
+        assert split_len % 32 == 0
+    # every split is non-empty and together they cover K
+    assert (splits - 1) * split_len < extent <= splits * split_len
+    assert splits >= 1
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("bits", [4, 6, 8])
+@pytest.mark.parametrize("B,In,Out,group", [(1, 512, 384, 128), (8, 384, 264, 96),
+                                            (37, 200, 40, 100), (256, 1024, 520, 64)])
+def test_cuda_kernel_matches_plain(B, In, Out, group, bits, dtype, cuda):
+    x, codes, scale = _gemm_case(B, In, Out, group, bits, seed=B)
+    x, codes, scale = x.to(cuda, dtype), codes.to(cuda), scale.to(cuda)
+    before = woq_gemm.launches
+    out = woq_gemm.woq_matmul(x, codes, scale, bits)
+    torch.cuda.synchronize()
+    assert woq_gemm.launches == before + 1
+    ref = woq_gemm.woq_matmul_plain(x, codes, scale, bits)
+    assert out.dtype == torch.float32 and out.shape == (B, Out)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4)
+    again = woq_gemm.woq_matmul(x, codes, scale, bits)
+    assert torch.equal(out, again)  # no atomics: repeated calls are bitwise equal
