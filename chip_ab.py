@@ -1,0 +1,87 @@
+#!/usr/bin/env python3
+"""Time the port's attention kernels of two checkouts on one NVIDIA GPU, in turns.
+
+    python3 chip_ab.py OLD NEW    # roots of two checkouts, e.g. a parent unpacked with git archive
+
+Runs four turns, OLD, NEW, NEW, OLD, each in a fresh process that imports
+``deepspeed_tpu_torch`` from its own checkout and builds that checkout's
+kernels there. A turn times, with ``chip_smoke.py``'s ``time_cuda`` (CUDA
+events behind a sleep kernel, the median of 25 after 5 warm-ups):
+
+- the flash forward and backward at the training shape (B 2, S 2048, 32
+  heads, head_dim 128, bf16, causal);
+- where the checkout has them, the block-sparse forward and backward at the
+  sparse path's shape (1, 8192, 32, 128) over the Fixed layout.
+
+It prints one JSON line per turn, then ``{"ab": ...}`` with each quantity's
+OLD and NEW times (the mean of each side's two turns). Nothing is checked
+against a reference here: ``chip_smoke.py`` does that.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def turn(root):
+    sys.path.insert(0, os.path.abspath(root))
+    import importlib.util
+
+    import torch
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    dev = torch.device("cuda", 0)
+    out = {"root": root}
+    q, k, v, do = cs.flash_case(2, 2048, 32, 32, 128, torch.bfloat16, dev, seed=5)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    out["flash_fwd_ms"] = cs.time_cuda(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
+    out["flash_bwd_ms"] = cs.time_cuda(
+        lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True))
+    if os.path.isdir(os.path.join(root, "deepspeed_tpu_torch", "ops", "sparse_attention")):
+        from deepspeed_tpu_torch.ops.sparse_attention import block_sparse_kernel as bs
+
+        layout = cs.sparse_path_layouts()["fixed"]._layout(cs.SPARSE_SHAPE[1])
+        q, k, v = (t.detach() for t in cs.sparse_inputs(dev, seed=1))
+        do = torch.randn_like(q)
+        kw = dict(causal=True)
+        o, lse = bs.block_sparse_attention_fwd(q, k, v, layout, cs.SPARSE_BLOCK, **kw)
+        out["sparse_fwd_ms"] = cs.time_cuda(
+            lambda: bs.block_sparse_attention_fwd(q, k, v, layout, cs.SPARSE_BLOCK, **kw))
+        out["sparse_bwd_ms"] = cs.time_cuda(lambda: bs.block_sparse_attention_bwd(
+            q, k, v, o, lse, do, layout, cs.SPARSE_BLOCK, **kw))
+    print(json.dumps(out), flush=True)
+
+
+def main(old, new):
+    runs = []
+    for label, root in (("old", old), ("new", new), ("new", new), ("old", old)):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--turn", root],
+                              cwd=root, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise SystemExit(f"turn {label} ({root}) failed:\n{proc.stderr[-4000:]}")
+        r = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps(dict(r, side=label)), flush=True)
+        runs.append((label, r))
+    ab = {}
+    for key in sorted({k for _, r in runs for k in r if k.endswith("_ms")}):
+        for side in ("old", "new"):
+            vals = [r[key] for s, r in runs if s == side and key in r]
+            if vals:
+                ab.setdefault(key, {})[side] = sum(vals) / len(vals)
+    print(json.dumps({"ab": ab}), flush=True)
+
+
+if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--turn":
+        turn(sys.argv[2])
+    elif len(sys.argv) == 3:
+        main(sys.argv[1], sys.argv[2])
+    else:
+        raise SystemExit(__doc__)

@@ -70,6 +70,31 @@ d. the flash kernels at the main path's shape timed with CUDA events beside
    their plain versions, ``scaled_dot_product_attention`` (forward, and the
    backward of its graph) and their bounds.
 
+Then block-sparse attention:
+
+s1. the block-sparse forward (out, lse) and backward (dq, dk, dv) kernels
+    against their plain versions, bf16 and fp32: Fixed and BigBird at
+    llama-7b's heads (S 2048), BSLongformer and Variable (random blocks)
+    with GQA 2 at head_dim 64 and 256, per-head Fixed patterns with
+    horizontal globals, a layout with empty query blocks (causal and not)
+    and block 256; tolerances as in phase a; each backward run twice and
+    held bitwise equal;
+s2. the sparse path: ``SparseSelfAttention`` over
+    ``FixedSparsityConfig(num_local_blocks=4, num_global_blocks=1,
+    attention="unidirectional")`` and ``BigBirdSparsityConfig()`` at
+    llama-7b's heads, bf16 (1, 8192, 32, 128) q, k, v from a seeded
+    generator, 3 forward + backward iterations each under
+    ``loss = (out.float() ** 2).sum()``. The counts are set to 0 just
+    before and read just after: 3 + 3 launches per op. Outputs, losses and
+    gradients must be finite, and heads 0-3 agree with the plain version
+    on the 4-head slice (the plain version at 32 heads would need 8.6 GB a
+    score tensor);
+s3. each op's kernels at that shape timed with CUDA events beside the plain
+    version (4-head slice, scaled by 8), ``scaled_dot_product_attention``
+    with the layout as a boolean mask (and its backward), dense SDPA at the
+    same shape (causal for Fixed) and the bounds, on a
+    ``{"sparse_summary": ...}`` line.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -826,6 +851,266 @@ def flash_timing(fa, dev):
                       "bwd_flops": bwd_flops}
 
 
+SPARSE_SHAPE = (1, 8192, 32, 128)  # B, S, heads, head_dim: llama-7b's attention width
+SPARSE_BLOCK = 128
+
+
+def sparse_path_layouts():
+    """The sparse path's two ``SparseSelfAttention`` ops at llama-7b's heads."""
+    from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig,
+                                                          FixedSparsityConfig,
+                                                          SparseSelfAttention)
+
+    nh = SPARSE_SHAPE[2]
+    return {
+        "fixed": SparseSelfAttention(FixedSparsityConfig(
+            num_heads=nh, block=SPARSE_BLOCK, num_local_blocks=4, num_global_blocks=1,
+            attention="unidirectional")),
+        "bigbird": SparseSelfAttention(BigBirdSparsityConfig(num_heads=nh, block=SPARSE_BLOCK)),
+    }
+
+
+def sparse_inputs(dev, seed=0):
+    """bf16 q, k, v of the sparse path, from a seeded generator on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(SPARSE_SHAPE, device=dev, generator=gen).to(torch.bfloat16)
+                 .requires_grad_() for _ in range(3))
+
+
+def _empty_rows_layout(nh, n):
+    """A window of 2 blocks per query block, with every third query block of
+    each head (offset by the head) left empty."""
+    lay = np.zeros((nh, n, n), bool)
+    for h in range(nh):
+        for i in range(n):
+            if (i + h) % 3 != 2:
+                lay[h, i, max(0, i - 1):i + 1] = True
+                lay[h, i, (i + 3) % n] = True
+    return lay
+
+
+def sparse_grad_check(grads, ref_grads, dtype):
+    """Gradients as in phase a: bf16 at 1e-2 of their max; fp32 at 1e-5 of
+    max(1, their max). Returns the max abs error."""
+    tol, floor = (1e-5, 1.0) if dtype == torch.float32 else (1e-2, 0.0)
+    worst = 0.0
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref_grads):
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{name} shape/dtype {tuple(got.shape)}/{got.dtype}")
+        check(torch.isfinite(got.float()).all().item(), f"non-finite {name}")
+        r = rel_err(got, want, floor)
+        check(r <= tol, f"{name}: max err {r:.3g} of max({floor}, its max) > {tol}")
+        worst = max(worst, float((got.float() - want.float()).abs().max()))
+    return worst
+
+
+def sparse_kernels_vs_plain(bs, dev):
+    """Phase s1: the block-sparse kernels against their plain versions.
+    Returns the worst (forward, backward) max abs errors."""
+    from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as sc
+
+    cases = (  # label, layout, S, kv heads, head_dim, causal
+        ("Fixed local 4 global 1, llama-7b heads",
+         sc.FixedSparsityConfig(num_heads=32, block=128, num_local_blocks=4,
+                                attention="unidirectional").make_layout(2048), 2048, 32, 128, True),
+        ("BigBird, llama-7b heads",
+         sc.BigBirdSparsityConfig(num_heads=32, block=128).make_layout(2048), 2048, 32, 128, False),
+        ("BSLongformer, GQA 2, hd 64",
+         sc.BSLongformerSparsityConfig(num_heads=8, block=128, global_block_indices=[0, 9])
+         .make_layout(2048), 2048, 4, 64, False),
+        ("Variable with random blocks, GQA 2, hd 256",
+         sc.VariableSparsityConfig(num_heads=8, block=128, num_random_blocks=2,
+                                   local_window_blocks=[1, 2, 4], global_block_indices=[0, 3],
+                                   attention="unidirectional").make_layout(1024),
+         1024, 4, 256, True),
+        ("Fixed per-head globals, horizontal, GQA 2",
+         sc.FixedSparsityConfig(num_heads=8, block=128, different_layout_per_head=True,
+                                num_different_global_patterns=4,
+                                horizontal_global_attention=True).make_layout(2048),
+         2048, 4, 128, False),
+        ("empty query blocks", _empty_rows_layout(4, 8), 1024, 2, 128, True),
+        ("empty query blocks", _empty_rows_layout(4, 8), 1024, 4, 64, False),
+        ("block 256", sc.FixedSparsityConfig(num_heads=8, block=256, num_local_blocks=2)
+         .make_layout(2048), 2048, 8, 128, True),
+    )
+    worst_f = worst_b = 0.0
+    for label, layout, S, kvh, hd, causal in cases:
+        nh = layout.shape[0]
+        block = S // layout.shape[1]
+        g = nh // kvh
+        kw = dict(causal=causal, num_kv_groups=g)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = flash_case(1, S, nh, kvh, hd, dtype, dev, seed=S + hd)
+            out, lse = bs.block_sparse_attention_fwd(q, k, v, layout, block, **kw)
+            grads = bs.block_sparse_attention_bwd(q, k, v, out, lse, do, layout, block, **kw)
+            again = bs.block_sparse_attention_bwd(q, k, v, out, lse, do, layout, block, **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                  f"{label}: a repeated backward is not bitwise equal")
+            ref_out, ref_lse = bs.block_sparse_attention_plain(q, k, v, layout, block, **kw)
+            ref_grads = bs.block_sparse_attention_bwd_plain(q, k, v, ref_out, ref_lse, do,
+                                                            layout, block, **kw)
+            fe = max(compare(out, ref_out, dtype), compare(lse, ref_lse, dtype))
+            be = sparse_grad_check(grads, ref_grads, dtype)
+            worst_f, worst_b = max(worst_f, fe), max(worst_b, be)
+            log(f"kernel vs plain: block-sparse attention {label} S={S} nh={nh} kvh={kvh} "
+                f"hd={hd} block={block} causal={causal} {str(dtype)[6:]}: fwd max_abs_err "
+                f"{fe:.3g}, bwd max_abs_err {be:.3g}, backward bitwise repeatable ok")
+    return worst_f, worst_b
+
+
+def sparse_main_path(bs, fa, dev):
+    """Phase s2: ``SparseSelfAttention`` over the Fixed and BigBird layouts
+    at llama-7b's heads, 3 forward + backward iterations each through the
+    public call and autograd. The counts are set to 0 just before and read
+    just after; then each op's first 4 heads are checked against the plain
+    version on the 4-head slice. Returns (launches, errors, per-op stats)."""
+    ops = sparse_path_layouts()
+    q, k, v = sparse_inputs(dev)
+    B, S, nh, hd = SPARSE_SHAPE
+    stats, runs = {}, {}
+    f0 = (fa.fwd_launches, fa.bwd_launches)
+    bs.fwd_launches = bs.bwd_launches = 0  # every count of the path, just before
+    for name, sa in ops.items():
+        n0, ms = (bs.fwd_launches, bs.bwd_launches), []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = sa(q, k, v)
+            loss = (out.float() ** 2).sum()
+            grads = torch.autograd.grad(loss, (q, k, v))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        runs[name] = (out.detach(), grads, float(loss.detach()))
+        stats[name] = {"launches": [bs.fwd_launches - n0[0], bs.bwd_launches - n0[1]],
+                       "fwd_bwd_ms": ms}
+    torch.cuda.synchronize()
+    launches = {"fwd": bs.fwd_launches, "bwd": bs.bwd_launches}  # read just after
+    check(launches == {"fwd": 6, "bwd": 6}
+          and all(st["launches"] == [3, 3] for st in stats.values()),
+          f"block-sparse launches {launches}, per op "
+          f"{ {n: st['launches'] for n, st in stats.items()} }: expected 3 + 3 per op")
+    check((fa.fwd_launches, fa.bwd_launches) == f0, "the sparse path launched flash kernels")
+
+    errs = [0.0, 0.0]
+    qs, ks, vs = (t.detach()[:, :, :4] for t in (q, k, v))
+    for name, sa in ops.items():
+        out, grads, loss = runs[name]
+        check(np.isfinite(loss) and torch.isfinite(out.float()).all().item()
+              and all(torch.isfinite(g.float()).all().item() for g in grads),
+              f"{name}: non-finite output, loss or gradient")
+        layout = sa._layout(S)[:4]
+        causal = sa.config.attention == "unidirectional"
+        ref_out, ref_lse = bs.block_sparse_attention_plain(qs, ks, vs, layout, SPARSE_BLOCK,
+                                                           causal=causal)
+        errs[0] = max(errs[0], compare(out[:, :, :4], ref_out, torch.bfloat16))
+        do = (2 * out.float()).to(out.dtype)[:, :, :4]  # d loss / d out, as autograd gave it
+        ref_grads = bs.block_sparse_attention_bwd_plain(qs, ks, vs, ref_out, ref_lse, do,
+                                                        layout, SPARSE_BLOCK, causal=causal)
+        errs[1] = max(errs[1], sparse_grad_check([g[:, :, :4] for g in grads], ref_grads,
+                                                 torch.bfloat16))
+        del ref_out, ref_lse, ref_grads
+        torch.cuda.empty_cache()
+        log(f"sparse main path ({name}, bf16 {SPARSE_SHAPE}): 3 fwd + bwd, launches "
+            f"{stats[name]['launches']}, loss {loss:.6g}, fwd+bwd ms "
+            f"{[round(x, 3) for x in stats[name]['fwd_bwd_ms']]}; heads 0-3 vs plain ok")
+    return launches, errs, stats
+
+
+def sparse_timing(bs, dev):
+    """Phase s3: each op's kernels at the path's shape, timed with CUDA events
+    beside the plain version (on the 4-head slice, scaled by 8), SDPA with
+    the layout as a boolean mask (and its backward), dense SDPA at the same
+    shape, and the bounds."""
+    import torch.nn.functional as F
+
+    B, S, nh, hd = SPARSE_SHAPE
+    blk, dtype = SPARSE_BLOCK, torch.bfloat16
+    q, k, v = (t.detach() for t in sparse_inputs(dev, seed=1))
+    do = torch.randn(SPARSE_SHAPE, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(2)).to(dtype)
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+    elt = q.element_size()
+    results = {}
+    for name, sa in sparse_path_layouts().items():
+        layout = sa._layout(S)
+        causal = sa.config.attention == "unidirectional"
+        kw = dict(causal=causal)
+        out, lse = bs.block_sparse_attention_fwd(q, k, v, layout, blk, **kw)
+        fwd_ms = time_cuda(lambda: bs.block_sparse_attention_fwd(q, k, v, layout, blk, **kw))
+        bwd_ms = time_cuda(lambda: bs.block_sparse_attention_bwd(q, k, v, out, lse, do, layout,
+                                                                 blk, **kw))
+        q4, k4, v4, o4, do4 = (t[:, :, :4] for t in (q, k, v, out, do))
+        lay4, lse4 = layout[:4], lse[:, :4]
+        ref4, _ = bs.block_sparse_attention_plain(q4, k4, v4, lay4, blk, **kw)
+        plain_fwd_ms = nh / 4 * time_cuda(
+            lambda: bs.block_sparse_attention_plain(q4, k4, v4, lay4, blk, **kw),
+            warmup=2, iters=5)
+        plain_bwd_ms = nh / 4 * time_cuda(
+            lambda: bs.block_sparse_attention_bwd_plain(q4, k4, v4, o4, lse4, do4, lay4, blk,
+                                                        **kw), warmup=2, iters=5)
+        # the library yardstick: SDPA with the layout expanded to a boolean mask
+        lay_t = torch.from_numpy(layout).to(dev)
+        mask = lay_t.repeat_interleave(blk, 1).repeat_interleave(blk, 2)
+        if causal:
+            mask &= torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+        mask = mask[None]
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        compare(lib_out.transpose(1, 2)[:, :, :4], ref4, dtype)
+        del lib_out, ref4
+        lib_fwd_ms = time_cuda(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                       attn_mask=mask))
+        lib_graph = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+        lib_bwd_ms = time_cuda(lambda: torch.autograd.grad(lib_graph, (qg, kg, vg), dot,
+                                                           retain_graph=True))
+        del lib_graph, mask
+        dense_fwd_ms = time_cuda(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                         is_causal=causal))
+        dense_graph = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        dense_bwd_ms = time_cuda(lambda: torch.autograd.grad(dense_graph, (qg, kg, vg), dot,
+                                                             retain_graph=True))
+        del dense_graph
+        torch.cuda.empty_cache()
+
+        # bounds: the visited block pairs (a diagonal block under causal
+        # counts half) at the bf16 tensor-core peak, against q, k, v, o, lse
+        # (and do, dq, dk, dv) and the block lists, each moved once
+        lists = bs._device_lists(layout, causal, 1, q.device)
+        lay_c = layout & np.tril(np.ones(layout.shape[1:], bool)) if causal else layout
+        pairs = int(lay_c.sum())
+        diag = int(np.einsum("hii->", lay_c.astype(np.int64))) if causal else 0
+        eff_pairs = pairs - diag / 2
+        fwd_flops = B * eff_pairs * 4 * blk * blk * hd
+        bwd_flops = B * eff_pairs * 10 * blk * blk * hd  # S recomputed, dP, dV, dK, dQ
+        list_bytes = {d: sum(t.numel() * 4 for t in ts) for d, ts in (
+            ("fwd", (lists.kcnt, lists.kidx, lists.q_order)), ("bwd", lists[:6]))}
+        fwd_bytes = 4 * q.numel() * elt + lse.numel() * 4 + list_bytes["fwd"]
+        bwd_bytes = 8 * q.numel() * elt + lse.numel() * 4 + list_bytes["bwd"]
+        kcnt = lists.kcnt.cpu().numpy()
+        r = {"causal": causal, "active_pairs": pairs, "density": pairs / layout.size,
+             "row_blocks_min_max": [int(kcnt.min()), int(kcnt.max())],
+             "col_blocks_max": int(lists.qcnt.max()), "dense_sdpa_fwd_ms": dense_fwd_ms,
+             "dense_sdpa_bwd_ms": dense_bwd_ms}
+        for d, ms, plain, lib, flops, nbytes in (
+                ("fwd", fwd_ms, plain_fwd_ms, lib_fwd_ms, fwd_flops, fwd_bytes),
+                ("bwd", bwd_ms, plain_bwd_ms, lib_bwd_ms, bwd_flops, bwd_bytes)):
+            t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            r[d] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                    "bound_ms": max(t_ops, t_bytes),
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                    "flops": flops, "bytes": nbytes}
+        results[name] = r
+        log(f"block-sparse {name} (bf16 {SPARSE_SHAPE}, {pairs} pairs, density "
+            f"{r['density']:.4f}): fwd {fwd_ms:.4f} ms (bound {r['fwd']['bound_ms']:.4f}, "
+            f"plain {plain_fwd_ms:.4f}, masked SDPA {lib_fwd_ms:.4f}, dense SDPA "
+            f"{dense_fwd_ms:.4f}); bwd {bwd_ms:.4f} ms (bound {r['bwd']['bound_ms']:.4f}, "
+            f"plain {plain_bwd_ms:.4f}, masked SDPA {lib_bwd_ms:.4f}, dense SDPA "
+            f"{dense_bwd_ms:.4f})")
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: this script needs an "
@@ -837,6 +1122,7 @@ def main():
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.ops.op_builder import build_all
     from deepspeed_tpu_torch.ops.quantizer import woq_gemm as wq
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse_kernel as bs
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
     from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
 
@@ -899,7 +1185,21 @@ def main():
     fwd, bwd, extra = flash_timing(fa, dev)
     train_summary["flash"] = {"fwd": fwd, "bwd": bwd, **extra}
     log(json.dumps({"train_summary": train_summary}))
+
+    sparse_fe, sparse_be = sparse_kernels_vs_plain(bs, dev)
+    sparse_launches, path_errs, path_stats = sparse_main_path(bs, fa, dev)
+    sparse_times = sparse_timing(bs, dev)
+    for name, st in path_stats.items():
+        sparse_times[name]["path"] = st
+    log(json.dumps({"sparse_summary": {"shape": list(SPARSE_SHAPE), "block": SPARSE_BLOCK,
+                                       "dtype": "bfloat16", "launches": sparse_launches,
+                                       **sparse_times}}))
+    sparse_k = {d: dict(sparse_times["fixed"][d], max_abs_err=max(e1, e2))
+                for d, e1, e2 in (("fwd", sparse_fe, path_errs[0]),
+                                  ("bwd", sparse_be, path_errs[1]))}
     flash_src = "deepspeed_tpu_torch/csrc/flash_attention.cu"
+    sparse_src = "deepspeed_tpu_torch/csrc/block_sparse_attention.cu"
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [
         dict(name="paged_decode_attention", route="cuda",
              source="deepspeed_tpu_torch/csrc/paged_attention.cu",
@@ -918,6 +1218,13 @@ def main():
              max_abs_err=max(woq_worst, max(r["max_abs_err"] for r in woq_times)),
              **{k: woq_k[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")}),
+        # the Fixed layout's numbers; BigBird's are on the sparse_summary line
+        dict(name="block_sparse_attention_fwd", route="cuda", source=sparse_src,
+             replaces="deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py:64",
+             launches=sparse_launches["fwd"], **{k: sparse_k["fwd"][k] for k in keys}),
+        dict(name="block_sparse_attention_bwd", route="cuda", source=sparse_src,
+             replaces="deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py:99,131",
+             launches=sparse_launches["bwd"], **{k: sparse_k["bwd"][k] for k in keys}),
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -5,11 +5,13 @@ point. ``CUDAOpBuilder`` compiles it with ``nvcc`` for Hopper (``sm_90a``)
 into a shared library, at first use, and loads it with ``ctypes``. No
 PyTorch header is compiled, so a build takes seconds, not minutes. The
 library lands in ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``), under a name that carries the hash of the source and the
-flags: an edited source builds anew, an unchanged one is loaded as it is.
+``.gitignore``), under a name that carries the hash of the source, the
+headers of ``csrc/`` it may include and the flags: an edited source or
+header builds anew, an unchanged one is loaded as it is.
 """
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -59,8 +61,10 @@ class CUDAOpBuilder:
 
     def lib_path(self) -> str:
         h = hashlib.sha256(" ".join(self.nvcc_flags()).encode())
-        with open(self.source_path(), "rb") as f:
-            h.update(f.read())
+        headers = sorted(glob.glob(os.path.join(_PKG_ROOT, "csrc", "*.cuh")))
+        for path in [self.source_path()] + headers:
+            with open(path, "rb") as f:
+                h.update(f.read())
         return os.path.join(_BUILD_DIR, f"lib{self.NAME}-{h.hexdigest()[:16]}.so")
 
     def build(self, verbose: bool = False) -> str:
@@ -107,7 +111,13 @@ class WoqGemmBuilder(CUDAOpBuilder):
     SOURCE = os.path.join("csrc", "woq_gemm.cu")
 
 
-ALL_BUILDERS = (PagedAttentionBuilder, FlashAttentionBuilder, WoqGemmBuilder)
+class BlockSparseAttentionBuilder(CUDAOpBuilder):
+    NAME = "block_sparse_attention"
+    SOURCE = os.path.join("csrc", "block_sparse_attention.cu")
+
+
+ALL_BUILDERS = (PagedAttentionBuilder, FlashAttentionBuilder, WoqGemmBuilder,
+                BlockSparseAttentionBuilder)
 
 
 def build_all(verbose: bool = False) -> List[str]:

@@ -28,7 +28,7 @@ print(" ".join(names))
 print(bad)
 """
 
-# the training and WOQ slices' modules: each must be among those the probe imported
+# the training, WOQ and sparse-attention slices' modules: each must be among those the probe imported
 _TRAINING_MODULES = {
     "deepspeed_tpu_torch.ops.transformer.attention",
     "deepspeed_tpu_torch.ops.transformer.flash_attention",
@@ -47,6 +47,11 @@ _TRAINING_MODULES = {
     "deepspeed_tpu_torch.inference.quantization",
     "deepspeed_tpu_torch.ops.quantizer.woq",
     "deepspeed_tpu_torch.ops.quantizer.woq_gemm",
+    # the block-sparse attention slice
+    "deepspeed_tpu_torch.ops.sparse_attention",
+    "deepspeed_tpu_torch.ops.sparse_attention.sparsity_config",
+    "deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel",
+    "deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention",
 }
 
 
