@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's attention kernels of two checkouts on one NVIDIA GPU, in turns.
+"""Time the port's attention and fused-CE kernels of two checkouts on one NVIDIA GPU, in turns.
 
     python3 chip_ab.py OLD NEW    # roots of two checkouts, e.g. a parent unpacked with git archive
 
@@ -11,7 +11,10 @@ events behind a sleep kernel, the median of 25 after 5 warm-ups):
 - the flash forward and backward at the training shape (B 2, S 2048, 32
   heads, head_dim 128, bf16, causal);
 - where the checkout has them, the block-sparse forward and backward at the
-  sparse path's shape (1, 8192, 32, 128) over the Fixed layout.
+  sparse path's shape (1, 8192, 32, 128) over the Fixed layout;
+- where the checkout has them, the fused-CE forward (with the residual) and
+  backward at llama-7b's head (N 4096, H 4096, V 32000, bf16) and at
+  gpt2-6.7b's tied head (V 50304).
 
 It prints one JSON line per turn, then ``{"ab": ...}`` with each quantity's
 OLD and NEW times (the mean of each side's two turns). Nothing is checked
@@ -56,10 +59,23 @@ def turn(root):
             lambda: bs.block_sparse_attention_fwd(q, k, v, layout, cs.SPARSE_BLOCK, **kw))
         out["sparse_bwd_ms"] = cs.time_cuda(lambda: bs.block_sparse_attention_bwd(
             q, k, v, o, lse, do, layout, cs.SPARSE_BLOCK, **kw))
+    if os.path.isfile(os.path.join(root, "deepspeed_tpu_torch", "ops", "transformer",
+                                   "fused_ce.py")):
+        from deepspeed_tpu_torch.ops.transformer import fused_ce as fc
+
+        for label, (N, H, V) in (("ce_llama", cs.CE_MAIN), ("ce_gpt2", cs.CE_GPT2)):
+            x, w, labels, g = cs.ce_path_inputs(N, H, V, dev, seed=1)
+            lg, lse, _ = fc.fused_ce_fwd(x, w, labels)
+            out[f"{label}_fwd_ms"] = cs.time_cuda(lambda: fc.fused_ce_fwd(x, w, labels))
+            out[f"{label}_bwd_ms"] = cs.time_cuda(
+                lambda: fc.fused_ce_bwd(lg, lse, labels, g, x, w))
+            del x, w, lg
+            torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
 
 
 def main(old, new):
+    old, new = os.path.abspath(old), os.path.abspath(new)  # each turn runs in its root
     runs = []
     for label, root in (("old", old), ("new", new), ("new", new), ("old", old)):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--turn", root],

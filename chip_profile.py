@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time of the port's paged serving steps (bf16 and int8 WOQ) and training step goes, on one NVIDIA GPU.
+"""Where the time of the port's paged serving steps (bf16 and int8 WOQ), training step, block-sparse attention and fused cross-entropy goes, on one NVIDIA GPU.
 
     python3 chip_profile.py      # from the root of a checkout, one CUDA card
 
@@ -33,15 +33,21 @@ optimizer update alone (``step_fn``'s unscale, norm, clip, AdamW and cast
 back), traced in a window of its own, which splits the rest into the
 optimizer and the model's elementwise work.
 
-Last, one forward and backward of ``chip_smoke.py``'s block-sparse path
+Then one forward and backward of ``chip_smoke.py``'s block-sparse path
 (``SparseSelfAttention`` over the Fixed layout, bf16 (1, 8192, 32, 128))
 traced, grouped into the block-sparse forward and backward kernels and the
-rest. Nothing here is checked against a reference: ``chip_smoke.py`` does
-that.
+rest.
+
+Last, one forward and backward of ``chip_smoke.py``'s fused cross-entropy
+path (``fused_ce_loss`` at llama-7b's head, bf16 x (4096, 4096), W (32000,
+4096), then ``autograd.grad``) traced, with a group for each of its five
+kernels (forward, combine, dlogits, dX, dW). Nothing here is checked
+against a reference: ``chip_smoke.py`` does that.
 """
 
 import json
 import os
+import re
 import sys
 import time
 
@@ -53,6 +59,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 def _group(name: str) -> str:
     n = name.lower()
+    ce = re.search(r"ce_(fwd|combine|dlogits|bwd_dx|bwd_dw)_kernel", n)
+    if ce:  # the fused cross-entropy kernels, one group each
+        return "fused_" + ce.group(0)
     if "woq_" in n:
         return "woq_matmul"
     if "paged_decode_kernel" in n:
@@ -141,6 +150,7 @@ def main():
     woq_profile(pa, dev)
     train_profile(dev)
     sparse_profile(dev)
+    ce_profile(dev)
 
 
 def woq_profile(pa, dev):
@@ -214,6 +224,24 @@ def sparse_profile(dev):
 
     fwd_bwd()
     profile(fwd_bwd, "block-sparse fwd + bwd (Fixed, bf16 1 x 8192 x 32 x 128)", steps=1)
+
+
+def ce_profile(dev):
+    """One forward and backward of the fused cross-entropy path at llama-7b's
+    head, after one warm-up."""
+    import chip_smoke
+    from deepspeed_tpu_torch.ops.transformer import fused_ce as fc
+
+    x, w, labels, g = chip_smoke.ce_path_inputs(*chip_smoke.CE_MAIN, dev)
+    x.requires_grad_()
+    w.requires_grad_()
+
+    def fwd_bwd():
+        nll = fc.fused_ce_loss(x, w, labels)
+        torch.autograd.grad((nll * g).sum(), (x, w))
+
+    fwd_bwd()
+    profile(fwd_bwd, "fused CE fwd + bwd (llama-7b head, bf16 N 4096 H 4096 V 32000)", steps=1)
 
 
 def kernel_rows(pa, real_pool, cfg, dev):

@@ -95,6 +95,35 @@ s3. each op's kernels at that shape timed with CUDA events beside the plain
     same shape (causal for Fixed) and the bounds, on a
     ``{"sparse_summary": ...}`` line.
 
+Then fused linear cross-entropy (``fused_ce_loss``):
+
+ce1. the fused-CE forward (lg, lse, nll) and backward (dx, dw) kernels
+     against their plain versions, fp32, bf16 and fp16, at (N, H, V) of
+     (256, 128, 768), (2560, 128, 640) (a vocab not a multiple of the
+     forward's chunk), (256, 8192, 256) (the gate's H edge) and llama-7b's
+     head (4096, 4096, 32000), labels including -1 and V, the forward also
+     without the residual: lse and nll at atol 1e-4; lg, dx and dw in
+     16 bits elementwise at rtol x (|ref| + median |ref|), rtol 1e-2 for
+     bf16 and 2e-3 for fp16 (one rounding each way); fp32 lg at atol 1e-4,
+     fp32 dx and dw at 1e-5 of max(1, their max); each forward and backward
+     run twice and held bitwise equal. At the main shape the 16-bit grads
+     check must also reject two planted faults fed to the real backward
+     kernels: every p zeroed (lse + 1e4) and p from the next row's lse;
+ce2. the path: ``fused_ce_loss`` at llama-7b's head, bf16 x (4096, 4096)
+     with RMS-normalised rows, W (32000, 4096) ~ N(0, 0.02^2), int32 labels
+     and an fp32 g from a seeded generator, 3 iterations of the loss and
+     ``autograd.grad((nll * g).sum(), (x, w))``. Every count is set to 0
+     just before and read just after: 3 + 3 fused-CE launches, no other
+     kernel. nll, lg, dx and dw finite and within ce1's tolerances of the
+     plain versions (the backward's on the forward kernel's residual, as in
+     ce1), and the planted faults rejected there too; then one call under ``torch.no_grad()`` whose peak memory
+     rise stays below the (N, V) bf16 residual's bytes;
+ce3. the kernels at that shape and at gpt2-6.7b's tied head (V 50304)
+     timed with CUDA events beside the plain versions, the unfused path a
+     caller takes when ``fused_ce_loss`` raises (``F.linear``, fp32
+     ``logsumexp`` minus the gold logit, and that graph's backward) and the
+     bounds, on a ``{"ce_summary": ...}`` line.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1111,6 +1140,268 @@ def sparse_timing(bs, dev):
     return results
 
 
+CE_CASES = ((256, 128, 768), (2560, 128, 640), (256, 8192, 256), (4096, 4096, 32000))  # N, H, V
+CE_MAIN = (4096, 4096, 32000)  # llama-7b's head at the training slice's 2 x 2048 batch
+CE_GPT2 = (4096, 4096, 50304)  # gpt2-6.7b's tied head (vocab padded to 50304)
+CE_NLL_ATOL = 1e-4  # lse, nll: sums of exact (16-bit) products in fp32, in another order
+
+
+def ce_case(N, H, V, dtype, dev, seed=0):
+    """x, w (rows ~ N(0, 1.5^2 / H)), labels with -1 and V among them, fp32 g."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(N, H, device=dev, generator=gen).to(dtype)
+    w = (torch.randn(V, H, device=dev, generator=gen) * (1.5 / H ** 0.5)).to(dtype)
+    labels = torch.randint(0, V, (N,), device=dev, generator=gen, dtype=torch.int32)
+    labels[:2] = torch.tensor([-1, V], dtype=torch.int32)
+    g = torch.randn(N, device=dev, generator=gen)
+    return x, w, labels, g
+
+
+# 16-bit outputs, held elementwise: |err| <= rtol x (|ref| + median |ref|).
+# Kernel and plain version form the same fp32 values up to the order of
+# their sums, then round once to 16 bits, so an element may round the other
+# way: one ulp, at most 2^-7 of it in bf16 and 2^-10 in fp16. The median
+# term covers elements near 0, where the sums' order shows. Not held against
+# the tensor's max: dW's label rows (|g x| up to ~16) and dX's -g W[label]
+# term lie 10-100x above the softmax terms p g x and p g W that the check
+# must see.
+CE_RTOL16 = {torch.bfloat16: 1e-2, torch.float16: 2e-3}
+
+
+def ce_mismatches(names, outs, refs, dtype, fp32_tol=None):
+    """What of ``outs`` lies outside tolerance of ``refs``, as messages, and
+    the max abs error. 16-bit: elementwise (CE_RTOL16); fp32: ``fp32_tol``
+    (atol, rtol), or 1e-5 of max(1, the reference's max) where None."""
+    msgs, worst = [], 0.0
+    for name, got, want in zip(names, outs, refs):
+        if got is None:
+            continue
+        if got.shape != want.shape or got.dtype != want.dtype:
+            msgs.append(f"{name} shape/dtype {tuple(got.shape)}/{got.dtype}")
+            continue
+        if not torch.isfinite(got.float()).all().item():
+            msgs.append(f"non-finite {name}")
+            continue
+        err = (got.float() - want.float()).abs()
+        ref = want.float().abs()
+        worst = max(worst, float(err.max()))
+        if dtype in CE_RTOL16:
+            rtol = CE_RTOL16[dtype]
+            med = float(ref.flatten()[:1 << 24].median())  # median of up to 16M elements
+            bad = int((err > rtol * (ref + med)).sum())
+            if bad:
+                msgs.append(f"{name}: {bad} elements outside {rtol} x (|ref| + median |ref| "
+                            f"{med:.3g}), max err {float(err.max()):.3g}")
+        elif fp32_tol is not None:
+            atol, rtol = fp32_tol
+            if (err > atol + rtol * ref).any().item():
+                msgs.append(f"{name}: max err {float(err.max()):.3g} outside atol {atol} "
+                            f"rtol {rtol}")
+        else:
+            r = float(err.max()) / max(1.0, float(ref.max()) + 1e-6)
+            if r > 1e-5:
+                msgs.append(f"{name}: max err {r:.3g} of max(1, its max) > 1e-05")
+    return msgs, worst
+
+
+def ce_check(fwd, ref_fwd, grads, ref_grads, dtype):
+    """Kernel against plain at ce1's tolerances: the forward's outputs (lg,
+    lse, nll; None where not compared) and the backward's (dx, dw). Returns
+    the max abs errors (fwd, bwd)."""
+    # lse, nll: exact products summed in fp32 in another order; an fp32 lg
+    # sums up to 8192 products in order, cuBLAS in another
+    msgs, fe = ce_mismatches(("lse", "nll"), fwd[1:], ref_fwd[1:], torch.float32,
+                             fp32_tol=(CE_NLL_ATOL, 0.0))
+    lg_msgs, lg_err = ce_mismatches(("lg",), fwd[:1], ref_fwd[:1], dtype,
+                                    fp32_tol=(CE_NLL_ATOL, 0.0))
+    grad_msgs, be = ce_mismatches(("dx", "dw"), grads, ref_grads, dtype)
+    msgs += lg_msgs + grad_msgs
+    check(not msgs, "; ".join(msgs))
+    return max(fe, lg_err), be
+
+
+def ce_faults_caught(fc, lg, lse, labels, g, x, w, ref_grads, dtype):
+    """The grads check rejects a backward with a planted fault: the softmax
+    term dropped (lse + 1e4 makes every p 0) or p taken with the next row's
+    lse. Returns what it reported for each."""
+    seen = {}
+    for fault, bad_lse in (("p zeroed", lse + 1e4), ("next row's lse", lse.roll(1))):
+        msgs, _ = ce_mismatches(("dx", "dw"), fc.fused_ce_bwd(lg, bad_lse, labels, g, x, w),
+                                ref_grads, dtype)
+        check(msgs, f"the {dtype} grads check passes a backward with {fault}")
+        seen[fault] = [m.split(":")[0] for m in msgs]
+    return seen
+
+
+def ce_kernels_vs_plain(fc, dev):
+    """Phase ce1: the fused-CE kernels against their plain versions; every
+    forward and backward twice, bitwise equal. Returns the worst errors."""
+    worst_f = worst_b = 0.0
+    for N, H, V in CE_CASES:
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            x, w, labels, g = ce_case(N, H, V, dtype, dev)
+            fwd = fc.fused_ce_fwd(x, w, labels)
+            again = fc.fused_ce_fwd(x, w, labels)
+            no_res = fc.fused_ce_fwd(x, w, labels, write_logits=False)
+            grads = fc.fused_ce_bwd(fwd[0], fwd[1], labels, g, x, w)
+            grads2 = fc.fused_ce_bwd(fwd[0], fwd[1], labels, g, x, w)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(fwd + grads, again + grads2)),
+                  f"fused CE ({N}, {H}, {V}) {dtype}: a repeated call is not bitwise equal")
+            check(no_res[0] is None and torch.equal(no_res[1], fwd[1])
+                  and torch.equal(no_res[2], fwd[2]),
+                  "the forward without the residual gives other lse / nll")
+            ref_fwd = fc.fused_ce_fwd_plain(x, w, labels)
+            ref_grads = fc.fused_ce_bwd_plain(fwd[0], fwd[1], labels, g, x, w)
+            fe, be = ce_check(fwd, ref_fwd, grads, ref_grads, dtype)
+            check(torch.equal(fwd[2][:2], fwd[1][:2]), "labels -1 and V do not give lse")
+            worst_f, worst_b = max(worst_f, fe), max(worst_b, be)
+            if (N, H, V) == CE_MAIN and dtype != torch.float32:
+                caught = ce_faults_caught(fc, fwd[0], fwd[1], labels, g, x, w, ref_grads, dtype)
+                log(f"grads check at the main shape, {str(dtype)[6:]}: planted faults "
+                    f"rejected {caught}")
+            del fwd, again, no_res, grads, grads2, ref_fwd, ref_grads
+            log(f"kernel vs plain: fused CE N={N} H={H} V={V} {str(dtype)[6:]}: fwd max_abs_err "
+                f"{fe:.3g}, bwd max_abs_err {be:.3g}, bitwise repeatable ok")
+    torch.cuda.empty_cache()
+    return worst_f, worst_b
+
+
+def ce_path_inputs(N, H, V, dev, seed=0):
+    """bf16 x with RMS-normalised rows (a final norm's output), W ~ N(0,
+    0.02^2) (the lm_head transposed), int32 labels in [0, V), fp32 g."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(N, H, device=dev, generator=gen)
+    x = (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + 1e-5)).to(torch.bfloat16)
+    w = (torch.randn(V, H, device=dev, generator=gen) * 0.02).to(torch.bfloat16)
+    labels = torch.randint(0, V, (N,), device=dev, generator=gen, dtype=torch.int32)
+    g = torch.randn(N, device=dev, generator=gen)
+    return x, w, labels, g
+
+
+def ce_main_path(fc, counters, dev):
+    """Phase ce2: ``fused_ce_loss`` at llama-7b's head, 3 forward +
+    backward iterations through autograd; every count set to 0 just before
+    and read just after. Returns (launches, errors, stats)."""
+    N, H, V = CE_MAIN
+    x, w, labels, g = ce_path_inputs(N, H, V, dev)
+    x.requires_grad_()
+    w.requires_grad_()
+    torch.cuda.synchronize()
+    for mod, name in counters:
+        setattr(mod, name, 0)  # every kernel's count, just before the path
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nll = fc.fused_ce_loss(x, w, labels)
+        dx, dw = torch.autograd.grad((nll * g).sum(), (x, w))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {f"{mod.__name__.rsplit('.', 1)[1]}.{name}": getattr(mod, name)
+                for mod, name in counters}  # read just after
+    want = {k: (3 if k.startswith("fused_ce.") else 0) for k in launches}
+    check(launches == want, f"launches {launches}; expected 3 + 3 fused-CE launches and no other")
+
+    nll = nll.detach()
+    x0, w0 = x.detach(), w.detach()
+    # each stage against its plain version on the same inputs, as in ce1:
+    # the backward's on the kernel forward's residual (the forward repeats
+    # bitwise), whose one-ulp roundings a plain residual need not share
+    fwd = fc.fused_ce_fwd(x0, w0, labels)
+    check(torch.equal(fwd[2], nll), "the path's loss differs from the forward kernel's")
+    ref_fwd = fc.fused_ce_fwd_plain(x0, w0, labels)
+    ref_grads = fc.fused_ce_bwd_plain(fwd[0], fwd[1], labels, g, x0, w0)
+    fe, be = ce_check(fwd, ref_fwd, (dx, dw), ref_grads, torch.bfloat16)
+    caught = ce_faults_caught(fc, fwd[0], fwd[1], labels, g, x0, w0, ref_grads, torch.bfloat16)
+    del fwd, ref_fwd, ref_grads
+    torch.cuda.empty_cache()
+    # the no-grad primal writes no residual
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    fwd0, bwd0 = fc.fwd_launches, fc.bwd_launches
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        nll_ng = fc.fused_ce_loss(x, w, labels)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    residual = N * V * 2
+    check(rise < residual, f"the no-grad call's peak rose {rise} bytes (residual {residual})")
+    check(torch.equal(nll_ng, nll), "the no-grad loss differs from the grad-mode loss")
+    check((fc.fwd_launches, fc.bwd_launches) == (fwd0 + 1, bwd0),
+          "the no-grad call did not run the forward kernel alone")
+    stats = {"shape": [N, H, V], "dtype": "bfloat16", "launches": launches,
+             "fwd_bwd_ms": ms, "mean_nll": float(nll.mean()),
+             "no_grad_peak_rise_bytes": rise, "residual_bytes": residual}
+    log(f"fused CE main path (llama-7b head N={N} H={H} V={V} bf16): 3 fwd + bwd, launches "
+        f"{launches}, mean nll {stats['mean_nll']:.6g} (ln V = {np.log(V):.6g}), fwd+bwd ms "
+        f"{[round(t, 3) for t in ms]}; vs plain: nll max_abs_err {fe:.3g}, grads {be:.3g}; "
+        f"no-grad peak rise {rise} bytes ok; planted faults rejected {caught}")
+    return launches, (fe, be), stats
+
+
+def ce_timing(fc, dev):
+    """Phase ce3: the kernels at llama-7b's and gpt2-6.7b's heads beside the
+    plain versions, the unfused library path and the bounds."""
+    import torch.nn.functional as F
+
+    results = {}
+    for label, (N, H, V) in (("llama-7b", CE_MAIN), ("gpt2-6.7b", CE_GPT2)):
+        x, w, labels, g = ce_path_inputs(N, H, V, dev, seed=1)
+        lg, lse, nll = fc.fused_ce_fwd(x, w, labels)
+        fwd_ms = time_cuda(lambda: fc.fused_ce_fwd(x, w, labels))
+        bwd_ms = time_cuda(lambda: fc.fused_ce_bwd(lg, lse, labels, g, x, w))
+        plain_fwd_ms = time_cuda(lambda: fc.fused_ce_fwd_plain(x, w, labels), warmup=2, iters=5)
+        plain_bwd_ms = time_cuda(lambda: fc.fused_ce_bwd_plain(lg, lse, labels, g, x, w),
+                                 warmup=2, iters=5)
+        # the library yardstick: the unfused path a caller takes when
+        # fused_ce_loss raises (cuBLAS logits in bf16, fp32 logsumexp)
+        lab = labels.long()[:, None]
+
+        def lib_loss(a, b):
+            logits = F.linear(a, b).float()
+            return torch.logsumexp(logits, -1) - logits.gather(1, lab)[:, 0]
+
+        lib_nll = lib_loss(x, w)
+        # the library rounds the logits to bf16 before the logsumexp: ~1 ulp of |s|
+        check(float((lib_nll - nll).abs().max()) < 5e-2, "the library path computes another loss")
+        lib_fwd_ms = time_cuda(lambda: lib_loss(x, w))
+        xg, wg = x.detach().requires_grad_(), w.detach().requires_grad_()
+        lib_graph = lib_loss(xg, wg)
+        lib_bwd_ms = time_cuda(lambda: torch.autograd.grad(lib_graph, (xg, wg), g,
+                                                           retain_graph=True))
+        del lib_graph, lib_nll
+        torch.cuda.empty_cache()
+
+        elt = x.element_size()
+        xw_bytes = (N * H + V * H) * elt
+        fwd_flops, bwd_flops = 2 * N * V * H, 4 * N * V * H
+        fwd_bytes = xw_bytes + N * 4 + N * V * elt + 2 * N * 4  # x, w, labels; lg, lse, nll
+        bwd_bytes = N * V * elt + 3 * N * 4 + 2 * xw_bytes  # lg, lse, labels, g, x, w; dx, dw
+        slots = fc.fwd_slots(x.device, x.dtype)
+        per, chunks = fc.plan(N, V, slots)
+        r = {"shape": [N, H, V], "dtype": "bfloat16",
+             "fwd_plan": {"slots": slots, "tiles_per_cta": per, "chunks": chunks,
+                          "ctas": N // 64 * chunks}}
+        for d, ms, plain, lib, flops, nbytes in (
+                ("fwd", fwd_ms, plain_fwd_ms, lib_fwd_ms, fwd_flops, fwd_bytes),
+                ("bwd", bwd_ms, plain_bwd_ms, lib_bwd_ms, bwd_flops, bwd_bytes)):
+            t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            r[d] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                    "bound_ms": max(t_ops, t_bytes),
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                    "flops": flops, "bytes": nbytes, "tflops_per_s": flops / ms / 1e9}
+        results[label] = r
+        log(f"fused CE {label} head (N={N} H={H} V={V} bf16): fwd {fwd_ms:.4f} ms (bound "
+            f"{r['fwd']['bound_ms']:.4f}, plain {plain_fwd_ms:.4f}, unfused library "
+            f"{lib_fwd_ms:.4f}); bwd {bwd_ms:.4f} ms (bound {r['bwd']['bound_ms']:.4f}, plain "
+            f"{plain_bwd_ms:.4f}, library backward {lib_bwd_ms:.4f})")
+        del x, w, labels, g, lg, lse, nll, xg, wg
+        torch.cuda.empty_cache()
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: this script needs an "
@@ -1124,6 +1415,7 @@ def main():
     from deepspeed_tpu_torch.ops.quantizer import woq_gemm as wq
     from deepspeed_tpu_torch.ops.sparse_attention import block_sparse_kernel as bs
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    from deepspeed_tpu_torch.ops.transformer import fused_ce as fc
     from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
 
     check(os.path.dirname(os.path.abspath(deepspeed_tpu_torch.__file__))
@@ -1194,12 +1486,24 @@ def main():
     log(json.dumps({"sparse_summary": {"shape": list(SPARSE_SHAPE), "block": SPARSE_BLOCK,
                                        "dtype": "bfloat16", "launches": sparse_launches,
                                        **sparse_times}}))
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     sparse_k = {d: dict(sparse_times["fixed"][d], max_abs_err=max(e1, e2))
                 for d, e1, e2 in (("fwd", sparse_fe, path_errs[0]),
                                   ("bwd", sparse_be, path_errs[1]))}
+    ce_fe, ce_be = ce_kernels_vs_plain(fc, dev)
+    counters = ((fc, "fwd_launches"), (fc, "bwd_launches"), (fa, "fwd_launches"),
+                (fa, "bwd_launches"), (pa, "launches"), (wq, "launches"),
+                (bs, "fwd_launches"), (bs, "bwd_launches"))
+    ce_launches, ce_path_errs, ce_stats = ce_main_path(fc, counters, dev)
+    ce_times = ce_timing(fc, dev)
+    log(json.dumps({"ce_summary": {"path": ce_stats, **ce_times}}))
+    ce_k = {d: dict({k: ce_times["llama-7b"][d][k] for k in keys[1:]},
+                    max_abs_err=max(e1, e2))
+            for d, e1, e2 in (("fwd", ce_fe, ce_path_errs[0]), ("bwd", ce_be, ce_path_errs[1]))}
+    ce_src = "deepspeed_tpu_torch/csrc/fused_ce.cu"
+
     flash_src = "deepspeed_tpu_torch/csrc/flash_attention.cu"
     sparse_src = "deepspeed_tpu_torch/csrc/block_sparse_attention.cu"
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [
         dict(name="paged_decode_attention", route="cuda",
              source="deepspeed_tpu_torch/csrc/paged_attention.cu",
@@ -1225,6 +1529,13 @@ def main():
         dict(name="block_sparse_attention_bwd", route="cuda", source=sparse_src,
              replaces="deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py:99,131",
              launches=sparse_launches["bwd"], **{k: sparse_k["bwd"][k] for k in keys}),
+        # llama-7b's head; gpt2-6.7b's is on the ce_summary line
+        dict(name="fused_ce_fwd", route="cuda", source=ce_src,
+             replaces="deepspeed_tpu/ops/transformer/fused_ce.py:45",
+             launches=ce_launches["fused_ce.fwd_launches"], **{k: ce_k["fwd"][k] for k in keys}),
+        dict(name="fused_ce_bwd", route="cuda", source=ce_src,
+             replaces="deepspeed_tpu/ops/transformer/fused_ce.py:114",
+             launches=ce_launches["fused_ce.bwd_launches"], **{k: ce_k["bwd"][k] for k in keys}),
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -116,8 +116,13 @@ class BlockSparseAttentionBuilder(CUDAOpBuilder):
     SOURCE = os.path.join("csrc", "block_sparse_attention.cu")
 
 
+class FusedCEBuilder(CUDAOpBuilder):
+    NAME = "fused_ce"
+    SOURCE = os.path.join("csrc", "fused_ce.cu")
+
+
 ALL_BUILDERS = (PagedAttentionBuilder, FlashAttentionBuilder, WoqGemmBuilder,
-                BlockSparseAttentionBuilder)
+                BlockSparseAttentionBuilder, FusedCEBuilder)
 
 
 def build_all(verbose: bool = False) -> List[str]:

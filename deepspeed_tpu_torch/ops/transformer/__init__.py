@@ -1,1 +1,2 @@
-"""Transformer operators: paged decode attention and its plain version."""
+"""Transformer operators: paged decode attention, flash attention and fused
+linear cross-entropy, each with its plain version."""

@@ -28,7 +28,7 @@ print(" ".join(names))
 print(bad)
 """
 
-# the training, WOQ and sparse-attention slices' modules: each must be among those the probe imported
+# the training, WOQ, sparse-attention and fused-CE slices' modules: each must be among those the probe imported
 _TRAINING_MODULES = {
     "deepspeed_tpu_torch.ops.transformer.attention",
     "deepspeed_tpu_torch.ops.transformer.flash_attention",
@@ -52,6 +52,8 @@ _TRAINING_MODULES = {
     "deepspeed_tpu_torch.ops.sparse_attention.sparsity_config",
     "deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel",
     "deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention",
+    # the fused linear cross-entropy slice
+    "deepspeed_tpu_torch.ops.transformer.fused_ce",
 }
 
 
