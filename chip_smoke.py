@@ -52,10 +52,11 @@ Then the training slice:
 
 a. the flash-attention forward (out, lse) and backward (dq, dk, dv) kernels
    against their plain versions: llama-7b's heads (B 2, S 2048), llama-70b's
-   GQA heads (nh 64, kvh 8, S 1024), head_dim 64 and 256, S 1000 (a tail
-   tile), causal and not; float32 at atol 1e-5 (gradients at 1e-5 of
-   max(1, their max)), bfloat16 at atol/rtol 1e-2 (gradients at 1e-2 of
-   their max);
+   GQA heads (nh 64, kvh 8, S 1024), head_dim 32, 64 and 256, S 1000 and 130
+   (tail tiles), GQA 8, Sq 130 against Skv 1000, causal and not; float32 at
+   atol 1e-5 (gradients at 1e-5 of max(1, their max)), bfloat16 and float16
+   at atol/rtol 1e-2 (gradients at 1e-2 of their max), each 16-bit forward
+   and backward run twice and held bitwise equal;
 b. the training engine small (llama, hd 64, GQA group 2, fp32, Adam eps
    1e-6) on the card against the same engine on the CPU: 3 ``train_batch``
    steps, losses at rtol 1e-5, parameters at atol 1e-5;
@@ -140,7 +141,7 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
-TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-2, 1e-2)}
+TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-2, 1e-2), torch.float16: (1e-2, 1e-2)}
 
 
 class SmokeFailure(Exception):
@@ -640,26 +641,33 @@ def rel_err(out, ref, floor=0.0):
                  / max(floor, float(ref.float().abs().max()) + 1e-6))
 
 
-def flash_case(B, S, nh, kvh, hd, dtype, dev, seed=0):
+def flash_case(B, S, nh, kvh, hd, dtype, dev, seed=0, Skv=None):
     rng = np.random.default_rng(seed)
+    Skv = Skv or S
     q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
-                   for shape in ((B, S, nh, hd), (B, S, kvh, hd), (B, S, kvh, hd),
+                   for shape in ((B, S, nh, hd), (B, Skv, kvh, hd), (B, Skv, kvh, hd),
                                  (B, S, nh, hd)))
     return q, k, v, do
 
 
-def flash_vs_plain(fa, B, S, nh, kvh, hd, causal, dtype, dev):
-    """One case of phase a: (fwd max abs err, bwd max abs err)."""
-    q, k, v, do = flash_case(B, S, nh, kvh, hd, dtype, dev)
+def flash_vs_plain(fa, B, S, nh, kvh, hd, causal, dtype, dev, Skv=None):
+    """One case of phase a: (fwd max abs err, bwd max abs err). A 16-bit
+    forward and backward run twice and must repeat bitwise."""
+    q, k, v, do = flash_case(B, S, nh, kvh, hd, dtype, dev, Skv=Skv)
     g = nh // kvh
     out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, num_kv_groups=g)
     grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, num_kv_groups=g)
+    if dtype != torch.float32:
+        again = (fa.flash_attention_fwd(q, k, v, causal=causal, num_kv_groups=g)
+                 + fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, num_kv_groups=g))
+        check(all(torch.equal(a, b) for a, b in zip((out, lse) + grads, again)),
+              "a repeated 16-bit flash forward or backward is not bitwise equal")
     torch.cuda.synchronize()
     ref_out, ref_lse = fa.flash_attention_plain(q, k, v, causal=causal, num_kv_groups=g)
     ref_grads = fa.flash_attention_bwd_plain(q, k, v, ref_out, ref_lse, do, causal=causal,
                                              num_kv_groups=g)
     fwd_err = max(compare(out, ref_out, dtype), compare(lse, ref_lse, dtype))
-    # gradients: bf16 at 1e-2 of their max; fp32 at 1e-5, of their max where
+    # gradients: bf16 / fp16 at 1e-2 of their max; fp32 at 1e-5, of their max where
     # that exceeds 1 (dk/dv sum g * S products in an order the plain
     # version's GEMM does not share)
     tol, floor = (1e-5, 1.0) if dtype == torch.float32 else (1e-2, 0.0)
@@ -676,18 +684,22 @@ def flash_vs_plain(fa, B, S, nh, kvh, hd, causal, dtype, dev):
 
 def flash_kernels_vs_plain(fa, dev):
     """Phase a: the flash kernels against their plain versions."""
-    cases = (("llama-7b heads", 2, 2048, 32, 32, 128, True),
-             ("llama-70b GQA heads", 1, 1024, 64, 8, 128, True),
-             ("head_dim 64, non-causal", 2, 512, 8, 4, 64, False),
-             ("head_dim 256, GQA 4", 1, 512, 8, 2, 256, True),
-             ("S 1000 (tail tile)", 2, 1000, 8, 8, 128, True),
-             ("S 1000 (tail tile), non-causal", 1, 1000, 4, 2, 64, False))
-    for label, B, S, nh, kvh, hd, causal in cases:
-        for dtype in (torch.bfloat16, torch.float32):
-            fe, be = flash_vs_plain(fa, B, S, nh, kvh, hd, causal, dtype, dev)
-            log(f"kernel vs plain: flash attention {label} B={B} S={S} nh={nh} kvh={kvh} "
-                f"hd={hd} causal={causal} {str(dtype)[6:]}: fwd max_abs_err {fe:.3g}, "
-                f"bwd max_abs_err {be:.3g} ok")
+    cases = (("llama-7b heads", 2, 2048, 32, 32, 128, True, None),
+             ("llama-70b GQA heads", 1, 1024, 64, 8, 128, True, None),
+             ("head_dim 64, non-causal", 2, 512, 8, 4, 64, False, None),
+             ("head_dim 256, GQA 4", 1, 512, 8, 2, 256, True, None),
+             ("S 1000 (tail tile)", 2, 1000, 8, 8, 128, True, None),
+             ("S 1000 (tail tile), non-causal", 1, 1000, 4, 2, 64, False, None),
+             ("S 130 (a 2-row tail), GQA 8", 2, 130, 16, 2, 128, True, None),
+             ("head_dim 32 (llama-tiny), GQA 2", 2, 1000, 8, 4, 32, True, None),
+             ("Sq 130 != Skv 1000, non-causal", 1, 130, 8, 2, 128, False, 1000))
+    for label, B, S, nh, kvh, hd, causal, Skv in cases:
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            fe, be = flash_vs_plain(fa, B, S, nh, kvh, hd, causal, dtype, dev, Skv=Skv)
+            log(f"kernel vs plain: flash attention {label} B={B} S={S} Skv={Skv or S} nh={nh} "
+                f"kvh={kvh} hd={hd} causal={causal} {str(dtype)[6:]}: fwd max_abs_err {fe:.3g}, "
+                f"bwd max_abs_err {be:.3g}" + (", bitwise repeatable" if dtype != torch.float32
+                                                 else "") + " ok")
 
 
 TRAIN_CONFIG = {

@@ -13,17 +13,68 @@
 // -1e30, as the TPU kernels do (l taken as 1). Backward, given do and delta =
 // sum(do * o) (B, nh, Sq): dq, dk, dv in q's dtype. Scores, softmax statistics
 // and every product accumulate in fp32; p is rounded to v's dtype before P.V
-// and dS to q's dtype before the dK and dQ products. Inside a visited tile a
-// key is visible when kpos < Skv and, if causal, qpos >= kpos.
+// and dS to q's dtype before the dK and dQ products; l sums the unrounded p.
+// Inside a visited tile a key is visible when kpos < Skv and, if causal,
+// qpos >= kpos. head_dim is 32, 64, 128 or 256.
 //
-// What the design does. A CTA of four warps stages its tiles in shared memory
-// and runs every tile product on the tensor cores (WMMA 16x16x16, bf16/fp16
-// in, fp32 accumulate); fp32 inputs run the same code with FMAs, so the fp32
-// checks hold at 1e-5. The backward is two kernels: a dK/dV kernel (one CTA
-// per (b, kv head, key tile), looping over the group's g query heads and the
-// query tiles that see the tile) writes dk and dv per KV head directly, and a
-// dQ kernel (one CTA per (b, head, query tile)) writes dq. Both are
-// deterministic: no atomics.
+// The design for bf16 and fp16 (the `Mma` kernels below). Every tile product
+// is an inline-PTX mma.sync.m16n8k16 (16-bit in, fp32 accumulate) fed by
+// ldmatrix (.trans where the operand lies the other way: V in P.V, dO and Q
+// in the dV and dK products, K in dS.K). A warp owns its rows for the whole
+// loop, so its scores, its running (m, l) and its accumulator stay in
+// registers, in the mma's C-fragment layout, and P and dS go from the C
+// fragments of one product into the A fragments of the next (rounded to
+// 16 bits there) without touching shared memory. A CTA has 4 warps.
+//   - forward: a warp owns 16 query rows, or two 16-row m-tiles where the
+//     schedule sets FwdWarpTiles to 2 (the dense one, at hd <= 128): the
+//     two share every K and V fragment, which halves the shared-memory
+//     reads of a product and the K/V tiles a query row streams (64 rows
+//     a CTA: 0.436 ms at the training shape, 128: 0.34; PERF.md section 6).
+//     The row max and sum take two quad shuffles and O is rescaled in
+//     registers. Scores are prescaled by scale * log2 e so that exp2f
+//     serves; lse is written in natural-log units as m ln 2 + log l.
+//   - dK/dV: a CTA per (b, kv head, 64 key rows) keeps its K and V resident;
+//     each warp owns 16 key rows of dK and dV. It walks the group's g heads
+//     x the query tiles that see it. S^T = K Q^T and dP^T = V dO^T put P^T
+//     and dS^T in C fragments on key rows, the A operands of dV += P^T dO
+//     and dK += dS^T Q. At hd 256 two launches each accumulate 128 of the
+//     columns (S^T and dP^T computed twice), so that dK and dV fit.
+//   - dQ: a CTA per (b, head, 64 query rows); S, dP and dS stay in
+//     registers and dS is the A operand of dQ += dS K.
+// Tiles stream through a two-stage ring of cp.async.cg 16-byte copies (rows
+// past the end zero-filled): the forward's and dQ's K/V tiles (64 keys, 32
+// at hd 256), dK/dV's Q, dO, lse and delta tiles (64 query rows at hd <= 64,
+// 32 above, so that dK, dV and the two score tiles fit the registers); tile
+// j + 1 lands while tile j is multiplied, with two barriers a tile. Rows are
+// padded by 16 bytes, which keeps every ldmatrix free of bank conflicts.
+// visible() runs only on a diagonal or tail tile (per warp); a full tile
+// below the diagonal takes no per-element test, and a warp whose rows see
+// none of a tile skips it. Every block the block-sparse gate admits (a
+// multiple of 64) is walked as whole tiles: its schedule keeps 64-row CTAs.
+//
+// ptxas (CUDA 12.9, sm_90a; bf16 and fp16 alike): registers, spilled bytes
+// and shared memory, dense schedule / block lists where they differ:
+//   hd   forward                  dK/dV                    dQ
+//   32   177/127, 0, 30720/25600  128/138, 4/0, 31744      136/131, 0, 30720
+//   64   250/134, 0, 55296/46080  174/171, 0, 56320      168/166, 0, 55296
+//   128  255/170, 0, 104448/87040 241/245, 0, 70144      252/251, 0, 104448
+//   256  241/246, 0, 101376       255/255, 56/136, 135680  246/250, 0, 135168
+// so at hd 128 two forward or dQ CTAs, and two dK/dV CTAs (registers), fit
+// on an SM. dK/dV at hd 256 spilled 1208 bytes (dense) and 6792 (block
+// lists, at 32 registers) while one launch accumulated all 256 columns.
+//
+// fp32 inputs run the `Fma` kernels: tiles staged in shared memory and every
+// product on FMAs, one output element per thread at a time (48-64
+// registers, up to 12 spilled bytes). They exist for the 1e-5 checks, not
+// for speed.
+//
+// The backward is two kernels, both deterministic: no atomics, and every sum
+// in a fixed order, so a repeated call is bitwise equal. The TPU kernel's
+// revisited dq block would be a race between CUDA CTAs; the split costs 7
+// tile products against a fused kernel's 5.
+//
+// Left for later: wgmma with a TMA + mbarrier ring fed by a producer warp
+// (warp specialisation), and a persistent schedule.
 //
 // A schedule is a struct passed by value to the kernels, with:
 //   fwd_cta(s, BQ, b, h, q0)      the forward's and dQ's CTA: batch, head, first query row
@@ -41,34 +92,18 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 // Finite, as the TPU kernels' NEG_INF.
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <>
-__device__ __forceinline__ __half from_float<__half>(float x) { return __float2half(x); }
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -84,19 +119,35 @@ __device__ __forceinline__ float warp_max(float x) {
 
 __host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
 
-// Tile sizes for one (dtype, head_dim). 16-bit types use the tensor cores and
-// 64-row query tiles; fp32 uses FMAs and 32-row tiles, so that every kernel's
-// shared memory stays under the 227 KB a block can have.
-template <typename T, int HD>
-struct Tiles {
-  static constexpr bool kTensorCores = sizeof(T) == 2;
-  static constexpr int BQ = kTensorCores ? 64 : 32;
-  static constexpr int BK = (kTensorCores && HD <= 128) ? 64 : 32;
-  static constexpr int PAD = int(16 / sizeof(T));  // 16 bytes per row against bank conflicts
-  static constexpr int LDT = HD + PAD;             // (rows, HD) tiles in T: Q, K, V, dO
-  static constexpr int LDA = HD + 4;               // (rows, HD) fp32 accumulators
-  static constexpr int LDS = BK + 4;               // (BQ, BK) fp32 scores
-  static constexpr int LDP = BK + PAD;             // (BQ, BK) probabilities or dS in T
+constexpr size_t kMaxSmem = 232448;  // what one block may use on an H100
+
+struct Shape {
+  int B, Sq, Skv, nh, kvh, g, causal;
+  float scale;
+  // strides in elements of the (B, S, heads, hd) inputs: batch, sequence, head
+  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, d_sb, d_ss, d_sh;
+};
+
+__device__ __forceinline__ bool visible(const Shape& s, int qpos, int kpos) {
+  return qpos < s.Sq && kpos < s.Skv && (!s.causal || qpos >= kpos);
+}
+
+// ---------------------------------------------------------------------------
+// fp32: tiles in shared memory, products on FMAs
+// ---------------------------------------------------------------------------
+
+// 32-row query and key tiles keep every kernel's shared memory under the
+// 227 KB a block can have.
+template <int HD>
+struct Fma {
+  using T = float;
+  static constexpr int BQ = 32;
+  static constexpr int BK = 32;
+  static constexpr int PAD = 4;                    // 16 bytes per row against bank conflicts
+  static constexpr int LDT = HD + PAD;             // (rows, HD) tiles: Q, K, V, dO
+  static constexpr int LDA = HD + 4;               // (rows, HD) accumulators
+  static constexpr int LDS = BK + 4;               // (BQ, BK) scores
+  static constexpr int LDP = BK + PAD;             // (BQ, BK) probabilities or dS
   static constexpr size_t tile_t(int rows) { return align128(size_t(rows) * LDT * sizeof(T)); }
   static constexpr size_t acc(int rows) { return align128(size_t(rows) * LDA * sizeof(float)); }
   static constexpr size_t scores() { return align128(size_t(BQ) * LDS * sizeof(float)); }
@@ -106,9 +157,9 @@ struct Tiles {
 
 // Shared-memory carve-ups (byte offsets), one per kernel, used by both the
 // kernel and the launch so the two cannot disagree.
-template <typename T, int HD>
-struct FwdLayout {
-  using Tl = Tiles<T, HD>;
+template <int HD>
+struct FmaFwdLayout {
+  using Tl = Fma<HD>;
   static constexpr size_t q = 0;
   static constexpr size_t k = q + Tl::tile_t(Tl::BQ);
   static constexpr size_t v = k + Tl::tile_t(Tl::BK);
@@ -121,9 +172,9 @@ struct FwdLayout {
   static constexpr size_t bytes = alpha + Tl::rowvec();
 };
 
-template <typename T, int HD>
-struct DkdvLayout {
-  using Tl = Tiles<T, HD>;
+template <int HD>
+struct FmaDkdvLayout {
+  using Tl = Fma<HD>;
   static constexpr size_t k = 0;
   static constexpr size_t v = k + Tl::tile_t(Tl::BK);
   static constexpr size_t q = v + Tl::tile_t(Tl::BK);
@@ -138,9 +189,9 @@ struct DkdvLayout {
   static constexpr size_t bytes = delta + Tl::rowvec();
 };
 
-template <typename T, int HD>
-struct DqLayout {
-  using Tl = Tiles<T, HD>;
+template <int HD>
+struct FmaDqLayout {
+  using Tl = Fma<HD>;
   static constexpr size_t q = 0;
   static constexpr size_t dout = q + Tl::tile_t(Tl::BQ);
   static constexpr size_t k = dout + Tl::tile_t(Tl::BQ);
@@ -154,101 +205,61 @@ struct DqLayout {
   static constexpr size_t bytes = delta + Tl::rowvec();
 };
 
-constexpr size_t kMaxSmem = 232448;  // what one block may use on an H100
-
-struct Shape {
-  int B, Sq, Skv, nh, kvh, g, causal;
-  float scale;
-  // strides in elements of the (B, S, heads, hd) inputs: batch, sequence, head
-  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, d_sb, d_ss, d_sh;
-};
-
-__device__ __forceinline__ bool visible(const Shape& s, int qpos, int kpos) {
-  return qpos < s.Sq && kpos < s.Skv && (!s.causal || qpos >= kpos);
-}
-
-// Rows [0, R) of a (rows, HD) tile into shared memory (leading dimension ld),
-// row r read at src + r * row_stride in 16-byte vectors; rows >= valid are zeros.
-template <typename T, int HD, int R>
-__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src, long long row_stride,
-                                          int valid) {
-  constexpr int VEC = int(16 / sizeof(T));
-  constexpr int CPR = HD / VEC;
+// Rows [0, R) of a (rows, HD) fp32 tile into shared memory (leading dimension
+// ld), row r read at src + r * row_stride in 16-byte vectors; rows >= valid
+// are zeros.
+template <int HD, int R>
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
+                                          long long row_stride, int valid) {
+  constexpr int CPR = HD / 4;
   for (int idx = threadIdx.x; idx < R * CPR; idx += kThreads) {
     const int r = idx / CPR;
-    const int c = (idx % CPR) * VEC;
+    const int c = (idx % CPR) * 4;
     uint4 x = make_uint4(0u, 0u, 0u, 0u);
     if (r < valid) x = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
     *reinterpret_cast<uint4*>(dst + r * ld + c) = x;
   }
 }
 
-// Block-wide tile product into an fp32 shared-memory tile:
+// Block-wide tile product into an fp32 shared-memory tile, one output element
+// per thread at a time:
 //   C (M, N) = (acc ? C : 0) + op(A) op(B), with
 //   NT: A (M, K) and B (N, K), both row-major: A B^T
 //   NN: A (M, K), B (K, N):                    A B
 //   TN: A (K, M), B (K, N):                    A^T B
-// 16-bit operands go through WMMA, one 16x16 output tile per warp at a time;
-// fp32 operands through FMAs, one output element per thread at a time.
 enum Kind { NT, NN, TN };
 
-template <Kind KIND, int M, int N, int K, typename T>
-__device__ __forceinline__ void block_mm(float* C, int ldc, const T* A, int lda, const T* B,
-                                         int ldb, bool acc) {
-  if constexpr (sizeof(T) == 2) {
-    using LayoutA = std::conditional_t<KIND == TN, wmma::col_major, wmma::row_major>;
-    using LayoutB = std::conditional_t<KIND == NT, wmma::col_major, wmma::row_major>;
-    constexpr int TILES_N = N / 16;
-    static_assert(M % 16 == 0 && N % 16 == 0 && K % 16 == 0, "WMMA tiles are 16x16x16");
-    const int warp = threadIdx.x / 32;
-    for (int t = warp; t < (M / 16) * TILES_N; t += kWarps) {
-      const int m0 = (t / TILES_N) * 16;
-      const int n0 = (t % TILES_N) * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      if (acc) {
-        wmma::load_matrix_sync(c, C + m0 * ldc + n0, ldc, wmma::mem_row_major);
-      } else {
-        wmma::fill_fragment(c, 0.f);
-      }
-#pragma unroll 4
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, LayoutA> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, LayoutB> b;
-        wmma::load_matrix_sync(a, KIND == TN ? A + k0 * lda + m0 : A + m0 * lda + k0, lda);
-        wmma::load_matrix_sync(b, KIND == NT ? B + n0 * ldb + k0 : B + k0 * ldb + n0, ldb);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(C + m0 * ldc + n0, c, ldc, wmma::mem_row_major);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < M * N; idx += kThreads) {
-      const int m = idx / N;
-      const int n = idx % N;
-      float s = acc ? C[m * ldc + n] : 0.f;
+template <Kind KIND, int M, int N, int K>
+__device__ __forceinline__ void block_mm(float* C, int ldc, const float* A, int lda,
+                                         const float* B, int ldb, bool acc) {
+  for (int idx = threadIdx.x; idx < M * N; idx += kThreads) {
+    const int m = idx / N;
+    const int n = idx % N;
+    float s = acc ? C[m * ldc + n] : 0.f;
 #pragma unroll 8
-      for (int k = 0; k < K; ++k) {
-        const float a = to_float(KIND == TN ? A[k * lda + m] : A[m * lda + k]);
-        const float b = to_float(KIND == NT ? B[n * ldb + k] : B[k * ldb + n]);
-        s = fmaf(a, b, s);
-      }
-      C[m * ldc + n] = s;
+    for (int k = 0; k < K; ++k) {
+      const float a = KIND == TN ? A[k * lda + m] : A[m * lda + k];
+      const float b = KIND == NT ? B[n * ldb + k] : B[k * ldb + n];
+      s = fmaf(a, b, s);
     }
+    C[m * ldc + n] = s;
   }
 }
 
-template <typename T, int HD, typename Sched>
+template <int HD, typename Sched>
 __global__ void __launch_bounds__(kThreads)
-attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                T* __restrict__ o, float* __restrict__ lse, Shape s, Sched sched) {
-  using Tl = Tiles<T, HD>;
-  using L = FwdLayout<T, HD>;
+attn_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o,
+                    float* __restrict__ lse, Shape s, Sched sched) {
+  using Tl = Fma<HD>;
+  using L = FmaFwdLayout<HD>;
   constexpr int BQ = Tl::BQ, BK = Tl::BK;
   extern __shared__ __align__(128) char smem[];
-  T* sQ = reinterpret_cast<T*>(smem + L::q);
-  T* sK = reinterpret_cast<T*>(smem + L::k);
-  T* sV = reinterpret_cast<T*>(smem + L::v);
+  float* sQ = reinterpret_cast<float*>(smem + L::q);
+  float* sK = reinterpret_cast<float*>(smem + L::k);
+  float* sV = reinterpret_cast<float*>(smem + L::v);
   float* sS = reinterpret_cast<float*>(smem + L::s);
-  T* sP = reinterpret_cast<T*>(smem + L::p);
+  float* sP = reinterpret_cast<float*>(smem + L::p);
   float* sO = reinterpret_cast<float*>(smem + L::o);
   float* sM = reinterpret_cast<float*>(smem + L::m);
   float* sL = reinterpret_cast<float*>(smem + L::l);
@@ -261,23 +272,22 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
-  load_tile<T, HD, BQ>(sQ, Tl::LDT, q + b * s.q_sb + q0 * s.q_ss + h * s.q_sh, s.q_ss,
-                       q_valid);
+  load_tile<HD, BQ>(sQ, Tl::LDT, q + b * s.q_sb + q0 * s.q_ss + h * s.q_sh, s.q_ss, q_valid);
   for (int i = threadIdx.x; i < BQ * Tl::LDA; i += kThreads) sO[i] = 0.f;
   for (int i = threadIdx.x; i < BQ; i += kThreads) {
     sM[i] = kNegInf;
     sL[i] = 0.f;
   }
-  const T* kb = k + b * s.k_sb + kh * s.k_sh;
-  const T* vb = v + b * s.v_sb + kh * s.v_sh;
+  const float* kb = k + b * s.k_sb + kh * s.k_sh;
+  const float* vb = v + b * s.v_sb + kh * s.v_sh;
   const int nkt = sched.key_tiles(s, h, q0, q_valid, BK);
   for (int j = 0; j < nkt; ++j) {
     const int k0 = sched.key_tile(s, h, q0, q_valid, j, BK);
     if (k0 < 0) continue;
     const int k_valid = min(BK, s.Skv - k0);
     __syncthreads();  // the previous tile's products are done with sK, sV, sP
-    load_tile<T, HD, BK>(sK, Tl::LDT, kb + k0 * s.k_ss, s.k_ss, k_valid);
-    load_tile<T, HD, BK>(sV, Tl::LDT, vb + k0 * s.v_ss, s.v_ss, k_valid);
+    load_tile<HD, BK>(sK, Tl::LDT, kb + k0 * s.k_ss, s.k_ss, k_valid);
+    load_tile<HD, BK>(sV, Tl::LDT, vb + k0 * s.v_ss, s.v_ss, k_valid);
     __syncthreads();
     block_mm<NT, BQ, BK, HD>(sS, Tl::LDS, sQ, Tl::LDT, sK, Tl::LDT, false);  // S = Q K^T
     __syncthreads();
@@ -297,7 +307,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       for (int c = lane; c < BK; c += 32) {
         const float pr = visible(s, qpos, k0 + c) ? expf(sS[r * Tl::LDS + c] - m_new) : 0.f;
         sum += pr;
-        sP[r * Tl::LDP + c] = from_float<T>(pr);  // rounded to v's dtype before P.V
+        sP[r * Tl::LDP + c] = pr;
       }
       sum = warp_sum(sum);
       if (lane == 0) {
@@ -316,12 +326,12 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     block_mm<NN, BQ, HD, BK>(sO, Tl::LDA, sP, Tl::LDP, sV, Tl::LDT, true);  // O += P V
   }
   __syncthreads();
-  T* ob = o + ((size_t(b) * s.Sq + q0) * s.nh + h) * HD;
+  float* ob = o + ((size_t(b) * s.Sq + q0) * s.nh + h) * HD;
   for (int i = threadIdx.x; i < q_valid * HD; i += kThreads) {
     const int r = i / HD;
     const int c = i % HD;
     const float l = sL[r];
-    ob[size_t(r) * s.nh * HD + c] = from_float<T>(sO[r * Tl::LDA + c] / (l == 0.f ? 1.f : l));
+    ob[size_t(r) * s.nh * HD + c] = sO[r * Tl::LDA + c] / (l == 0.f ? 1.f : l);
   }
   float* lb = lse + (size_t(b) * s.nh + h) * s.Sq + q0;
   for (int r = threadIdx.x; r < q_valid; r += kThreads) {
@@ -336,33 +346,33 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, int vali
   for (int r = threadIdx.x; r < BQ; r += kThreads) dst[r] = r < valid ? src[r] : 0.f;
 }
 
-template <typename T, int HD, typename Sched>
+template <int HD, typename Sched>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     Shape s, Sched sched) {
-  using Tl = Tiles<T, HD>;
-  using L = DkdvLayout<T, HD>;
+attn_bwd_dkdv_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv, Shape s, Sched sched) {
+  using Tl = Fma<HD>;
+  using L = FmaDkdvLayout<HD>;
   constexpr int BQ = Tl::BQ, BK = Tl::BK;
   extern __shared__ __align__(128) char smem[];
-  T* sK = reinterpret_cast<T*>(smem + L::k);
-  T* sV = reinterpret_cast<T*>(smem + L::v);
-  T* sQ = reinterpret_cast<T*>(smem + L::q);
-  T* sDO = reinterpret_cast<T*>(smem + L::dout);
+  float* sK = reinterpret_cast<float*>(smem + L::k);
+  float* sV = reinterpret_cast<float*>(smem + L::v);
+  float* sQ = reinterpret_cast<float*>(smem + L::q);
+  float* sDO = reinterpret_cast<float*>(smem + L::dout);
   float* sDK = reinterpret_cast<float*>(smem + L::dk);
   float* sDV = reinterpret_cast<float*>(smem + L::dv);
   float* sS = reinterpret_cast<float*>(smem + L::s);
   float* sDP = reinterpret_cast<float*>(smem + L::dp);
-  T* sP = reinterpret_cast<T*>(smem + L::p);
+  float* sP = reinterpret_cast<float*>(smem + L::p);
   float* sLse = reinterpret_cast<float*>(smem + L::lse);
   float* sDelta = reinterpret_cast<float*>(smem + L::delta);
 
   int b, kh, k0;
   sched.kv_cta(s, BK, b, kh, k0);
   const int k_valid = min(BK, s.Skv - k0);
-  load_tile<T, HD, BK>(sK, Tl::LDT, k + b * s.k_sb + k0 * s.k_ss + kh * s.k_sh, s.k_ss, k_valid);
-  load_tile<T, HD, BK>(sV, Tl::LDT, v + b * s.v_sb + k0 * s.v_ss + kh * s.v_sh, s.v_ss, k_valid);
+  load_tile<HD, BK>(sK, Tl::LDT, k + b * s.k_sb + k0 * s.k_ss + kh * s.k_sh, s.k_ss, k_valid);
+  load_tile<HD, BK>(sV, Tl::LDT, v + b * s.v_sb + k0 * s.v_ss + kh * s.v_sh, s.v_ss, k_valid);
   for (int i = threadIdx.x; i < BK * Tl::LDA; i += kThreads) {
     sDK[i] = 0.f;
     sDV[i] = 0.f;
@@ -375,10 +385,10 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       if (q0 < 0) continue;
       const int q_valid = min(BQ, s.Sq - q0);
       __syncthreads();  // the previous tile's products are done with sQ, sDO, sP
-      load_tile<T, HD, BQ>(sQ, Tl::LDT, q + b * s.q_sb + q0 * s.q_ss + h * s.q_sh, s.q_ss,
-                           q_valid);
-      load_tile<T, HD, BQ>(sDO, Tl::LDT, dout + b * s.d_sb + q0 * s.d_ss + h * s.d_sh, s.d_ss,
-                           q_valid);
+      load_tile<HD, BQ>(sQ, Tl::LDT, q + b * s.q_sb + q0 * s.q_ss + h * s.q_sh, s.q_ss,
+                        q_valid);
+      load_tile<HD, BQ>(sDO, Tl::LDT, dout + b * s.d_sb + q0 * s.d_ss + h * s.d_sh, s.d_ss,
+                        q_valid);
       const size_t row0 = (size_t(b) * s.nh + h) * s.Sq + q0;
       load_rows(sLse, lse + row0, q_valid, BQ);
       load_rows(sDelta, delta + row0, q_valid, BQ);
@@ -392,7 +402,7 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         const float pr = visible(s, q0 + r, k0 + c)
                              ? expf(sS[r * Tl::LDS + c] * s.scale - sLse[r]) : 0.f;
         sS[r * Tl::LDS + c] = pr;
-        sP[r * Tl::LDP + c] = from_float<T>(pr);
+        sP[r * Tl::LDP + c] = pr;
       }
       __syncthreads();
       block_mm<TN, BK, HD, BQ>(sDV, Tl::LDA, sP, Tl::LDP, sDO, Tl::LDT, true);  // dV += P^T dO
@@ -400,8 +410,7 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       for (int idx = threadIdx.x; idx < BQ * BK; idx += kThreads) {
         const int r = idx / BK;
         const int c = idx % BK;
-        const float ds = sS[r * Tl::LDS + c] * (sDP[r * Tl::LDS + c] - sDelta[r]) * s.scale;
-        sP[r * Tl::LDP + c] = from_float<T>(ds);  // rounded to q's dtype before dS^T Q
+        sP[r * Tl::LDP + c] = sS[r * Tl::LDS + c] * (sDP[r * Tl::LDS + c] - sDelta[r]) * s.scale;
       }
       __syncthreads();
       block_mm<TN, BK, HD, BQ>(sDK, Tl::LDA, sP, Tl::LDP, sQ, Tl::LDT, true);  // dK += dS^T Q
@@ -413,28 +422,29 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     const int r = i / HD;
     const int c = i % HD;
     const size_t off = out0 + size_t(r) * s.kvh * HD + c;
-    dk[off] = from_float<T>(sDK[r * Tl::LDA + c]);
-    dv[off] = from_float<T>(sDV[r * Tl::LDA + c]);
+    dk[off] = sDK[r * Tl::LDA + c];
+    dv[off] = sDV[r * Tl::LDA + c];
   }
 }
 
-template <typename T, int HD, typename Sched>
+template <int HD, typename Sched>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                   const T* __restrict__ dout, const float* __restrict__ lse,
-                   const float* __restrict__ delta, T* __restrict__ dq, Shape s, Sched sched) {
-  using Tl = Tiles<T, HD>;
-  using L = DqLayout<T, HD>;
+attn_bwd_dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const float* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       float* __restrict__ dq, Shape s, Sched sched) {
+  using Tl = Fma<HD>;
+  using L = FmaDqLayout<HD>;
   constexpr int BQ = Tl::BQ, BK = Tl::BK;
   extern __shared__ __align__(128) char smem[];
-  T* sQ = reinterpret_cast<T*>(smem + L::q);
-  T* sDO = reinterpret_cast<T*>(smem + L::dout);
-  T* sK = reinterpret_cast<T*>(smem + L::k);
-  T* sV = reinterpret_cast<T*>(smem + L::v);
+  float* sQ = reinterpret_cast<float*>(smem + L::q);
+  float* sDO = reinterpret_cast<float*>(smem + L::dout);
+  float* sK = reinterpret_cast<float*>(smem + L::k);
+  float* sV = reinterpret_cast<float*>(smem + L::v);
   float* sDQ = reinterpret_cast<float*>(smem + L::dq);
   float* sS = reinterpret_cast<float*>(smem + L::s);
   float* sDP = reinterpret_cast<float*>(smem + L::dp);
-  T* sP = reinterpret_cast<T*>(smem + L::p);
+  float* sP = reinterpret_cast<float*>(smem + L::p);
   float* sLse = reinterpret_cast<float*>(smem + L::lse);
   float* sDelta = reinterpret_cast<float*>(smem + L::delta);
 
@@ -442,23 +452,23 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   sched.fwd_cta(s, BQ, b, h, q0);
   const int kh = h / s.g;
   const int q_valid = min(BQ, s.Sq - q0);
-  load_tile<T, HD, BQ>(sQ, Tl::LDT, q + b * s.q_sb + q0 * s.q_ss + h * s.q_sh, s.q_ss, q_valid);
-  load_tile<T, HD, BQ>(sDO, Tl::LDT, dout + b * s.d_sb + q0 * s.d_ss + h * s.d_sh, s.d_ss,
-                       q_valid);
+  load_tile<HD, BQ>(sQ, Tl::LDT, q + b * s.q_sb + q0 * s.q_ss + h * s.q_sh, s.q_ss, q_valid);
+  load_tile<HD, BQ>(sDO, Tl::LDT, dout + b * s.d_sb + q0 * s.d_ss + h * s.d_sh, s.d_ss,
+                    q_valid);
   const size_t row0 = (size_t(b) * s.nh + h) * s.Sq + q0;
   load_rows(sLse, lse + row0, q_valid, BQ);
   load_rows(sDelta, delta + row0, q_valid, BQ);
   for (int i = threadIdx.x; i < BQ * Tl::LDA; i += kThreads) sDQ[i] = 0.f;
-  const T* kb = k + b * s.k_sb + kh * s.k_sh;
-  const T* vb = v + b * s.v_sb + kh * s.v_sh;
+  const float* kb = k + b * s.k_sb + kh * s.k_sh;
+  const float* vb = v + b * s.v_sb + kh * s.v_sh;
   const int nkt = sched.key_tiles(s, h, q0, q_valid, BK);
   for (int j = 0; j < nkt; ++j) {
     const int k0 = sched.key_tile(s, h, q0, q_valid, j, BK);
     if (k0 < 0) continue;
     const int k_valid = min(BK, s.Skv - k0);
     __syncthreads();  // the previous tile's products are done with sK, sV, sP
-    load_tile<T, HD, BK>(sK, Tl::LDT, kb + k0 * s.k_ss, s.k_ss, k_valid);
-    load_tile<T, HD, BK>(sV, Tl::LDT, vb + k0 * s.v_ss, s.v_ss, k_valid);
+    load_tile<HD, BK>(sK, Tl::LDT, kb + k0 * s.k_ss, s.k_ss, k_valid);
+    load_tile<HD, BK>(sV, Tl::LDT, vb + k0 * s.v_ss, s.v_ss, k_valid);
     __syncthreads();
     block_mm<NT, BQ, BK, HD>(sS, Tl::LDS, sQ, Tl::LDT, sK, Tl::LDT, false);   // S = Q K^T
     block_mm<NT, BQ, BK, HD>(sDP, Tl::LDS, sDO, Tl::LDT, sV, Tl::LDT, false);  // dP = dO V^T
@@ -468,20 +478,638 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
       const int c = idx % BK;
       const float pr = visible(s, q0 + r, k0 + c)
                            ? expf(sS[r * Tl::LDS + c] * s.scale - sLse[r]) : 0.f;
-      const float ds = pr * (sDP[r * Tl::LDS + c] - sDelta[r]) * s.scale;
-      sP[r * Tl::LDP + c] = from_float<T>(ds);  // rounded to q's dtype before dS K
+      sP[r * Tl::LDP + c] = pr * (sDP[r * Tl::LDS + c] - sDelta[r]) * s.scale;
     }
     __syncthreads();
     block_mm<NN, BQ, HD, BK>(sDQ, Tl::LDA, sP, Tl::LDP, sK, Tl::LDT, true);  // dQ += dS K
   }
   __syncthreads();
-  T* qb = dq + ((size_t(b) * s.Sq + q0) * s.nh + h) * HD;
+  float* qb = dq + ((size_t(b) * s.Sq + q0) * s.nh + h) * HD;
   for (int i = threadIdx.x; i < q_valid * HD; i += kThreads) {
     const int r = i / HD;
     const int c = i % HD;
-    qb[size_t(r) * s.nh * HD + c] = from_float<T>(sDQ[r * Tl::LDA + c]);
+    qb[size_t(r) * s.nh * HD + c] = sDQ[r * Tl::LDA + c];
   }
 }
+
+// ---------------------------------------------------------------------------
+// bf16 / fp16: mma.sync tiles in registers, cp.async rings
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from device memory into shared memory, or 16 zero bytes (nothing
+// read) when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 16-bit matrices from shared memory; lanes 8i..8i+7 give the row
+// addresses of matrix i, and register i holds matrix i in the mma's fragment
+// layout (row lane / 4, columns 2 (lane % 4) and + 1), transposed by .trans.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c (16x8, fp32) += a (16x16, row) . b (16x8, col)
+template <typename T>
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+// Two floats rounded to T (nearest even) and packed, lo in the low half.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 x = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// The A fragments of a 16x16 product taken from two C fragments (columns
+// 8i..8i+7 and 8i+8..8i+15 of the same 16 rows), rounded to T.
+template <typename T>
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  a[0] = pack2<T>(c0[0], c0[1]);
+  a[1] = pack2<T>(c0[2], c0[3]);
+  a[2] = pack2<T>(c1[0], c1[1]);
+  a[3] = pack2<T>(c1[2], c1[3]);
+}
+
+// Lane addresses for ldmatrix.x4 over a tile with rows LD elements apart:
+//   a_at:   the A fragment of rows r0..r0+15, columns k0..k0+15 (row-major A)
+//   bn_at:  the B fragments of two 8-column tiles n0, n0+8 at depth k0..k0+15,
+//           B stored [n][k] (registers 0-1: tile n0, 2-3: tile n0+8)
+//   bk_at:  the same with B stored [k][n], for ldsm_x4_t
+template <int LD, typename T>
+__device__ __forceinline__ const T* a_at(const T* base, int r0, int k0, int lane) {
+  return base + (r0 + (lane & 15)) * LD + k0 + (lane >> 4) * 8;
+}
+template <int LD, typename T>
+__device__ __forceinline__ const T* bn_at(const T* base, int n0, int k0, int lane) {
+  return base + (n0 + (lane & 7) + (lane >> 4) * 8) * LD + k0 + ((lane >> 3) & 1) * 8;
+}
+template <int LD, typename T>
+__device__ __forceinline__ const T* bk_at(const T* base, int k0, int n0, int lane) {
+  return base + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + n0 + (lane >> 4) * 8;
+}
+
+// C (16 MT x 8N) += A (16 MT x 16K, rows r0.. of sA) . B^T, B (8N x 16K)
+// stored [n][k]: MT m-tiles share each B fragment.
+template <typename T, int LD, int K16, int N8, int MT>
+__device__ __forceinline__ void mma_abt(float (&c)[MT][N8][4], const T* sA, int r0, const T* sB,
+                                        int lane) {
+#pragma unroll
+  for (int kk = 0; kk < K16; ++kk) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) ldsm_x4(a[mt], a_at<LD>(sA, r0 + 16 * mt, kk * 16, lane));
+#pragma unroll
+    for (int n2 = 0; n2 < N8 / 2; ++n2) {
+      uint32_t b[4];
+      ldsm_x4(b, bn_at<LD>(sB, n2 * 16, kk * 16, lane));
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma16816<T>(c[mt][2 * n2], a[mt], b[0], b[1]);
+        mma16816<T>(c[mt][2 * n2 + 1], a[mt], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// C (16 MT x 8N) += P (16 MT x 8M, C fragments, rounded to T here) . B,
+// B (8M x 8N) stored [k][n]. The operand P never leaves the registers.
+template <typename T, int LD, int M8, int N8, int MT>
+__device__ __forceinline__ void mma_pb(float (&c)[MT][N8][4], const float (&p)[MT][M8][4],
+                                       const T* sB, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < M8 / 2; ++kk) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) c_to_a<T>(a[mt], p[mt][2 * kk], p[mt][2 * kk + 1]);
+#pragma unroll
+    for (int n2 = 0; n2 < N8 / 2; ++n2) {
+      uint32_t b[4];
+      ldsm_x4_t(b, bk_at<LD>(sB, kk * 16, n2 * 16, lane));
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma16816<T>(c[mt][2 * n2], a[mt], b[0], b[1]);
+        mma16816<T>(c[mt][2 * n2 + 1], a[mt], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// The one-m-tile forms the backward kernels use.
+template <typename T, int LD, int K16, int N8>
+__device__ __forceinline__ void mma_abt(float (&c)[N8][4], const T* sA, int r0, const T* sB,
+                                        int lane) {
+  mma_abt<T, LD, K16, N8, 1>(reinterpret_cast<float(&)[1][N8][4]>(c), sA, r0, sB, lane);
+}
+template <typename T, int LD, int M8, int N8>
+__device__ __forceinline__ void mma_pb(float (&c)[N8][4], const float (&p)[M8][4], const T* sB,
+                                       int lane) {
+  mma_pb<T, LD, M8, N8, 1>(reinterpret_cast<float(&)[1][N8][4]>(c),
+                           reinterpret_cast<const float(&)[1][M8][4]>(p), sB, lane);
+}
+
+template <int N8>
+__device__ __forceinline__ void zero(float (&c)[N8][4]) {
+#pragma unroll
+  for (int n = 0; n < N8; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+}
+
+// Tiles of the 16-bit kernels for one head_dim. A warp owns 16 rows (the
+// forward 16 x FwdWarpTiles); a CTA of 4 warps owns 64 query rows (dQ, the
+// forward under the block lists) or 64 key rows (dK/dV), which divides
+// every block the block-sparse gate admits. BK is the key tile that
+// the forward and dQ stream, BQ2 the query tile that dK/dV streams; both are
+// sized so that the fp32 fragments of a warp stay in registers.
+template <typename T, int HD>
+struct Mma {
+  static constexpr int BQ = 16 * kWarps;
+  static constexpr int BK = HD <= 128 ? 64 : 32;
+  static constexpr int BQ2 = HD <= 64 ? 64 : 32;
+  // dK/dV columns one dK/dV launch accumulates: at hd 256 two launches of
+  // 128 each (S^T and dP^T computed twice), so that dK and dV fit the
+  // registers
+  static constexpr int DW = HD <= 128 ? HD : 128;
+  static constexpr int LD = HD + 8;  // 16 bytes of pad a row
+  static constexpr size_t tile(int rows) { return align128(size_t(rows) * LD * sizeof(T)); }
+  static constexpr size_t rowvec(int rows) { return align128(size_t(rows) * sizeof(float)); }
+};
+
+// The forward's m-tiles of 16 rows a warp (a schedule may specialise it):
+// 2 share each K and V fragment between two m-tiles, halving the shared-
+// memory reads a product needs, but make a CTA own 128 query rows.
+template <typename Sched>
+struct FwdWarpTiles {
+  static constexpr int value = 1;
+};
+
+template <typename T, int HD, int MT>
+struct FwdLayout {
+  using M = Mma<T, HD>;
+  static constexpr int BQ = M::BQ * MT;
+  static constexpr size_t q = 0;
+  static constexpr size_t k = q + M::tile(BQ);   // 2 stages
+  static constexpr size_t v = k + 2 * M::tile(M::BK);  // 2 stages
+  static constexpr size_t bytes = v + 2 * M::tile(M::BK);
+};
+
+template <typename T, int HD>
+struct DkdvLayout {
+  using M = Mma<T, HD>;
+  static constexpr size_t k = 0;
+  static constexpr size_t v = k + M::tile(M::BQ);
+  static constexpr size_t q = v + M::tile(M::BQ);        // 2 stages each from here
+  static constexpr size_t dout = q + 2 * M::tile(M::BQ2);
+  static constexpr size_t lse = dout + 2 * M::tile(M::BQ2);
+  static constexpr size_t delta = lse + 2 * M::rowvec(M::BQ2);
+  static constexpr size_t bytes = delta + 2 * M::rowvec(M::BQ2);
+};
+
+template <typename T, int HD>
+struct DqLayout {
+  using M = Mma<T, HD>;
+  static constexpr size_t q = 0;
+  static constexpr size_t dout = q + M::tile(M::BQ);
+  static constexpr size_t k = dout + M::tile(M::BQ);  // 2 stages
+  static constexpr size_t v = k + 2 * M::tile(M::BK);  // 2 stages
+  static constexpr size_t bytes = v + 2 * M::tile(M::BK);
+};
+
+// Rows [0, R) of a (rows, HD) tile into shared memory (rows LD apart) by
+// cp.async, row r read at src + r * row_stride; rows >= valid zero-filled.
+template <typename T, int HD, int R, int NT>
+__device__ __forceinline__ void load_rows_async(T* dst, const T* src, long long row_stride,
+                                                int valid) {
+  constexpr int CPR = HD * int(sizeof(T)) / 16;
+  constexpr int LD = HD + 8;
+  for (int idx = threadIdx.x; idx < R * CPR; idx += NT) {
+    const int r = idx / CPR;
+    const int c = (idx % CPR) * (16 / int(sizeof(T)));
+    const bool ok = r < valid;
+    cp_async16(dst + r * LD + c, src + (ok ? r : 0) * row_stride + c, ok);
+  }
+}
+
+template <int R, int NT>
+__device__ __forceinline__ void load_f32_async(float* dst, const float* src, int valid) {
+  for (int r = threadIdx.x; r < R; r += NT) cp_async4(dst + r, src + (r < valid ? r : 0), r < valid);
+}
+
+// A warp's 16 rows of an fp32 accumulator (C fragments) rounded to T,
+// through its own rows of shared memory (rows LD apart) to rows
+// dst + r * row_stride, r < valid, 16 bytes a lane.
+template <typename T, int HD, int LD>
+__device__ __forceinline__ void store_rows(const float (&c)[HD / 8][4], float inv0, float inv1,
+                                           T* stage, T* dst, size_t row_stride, int valid,
+                                           int lane) {
+  const int gr = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(stage + gr * LD + n * 8 + 2 * tq) =
+        pack2<T>(c[n][0] * inv0, c[n][1] * inv0);
+    *reinterpret_cast<uint32_t*>(stage + (gr + 8) * LD + n * 8 + 2 * tq) =
+        pack2<T>(c[n][2] * inv1, c[n][3] * inv1);
+  }
+  __syncwarp();
+  constexpr int CPR = HD * int(sizeof(T)) / 16;
+  for (int idx = lane; idx < 16 * CPR; idx += 32) {
+    const int r = idx / CPR;
+    const int col = (idx % CPR) * (16 / int(sizeof(T)));
+    if (r < valid) {
+      *reinterpret_cast<uint4*>(dst + r * row_stride + col) =
+          *reinterpret_cast<const uint4*>(stage + r * LD + col);
+    }
+  }
+}
+
+template <typename T, int HD, int MT, typename Sched>
+__global__ void __launch_bounds__(kThreads)
+attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                T* __restrict__ o, float* __restrict__ lse, Shape s, Sched sched) {
+  using M = Mma<T, HD>;
+  using L = FwdLayout<T, HD, MT>;
+  constexpr int BQ = L::BQ, BK = M::BK, LD = M::LD, NT = kThreads;
+  constexpr int RW = 16 * MT;  // rows a warp owns
+  constexpr int SN = BK / 8, ON = HD / 8;
+  extern __shared__ __align__(128) char smem[];
+  T* sQ = reinterpret_cast<T*>(smem + L::q);
+  T* sK = reinterpret_cast<T*>(smem + L::k);
+  T* sV = reinterpret_cast<T*>(smem + L::v);
+
+  int b, h, q0;
+  sched.fwd_cta(s, BQ, b, h, q0);
+  const int kh = h / s.g;
+  const int q_valid = min(BQ, s.Sq - q0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gr = lane >> 2, tq = lane & 3;  // fragment row (and + 8), column pair
+  const int r0 = warp * RW;
+  const int qw = q0 + r0;  // the warp's first query row
+  const float c = s.scale * kLog2e;
+  const T* kb = k + b * s.k_sb + kh * s.k_sh;
+  const T* vb = v + b * s.v_sb + kh * s.v_sh;
+  const int nkt = sched.key_tiles(s, h, q0, q_valid, BK);
+
+  load_rows_async<T, HD, BQ, NT>(sQ, q + b * s.q_sb + q0 * s.q_ss + h * s.q_sh, s.q_ss, q_valid);
+  auto prefetch = [&](int j) {  // key tile j into stage j % 2, one commit group
+    if (j < nkt) {
+      const int k0 = sched.key_tile(s, h, q0, q_valid, j, BK);
+      if (k0 >= 0) {
+        const int kv = min(BK, s.Skv - k0);
+        load_rows_async<T, HD, BK, NT>(sK + (j & 1) * BK * LD, kb + k0 * s.k_ss, s.k_ss, kv);
+        load_rows_async<T, HD, BK, NT>(sV + (j & 1) * BK * LD, vb + k0 * s.v_ss, s.v_ss, kv);
+      }
+    }
+    cp_async_commit();
+  };
+  prefetch(0);
+
+  float acc[MT][ON][4];
+  float m[MT][2], l[MT][2];  // rows gr, gr + 8 of each m-tile: max (log2 units), lane's sum
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    zero(acc[mt]);
+    m[mt][0] = m[mt][1] = kNegInf;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+  for (int j = 0; j < nkt; ++j) {
+    prefetch(j + 1);
+    cp_async_wait<1>();  // every group but the newest: tile j has landed
+    __syncthreads();
+    const int k0 = sched.key_tile(s, h, q0, q_valid, j, BK);
+    if (k0 >= 0 && !(s.causal && k0 > qw + RW - 1)) {
+      const T* tK = sK + (j & 1) * BK * LD;
+      const T* tV = sV + (j & 1) * BK * LD;
+      float sc[MT][SN][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) zero(sc[mt]);
+      mma_abt<T, LD, HD / 16, SN, MT>(sc, sQ, r0, tK, lane);  // S = Q K^T
+      const bool full = k0 + BK <= s.Skv && (!s.causal || k0 + BK - 1 <= qw);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        float mx[2] = {m[mt][0], m[mt][1]};
+#pragma unroll
+        for (int n = 0; n < SN; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = sc[mt][n][e] * c;
+            if (!full && !visible(s, qw + 16 * mt + gr + (e >> 1) * 8,
+                                  k0 + n * 8 + 2 * tq + (e & 1))) {
+              x = __int_as_float(0xff800000);  // -inf: p = 0 exactly
+            }
+            sc[mt][n][e] = x;
+            mx[e >> 1] = fmaxf(mx[e >> 1], x);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+          const float alpha = exp2f(m[mt][i] - mx[i]);
+          m[mt][i] = mx[i];
+          l[mt][i] *= alpha;
+#pragma unroll
+          for (int n = 0; n < ON; ++n) {
+            acc[mt][n][2 * i] *= alpha;
+            acc[mt][n][2 * i + 1] *= alpha;
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < SN; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[mt][n][e] = exp2f(sc[mt][n][e] - m[mt][e >> 1]);
+          l[mt][0] += sc[mt][n][0] + sc[mt][n][1];
+          l[mt][1] += sc[mt][n][2] + sc[mt][n][3];
+        }
+      }
+      mma_pb<T, LD, SN, ON, MT>(acc, sc, tV, lane);  // O += P V, P rounded to v's dtype
+    }
+    __syncthreads();  // every warp is done with stage j % 2 before tile j + 2 lands there
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float* li = l[mt];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      li[i] += __shfl_xor_sync(0xffffffffu, li[i], 1);
+      li[i] += __shfl_xor_sync(0xffffffffu, li[i], 2);
+    }
+    const int rm = r0 + 16 * mt;  // the m-tile's first row in the CTA
+    // the warp's own rows of sQ stage its output rows
+    store_rows<T, HD, LD>(acc[mt], 1.f / (li[0] == 0.f ? 1.f : li[0]),
+                          1.f / (li[1] == 0.f ? 1.f : li[1]), sQ + rm * LD,
+                          o + ((size_t(b) * s.Sq + q0 + rm) * s.nh + h) * HD, size_t(s.nh) * HD,
+                          q_valid - rm, lane);
+    if (tq == 0) {
+      float* lb = lse + (size_t(b) * s.nh + h) * s.Sq + q0 + rm;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = gr + 8 * i;
+        if (rm + r < q_valid) lb[r] = li[i] == 0.f ? kNegInf : m[mt][i] * kLn2 + logf(li[i]);
+      }
+    }
+  }
+}
+
+template <typename T, int HD, typename Sched>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                     Shape s, Sched sched, int d0) {
+  using M = Mma<T, HD>;
+  using L = DkdvLayout<T, HD>;
+  constexpr int BKV = M::BQ, BQ = M::BQ2, LD = M::LD, NT = kThreads;
+  constexpr int SN = BQ / 8, ON = M::DW / 8;  // dK / dV columns d0 .. d0 + DW
+  extern __shared__ __align__(128) char smem[];
+  T* sK = reinterpret_cast<T*>(smem + L::k);
+  T* sV = reinterpret_cast<T*>(smem + L::v);
+  T* sQ = reinterpret_cast<T*>(smem + L::q);
+  T* sDO = reinterpret_cast<T*>(smem + L::dout);
+  float* sLse = reinterpret_cast<float*>(smem + L::lse);
+  float* sDelta = reinterpret_cast<float*>(smem + L::delta);
+
+  int b, kh, k0;
+  sched.kv_cta(s, BKV, b, kh, k0);
+  const int k_valid = min(BKV, s.Skv - k0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int r0 = warp * 16;
+  const int kw = k0 + r0;  // the warp's first key row
+  const float c = s.scale * kLog2e;
+  load_rows_async<T, HD, BKV, NT>(sK, k + b * s.k_sb + k0 * s.k_ss + kh * s.k_sh, s.k_ss,
+                                  k_valid);
+  load_rows_async<T, HD, BKV, NT>(sV, v + b * s.v_sb + k0 * s.v_ss + kh * s.v_sh, s.v_ss,
+                                  k_valid);
+
+  // the items: the group's g query heads x the query tiles of each that see
+  // this key tile, in that order
+  int total = 0;
+  for (int gi = 0; gi < s.g; ++gi) total += sched.query_tiles(s, kh * s.g + gi, k0, BQ);
+  auto locate = [&](int t, int& h) {  // item t's head and first query row (-1: skip)
+    int gi = 0;
+    for (; gi < s.g - 1; ++gi) {
+      const int n = sched.query_tiles(s, kh * s.g + gi, k0, BQ);
+      if (t < n) break;
+      t -= n;
+    }
+    h = kh * s.g + gi;
+    return sched.query_tile(s, h, k0, t, BQ);
+  };
+  auto prefetch = [&](int t) {  // item t into stage t % 2, one commit group
+    if (t < total) {
+      int h;
+      const int q0 = locate(t, h);
+      if (q0 >= 0) {
+        const int qv = min(BQ, s.Sq - q0);
+        const int st = t & 1;
+        load_rows_async<T, HD, BQ, NT>(sQ + st * BQ * LD, q + b * s.q_sb + q0 * s.q_ss + h * s.q_sh,
+                                       s.q_ss, qv);
+        load_rows_async<T, HD, BQ, NT>(sDO + st * BQ * LD,
+                                       dout + b * s.d_sb + q0 * s.d_ss + h * s.d_sh, s.d_ss, qv);
+        const size_t row0 = (size_t(b) * s.nh + h) * s.Sq + q0;
+        load_f32_async<BQ, NT>(sLse + st * BQ, lse + row0, qv);
+        load_f32_async<BQ, NT>(sDelta + st * BQ, delta + row0, qv);
+      }
+    }
+    cp_async_commit();
+  };
+  prefetch(0);  // in one group with K and V
+
+  float dK[ON][4], dV[ON][4];
+  zero(dK);
+  zero(dV);
+  for (int t = 0; t < total; ++t) {
+    prefetch(t + 1);
+    cp_async_wait<1>();
+    __syncthreads();
+    int h;
+    const int q0 = locate(t, h);
+    if (q0 >= 0 && kw < s.Skv && !(s.causal && q0 + BQ - 1 < kw)) {
+      const int st = t & 1;
+      const T* tQ = sQ + st * BQ * LD;
+      const T* tDO = sDO + st * BQ * LD;
+      const float* tL = sLse + st * BQ;
+      const float* tD = sDelta + st * BQ;
+      float sp[SN][4];  // S^T, then P^T, then dS^T: key rows x query columns
+      zero(sp);
+      mma_abt<T, LD, HD / 16, SN>(sp, sK, r0, tQ, lane);  // S^T = K Q^T
+      const bool full = q0 + BQ <= s.Sq && kw + 16 <= s.Skv && (!s.causal || q0 >= kw + 15);
+#pragma unroll
+      for (int n = 0; n < SN; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = n * 8 + 2 * tq + (e & 1);
+          float p = exp2f(sp[n][e] * c - tL[qc] * kLog2e);
+          if (!full && !visible(s, q0 + qc, kw + gr + (e >> 1) * 8)) p = 0.f;
+          sp[n][e] = p;
+        }
+      }
+      mma_pb<T, LD, SN, ON>(dV, sp, tDO + d0, lane);  // dV += P^T dO, P rounded to do's dtype
+      float dp[SN][4];
+      zero(dp);
+      mma_abt<T, LD, HD / 16, SN>(dp, sV, r0, tDO, lane);  // dP^T = V dO^T
+#pragma unroll
+      for (int n = 0; n < SN; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sp[n][e] = sp[n][e] * (dp[n][e] - tD[n * 8 + 2 * tq + (e & 1)]) * s.scale;
+        }
+      }
+      mma_pb<T, LD, SN, ON>(dK, sp, tQ + d0, lane);  // dK += dS^T Q, dS rounded to q's dtype
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the warp's own rows of sK and sV stage its dk and dv rows
+  const size_t out0 = ((size_t(b) * s.Skv + kw) * s.kvh + kh) * HD + d0;
+  store_rows<T, M::DW, LD>(dK, 1.f, 1.f, sK + r0 * LD + d0, dk + out0, size_t(s.kvh) * HD,
+                           k_valid - r0, lane);
+  store_rows<T, M::DW, LD>(dV, 1.f, 1.f, sV + r0 * LD + d0, dv + out0, size_t(s.kvh) * HD,
+                           k_valid - r0, lane);
+}
+
+template <typename T, int HD, typename Sched>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   const T* __restrict__ dout, const float* __restrict__ lse,
+                   const float* __restrict__ delta, T* __restrict__ dq, Shape s, Sched sched) {
+  using M = Mma<T, HD>;
+  using L = DqLayout<T, HD>;
+  constexpr int BQ = M::BQ, BK = M::BK, LD = M::LD, NT = kThreads;
+  constexpr int SN = BK / 8, ON = HD / 8;
+  extern __shared__ __align__(128) char smem[];
+  T* sQ = reinterpret_cast<T*>(smem + L::q);
+  T* sDO = reinterpret_cast<T*>(smem + L::dout);
+  T* sK = reinterpret_cast<T*>(smem + L::k);
+  T* sV = reinterpret_cast<T*>(smem + L::v);
+
+  int b, h, q0;
+  sched.fwd_cta(s, BQ, b, h, q0);
+  const int kh = h / s.g;
+  const int q_valid = min(BQ, s.Sq - q0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int r0 = warp * 16;
+  const int qw = q0 + r0;
+  const float c = s.scale * kLog2e;
+  const T* kb = k + b * s.k_sb + kh * s.k_sh;
+  const T* vb = v + b * s.v_sb + kh * s.v_sh;
+  const int nkt = sched.key_tiles(s, h, q0, q_valid, BK);
+
+  load_rows_async<T, HD, BQ, NT>(sQ, q + b * s.q_sb + q0 * s.q_ss + h * s.q_sh, s.q_ss, q_valid);
+  load_rows_async<T, HD, BQ, NT>(sDO, dout + b * s.d_sb + q0 * s.d_ss + h * s.d_sh, s.d_ss,
+                                 q_valid);
+  auto prefetch = [&](int j) {
+    if (j < nkt) {
+      const int k0 = sched.key_tile(s, h, q0, q_valid, j, BK);
+      if (k0 >= 0) {
+        const int kv = min(BK, s.Skv - k0);
+        load_rows_async<T, HD, BK, NT>(sK + (j & 1) * BK * LD, kb + k0 * s.k_ss, s.k_ss, kv);
+        load_rows_async<T, HD, BK, NT>(sV + (j & 1) * BK * LD, vb + k0 * s.v_ss, s.v_ss, kv);
+      }
+    }
+    cp_async_commit();
+  };
+  prefetch(0);  // in one group with Q and dO
+  // lse (log2 units) and delta of the lane's rows gr, gr + 8; rows past Sq see no key
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = qw + gr + 8 * i;
+    const size_t row = (size_t(b) * s.nh + h) * s.Sq + r;
+    lse2[i] = r < s.Sq ? lse[row] * kLog2e : 0.f;
+    dl[i] = r < s.Sq ? delta[row] : 0.f;
+  }
+
+  float dQ[ON][4];
+  zero(dQ);
+  for (int j = 0; j < nkt; ++j) {
+    prefetch(j + 1);
+    cp_async_wait<1>();
+    __syncthreads();
+    const int k0 = sched.key_tile(s, h, q0, q_valid, j, BK);
+    if (k0 >= 0 && qw < s.Sq && !(s.causal && k0 > qw + 15)) {
+      const T* tK = sK + (j & 1) * BK * LD;
+      const T* tV = sV + (j & 1) * BK * LD;
+      float sc[SN][4], dp[SN][4];
+      zero(sc);
+      zero(dp);
+      mma_abt<T, LD, HD / 16, SN>(sc, sQ, r0, tK, lane);   // S = Q K^T
+      mma_abt<T, LD, HD / 16, SN>(dp, sDO, r0, tV, lane);  // dP = dO V^T
+      const bool full =
+          k0 + BK <= s.Skv && (!s.causal || k0 + BK - 1 <= qw) && qw + 16 <= s.Sq;
+#pragma unroll
+      for (int n = 0; n < SN; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          float p = exp2f(sc[n][e] * c - lse2[i]);
+          if (!full && !visible(s, qw + gr + 8 * i, k0 + n * 8 + 2 * tq + (e & 1))) p = 0.f;
+          sc[n][e] = p * (dp[n][e] - dl[i]) * s.scale;
+        }
+      }
+      mma_pb<T, LD, SN, ON>(dQ, sc, tK, lane);  // dQ += dS K, dS rounded to q's dtype
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the warp's own rows of sQ stage its dq rows
+  store_rows<T, HD, LD>(dQ, 1.f, 1.f, sQ + r0 * LD, dq + ((size_t(b) * s.Sq + qw) * s.nh + h) * HD,
+                        size_t(s.nh) * HD, q_valid - r0, lane);
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
 
 // The launches over any schedule: the forward, or the dK/dV then the dQ kernel.
 struct Args {
@@ -506,48 +1134,86 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 template <typename T, int HD, typename Sched>
 cudaError_t run_fwd(const Args& a, const Sched& sched) {
-  using Tl = Tiles<T, HD>;
-  using L = FwdLayout<T, HD>;
-  static_assert(L::bytes <= kMaxSmem, "forward tiles exceed shared memory");
-  cudaError_t e = allow_smem(attn_fwd_kernel<T, HD, Sched>, L::bytes);
-  if (e != cudaSuccess) return e;
-  attn_fwd_kernel<T, HD, Sched><<<sched.q_grid(a.s, Tl::BQ), kThreads, L::bytes, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(a.o), static_cast<float*>(a.lse_out), a.s, sched);
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  T* o = static_cast<T*>(a.o);
+  float* lse = static_cast<float*>(a.lse_out);
+  if constexpr (sizeof(T) == 2) {
+    constexpr int MT = HD <= 128 ? FwdWarpTiles<Sched>::value : 1;  // hd 256: O fills the registers
+    using L = FwdLayout<T, HD, MT>;
+    static_assert(L::bytes <= kMaxSmem, "forward tiles exceed shared memory");
+    cudaError_t e = allow_smem(attn_fwd_kernel<T, HD, MT, Sched>, L::bytes);
+    if (e != cudaSuccess) return e;
+    attn_fwd_kernel<T, HD, MT, Sched><<<sched.q_grid(a.s, L::BQ), kThreads, L::bytes,
+                                        a.stream>>>(q, k, v, o, lse, a.s, sched);
+  } else {
+    using L = FmaFwdLayout<HD>;
+    static_assert(L::bytes <= kMaxSmem, "forward tiles exceed shared memory");
+    cudaError_t e = allow_smem(attn_fwd_fma_kernel<HD, Sched>, L::bytes);
+    if (e != cudaSuccess) return e;
+    attn_fwd_fma_kernel<HD, Sched><<<sched.q_grid(a.s, Fma<HD>::BQ), kThreads, L::bytes,
+                                     a.stream>>>(q, k, v, o, lse, a.s, sched);
+  }
   return cudaGetLastError();
 }
 
 template <typename T, int HD, typename Sched>
 cudaError_t run_bwd(const Args& a, const Sched& sched) {
-  using Tl = Tiles<T, HD>;
-  using L1 = DkdvLayout<T, HD>;
-  using L2 = DqLayout<T, HD>;
-  static_assert(L1::bytes <= kMaxSmem && L2::bytes <= kMaxSmem,
-                "backward tiles exceed shared memory");
-  cudaError_t e = allow_smem(attn_bwd_dkdv_kernel<T, HD, Sched>, L1::bytes);
-  if (e != cudaSuccess) return e;
-  e = allow_smem(attn_bwd_dq_kernel<T, HD, Sched>, L2::bytes);
-  if (e != cudaSuccess) return e;
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
   const float* lse = static_cast<const float*>(a.lse);
   const float* delta = static_cast<const float*>(a.delta);
-  attn_bwd_dkdv_kernel<T, HD, Sched><<<sched.kv_grid(a.s, Tl::BK), kThreads, L1::bytes,
-                                       a.stream>>>(
-      q, k, v, dout, lse, delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.s, sched);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  attn_bwd_dq_kernel<T, HD, Sched><<<sched.q_grid(a.s, Tl::BQ), kThreads, L2::bytes,
-                                     a.stream>>>(
-      q, k, v, dout, lse, delta, static_cast<T*>(a.o), a.s, sched);
+  T* dq = static_cast<T*>(a.o);
+  T* dk = static_cast<T*>(a.dk);
+  T* dv = static_cast<T*>(a.dv);
+  cudaError_t e;
+  if constexpr (sizeof(T) == 2) {
+    using M = Mma<T, HD>;
+    using L1 = DkdvLayout<T, HD>;
+    using L2 = DqLayout<T, HD>;
+    static_assert(L1::bytes <= kMaxSmem && L2::bytes <= kMaxSmem,
+                  "backward tiles exceed shared memory");
+    e = allow_smem(attn_bwd_dkdv_kernel<T, HD, Sched>, L1::bytes);
+    if (e != cudaSuccess) return e;
+    e = allow_smem(attn_bwd_dq_kernel<T, HD, Sched>, L2::bytes);
+    if (e != cudaSuccess) return e;
+    for (int d0 = 0; d0 < HD; d0 += M::DW) {
+      attn_bwd_dkdv_kernel<T, HD, Sched><<<sched.kv_grid(a.s, M::BQ), kThreads, L1::bytes,
+                                           a.stream>>>(q, k, v, dout, lse, delta, dk, dv, a.s,
+                                                       sched, d0);
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return e;
+    }
+    attn_bwd_dq_kernel<T, HD, Sched><<<sched.q_grid(a.s, M::BQ), kThreads, L2::bytes,
+                                       a.stream>>>(q, k, v, dout, lse, delta, dq, a.s, sched);
+  } else {
+    using Tl = Fma<HD>;
+    using L1 = FmaDkdvLayout<HD>;
+    using L2 = FmaDqLayout<HD>;
+    static_assert(L1::bytes <= kMaxSmem && L2::bytes <= kMaxSmem,
+                  "backward tiles exceed shared memory");
+    e = allow_smem(attn_bwd_dkdv_fma_kernel<HD, Sched>, L1::bytes);
+    if (e != cudaSuccess) return e;
+    e = allow_smem(attn_bwd_dq_fma_kernel<HD, Sched>, L2::bytes);
+    if (e != cudaSuccess) return e;
+    attn_bwd_dkdv_fma_kernel<HD, Sched><<<sched.kv_grid(a.s, Tl::BK), kThreads, L1::bytes,
+                                          a.stream>>>(q, k, v, dout, lse, delta, dk, dv, a.s,
+                                                      sched);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    attn_bwd_dq_fma_kernel<HD, Sched><<<sched.q_grid(a.s, Tl::BQ), kThreads, L2::bytes,
+                                        a.stream>>>(q, k, v, dout, lse, delta, dq, a.s, sched);
+  }
   return cudaGetLastError();
 }
 
 template <typename T, typename Sched>
 cudaError_t dispatch_head_dim(int head_dim, bool backward, const Args& a, const Sched& sched) {
   switch (head_dim) {
+    case 32: return backward ? run_bwd<T, 32>(a, sched) : run_fwd<T, 32>(a, sched);
     case 64: return backward ? run_bwd<T, 64>(a, sched) : run_fwd<T, 64>(a, sched);
     case 128: return backward ? run_bwd<T, 128>(a, sched) : run_fwd<T, 128>(a, sched);
     case 256: return backward ? run_bwd<T, 256>(a, sched) : run_fwd<T, 256>(a, sched);

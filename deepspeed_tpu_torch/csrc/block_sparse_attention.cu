@@ -34,8 +34,13 @@
 // block, a window row a few), so the CTAs run in the order of `q_order` and
 // `kv_order`, longest lists first, and the long rows do not form a tail.
 //
-// Left for later: the flash kernels' list (wgmma, TMA, registers for the
-// accumulators), and splitting a global row's list over several CTAs.
+// The tiles are the flash kernels' (attention_kernels.cuh): 64 query rows
+// and 64 key rows a CTA, 64-key tiles (32 at hd 256), so a block of any
+// multiple of 64 is walked as whole tiles, and the accumulators live in
+// registers.
+//
+// Left for later: the flash kernels' list (wgmma, TMA, warp
+// specialisation), and splitting a global row's list over several CTAs.
 
 #include "attention_kernels.cuh"
 
@@ -89,8 +94,8 @@ struct ListSched {
 bool make_sched(ListSched* l, const Shape& s, const int* kcnt, const int* kidx, const int* qcnt,
                 const int* qidx, const int* q_order, const int* kv_order, int block, int max_k,
                 int max_q) {
-  // 64 is the largest tile (Tiles<>::BQ, BK): a block of a multiple of it
-  // is walked as whole tiles
+  // 64 is the largest tile (Mma<>::BQ, BK, BQ2): a block of a multiple of
+  // it is walked as whole tiles
   if (block <= 0 || block % 64 || s.Sq % block || s.Skv % block || max_k <= 0 || max_q <= 0) {
     return false;
   }

@@ -495,9 +495,11 @@ class TransformerLM:
         (shifted internally when absent; -100 = ignore) and ``positions``,
         or a bare (B, S) tensor, or an (input_ids, labels) pair. fp32
         logits; the loss is the mean of ``logsumexp - gold`` over the
-        labelled tokens.
+        labelled tokens. Over a weight-only-quantized tree the loss is
+        computed for ``train=False`` (each projection through ``_project``)
+        and refused for ``train=True``.
         """
-        if any("::" in k for k in params.get("blocks", {})):
+        if train and any("::" in k for k in params.get("blocks", {})):
             raise NotImplementedError(
                 "apply (training) over weight-only-quantized leaves is not ported: "
                 f"there is no gradient with respect to codes ({_WOQ_TRAIN_ITEM})")

@@ -28,7 +28,7 @@ The gates. The JAX kernel's own (``:294-300``): ``NotImplementedError`` for
 a block under 128 or one that does not divide both sequence lengths (the
 case ``SparseSelfAttention`` sends down its masked path), ``ValueError``
 for a layout of the wrong shape. Then the CUDA kernels' (``check_kernel_config``,
-before any launch): the flash kernels' head_dim (64, 128, 256), dtypes and
+before any launch): the flash kernels' head_dim (32, 64, 128, 256), dtypes and
 GQA rule, and a block that is a multiple of 64, the largest tile. The JAX
 wrapper's VMEM guard (``:311-312``) was a TPU limit and is not carried over:
 the kernels stage tiles, not whole K/V windows. A failed build or launch

@@ -15,7 +15,7 @@ paths, as in the JAX package:
   rejects: a block under 128, or one that does not divide the sequence.
 
 On the card anything else the CUDA kernels do not take (a head_dim other
-than 64, 128 or 256, a block that is not a multiple of 64) raises; the
+than 32, 64, 128 or 256, a block that is not a multiple of 64) raises; the
 masked path never stands in for a kernel there.
 """
 

@@ -11,7 +11,7 @@ registry name, in ``flash_attention.py``) carries attention.
 for CPU tensors. Where the JAX dispatch catches the kernel's
 ``NotImplementedError`` and runs XLA instead (``attention.py:100``), the port
 does so only on the CPU: on the card a call the kernel cannot serve (bias,
-softcap, a nonzero ``q_offset``, a head_dim outside 64/128/256) raises, and
+softcap, a nonzero ``q_offset``, a head_dim outside 32/64/128/256) raises, and
 the plain version never runs in the kernel's place.
 """
 

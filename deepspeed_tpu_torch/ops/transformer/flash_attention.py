@@ -17,7 +17,9 @@ kernels' place on the card.
 
 What the kernels take (the Hopper counterpart of the TPU gate at
 ``flash_attention.py:261-287``, whose 128-multiple sequence and VMEM limits
-were Mosaic's and do not carry over): head_dim 64, 128 or 256; any sequence
+were Mosaic's and do not carry over): head_dim 32, 64, 128 or 256 (the JAX
+gate's 64/128/256, and 32, which the JAX package sends to its XLA path, so
+that a model such as ``llama-tiny`` runs on the card); any sequence
 length (a tail tile is masked); any GQA group ``nh / kvh``; float32,
 bfloat16 or float16 with q, k, v (and do) of one dtype; a contiguous last
 dimension, 16-byte-aligned data and row strides. Bias, softcap and a
@@ -39,7 +41,7 @@ fwd_launches = 0
 bwd_launches = 0
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_KERNEL_HEAD_DIMS = (64, 128, 256)
+_KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 _lib = None
 
 

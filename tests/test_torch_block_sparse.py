@@ -212,7 +212,8 @@ def test_gates_raise_as_the_jax_package():
 @pytest.mark.parametrize("block,hd,dtype,ok", [
     (128, 128, torch.bfloat16, True), (256, 64, torch.float32, True),
     (192, 256, torch.float16, True), (160, 128, torch.bfloat16, False),
-    (128, 32, torch.bfloat16, False), (128, 128, torch.float64, False),
+    (128, 32, torch.bfloat16, True), (128, 48, torch.bfloat16, False),
+    (128, 128, torch.float64, False),
 ])
 def test_kernel_gate(block, hd, dtype, ok):
     if ok:
@@ -249,7 +250,7 @@ def _card_case(name, hd, dtype, dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name,hd", [("fixed-causal", 128), ("bigbird", 64),
                                      ("fixed-gqa2", 256), ("empty-rows-causal", 64),
-                                     ("empty-rows", 128)])
+                                     ("empty-rows", 128), ("fixed-gqa2", 32)])
 def test_cuda_kernels_match_plain(name, hd, dtype, cuda):
     layout, g, causal, q, k, v, do = _card_case(name, hd, dtype, cuda)
     kw = dict(causal=causal, num_kv_groups=g)
@@ -290,8 +291,11 @@ def test_cuda_sparse_self_attention_paths(cuda):
     small = SparseSelfAttention(sc.FixedSparsityConfig(num_heads=4, block=16))
     small(q, k, v)  # block < 128: the JAX gate's masked path
     assert bs.fwd_launches == f0 + 1
-    with pytest.raises(NotImplementedError):  # head_dim 32: raises out of auto
-        x = q[..., :32].contiguous()
+    x = q[..., :32].contiguous()  # head_dim 32: the kernel
+    sa(x, x, x)
+    assert bs.fwd_launches == f0 + 2
+    with pytest.raises(NotImplementedError):  # head_dim 48: raises out of auto
+        x = q[..., :48].contiguous()
         sa(x, x, x)
     with pytest.raises(NotImplementedError):  # a block that is not a multiple of 64
         SparseSelfAttention(sc.FixedSparsityConfig(num_heads=4, block=160))(

@@ -6,10 +6,14 @@ port's gradients (its autograd Function over the plain backward) against
 ``jax.grad`` of that kernel, at ``tests/unit/test_models.py:108-133``'s shapes.
 fp32 throughout; out and lse at atol 2e-5 (the paged kernel's tolerance),
 gradients at atol 1e-4 (three chained fp32 products over 256 keys).
+At head_dim 32, outside the Pallas gate, the plain forward and the port's
+gradients against the JAX package's ``attention()`` dispatch, which runs XLA
+there, at the same tolerances.
 On a card: the CUDA kernels against the plain versions, fp32 at atol 1e-5
 (gradients at 1e-5 of max(1, their max): dk and dv sum g * S products in
-another order than the plain version's GEMM), bf16 at atol/rtol 1e-2
-(gradients at 1e-2 of their max). The card has no
+another order than the plain version's GEMM), bf16 and fp16 at atol/rtol
+1e-2 (gradients at 1e-2 of their max), and a repeated 16-bit call bitwise
+equal to the first. The card has no
 JAX, so this file imports it only in the tests that use it, and runs there
 with ``python -m pytest --noconftest -m cuda tests/test_torch_flash_attention.py``.
 """
@@ -79,6 +83,55 @@ def test_gradients_match_jax_grad_of_pallas_kernel(kvh, hd, causal, jax_flash):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
 
+@pytest.fixture
+def jax_attention():
+    pytest.importorskip("jax")
+    import importlib
+
+    return importlib.import_module("deepspeed_tpu.ops.transformer.attention")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kvh", [4, 2, 1])
+def test_head_dim_32_plain_forward_matches_jax_dispatch(kvh, causal, jax_attention):
+    # head_dim 32 is outside the Pallas gate: the JAX dispatch runs XLA
+    import jax.numpy as jnp
+
+    B, S, nh, hd = 2, 130, 4, 32
+    q, k, v = make_qkv(B, S, nh, kvh, hd, seed=5)
+    g = nh // kvh
+    ref = jax_attention.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  causal=causal, num_kv_groups=g, impl="pallas_flash")
+    out, lse = fa.flash_attention_plain(torch.from_numpy(q), torch.from_numpy(k),
+                                        torch.from_numpy(v), causal=causal, num_kv_groups=g)
+    assert out.shape == (B, S, nh, hd) and lse.shape == (B, nh, S)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kvh", [4, 2])
+def test_head_dim_32_gradients_match_jax_grad_of_dispatch(kvh, causal, jax_attention):
+    import jax
+    import jax.numpy as jnp
+
+    B, S, nh, hd = 2, 130, 4, 32
+    q, k, v = make_qkv(B, S, nh, kvh, hd, seed=6)
+    w = np.random.default_rng(7).standard_normal((B, S, nh, hd)).astype(np.float32)
+    g = nh // kvh
+
+    def loss(q_, k_, v_):
+        out = jax_attention.attention(q_, k_, v_, causal=causal, num_kv_groups=g,
+                                      impl="pallas_flash")
+        return jnp.sum(out * jnp.asarray(w))
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = fa.flash_attention(tq, tk, tv, causal=causal, num_kv_groups=g)
+    (out * torch.from_numpy(w)).sum().backward()
+    for got, want in zip((tq.grad, tk.grad, tv.grad), ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_backward_matches_autograd_of_plain_attention(causal):
     q, k, v = make_qkv(2, 100, 4, 2, 64, seed=3)  # S not a multiple of any tile
@@ -124,7 +177,8 @@ def test_flash_entry_refuses_what_the_kernel_does_not_compute(kw):
 @pytest.mark.parametrize("hd,nh,kvh,dtype,ok", [
     (128, 32, 32, torch.bfloat16, True), (128, 64, 8, torch.float32, True),
     (64, 4, 2, torch.float16, True), (256, 8, 1, torch.bfloat16, True),
-    (32, 8, 4, torch.bfloat16, False), (80, 32, 32, torch.bfloat16, False),
+    (32, 8, 4, torch.bfloat16, True), (48, 8, 4, torch.bfloat16, False),
+    (80, 32, 32, torch.bfloat16, False),
     (128, 6, 4, torch.bfloat16, False), (128, 8, 8, torch.float64, False),
 ])
 def test_kernel_gate(hd, nh, kvh, dtype, ok):
@@ -161,13 +215,16 @@ def _close_rel(got, want, tol, floor=0.0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,nh,kvh,hd,causal", [
-    (2, 256, 4, 4, 128, True), (1, 256, 8, 2, 64, False), (1, 200, 4, 1, 256, True),
-    (2, 1000, 4, 2, 128, True), (1, 1000, 4, 4, 64, False),
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,S,nh,kvh,hd,causal,Skv", [
+    (2, 256, 4, 4, 128, True, None), (1, 256, 8, 2, 64, False, None),
+    (1, 200, 4, 1, 256, True, None), (2, 1000, 4, 2, 128, True, None),
+    (1, 1000, 4, 4, 64, False, None), (2, 130, 8, 1, 128, True, None),
+    (1, 130, 4, 2, 32, True, None), (1, 1000, 4, 4, 32, False, None),
+    (1, 130, 4, 2, 128, False, 300), (1, 300, 8, 1, 64, False, 130),
 ])
-def test_cuda_kernels_match_plain(B, S, nh, kvh, hd, causal, dtype, cuda):
-    q, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in make_qkv(B, S, nh, kvh, hd))
+def test_cuda_kernels_match_plain(B, S, nh, kvh, hd, causal, Skv, dtype, cuda):
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in make_qkv(B, S, nh, kvh, hd, Skv=Skv))
     do = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(0), device=cuda,
                      dtype=torch.float32).to(dtype)
     g = nh // kvh
@@ -176,6 +233,11 @@ def test_cuda_kernels_match_plain(B, S, nh, kvh, hd, causal, dtype, cuda):
     grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, num_kv_groups=g)
     torch.cuda.synchronize()
     assert (fa.fwd_launches, fa.bwd_launches) == (f0 + 1, b0 + 1)
+    if dtype != torch.float32:  # no atomics, sums in a fixed order: bitwise repeats
+        out2, lse2 = fa.flash_attention_fwd(q, k, v, causal=causal, num_kv_groups=g)
+        grads2 = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, num_kv_groups=g)
+        assert torch.equal(out, out2) and torch.equal(lse, lse2)
+        assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
     ref_out, ref_lse = fa.flash_attention_plain(q, k, v, causal=causal, num_kv_groups=g)
     ref_grads = fa.flash_attention_bwd_plain(q, k, v, ref_out, ref_lse, do, causal=causal,
                                              num_kv_groups=g)
@@ -192,6 +254,30 @@ def test_cuda_kernels_match_plain(B, S, nh, kvh, hd, causal, dtype, cuda):
 
 
 @pytest.mark.cuda
+def test_cuda_llama_tiny_trains_through_the_kernel(cuda):
+    # head_dim 32: the engine takes it on the card, its attention launches
+    # the kernels, and fp32 losses follow the same engine on the CPU
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import build_model
+
+    model = build_model("llama-tiny", vocab_size=512, num_layers=2, max_seq_len=256)
+    assert model.config.head_dim == 32
+    params = model.init_params(torch.Generator().manual_seed(0))
+    cfg = {"train_micro_batch_size_per_gpu": 2,
+           "optimizer": {"type": "AdamW", "params": {"lr": 1e-3, "eps": 1e-6}}}
+    engines = [deepspeed_tpu_torch.initialize(model=model, model_parameters=params,
+                                              config=dict(cfg), device=d)[0]
+               for d in ("cpu", cuda)]
+    rng = np.random.default_rng(0)
+    f0, b0 = fa.fwd_launches, fa.bwd_launches
+    for _ in range(2):
+        batch = {"input_ids": rng.integers(0, 512, (2, 200)).astype(np.int32)}
+        ref, got = (float(e.train_batch(iter([batch]))) for e in engines)
+        assert np.isfinite(got) and abs(got - ref) <= 1e-5 * abs(ref), (got, ref)
+    assert (fa.fwd_launches - f0, fa.bwd_launches - b0) == (2 * 2, 2 * 2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kw", [dict(bias=0), dict(softcap=30.0), dict(q_offset=3)])
 def test_cuda_dispatch_raises_instead_of_running_the_plain_version(kw, cuda):
     q = torch.zeros(1, 128, 2, 64, device=cuda, dtype=torch.bfloat16)
@@ -199,8 +285,8 @@ def test_cuda_dispatch_raises_instead_of_running_the_plain_version(kw, cuda):
         kw = dict(bias=torch.zeros(1, 1, 1, 1, 128, device=cuda))
     with pytest.raises(NotImplementedError):
         att.attention(q, q, q, causal=True, **kw)
-    with pytest.raises(NotImplementedError):  # head_dim 32: not the kernels'
-        att.attention(q[..., :32].contiguous(), q[..., :32].contiguous(),
-                      q[..., :32].contiguous())
+    with pytest.raises(NotImplementedError):  # head_dim 48: not the kernels'
+        att.attention(q[..., :48].contiguous(), q[..., :48].contiguous(),
+                      q[..., :48].contiguous())
     with pytest.raises(ValueError):
         att.attention(q, q, q, impl="xla")

@@ -140,3 +140,32 @@ def test_woq_training_raises_naming_roadmap_item(models):
     ids = torch.zeros((1, 8), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 14"):
         tm.apply(qp, {"input_ids": ids})
+
+
+# ROADMAP.md Queue 3's repro of the quantized eval loss: the JAX package gives
+# 6.295340538 (fp) and 6.295094967 (int8) on this model and batch
+EVAL_MODEL = ("llama-tiny", dict(vocab_size=512, hidden_size=128, num_layers=2, num_heads=2,
+                                 num_kv_heads=2, intermediate_size=256))
+
+
+@pytest.fixture(scope="module")
+def eval_models():
+    jm = jax_build_model(EVAL_MODEL[0], **EVAL_MODEL[1])
+    params = jax.tree.map(np.asarray, jm.init_params(jax.random.PRNGKey(0)))
+    ids = np.random.default_rng(0).integers(0, 512, (2, 16)).astype(np.int32)
+    return jm, params, build_model(EVAL_MODEL[0], **EVAL_MODEL[1]), ids
+
+
+@pytest.mark.parametrize("bits", [8, 6, 4])
+def test_woq_eval_loss_matches_jax(eval_models, bits):
+    jm, params, tm, ids = eval_models
+    _, jq = jax_quantize_model(jm, params, num_bits=bits, group_size=64)
+    jq = jax.tree.map(np.asarray, jq)
+    want = float(jm.apply(jq, {"input_ids": ids}, train=False))
+    if bits == 8:
+        assert abs(want - 6.295094967) <= 1e-6
+    tq = params_from_jax(jq)
+    got = float(tm.apply(tq, {"input_ids": torch.from_numpy(ids)}, train=False))
+    assert abs(got - want) <= 1e-4, (got, want)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 14"):
+        tm.apply(tq, {"input_ids": torch.from_numpy(ids)}, train=True)
