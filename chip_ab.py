@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's attention and fused-CE kernels of two checkouts on one NVIDIA GPU, in turns.
+"""Time the port's attention, fused-CE and WOQ kernels of two checkouts on one NVIDIA GPU, in turns.
 
     python3 chip_ab.py OLD NEW    # roots of two checkouts, e.g. a parent unpacked with git archive
 
@@ -14,7 +14,11 @@ events behind a sleep kernel, the median of 25 after 5 warm-ups):
   sparse path's shape (1, 8192, 32, 128) over the Fixed layout;
 - where the checkout has them, the fused-CE forward (with the residual) and
   backward at llama-7b's head (N 4096, H 4096, V 32000, bf16) and at
-  gpt2-6.7b's tied head (V 50304).
+  gpt2-6.7b's tied head (V 50304);
+- ``woq_matmul`` (bf16 x) over int8, int6 and int4 codes (group 128) of
+  llama-7b's three projection shapes, at 8, 37 and 256 rows, cycling
+  through copies of the codes and scales that together exceed the 50 MB L2
+  (as ``chip_smoke.py`` q4), so that both checkouts read them from HBM.
 
 It prints one JSON line per turn, then ``{"ab": ...}`` with each quantity's
 OLD and NEW times (the mean of each side's two turns). Nothing is checked
@@ -71,7 +75,34 @@ def turn(root):
                 lambda: fc.fused_ce_bwd(lg, lse, labels, g, x, w))
             del x, w, lg
             torch.cuda.empty_cache()
+    woq_turn(cs, dev, out)
     print(json.dumps(out), flush=True)
+
+
+def woq_turn(cs, dev, out):
+    """``woq_matmul`` at the serving shapes: ``woq_{bits}_{In}x{Out}_r{rows}_ms``."""
+    import itertools
+
+    import torch
+
+    from deepspeed_tpu_torch.ops.quantizer import woq, woq_gemm
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for In, Out in cs.WOQ_SHAPES:
+        w = torch.randn(In, Out, device=dev, generator=gen).mul_(0.02)
+        for bits in (8, 6, 4):
+            codes, scale = woq.quantize_leaf(w, bits, 128)
+            wbytes = codes.numel() + scale.numel() * 4
+            copies = [(codes, scale)] + [(codes.clone(), scale.clone())
+                                         for _ in range(-(-150_000_000 // wbytes))]
+            for rows in (8, 37, 256):
+                x = torch.randn(rows, In, device=dev, generator=gen).to(torch.bfloat16)
+                cyc = itertools.cycle(copies)
+                out[f"woq_{bits}_{In}x{Out}_r{rows}_ms"] = cs.time_cuda(
+                    lambda: woq_gemm.woq_matmul(x, *next(cyc), bits))
+            del copies
+        del w
+        torch.cuda.empty_cache()
 
 
 def main(old, new):

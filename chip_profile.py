@@ -38,10 +38,19 @@ Then one forward and backward of ``chip_smoke.py``'s block-sparse path
 traced, grouped into the block-sparse forward and backward kernels and the
 rest.
 
-Last, one forward and backward of ``chip_smoke.py``'s fused cross-entropy
+Then one forward and backward of ``chip_smoke.py``'s fused cross-entropy
 path (``fused_ce_loss`` at llama-7b's head, bf16 x (4096, 4096), W (32000,
 4096), then ``autograd.grad``) traced, with a group for each of its five
-kernels (forward, combine, dlogits, dX, dW). Nothing here is checked
+kernels (forward, combine, dlogits, dX, dW).
+
+Last, the dequantization rates the WOQ prefill kernel's design leans on: a
+small CUDA microbenchmark (built here with ``nvcc``, not part of the
+package) that turns int8 codes into bf16 weights (code * scale, rounded)
+three ways, 16 weights a thread an iteration on every SM, and reports
+weights an SM a clock (``clock64``) for each: an ``I2F`` conversion then
+FMUL and ``cvt.rn.bf16x2.f32``; the kernel's form (PRMT into 0x4B000000,
+FADD, FMUL, ``cvt.rn.bf16x2.f32``); and that form with an integer
+round-to-nearest-even in place of the ``cvt``. Nothing here is checked
 against a reference: ``chip_smoke.py`` does that.
 """
 
@@ -151,6 +160,7 @@ def main():
     train_profile(dev)
     sparse_profile(dev)
     ce_profile(dev)
+    dequant_rates(dev)
 
 
 def woq_profile(pa, dev):
@@ -242,6 +252,100 @@ def ce_profile(dev):
 
     fwd_bwd()
     profile(fwd_bwd, "fused CE fwd + bwd (llama-7b head, bf16 N 4096 H 4096 V 32000)", steps=1)
+
+
+_DEQUANT_BENCH = r"""
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+__device__ __forceinline__ uint32_t pack_cvt(float a, float b) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+__device__ __forceinline__ uint32_t pack_int(float a, float b) {  // RNE, finite values
+  uint32_t x = __float_as_uint(a), y = __float_as_uint(b);
+  x += 0x7FFFu + ((x >> 16) & 1u);
+  y += 0x7FFFu + ((y >> 16) & 1u);
+  return __byte_perm(x, y, 0x7632);
+}
+
+// MODE 0: I2F + FMUL + cvt; 1: PRMT + FADD + FMUL + cvt; 2: as 1 with an integer rounding
+template <int MODE>
+__global__ void __launch_bounds__(1024) dequant_bench(const uint32_t* in, uint32_t* out,
+                                                      long long* cycles, int iters) {
+  uint32_t w[4] = {in[threadIdx.x], in[threadIdx.x + 1], in[threadIdx.x + 2], in[threadIdx.x + 3]};
+  const float s = __uint_as_float(0x3C000000u + (threadIdx.x & 7));
+  uint32_t acc = 0;
+  __syncthreads();
+  const long long t0 = clock64();
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int j = 0; j < 16; j += 2) {
+      const uint32_t v = w[j / 4];
+      float a, b;
+      if (MODE == 0) {
+        a = float(int8_t(v >> (8 * (j % 4))));
+        b = float(int8_t(v >> (8 * (j % 4 + 1))));
+      } else {
+        const uint32_t u = v ^ 0x80808080u;
+        a = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u | (j % 4))) - 8388736.f;
+        b = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u | (j % 4 + 1))) - 8388736.f;
+      }
+      acc ^= MODE == 2 ? pack_int(a * s, b * s) : pack_cvt(a * s, b * s);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) w[q] = w[q] * 1664525u + 1013904223u;  // new codes
+  }
+  __syncthreads();
+  const long long t1 = clock64();
+  out[blockIdx.x * blockDim.x + threadIdx.x] = acc;
+  if (threadIdx.x == 0) cycles[blockIdx.x] = t1 - t0;
+}
+
+extern "C" int dequant_bench_run(int mode, const void* in, void* out, void* cycles, int blocks,
+                                 int iters) {
+  switch (mode) {
+    case 0: dequant_bench<0><<<blocks, 1024>>>((const uint32_t*)in, (uint32_t*)out, (long long*)cycles, iters); break;
+    case 1: dequant_bench<1><<<blocks, 1024>>>((const uint32_t*)in, (uint32_t*)out, (long long*)cycles, iters); break;
+    default: dequant_bench<2><<<blocks, 1024>>>((const uint32_t*)in, (uint32_t*)out, (long long*)cycles, iters); break;
+  }
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def dequant_rates(dev):
+    """Weights an SM turns from int8 codes into bf16 a clock, three ways (one
+    1024-thread block on each SM; cycles from ``clock64`` inside the block)."""
+    import ctypes
+
+    from deepspeed_tpu_torch.ops.op_builder import CUDAOpBuilder
+
+    src = os.path.join(HERE, "build", "dequant_bench.cu")
+    os.makedirs(os.path.dirname(src), exist_ok=True)
+    with open(src, "w") as f:
+        f.write(_DEQUANT_BENCH)
+
+    class Bench(CUDAOpBuilder):
+        NAME = "dequant_bench"
+        SOURCE = src  # absolute: os.path.join keeps it
+
+    lib = ctypes.CDLL(Bench().build())
+    lib.dequant_bench_run.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    inp = torch.randint(0, 2 ** 31, (1024 + 4,), dtype=torch.int64, device=dev).to(torch.int32)
+    out = torch.empty(sms * 1024, dtype=torch.int32, device=dev)
+    cycles = torch.empty(sms, dtype=torch.int64, device=dev)
+    iters, result = 4096, {}
+    for mode, label in enumerate(("i2f_fmul_cvt", "prmt_fadd_fmul_cvt", "prmt_fadd_fmul_int_round")):
+        for _ in range(2):  # the first launch warms up
+            err = lib.dequant_bench_run(mode, inp.data_ptr(), out.data_ptr(), cycles.data_ptr(),
+                                        sms, iters)
+            if err:
+                raise SystemExit(f"dequant_bench launch failed: {err}")
+            torch.cuda.synchronize()
+        result[label] = 1024 * iters * 16 / float(cycles.double().median())
+    print(json.dumps({"dequant_weights_per_sm_clock": result}), flush=True)
 
 
 def kernel_rows(pa, real_pool, cfg, dev):

@@ -29,12 +29,16 @@ in order; any failure exits non-zero and prints no result:
 
 Then weight-only-quantized serving (the bf16 engine is freed first):
 
-q1. the WOQ kernel against its plain version: 8, 6 and 4 bits, bf16 and
-    fp32 x, rows 1, 8, 37 and 256, at llama-7b's (In, Out) with group 128;
-    then group 64, a group that is not a power of two, and codes holding
-    every byte value; atol 1e-4 and rtol 1e-5 for every x dtype (both form
-    the weight in fp32 and round it to x's dtype, so only an fp32 sum's
-    order differs);
+q1. the WOQ kernels against their plain version: 8, 6 and 4 bits at
+    llama-7b's (In, Out) with group 128, bf16 x at rows 1, 8, 37, 100, 129,
+    256 and 300 (the few-rows kernel, then the tensor-core kernel's 64-row
+    tile, 256-row tiles holding 100-256 rows, and two of them), fp32 x at
+    1, 8, 37 and 256, fp16 x at 37 and
+    256; then group 64 and In 4000 (a group that is not a power of two, a K
+    tail) at 8 and 256 rows, and codes holding every byte value; atol 1e-4
+    and rtol 1e-5 for every x dtype (both form the weight in fp32 and round
+    it to x's dtype, so only an fp32 sum's order differs), each 16-bit call
+    run twice and held bitwise equal;
 q2. the WOQ engine small (llama, hd 64, fp32, int8/int6/int4 at group 64)
     on the card against the same on the CPU: logits at atol 1e-4, greedy
     streams equal;
@@ -42,11 +46,13 @@ q3. the WOQ main path: phase 4's model, engine and traffic over
     ``quantize_model(num_bits=8, group_size=128)`` of the same random bf16
     weights, quantized on the card; the WOQ and paged kernels' counts set to
     0 just before and read just after: 7 projections x 32 layers and 32
-    layers a ragged step. Then int6 and int4 with 12 decode steps;
-q4. the WOQ kernel at the main path's shapes, decode (8) and prefill (256)
-    rows, each width, timed with CUDA events beside its plain version, a
-    bf16 ``torch.matmul`` on the weight dequantized beforehand, and its
-    bound.
+    layers a ragged step, the 256-row steps' projections through the
+    tensor-core kernel (``tiled_launches``). Then int6 and int4 with 12
+    decode steps;
+q4. the WOQ kernels at the main path's shapes, decode (8), a short prefill
+    (37) and prefill (256) rows, each width, timed with CUDA events beside
+    the plain version, a bf16 ``torch.matmul`` on the weight dequantized
+    beforehand, and the bound.
 
 Then the training slice:
 
@@ -357,12 +363,13 @@ def main_path(pa, dev, bits=None, decode_steps=32, wq=None):
     steps0 = engine.ragged_steps
     pa.launches = 0  # every kernel's count, just before the main path
     if wq is not None:
-        wq.launches = 0
+        wq.launches = wq.tiled_launches = 0
     records, _ = serve(engine, prompts, arrival, decode_steps, greedy=True, stats=stats,
                        launches=lambda: pa.launches)
     torch.cuda.synchronize()
     launches = pa.launches  # read just after
     woq_launches = wq.launches if wq is not None else 0
+    woq_tiled = wq.tiled_launches if wq is not None else 0
     ragged = engine.ragged_steps - steps0
     per_step = stats["decode_launches"]
     peak = torch.cuda.max_memory_allocated()
@@ -379,6 +386,10 @@ def main_path(pa, dev, bits=None, decode_steps=32, wq=None):
     check(woq_launches == want_woq,
           f"woq_matmul launched {woq_launches} times in {ragged} ragged steps "
           f"(expected 7 projections x num_layers x steps = {want_woq})")
+    # the prefill steps (token_budget rows) run every projection through
+    # the tensor-core kernel, the decode steps (max_seqs rows) none
+    check(not bits or (woq_tiled > 0 and woq_tiled % (7 * cfg.num_layers) == 0),
+          f"{woq_tiled} tiled WOQ launches: not 7 x num_layers a prefill step")
     pc = engine.prefix_cache_stats()
     check(pc["hits"] >= 1 and pc["cow_copies"] >= 1,
           f"the repeated prompt gave no prefix hit / copy-on-write: {pc}")
@@ -411,7 +422,8 @@ def main_path(pa, dev, bits=None, decode_steps=32, wq=None):
                                               "skipped_prefill_tokens", "cow_copies")},
     }
     if woq is not None:
-        summary["woq"] = dict(woq, woq_launches=woq_launches, paged_launches=launches)
+        summary["woq"] = dict(woq, woq_launches=woq_launches, woq_tiled_launches=woq_tiled,
+                              paged_launches=launches)
     log(f"main path ({label}): {len(tokens)} tokens, {ragged} ragged steps, "
         f"paged_decode_attention launched {launches} times (= {cfg.num_layers} layers x "
         f"{ragged} steps), woq_matmul {woq_launches} times")
@@ -492,9 +504,10 @@ def woq_compare(out, ref):
 
 
 def woq_kernels_vs_plain(wq, dev):
-    """Phase q1: the WOQ kernel against its plain version at the main
-    path's shapes, rows 1, 8, 37 and 256, bf16 and fp32 x, 8/6/4 bits; then
-    group 64, a group that is not a power of two, and every byte value."""
+    """Phase q1: the WOQ kernels against their plain version at the main
+    path's shapes (bf16 x at rows 1-300, fp32 at 1-256, fp16 at 37 and 256),
+    8/6/4 bits; then group 64, a group that is not a power of two with a K
+    tail, and every byte value. 16-bit calls repeat bitwise."""
     from deepspeed_tpu_torch.ops.quantizer import woq
 
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -505,18 +518,25 @@ def woq_kernels_vs_plain(wq, dev):
         out = wq.woq_matmul(x, codes, scale, bits)
         torch.cuda.synchronize()
         err = woq_compare(out, wq.woq_matmul_plain(x, codes, scale, bits))
+        if x.dtype != torch.float32:  # no atomics: a repeat is bitwise equal
+            check(torch.equal(out, wq.woq_matmul(x, codes, scale, bits)),
+                  f"woq_matmul {label} int{bits} rows {x.shape[0]}: a repeat differs")
         worst = max(worst, err)
         log(f"kernel vs plain: woq_matmul {label} int{bits} x {str(x.dtype)[6:]} "
             f"rows {x.shape[0]}: max_abs_err {err:.3g} ok")
 
+    main_rows = {torch.bfloat16: (1, 8, 37, 100, 129, 256, 300), torch.float32: (1, 8, 37, 256),
+                 torch.float16: (37, 256)}
     cases = [(In, Out, 128) for In, Out in WOQ_SHAPES] + [(4096, 4096, 64), (4000, 1024, 128)]
     for In, Out, group in cases:
         w = torch.randn(In, Out, device=dev, generator=gen).mul_(0.02)
+        main = group == 128 and In != 4000
         for bits in (8, 6, 4):
             codes, scale = woq.quantize_leaf(w, bits, group)
             g = woq.group_of(bits, codes.shape[1])
-            for dtype in (torch.bfloat16, torch.float32):
-                for rows in ((1, 8, 37, 256) if group == 128 and In != 4000 else (8, 256)):
+            for dtype in ((torch.bfloat16, torch.float32, torch.float16) if main
+                          else (torch.bfloat16, torch.float32)):
+                for rows in (main_rows[dtype] if main else (8, 256)):
                     x = torch.randn(rows, In, device=dev, generator=gen).to(dtype)
                     case(f"({In}, {Out}) group {g}", x, codes, scale, bits)
         del w
@@ -584,8 +604,9 @@ def small_woq_vs_cpu(wq, dev):
 
 
 def woq_timing(wq, dev):
-    """Phase q4: the WOQ kernel at the main path's shapes, decode rows (8)
-    and prefill rows (256), each bit width, bf16 x, timed with CUDA events
+    """Phase q4: the WOQ kernels at the main path's shapes, decode rows (8),
+    a short prefill (37) and prefill rows (256), each bit width, bf16 x,
+    timed with CUDA events
     over copies of the weights that together exceed the 50 MB L2 (each
     layer's weights arrive cold on the main path). Beside it: the plain
     version, and ``torch.matmul`` of x with the weight dequantized to bf16
@@ -595,7 +616,7 @@ def woq_timing(wq, dev):
     from deepspeed_tpu_torch.ops.quantizer import woq
 
     gen = torch.Generator(device=dev).manual_seed(11)
-    rows_all, results = (8, 256), []
+    rows_all, results = (8, 37, 256), []
     for In, Out in WOQ_SHAPES:
         w = torch.randn(In, Out, device=dev, generator=gen).mul_(0.02)
         for bits in (8, 6, 4):
@@ -1477,11 +1498,12 @@ def main():
         del engine, real_pool
         torch.cuda.empty_cache()
     woq_launches = woq_summary["int8"]["woq"]["woq_launches"]
+    woq_tiled = woq_summary["int8"]["woq"]["woq_tiled_launches"]
     woq_times = woq_timing(wq, dev)
     log(json.dumps({"woq_summary": woq_summary}))
     log(json.dumps({"woq_timing": woq_times}))
-    woq_k = next(r for r in woq_times if (r["bits"], r["rows"], r["in"], r["out"])
-                 == (8, 8, 4096, 11008))
+    woq_k, woq_p = (next(r for r in woq_times if (r["bits"], r["rows"], r["in"], r["out"])
+                         == (8, rows, 4096, 11008)) for rows in (8, 256))
 
     flash_kernels_vs_plain(fa, dev)
     small_train_vs_cpu(fa, dev)
@@ -1504,7 +1526,7 @@ def main():
                                   ("bwd", sparse_be, path_errs[1]))}
     ce_fe, ce_be = ce_kernels_vs_plain(fc, dev)
     counters = ((fc, "fwd_launches"), (fc, "bwd_launches"), (fa, "fwd_launches"),
-                (fa, "bwd_launches"), (pa, "launches"), (wq, "launches"),
+                (fa, "bwd_launches"), (pa, "launches"), (wq, "launches"), (wq, "tiled_launches"),
                 (bs, "fwd_launches"), (bs, "bwd_launches"))
     ce_launches, ce_path_errs, ce_stats = ce_main_path(fc, counters, dev)
     ce_times = ce_timing(fc, dev)
@@ -1527,12 +1549,20 @@ def main():
         dict(name="flash_attention_bwd", route="cuda", source=flash_src,
              replaces="deepspeed_tpu/ops/transformer/flash_attention.py:124",
              launches=train_launches["bwd"], **bwd),
-        # int8 at decode rows (8) on w_gate/w_up's (4096, 11008); every shape,
+        # int8 on w_gate/w_up's (4096, 11008): woq_matmul at decode rows (8,
+        # woq_gemv_kernel; launches of every row count), woq_matmul_prefill
+        # at 256 rows (woq_mma_kernel; the tiled launches); every shape,
         # width and row count is on the woq_timing line
         dict(name="woq_matmul", route="cuda", source="deepspeed_tpu_torch/csrc/woq_gemm.cu",
              replaces="deepspeed_tpu/ops/quantizer/woq_gemm.py:39", launches=woq_launches,
              max_abs_err=max(woq_worst, max(r["max_abs_err"] for r in woq_times)),
              **{k: woq_k[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")}),
+        dict(name="woq_matmul_prefill", route="cuda",
+             source="deepspeed_tpu_torch/csrc/woq_gemm.cu",
+             replaces="deepspeed_tpu/ops/quantizer/woq_gemm.py:39", launches=woq_tiled,
+             max_abs_err=max(woq_worst, max(r["max_abs_err"] for r in woq_times)),
+             **{k: woq_p[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")}),
         # the Fixed layout's numbers; BigBird's are on the sparse_summary line
         dict(name="block_sparse_attention_fwd", route="cuda", source=sparse_src,

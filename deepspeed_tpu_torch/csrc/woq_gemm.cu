@@ -16,8 +16,9 @@
 //   int6: four codes in three bytes along K: byte rows (k / 4) * 3 + {0,1,2},
 //         read as 0..255 and unpacked as `unpack6` does, then (c ^ 32) - 32.
 // Because a group is a multiple of the packing unit, a code's byte row
-// depends on k alone; only the scale depends on the group, so any group the
-// quantizer makes (power of two or not) runs the same code.
+// depends on k alone (byte row k * bits / 8 for k a multiple of 4); only the
+// scale depends on the group, so any group the quantizer makes (power of two
+// or not) runs the same code.
 //
 // What bounds it on this card. Decode (B <= 8 rows): bytes. The codes and
 // scales stream once, ~1 byte a weight for int8, and each byte feeds at
@@ -38,34 +39,108 @@
 //   B x 8 fp32 accumulators stay in registers and the warps' sums meet once
 //   in shared memory. K is split over CTAs in whole groups so that a
 //   4096-column projection still fills the 132 SMs.
-// - Many rows (`woq_tiled_kernel`): a CTA computes a 64 x 64 tile of out,
-//   stepping K by 32: it stages the x tile and the dequantized (32 x 64)
-//   weight slab in shared memory in x's dtype, then runs the tile product
-//   on the tensor cores (WMMA 16x16x16, bf16/fp16 in, fp32 accumulators in
-//   registers) or, for fp32 x, with FMAs from an 8 x 4 register tile a
-//   thread; the next K step's x and raw codes are fetched into registers
-//   while the current product runs. K is split over CTAs only when the
-//   tiles alone do not fill the card.
+// - Many rows, 16-bit x (`woq_mma_kernel`, the prefill path): a CTA of 16
+//   warps computes a BM x 128 tile of out (BM = 64 up to 64 rows, else
+//   256), stepping K by 64.
+//   * A 4-stage ring in dynamic shared memory. A stage holds the x tile
+//     (BM x 64; 16-byte cp.async copies, one TMA at 256 rows), the raw code
+//     slab of the same 64 K rows (64 / 48 / 32 x 128 bytes for int8 / int6 /
+//     int4, 8-byte cp.async copies: Out is only sure to be a multiple of 8)
+//     and 3 scale rows (the groups 64 K rows touch when the group is >= 32;
+//     a smaller group reads its scales from L1, a second instantiation).
+//     Rows of x past B, K past the split's end and columns past Out are
+//     zero-filled, so their products add exact zeros. x is copied in
+//     16-byte pieces only: the wrapper pads a misaligned x, or an In not a
+//     multiple of 8, into a fresh buffer first.
+//   * Each weight is dequantized once a CTA, so once in the grid at 256
+//     rows: the CTA's 512 threads turn the landed code slab of step i + 1
+//     into a 64 x 128 16-bit B tile, 4 rows x 4 columns a thread, while the
+//     tensor cores run step i on the other B buffer; one barrier a step. No
+//     conversion instruction turns a code into a float: u = code + bias in
+//     a byte lane (c ^ 0x80 for int8, ^ 8 a nibble for int4, ^ 32 for int6,
+//     on whole 32-bit words), PRMT into 0x4B0000uu, and an FADD of -(2^23 +
+//     bias) is exact for every code; one FMUL by the fp32 scale (the operand
+//     rule's product), and cvt.rn.bf16x2.f32 / .f16x2 (round to nearest
+//     even, as __float2bfloat16) packs two weights. A weight costs 1 PRMT,
+//     1 FADD, 1 FMUL, 1/2 F2FP and 1/4 LOP3; the SASS has no I2F per weight
+//     (its few I2F / F2I pairs are the integer divisions by the group, once
+//     a step).
+//   * 256-row tiles (every prefill step of the serving path): TMA and
+//     wgmma. Thread 0 copies each x tile with one TMA (a tensor map of x
+//     made on the host with cuTensorMapEncodeTiled, no libcuda link; the copy
+//     does the 128-byte swizzle and zero-fills rows past B and K past In)
+//     that completes on the stage's mbarrier. Each warpgroup waits for it,
+//     starts 4 asynchronous wgmma.m64n128k16 for its 64 rows, A (x,
+//     K-major) and B (the dequantized tile, MN-major, the transpose bit set)
+//     read straight from shared memory in the 128-byte swizzled layouts
+//     (MmaSmem), then starts the next copies and the next dequantization
+//     while they run, and waits for them before the step's barrier.
+//     fence.proxy.async before each barrier hands the st.shared writes of
+//     the B tile to wgmma's proxy. The fp32 accumulators (64 a thread) stay
+//     in registers in mma.sync's C-fragment layout.
+//   * 64-row tiles (9-64 rows): mma.sync.m16n8k16 fed by ldmatrix; the
+//     warps tile the CTA 4 x 4, accumulators in registers; each 16-deep
+//     slice of the product is interleaved, with no branch between them,
+//     with a quarter of the copies of step i + 3 (and the first with the
+//     dequantization of step i + 1). There a 256-row tile would multiply
+//     four times the rows for the same copies and dequant; above 64 rows
+//     the 256-row tile takes over.
+//   * The epilogue stores the accumulators from registers as 8-byte
+//     float2s. Grid (ceil(Out / 128), ceil(B / BM), splits). The wrapper's
+//     `plan` takes the resident CTAs an SM from `dstt_woq_mma_ctas_per_sm`
+//     (cudaOccupancyMaxActiveBlocksPerMultiprocessor: 1 for every tile
+//     here) and splits K over CTAs only where that shortens the waves by a
+//     tenth; an ordered second pass adds the splits
+//     (`woq_splitk_reduce_kernel`). At 256 rows on 132 SMs:
+//       (In, Out)        tiles  K steps  splits  CTAs  waves x steps (ideal)
+//       (4096, 4096)      32      64       4     128   1 x 16  (15.5)
+//       (4096, 11008)     86      64       3     258   2 x 22  (41.7)
+//       (11008, 4096)     32     172       4     128   1 x 43  (41.7)
+//     BM 256 dequantizes each weight once in the grid; 128 columns halve
+//     the x tiles a weight's product reads against 64 (x re-read from L2
+//     once a column tile is the largest traffic: 172 MB at (4096, 11008)).
+//   * ptxas (CUDA 12.9, sm_90a), bf16 and fp16 alike: registers (group
+//     >= 32 / < 32) / spilled bytes / dynamic shared memory by (BM, bits):
+//       BM    int8                   int6                   int4
+//       256   119 / 113, 0, 205,856  123 / 116, 0, 197,664  120 / 110, 0, 189,472
+//       64    86 / 74, 0, 111,648    89 / 78, 0, 103,456    86 / 72, 0, 95,264
+//     (the 256-row kernels keep a 32-byte stack frame, no spill); 1 CTA an
+//     SM for each (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+//   * What bounds it (PERF.md section 6): the copies and the dequant of a
+//     step, which the barrier serialises with the product, and the split-K
+//     partial sums (written, then read by the second pass).
+// - Many rows, fp32 x (`woq_tiled_fma_kernel`, the tests' and the small card
+//   engines' dtype): a CTA computes a 64 x 64 tile, stepping K by 32, from
+//   the x tile and the dequantized (32 x 64) slab staged in shared memory,
+//   an 8 x 4 register tile a thread on FMAs; the next step's x values and
+//   raw codes wait in registers while the current product runs.
 //
-// Left for later: a decode GEMV tuned to the byte bound (wider loads,
-// cp.async prefetch of the next group, several row tiles in flight), and
-// wgmma with TMA-fed rings of code slabs for prefill.
+// Left for later (ROADMAP R2b): a producer warpgroup that copies and
+// dequantizes so that no barrier a step holds the product, a cheaper
+// dequant for groups that are multiples of 64, an in-cluster split-K sum in
+// place of the second pass; and a decode GEMV tuned to the byte bound (R6).
 
+#include <cuda.h>  // CUtensorMap (the encoder is looked up at run time: no libcuda link)
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-namespace {
+#include "mma_ptx.cuh"
 
-using namespace nvcuda;
+namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kGemvCols = kThreads / kWarps * 8;  // 256 columns a few-rows CTA covers
 constexpr int kGemvMaxRows = 8;                   // ops/quantizer/woq_gemm.py GEMV_MAX_ROWS
-constexpr int kTileM = 64, kTileN = 64, kTileK = 32;
+constexpr int kTileM = 64, kTileN = 64, kTileK = 32;  // the fp32 FMA tile
+
+// the 16-bit tensor-core kernel: ops/quantizer/woq_gemm.py MMA_TILE_K
+constexpr int kMmaWarps = 16, kMmaThreads = kMmaWarps * 32;
+constexpr int kMmaN = 128, kMmaK = 64, kStages = 4;
+constexpr int kScaleRows = 3;  // scale rows a stage holds: the groups 64 K rows touch, group >= 32
+constexpr int kMinStagedGroup = 32;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -236,49 +311,36 @@ woq_gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ codes,
   }
 }
 
-// Many rows. Grid (ceil(Out / 64), ceil(B / 64), splits); split z takes K
-// rows [z * split_len, min(In, z * split_len + split_len)) and writes
-// dst + z * rows * Out.
-template <typename T, int BITS>
+// Many rows, fp32 x. Grid (ceil(Out / 64), ceil(B / 64), splits); split z
+// takes K rows [z * split_len, min(In, z * split_len + split_len)) and
+// writes dst + z * rows * Out.
+template <int BITS>
 __global__ void __launch_bounds__(kThreads)
-woq_tiled_kernel(const T* __restrict__ x, const int8_t* __restrict__ codes,
-                 const float* __restrict__ scale, float* __restrict__ dst, int rows,
-                 int in_dim, int out_dim, int group, int split_len) {
+woq_tiled_fma_kernel(const float* __restrict__ x, const int8_t* __restrict__ codes,
+                     const float* __restrict__ scale, float* __restrict__ dst, int rows,
+                     int in_dim, int out_dim, int group, int split_len) {
+  using T = float;
   using U = Unit<BITS>;
-  constexpr bool kTensorCores = sizeof(T) == 2;
   constexpr int PAD = int(16 / sizeof(T));  // 16 bytes a row against bank conflicts
   constexpr int LDA = kTileK + PAD;         // x tile (64, 32)
   constexpr int LDB = kTileN + PAD;         // weight slab (32, 64)
-  constexpr int LDC = kTileN + 4;           // fp32 result tile (64, 64)
   __shared__ __align__(128) T sA[kTileM * LDA];
   __shared__ __align__(128) T sB[kTileK * LDB];
-  __shared__ __align__(128) float sC[kTensorCores ? kTileM * LDC : 1];
 
   const int n0 = blockIdx.x * kTileN;
   const int m0 = blockIdx.y * kTileM;
   const int k_begin = blockIdx.z * split_len;
   const int k_end = min(in_dim, k_begin + split_len);
-  const int warp = threadIdx.x / 32;
   const int tid = threadIdx.x;
   dst += (size_t)blockIdx.z * rows * out_dim;
 
-  // tensor cores: warp (wm, wn) owns a 32 x 32 quarter as 2 x 2 fragments;
-  // FMAs: thread owns rows tr*8 .. tr*8+7, columns tc*4 .. tc*4+3
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> frag[2][2];
+  // thread owns rows tr*8 .. tr*8+7, columns tc*4 .. tc*4+3
   float acc[8][4];
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
   const int tr = tid / 16, tc = tid % 16;
-  if constexpr (kTensorCores) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(frag[i][j], 0.f);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
   // the next K step's x values and raw codes wait in registers while the
   // current step's product runs (a register double buffer)
@@ -334,58 +396,465 @@ woq_tiled_kernel(const T* __restrict__ x, const int8_t* __restrict__ codes,
     }
     __syncthreads();
     if (k0 + kTileK < k_end) fetch(k0 + kTileK);
-    if constexpr (kTensorCores) {
-#pragma unroll
-      for (int kk = 0; kk < kTileK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> b[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], sA + (wm + 16 * i) * LDA + kk, LDA);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], sB + kk * LDB + wn + 16 * j, LDB);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(frag[i][j], a[i], b[j], frag[i][j]);
-      }
-    } else {
 #pragma unroll 4
-      for (int kk = 0; kk < kTileK; ++kk) {
-        float a[8], b[4];
+    for (int kk = 0; kk < kTileK; ++kk) {
+      float a[8], b[4];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) a[i] = to_float(sA[(tr * 8 + i) * LDA + kk]);
+      for (int i = 0; i < 8; ++i) a[i] = to_float(sA[(tr * 8 + i) * LDA + kk]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = to_float(sB[kk * LDB + tc * 4 + j]);
+      for (int j = 0; j < 4; ++j) b[j] = to_float(sB[kk * LDB + tc * 4 + j]);
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
   }
 
-  if constexpr (kTensorCores) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + tr * 8 + i;
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(sC + (wm + 16 * i) * LDC + wn + 16 * j, frag[i][j], LDC,
-                                wmma::mem_row_major);
-    __syncthreads();
-    for (int idx = tid; idx < kTileM * kTileN; idx += kThreads) {
-      const int r = idx / kTileN, c = idx % kTileN;
-      if (m0 + r < rows && n0 + c < out_dim) {
-        dst[(size_t)(m0 + r) * out_dim + n0 + c] = sC[r * LDC + c];
-      }
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tc * 4 + j;
+      if (m < rows && n < out_dim) dst[(size_t)m * out_dim + n] = acc[i][j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Many rows, 16-bit x: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+// ---------------------------------------------------------------------------
+// wgmma (the 256-row tiles)
+// ---------------------------------------------------------------------------
+
+// A shared-memory matrix descriptor with the 128-byte swizzle: start address,
+// leading- and stride-dimension byte offsets (PTX ISA, wgmma matrix
+// descriptors).
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, int lbo, int sbo) {
+  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// mbarriers in shared memory, and the TMA copy of a 2-D box of x that
+// completes on one (the 128-byte swizzle done by the copy, rows and columns
+// outside the tensor zero-filled).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, "
+      "%3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Generic-proxy writes to shared memory (cp.async, st.shared) made visible
+// to the async proxy that wgmma reads through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (64 x 128 over the warpgroup, fp32, the mma.sync C-fragment layout per
+// warp and 8-column tile) += A (64 x 16, K-major) . B (16 x 128, MN-major).
+template <typename T>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(1));
+  }
+}
+
+// Dynamic shared memory of woq_mma_kernel<T, BITS, MT, ...>, in bytes:
+// kStages stages of {x tile, code slab, scale rows}, then two dequantized
+// B tiles, from a 1024-byte aligned base. 64-row tiles (the mma.sync
+// path) pad the rows of the x and B tiles by 16 bytes, which keeps
+// every ldmatrix free of bank conflicts. 256-row tiles (the wgmma path) keep
+// both in the layouts wgmma reads with the 128-byte swizzle: x K-major
+// (row r of 64 elements at r * 128 bytes, its 16-byte chunk c at position
+// c ^ (r % 8)), the B tile MN-major in atoms of 8 K rows x 64 columns
+// (1024 bytes, row k % 8 at (k % 8) * 128, chunk (n % 64) / 8 at position
+// ((n % 64) / 8) ^ (k % 8)), K atoms 1024 bytes apart, column atoms 8192.
+template <typename T, int BITS, int MT>
+struct MmaSmem {
+  static constexpr bool WG = MT == 4;  // the wgmma path
+  static constexpr int BM = 64 * MT, BN = kMmaN;
+  static constexpr int LDA = WG ? kMmaK : kMmaK + 8;
+  static constexpr int LDB = BN + 8;  // the mma.sync path's B pitch
+  static constexpr int CODE_ROWS = kMmaK * BITS / 8;  // byte rows of a 64-row slab
+  static constexpr int A = BM * LDA * int(sizeof(T));
+  static constexpr int C = CODE_ROWS * BN;
+  static constexpr int S = kScaleRows * BN * int(sizeof(float));
+  static constexpr int STAGE = WG ? (A + C + S + 1023) / 1024 * 1024 : A + C + S;
+  static constexpr int B = WG ? kMmaK * BN * int(sizeof(T)) : kMmaK * LDB * int(sizeof(T));
+  static constexpr int BARS = kStages * 8;  // the x tiles' mbarriers (wgmma path)
+  static constexpr int BYTES = kStages * STAGE + 2 * B + BARS + 1024;  // + the base's alignment
+  static_assert(A % 16 == 0 && C % 16 == 0 && S % 16 == 0 && B % 16 == 0, "16-byte alignment");
+};
+
+// Byte offset of element (k, n) in a wgmma-path B tile (see MmaSmem).
+__device__ __forceinline__ int b_swz(int k, int n) {
+  return (n >> 6) * 8192 + (k >> 3) * 1024 + (k & 7) * 128 + ((((n & 63) >> 3) ^ (k & 7)) << 4) +
+         (n & 7) * 2;
+}
+
+// Part `part` (of 4) of this thread's 16-byte copies of x rows [m0, m0 +
+// BM), K [k0, k0 + 64) into sA (x's rows x_ld elements apart, a multiple
+// of 8; zeros past In). Rows past `rows` and K past k_end are zero-filled.
+template <int BM, int LDA, typename T>
+__device__ __forceinline__ void load_x_part(T* sA, const T* __restrict__ x, int part, int m0,
+                                            int rows, int x_ld, int k0, int k_end) {
+  constexpr int PER_ROW = kMmaK / 8;
+  constexpr int Q = BM * PER_ROW / kMmaThreads;  // copies a thread: 1, 2 or 4
+  constexpr int QP = (Q + 3) / 4;
+#pragma unroll
+  for (int q = part * QP; q < part * QP + QP && q < Q; ++q) {
+    const int i = threadIdx.x + q * kMmaThreads;
+    const int r = i / PER_ROW, c = (i % PER_ROW) * 8;
+    const bool ok = m0 + r < rows && k0 + c < k_end;  // k_end is In or a multiple of 64
+    cp_async16(sA + r * LDA + c, ok ? x + (size_t)(m0 + r) * x_ld + k0 + c : x, ok);
+  }
+}
+
+// Part `part` (of 4) of this thread's 8-byte copies of the raw codes of K
+// rows [k0, k0 + 64), columns [n0, n0 + 128), into sC (CODE_ROWS x 128
+// bytes; 8 bytes, since Out is only sure to be a multiple of 8).
+template <int BITS>
+__device__ __forceinline__ void load_code_part(int8_t* sC, const int8_t* __restrict__ codes,
+                                               int part, int out_dim, int n0, int k0,
+                                               int k_end) {
+  constexpr int CODE_ROWS = kMmaK * BITS / 8;
+  constexpr int PER_ROW = kMmaN / 8;
+  constexpr int TOTAL = CODE_ROWS * PER_ROW;
+  constexpr int Q = (TOTAL + kMmaThreads - 1) / kMmaThreads;  // copies a thread: 1 or 2
+  constexpr int QP = (Q + 3) / 4;
+  const size_t row0 = (size_t)k0 * BITS / 8;  // k0 is a multiple of 64
+#pragma unroll
+  for (int q = part * QP; q < part * QP + QP && q < Q; ++q) {
+    const int i = threadIdx.x + q * kMmaThreads;
+    if (TOTAL % kMmaThreads != 0 && i >= TOTAL) break;
+    const int br = i / PER_ROW, c = (i % PER_ROW) * 8;
+    // the first K row of this byte row's packing unit
+    const int k = k0 + (BITS == 8 ? br : (BITS == 4 ? 2 * br : (br / 3) * 4));
+    const bool ok = k < k_end && n0 + c < out_dim;  // Out % 8 == 0
+    cp_async8(sC + br * kMmaN + c, ok ? codes + (row0 + br) * out_dim + n0 + c : codes, ok);
+  }
+}
+
+// float(code) for a biased code u = code + BIAS in the low byte of `bits`
+// (0x4B0000uu, 2^23 + u as a float): exact, with no conversion instruction.
+template <int BIAS>
+__device__ __forceinline__ float biased_to_float(uint32_t bits) {
+  return __int_as_float(int(bits)) - float(8388608 + BIAS);
+}
+
+// Byte j (0..3) of w in the low byte of 0x4B000000 (2^23 as a float).
+__device__ __forceinline__ uint32_t byte_into_f32(uint32_t w, int j) {
+  return __byte_perm(w, 0x4B000000u, 0x7540u | unsigned(j));
+}
+
+// Four weights of one K row (biased codes in the byte lanes of `q`, bias
+// BIAS), times their scales, rounded to T, into 8 bytes of the B tile.
+template <typename T, int BIAS>
+__device__ __forceinline__ void store_row4(void* dst, uint32_t q, const float4& s) {
+  const uint32_t lo = pack2<T>(biased_to_float<BIAS>(byte_into_f32(q, 0)) * s.x,
+                               biased_to_float<BIAS>(byte_into_f32(q, 1)) * s.y);
+  const uint32_t hi = pack2<T>(biased_to_float<BIAS>(byte_into_f32(q, 2)) * s.z,
+                               biased_to_float<BIAS>(byte_into_f32(q, 3)) * s.w);
+  *reinterpret_cast<uint2*>(dst) = make_uint2(lo, hi);
+}
+
+// Where B tile element (k, n) lies (n a multiple of 4: 8 bytes there).
+template <bool SWZ, int LDB, typename T>
+__device__ __forceinline__ void* b_at(T* sB, int k, int n) {
+  return SWZ ? static_cast<void*>(reinterpret_cast<unsigned char*>(sB) + b_swz(k, n))
+             : static_cast<void*>(sB + k * LDB + n);
+}
+
+// The thread's share of dequantizing a K step: K rows kr .. kr + 3 of the
+// step (a whole packing unit for every width), columns c0 .. c0 + 3, from
+// the landed code slab sC into the B tile sB ([k][n], pitch LDB), each
+// weight code * scale in fp32 rounded to T. Scales: with a group >= 32 from
+// the stage's scale rows, row 0 for the step's rows below b1 (those in the
+// step's first group), row 1 below b1 + group, else row 2 (the block's
+// rows touch at most two of them; a row past k_end reads a zero or a real
+// row, times a zero code); with a smaller group (SMALL) from L1, zeros past
+// k_end or Out.
+template <typename T, int BITS, int LDB, bool SMALL, bool SWZ>
+__device__ __forceinline__ void dequant_block(T* sB, const int8_t* sC, const float* sS,
+                                              const float* __restrict__ scale, int kr, int c0,
+                                              int k0, int b1, int k_end, int group, int n0,
+                                              int out_dim) {
+  // the biased codes of rows kr .. kr + 3, four columns a word (byte lanes)
+  uint32_t q[4];
+  if constexpr (BITS == 8) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      q[j] = *reinterpret_cast<const uint32_t*>(sC + (kr + j) * kMmaN + c0) ^ 0x80808080u;
+  } else if constexpr (BITS == 4) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {  // byte row kr / 2 + j: rows kr + 2j (low nibbles), + 1 (high)
+      const uint32_t b =
+          *reinterpret_cast<const uint32_t*>(sC + (kr / 2 + j) * kMmaN + c0) ^ 0x88888888u;
+      q[2 * j] = b & 0x0F0F0F0Fu;
+      q[2 * j + 1] = (b >> 4) & 0x0F0F0F0Fu;
     }
   } else {
+    // unpack6 on four columns at once, a byte lane each, then the bias ^ 32
+    const int8_t* u = sC + (kr / 4 * 3) * kMmaN + c0;
+    const uint32_t r0 = *reinterpret_cast<const uint32_t*>(u);
+    const uint32_t r1 = *reinterpret_cast<const uint32_t*>(u + kMmaN);
+    const uint32_t r2 = *reinterpret_cast<const uint32_t*>(u + 2 * kMmaN);
+    q[0] = (r0 & 0x3F3F3F3Fu) ^ 0x20202020u;
+    q[1] = (((r0 >> 6) & 0x03030303u) | ((r1 << 2) & 0x3C3C3C3Cu)) ^ 0x20202020u;
+    q[2] = (((r1 >> 4) & 0x0F0F0F0Fu) | ((r2 << 4) & 0x30303030u)) ^ 0x20202020u;
+    q[3] = ((r2 >> 2) & 0x3F3F3F3Fu) ^ 0x20202020u;
+  }
+  constexpr int BIAS = BITS == 8 ? 128 : (BITS == 4 ? 8 : 32);
+  if constexpr (!SMALL) {
+    const int j = (kr >= b1) + (kr >= b1 + group);  // the first row's scale row
+    const int split = b1 + j * group - kr;           // rows of the block in it
+    const float4 s0 = *reinterpret_cast<const float4*>(sS + j * kMmaN + c0);
+    const float4 s1 =
+        *reinterpret_cast<const float4*>(sS + min(j + 1, kScaleRows - 1) * kMmaN + c0);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int m = m0 + tr * 8 + i;
+    for (int r = 0; r < 4; ++r)
+      store_row4<T, BIAS>(b_at<SWZ, LDB>(sB, kr + r, c0), q[r], r < split ? s0 : s1);
+  } else {
+    const int k = k0 + kr;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + tc * 4 + j;
-        if (m < rows && n < out_dim) dst[(size_t)m * out_dim + n] = acc[i][j];
+    for (int r = 0; r < 4; ++r) {
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k + r < k_end && n0 + c0 < out_dim)
+        s = __ldg(reinterpret_cast<const float4*>(scale + (size_t)((k + r) / group) * out_dim +
+                                                  n0 + c0));
+      store_row4<T, BIAS>(b_at<SWZ, LDB>(sB, kr + r, c0), q[r], s);
+    }
+  }
+}
+
+// Many rows, 16-bit x. Grid (ceil(Out / 128), ceil(B / BM), splits), 512
+// threads, MmaSmem::BYTES of dynamic shared memory; split z takes K rows
+// [z * split_len, min(In, z * split_len + split_len)) (split_len a multiple
+// of 64) and writes dst + z * rows * Out. x: 16-byte aligned, rows x_ld
+// elements apart (a multiple of 8, zeros past In). SMALL: group < 32.
+template <typename T, int BITS, int MT, bool SMALL>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+woq_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ codes,
+               const float* __restrict__ scale, float* __restrict__ dst, int rows, int in_dim,
+               int out_dim, int group, int split_len, int x_ld,
+               const __grid_constant__ CUtensorMap x_map) {
+  using L = MmaSmem<T, BITS, MT>;
+  constexpr bool WG = L::WG;
+  constexpr int BM = L::BM, BN = L::BN, LDA = L::LDA, LDB = L::LDB;
+  // the warps' grid over the tile: mma.sync 4 x 4 at 64 rows; wgmma:
+  // warpgroup g owns rows 64g .. 64g + 63, its warp w rows 16w .. 16w + 15
+  // of them, in the same C-fragment layout
+  static_assert(MT == 1 || MT == 4, "64- and 256-row tiles");
+  constexpr int WGM = WG ? 16 : 4, WGN = kMmaWarps / WGM;
+  constexpr int WTM = BM / WGM, WTN = BN / WGN;  // a warp's rows and columns
+  constexpr int MTW = WTM / 16, N8 = WTN / 8;     // its 16-row and 8-column mma tiles
+  extern __shared__ __align__(1024) unsigned char woq_smem_raw[];
+  unsigned char* const woq_smem = woq_smem_raw + ((1024 - (smem_u32(woq_smem_raw) & 1023)) & 1023);
+  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * BM;
+  const int k_begin = blockIdx.z * split_len;
+  const int k_end = min(in_dim, k_begin + split_len);
+  const int steps = (k_end - k_begin + kMmaK - 1) / kMmaK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = (warp / WGN) * WTM, wn = (warp % WGN) * WTN;
+  // dequant: warp w makes K rows 4w .. 4w + 3, lane l columns 4l .. 4l + 3
+  const int dq_kr = warp * 4, dq_c0 = lane * 4;
+  auto b_buf = [&](int j) { return reinterpret_cast<T*>(woq_smem + kStages * L::STAGE + j * L::B); };
+  uint64_t* const x_bar = reinterpret_cast<uint64_t*>(woq_smem + kStages * L::STAGE + 2 * L::B);
+
+  auto stage_a = [&](int st) { return reinterpret_cast<T*>(woq_smem + st * L::STAGE); };
+  auto stage_c = [&](int st) { return reinterpret_cast<int8_t*>(woq_smem + st * L::STAGE + L::A); };
+  auto stage_s = [&](int st) {
+    return reinterpret_cast<float*>(woq_smem + st * L::STAGE + L::A + L::C);
+  };
+  // part `part` of 4 of step s's copies into stage st: x and codes in every
+  // part, the scale rows (of the groups K rows [k0, min(k_end, k0 + 64))
+  // touch) in part 3. A step past the last only zero-fills (k0 >= k_end),
+  // into a stage no product reads again.
+  auto load = [&](int s, int st, int part) {
+    const int k0 = k_begin + s * kMmaK;
+    if constexpr (WG) {
+      // x by TMA: thread 0 arms the stage's mbarrier with the box's bytes
+      // (always the whole box) and starts the copy; steps past the last
+      // load nothing, so every copy started is waited for
+      if (part == 0 && threadIdx.x == 0 && s < steps) {
+        mbar_arrive_expect_tx(&x_bar[st], BM * kMmaK * int(sizeof(T)));
+        tma_load_2d(stage_a(st), &x_map, k0, m0, &x_bar[st]);
+      }
+    } else {
+      load_x_part<BM, LDA>(stage_a(st), x, part, m0, rows, x_ld, k0, k_end);
+    }
+    load_code_part<BITS>(stage_c(st), codes, part, out_dim, n0, k0, k_end);
+    if (part == 3 && !SMALL && threadIdx.x < kScaleRows * (BN / 4)) {
+      const int g0 = k0 / group, g1 = (min(k_end, k0 + kMmaK) - 1) / group;
+      const int j = threadIdx.x / (BN / 4), c = (threadIdx.x % (BN / 4)) * 4;
+      const bool ok = g0 + j <= g1 && n0 + c < out_dim;
+      cp_async16(stage_s(st) + j * BN + c,
+                 ok ? scale + (size_t)(g0 + j) * out_dim + n0 + c : scale, ok);
+    }
+  };
+  // the thread's dequant share of step s (stage st) into sB; a step past
+  // the last writes a B buffer no product reads
+  auto dequant = [&](int s, int st, T* sB) {
+    const int k0 = k_begin + s * kMmaK;
+    const int b1 = SMALL ? 0 : (k0 / group + 1) * group - k0;  // rows in the step's first group
+    dequant_block<T, BITS, LDB, SMALL, WG>(sB, stage_c(st), stage_s(st), scale, dq_kr, dq_c0,
+                                           k0, b1, k_end, group, n0, out_dim);
+  };
+
+  float acc[MTW][N8][4];
+#pragma unroll
+  for (int mt = 0; mt < MTW; ++mt)
+#pragma unroll
+    for (int n = 0; n < N8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
+
+  if constexpr (WG) {
+    if (threadIdx.x == 0) {
+      for (int st = 0; st < kStages; ++st) mbar_init(&x_bar[st], 1);
+      mbar_init_fence();
+    }
+    __syncthreads();
+  }
+  // prologue: steps 0 .. kStages - 2 in flight, step 0 dequantized
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+#pragma unroll
+    for (int part = 0; part < 4; ++part) load(s, s, part);
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 2>();
+  __syncthreads();
+  dequant(0, 0, b_buf(0));
+
+  for (int i = 0; i < steps; ++i) {
+    // step i + 1 has landed (this thread's copies); after the barrier every
+    // thread's copies are visible, B tile i is complete, and iteration i - 1
+    // is done with x stage (i - 1) % kStages and B buffer (i + 1) % 2
+    cp_async_wait<kStages - 3>();
+    if constexpr (WG) fence_proxy_async();  // copies and B-tile stores, to wgmma's proxy
+    __syncthreads();
+    const T* sA = stage_a(i % kStages);
+    const T* sB = b_buf(i & 1);
+    T* sB_next = b_buf((i + 1) & 1);
+    if constexpr (WG) {
+      // the warpgroup's 64 rows of step i on the tensor cores, asynchronously,
+      // while its threads start the copies of step i + 3 and dequantize step
+      // i + 1; both wgmma operands come from shared memory
+      const unsigned char* a_wg = reinterpret_cast<const unsigned char*>(sA) + (warp / 4) * 64 * 128;
+      const unsigned char* b_st = reinterpret_cast<const unsigned char*>(sB);
+      float (&d)[64] = reinterpret_cast<float (&)[64]>(acc);
+      mbar_wait(&x_bar[i % kStages], (i / kStages) & 1);  // x of step i has landed
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kMmaK / 16; ++kk)
+        wgmma_m64n128k16<T>(d, wgmma_desc(a_wg + kk * 32, 16, 1024),
+                            wgmma_desc(b_st + kk * 2048, 8192, 1024));
+      wgmma_commit();
+#pragma unroll
+      for (int part = 0; part < 4; ++part) load(i + kStages - 1, (i + kStages - 1) % kStages, part);
+      dequant(i + 1, (i + 1) % kStages, sB_next);
+      wgmma_wait<0>();
+    } else {
+      // each 16-deep slice of the product is interleaved with a quarter of
+      // the copies of step i + 3 (and the first with the dequantization of
+      // step i + 1), with no branch between them, so that copies, ALUs and
+      // tensor cores overlap within every warp; rows past B multiply zeros
+#pragma unroll
+      for (int kk = 0; kk < kMmaK / 16; ++kk) {
+        load(i + kStages - 1, (i + kStages - 1) % kStages, kk);
+        if (kk == 0) dequant(i + 1, (i + 1) % kStages, sB_next);
+        uint32_t a[MTW][4];
+#pragma unroll
+        for (int mt = 0; mt < MTW; ++mt) ldsm_x4(a[mt], a_at<LDA>(sA, wm + 16 * mt, kk * 16, lane));
+#pragma unroll
+        for (int n2 = 0; n2 < N8 / 2; ++n2) {
+          uint32_t b[4];
+          ldsm_x4_t(b, bk_at<LDB>(sB, kk * 16, wn + 16 * n2, lane));
+#pragma unroll
+          for (int mt = 0; mt < MTW; ++mt) {
+            mma16816<T>(acc[mt][2 * n2], a[mt], b[0], b[1]);
+            mma16816<T>(acc[mt][2 * n2 + 1], a[mt], b[2], b[3]);
+          }
+        }
+      }
+    }
+    cp_async_commit();  // one group a step
+  }
+  cp_async_wait<0>();
+
+  // C fragments straight from registers: lane holds rows lane / 4 and + 8,
+  // columns 2 (lane % 4) and + 1 of each 16 x 8 tile
+  dst += (size_t)blockIdx.z * rows * out_dim;
+#pragma unroll
+  for (int mt = 0; mt < MTW; ++mt) {
+    const int r = m0 + wm + 16 * mt + lane / 4;
+#pragma unroll
+    for (int n = 0; n < N8; ++n) {
+      const int c = n0 + wn + 8 * n + 2 * (lane % 4);
+      if (c < out_dim) {  // Out % 8 == 0: an 8-column tile is all in or all out
+        if (r < rows)
+          *reinterpret_cast<float2*>(dst + (size_t)r * out_dim + c) =
+              make_float2(acc[mt][n][0], acc[mt][n][1]);
+        if (r + 8 < rows)
+          *reinterpret_cast<float2*>(dst + (size_t)(r + 8) * out_dim + c) =
+              make_float2(acc[mt][n][2], acc[mt][n][3]);
       }
     }
   }
@@ -402,30 +871,115 @@ woq_splitk_reduce_kernel(const float* __restrict__ work, float* __restrict__ out
   }
 }
 
+enum Kind { kGemv = 0, kTiledFma = 1, kMma = 2 };
+
 struct Args {
   const void* x;
   const int8_t* codes;
   const float* scale;
   float* out;
   float* work;
-  int rows, in_dim, out_dim, group, tiled, splits, split_len;
+  int rows, in_dim, out_dim, group, kind, tile_m, splits, split_len, x_ld;
   cudaStream_t stream;
 };
+
+// Allow woq_mma_kernel<T, BITS, MT, SMALL> its dynamic shared memory (above
+// the 48 KB default) on the current device.
+template <typename T, int BITS, int MT, bool SMALL>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(woq_mma_kernel<T, BITS, MT, SMALL>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              MmaSmem<T, BITS, MT>::BYTES);
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime (null if absent).
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The tensor map of x (rows x in_dim, rows x_ld elements apart) in boxes of
+// BM rows x 64 columns with the 128-byte swizzle, for the wgmma path.
+template <typename T, int BM>
+cudaError_t x_tensor_map(const Args& a, CUtensorMap* map) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {cuuint64_t(a.in_dim), cuuint64_t(a.rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(a.x_ld) * sizeof(T)};
+  const cuuint32_t box[2] = {kMmaK, BM};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(
+      map, sizeof(T) == 2 && std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, const_cast<void*>(a.x), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T, int BITS, int MT, bool SMALL>
+cudaError_t launch_mma(const Args& a, float* dst) {
+  cudaError_t err = allow_smem<T, BITS, MT, SMALL>();
+  if (err != cudaSuccess) return err;
+  CUtensorMap x_map = {};
+  if constexpr (MmaSmem<T, BITS, MT>::WG) {
+    err = x_tensor_map<T, 64 * MT>(a, &x_map);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((a.out_dim + kMmaN - 1) / kMmaN, (a.rows + 64 * MT - 1) / (64 * MT), a.splits);
+  woq_mma_kernel<T, BITS, MT, SMALL><<<grid, kMmaThreads, MmaSmem<T, BITS, MT>::BYTES, a.stream>>>(
+      static_cast<const T*>(a.x), a.codes, a.scale, dst, a.rows, a.in_dim, a.out_dim, a.group,
+      a.split_len, a.x_ld, x_map);
+  return cudaGetLastError();
+}
+
+template <typename T, int BITS, int MT>
+cudaError_t launch_mma_group(const Args& a, float* dst) {
+  return a.group >= kMinStagedGroup ? launch_mma<T, BITS, MT, false>(a, dst)
+                                    : launch_mma<T, BITS, MT, true>(a, dst);
+}
 
 template <typename T, int BITS>
 cudaError_t launch(const Args& a) {
   float* dst = a.splits > 1 ? a.work : a.out;
-  const T* x = static_cast<const T*>(a.x);
-  if (a.tiled) {
-    const dim3 grid((a.out_dim + kTileN - 1) / kTileN, (a.rows + kTileM - 1) / kTileM, a.splits);
-    woq_tiled_kernel<T, BITS><<<grid, kThreads, 0, a.stream>>>(
-        x, a.codes, a.scale, dst, a.rows, a.in_dim, a.out_dim, a.group, a.split_len);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (a.kind == kMma) {
+    if constexpr (sizeof(T) == 2) {
+      switch (a.tile_m) {
+        case 64: err = launch_mma_group<T, BITS, 1>(a, dst); break;
+        case 256: err = launch_mma_group<T, BITS, 4>(a, dst); break;
+        default: break;
+      }
+    }
+  } else if (a.kind == kTiledFma) {
+    if constexpr (sizeof(T) == 4) {
+      const dim3 grid((a.out_dim + kTileN - 1) / kTileN, (a.rows + kTileM - 1) / kTileM,
+                      a.splits);
+      woq_tiled_fma_kernel<BITS><<<grid, kThreads, 0, a.stream>>>(
+          static_cast<const float*>(a.x), a.codes, a.scale, dst, a.rows, a.in_dim, a.out_dim,
+          a.group, a.split_len);
+      err = cudaGetLastError();
+    }
   } else {
     const dim3 grid((a.out_dim + kGemvCols - 1) / kGemvCols, a.splits);
     woq_gemv_kernel<T, BITS><<<grid, kThreads, 0, a.stream>>>(
-        x, a.codes, a.scale, dst, a.rows, a.in_dim, a.out_dim, a.group, a.split_len);
+        static_cast<const T*>(a.x), a.codes, a.scale, dst, a.rows, a.in_dim, a.out_dim, a.group,
+        a.split_len);
+    err = cudaGetLastError();
   }
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return err;
   const size_t n = size_t(a.rows) * a.out_dim;
   const int blocks = int(n / 256 + 1 < 4096 ? n / 256 + 1 : 4096);
@@ -443,36 +997,95 @@ cudaError_t dispatch_bits(int bits, const Args& a) {
   }
 }
 
+template <typename T, int BITS, int MT, bool SMALL>
+int mma_ctas_per_sm() {
+  int n = 0;
+  cudaError_t err = allow_smem<T, BITS, MT, SMALL>();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, woq_mma_kernel<T, BITS, MT, SMALL>, kMmaThreads, MmaSmem<T, BITS, MT>::BYTES);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+template <typename T, int BITS, int MT>
+int mma_ctas_per_sm_group(int group) {
+  return group >= kMinStagedGroup ? mma_ctas_per_sm<T, BITS, MT, false>()
+                                  : mma_ctas_per_sm<T, BITS, MT, true>();
+}
+
+template <typename T, int BITS>
+int mma_ctas_per_sm_tile(int tile_m, int group) {
+  switch (tile_m) {
+    case 64: return mma_ctas_per_sm_group<T, BITS, 1>(group);
+    case 256: return mma_ctas_per_sm_group<T, BITS, 4>(group);
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int mma_ctas_per_sm_bits(int bits, int tile_m, int group) {
+  switch (bits) {
+    case 8: return mma_ctas_per_sm_tile<T, 8>(tile_m, group);
+    case 6: return mma_ctas_per_sm_tile<T, 6>(tile_m, group);
+    case 4: return mma_ctas_per_sm_tile<T, 4>(tile_m, group);
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// dtype (of x): 0 float32, 1 bfloat16, 2 float16. bits: 8, 6 or 4. tiled: 0
-// runs the few-rows kernel (rows <= 8; split_len = groups a split takes), 1
-// the tiled kernel (split_len = K rows a split takes, a multiple of 32).
+// dtype (of x): 0 float32, 1 bfloat16, 2 float16. bits: 8, 6 or 4. kind:
+// 0 runs the few-rows kernel (rows <= 8; split_len = groups a split takes),
+// 1 the fp32 FMA tile kernel (float32 x; split_len = K rows a split takes,
+// a multiple of 32), 2 the tensor-core kernel (16-bit x, 16-byte aligned,
+// rows x_ld >= in_dim elements apart, x_ld a multiple of 8 and x zero in
+// the columns past in_dim; tile_m = 64 or 256 rows of 128 columns a CTA;
+// split_len a multiple of 64). For kinds 0 and 1, x_ld = in_dim.
 // work: (splits, rows, out_dim) fp32 when splits > 1, else unused. Returns
-// cudaGetLastError() after the launches (0 = launched), or
-// cudaErrorInvalidValue for arguments the kernels do not take. Launches on
-// `stream`; does not synchronise.
+// cudaGetLastError()
+// after the launches (0 = launched), or cudaErrorInvalidValue for arguments
+// the kernels do not take. Launches on `stream`; does not synchronise.
 extern "C" int dstt_woq_matmul(const void* x, const void* codes, const void* scale, void* out,
                                void* work, int dtype, int bits, int rows, int in_dim,
-                               int out_dim, int group, int tiled, int splits, int split_len,
-                               void* stream) {
+                               int out_dim, int group, int kind, int tile_m, int splits,
+                               int split_len, int x_ld, void* stream) {
   const int unit = bits == 8 ? 1 : (bits == 4 ? 2 : 4);
-  if (rows <= 0 || in_dim <= 0 || out_dim <= 0 || out_dim % 8 != 0 || group <= 0 ||
-      group % unit != 0 || in_dim % group != 0 || splits <= 0 || split_len <= 0 ||
-      splits > 65535 || (splits > 1 && work == nullptr) ||
-      (!tiled && (rows > kGemvMaxRows || (long long)(splits - 1) * split_len >= in_dim / group)) ||
-      (tiled && (split_len % kTileK != 0 || (long long)(splits - 1) * split_len >= in_dim ||
-                 (rows + kTileM - 1) / kTileM > 65535))) {
-    return (int)cudaErrorInvalidValue;
+  const bool ok_common = rows > 0 && in_dim > 0 && out_dim > 0 && out_dim % 8 == 0 &&
+                         group > 0 && group % unit == 0 && in_dim % group == 0 && splits > 0 &&
+                         split_len > 0 && splits <= 65535 && (splits == 1 || work != nullptr);
+  bool ok_kind = false;
+  if (kind == kGemv) {
+    ok_kind = rows <= kGemvMaxRows && x_ld == in_dim &&
+              (long long)(splits - 1) * split_len < in_dim / group;
+  } else if (kind == kTiledFma) {
+    ok_kind = dtype == 0 && x_ld == in_dim && split_len % kTileK == 0 &&
+              (long long)(splits - 1) * split_len < in_dim && (rows + kTileM - 1) / kTileM <= 65535;
+  } else if (kind == kMma) {
+    ok_kind = (dtype == 1 || dtype == 2) && (tile_m == 64 || tile_m == 256) &&
+              x_ld >= in_dim && x_ld % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+              split_len % kMmaK == 0 && (long long)(splits - 1) * split_len < in_dim &&
+              (rows + tile_m - 1) / tile_m <= 65535;
   }
+  if (!ok_common || !ok_kind) return (int)cudaErrorInvalidValue;
   const Args a{x,     static_cast<const int8_t*>(codes), static_cast<const float*>(scale),
                static_cast<float*>(out), static_cast<float*>(work), rows, in_dim, out_dim,
-               group, tiled, splits, split_len, static_cast<cudaStream_t>(stream)};
+               group, kind, tile_m, splits, split_len, x_ld, static_cast<cudaStream_t>(stream)};
   switch (dtype) {
     case 0: return (int)dispatch_bits<float>(bits, a);
     case 1: return (int)dispatch_bits<__nv_bfloat16>(bits, a);
     case 2: return (int)dispatch_bits<__half>(bits, a);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Tensor-core CTAs (dtype 1 bfloat16 / 2 float16, bits, tile_m 64 or 256 rows, the
+// group) resident on one SM at once on the current device (their registers
+// and shared memory allow that many), or minus the CUDA error.
+extern "C" int dstt_woq_mma_ctas_per_sm(int dtype, int bits, int tile_m, int group) {
+  switch (dtype) {
+    case 1: return mma_ctas_per_sm_bits<__nv_bfloat16>(bits, tile_m, group);
+    case 2: return mma_ctas_per_sm_bits<__half>(bits, tile_m, group);
+    default: return -(int)cudaErrorInvalidValue;
   }
 }
 

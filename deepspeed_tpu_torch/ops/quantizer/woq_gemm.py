@@ -16,15 +16,26 @@ formed in fp32 as ``_dequant_leaf`` forms it (``code * scale``), rounded to
 ``h @ _dequant_leaf(..., h.dtype)`` with fp32 accumulation. Kernel and plain
 version then differ only in the order of an fp32 sum.
 
+Routes (``plan``): up to ``GEMV_MAX_ROWS`` rows the few-rows kernel
+(decode); more rows in bfloat16 or float16 the tensor-core kernel
+(``woq_mma_kernel``: a 4-stage ring of x tiles and code slabs, each weight
+dequantized once a CTA; 256-row tiles copy x by TMA and multiply on
+``wgmma``, 64-row tiles on ``mma.sync``; prefill); more rows in
+float32 the FMA tile kernel (the tests' dtype).
+
 What the kernel takes: ``x`` (B, In) contiguous in float32, bfloat16 or
 float16; ``codes`` int8 (ng, packed, Out) and ``scale`` fp32 (ng, 1, Out),
 contiguous, as ``quantize_leaf`` makes them (a layer's slice of a stacked
 leaf is such a view); 8-, 6- or 4-bit codes; any group the quantizer makes
 (a multiple of the packing unit, power of two or not); Out a multiple of 8
-(the kernel reads eight columns' codes in one 8-byte load).
+(the kernels read eight columns' codes in one 8-byte load). The tensor-core
+kernel copies x in 16-byte pieces (or by TMA): an x that does not start on
+16 bytes, or an In that is not a multiple of 8, is first copied into a
+zero-padded buffer.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -32,13 +43,21 @@ from .woq import PACK_UNIT, _dequant_leaf, group_of
 
 #: kernel launches made by :func:`woq_matmul` (CUDA tensors only)
 launches = 0
+#: those of them that ran a many-rows kernel (``mma`` or ``fma``: prefill)
+tiled_launches = 0
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-#: rows up to which the few-rows kernel runs (decode); more take the tiled one
+_KINDS = {"gemv": 0, "fma": 1, "mma": 2}
+#: rows up to which the few-rows kernel runs (decode); more take a tiled one
 GEMV_MAX_ROWS = 8
 _GEMV_COLS = 256        # columns a few-rows CTA covers (32 lanes x 8)
-_TILE_M, _TILE_N, _TILE_K = 64, 64, 32
-_TARGET_CTAS = 528      # 4 CTAs on each of the H100's 132 SMs
+_TARGET_CTAS = 528      # few-rows and FMA grids: 4 CTAs on each of the H100's 132 SMs
+#: the fp32 FMA tile kernel's tile and K step
+FMA_TILE_M, FMA_TILE_N, FMA_TILE_K = 64, 64, 32
+#: the tensor-core kernel's K step and columns a CTA (rows: ``mma_tile``)
+MMA_TILE_K, MMA_TILE_N = 64, 128
+_MIN_STAGED_GROUP = 32  # smaller groups read their scales from L1, not a staged row
+_MAX_SPLITS = 8         # more splits cost more in partial sums than waves save
 _lib = None
 
 
@@ -71,23 +90,65 @@ def woq_matmul_plain(x, codes, scale, num_bits: int):
     return x.to(torch.float32) @ w.to(torch.float32)
 
 
-def plan(rows: int, in_dim: int, out_dim: int, group: int):
-    """(kernel, splits, split_len) for one call: the few-rows kernel splits
-    K into ``splits`` runs of ``split_len`` groups, the tiled one into runs
-    of ``split_len`` rows of K (a multiple of its K tile), so that enough
-    CTAs fill the card. Partial sums of a split go to a workspace that a
-    second pass adds in a fixed order: repeated calls are bitwise equal."""
+def mma_tile(rows: int):
+    """(rows, columns) of a tensor-core CTA's tile: 64 rows up to 64 (the
+    ``mma.sync`` tile, which does not pay for 256 rows' products), else 256
+    (the ``wgmma`` tile, which dequantizes each weight once in the grid at
+    256 rows); 128 columns."""
+    return (64 if rows <= 64 else 256), MMA_TILE_N
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(rows: int, in_dim: int, out_dim: int, group: int,
+         x_dtype: torch.dtype = torch.bfloat16, ctas_per_sm: int = 1, sms: int = 132):
+    """(kernel, tile_m, tile_n, splits, split_len) for one call.
+
+    - ``gemv`` (rows <= ``GEMV_MAX_ROWS``): K in ``splits`` runs of
+      ``split_len`` groups, enough CTAs to fill the card (tiles 0);
+    - ``fma`` (more rows, float32 x): 64 x 64 tiles, K in runs of
+      ``split_len`` rows (a multiple of ``FMA_TILE_K``), as many CTAs as
+      four an SM;
+    - ``mma`` (more rows, 16-bit x): ``mma_tile`` tiles; K in runs of
+      ``split_len`` rows (a multiple of ``MMA_TILE_K``). ``ctas_per_sm`` is
+      the card's own residency for that kernel (``_residency``) and ``sms``
+      its SM count: with no split, a grid of ``tiles`` CTAs takes
+      ceil(tiles / slots) waves of all K steps; ``splits`` runs trade that
+      for ceil(tiles * splits / slots) waves of a split's steps. The
+      fewest splits within 5% of the fewest wave-steps win, and only if
+      they save a tenth over no split: each split adds its partial sums
+      to a reduction pass. Tiles that fill whole waves take no split.
+
+    Partial sums of a split go to a workspace that a second pass adds in a
+    fixed order: repeated calls are bitwise equal. A pure function of its
+    arguments (cached)."""
     ng = in_dim // group
     if rows <= GEMV_MAX_ROWS:
         col_tiles = -(-out_dim // _GEMV_COLS)
         splits = min(ng, -(-_TARGET_CTAS // col_tiles))
         per = -(-ng // splits)
-        return "gemv", -(-ng // per), per
-    tiles = -(-rows // _TILE_M) * -(-out_dim // _TILE_N)
-    k_tiles = -(-in_dim // _TILE_K)
-    splits = 1 if tiles >= _TARGET_CTAS else min(k_tiles, -(-_TARGET_CTAS // tiles))
-    per = -(-k_tiles // splits)
-    return "tiled", -(-k_tiles // per), per * _TILE_K
+        return "gemv", 0, 0, -(-ng // per), per
+    if x_dtype == torch.float32:
+        tiles = -(-rows // FMA_TILE_M) * -(-out_dim // FMA_TILE_N)
+        k_tiles = -(-in_dim // FMA_TILE_K)
+        splits = 1 if tiles >= _TARGET_CTAS else min(k_tiles, -(-_TARGET_CTAS // tiles))
+        per = -(-k_tiles // splits)
+        return "fma", FMA_TILE_M, FMA_TILE_N, -(-k_tiles // per), per * FMA_TILE_K
+    tile_m, tile_n = mma_tile(rows)
+    tiles = -(-rows // tile_m) * -(-out_dim // tile_n)
+    k_steps = -(-in_dim // MMA_TILE_K)
+    slots = max(1, ctas_per_sm) * sms
+
+    cost = {}  # splits -> wave-steps of the grid
+    for s in range(1, min(k_steps, _MAX_SPLITS) + 1):
+        per = -(-k_steps // s)
+        cost[s] = -(-tiles * -(-k_steps // per) // slots) * per
+    # the fewest splits within 5% of the fewest wave-steps, if that saves
+    # a tenth: each split adds its partial sums to the reduction's bytes
+    splits = min(s for s in cost if cost[s] <= 1.05 * min(cost.values()))
+    if cost[splits] > 0.9 * cost[1]:
+        splits = 1
+    per = -(-k_steps // splits)
+    return "mma", tile_m, tile_n, -(-k_steps // per), per * MMA_TILE_K
 
 
 def _kernel_lib():
@@ -97,12 +158,31 @@ def _kernel_lib():
 
         lib = WoqGemmBuilder().load()
         fn = lib.dstt_woq_matmul
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.dstt_woq_mma_ctas_per_sm.argtypes = [ctypes.c_int] * 4
+        lib.dstt_woq_mma_ctas_per_sm.restype = ctypes.c_int
         lib.dstt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.dstt_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def _residency(device_index: int, dtype: torch.dtype, num_bits: int, tile_m: int,
+               small_group: bool):
+    """(CTAs of the tensor-core kernel resident on one SM, SMs) on the card,
+    from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (its registers
+    and dynamic shared memory); raises if the query fails."""
+    lib = _kernel_lib()
+    with torch.cuda.device(device_index):
+        n = lib.dstt_woq_mma_ctas_per_sm(_KERNEL_DTYPES[dtype], num_bits, tile_m,
+                                         1 if small_group else _MIN_STAGED_GROUP)
+    if n <= 0:
+        raise RuntimeError("woq_matmul: the tensor-core kernel cannot be resident: "
+                           + (lib.dstt_cuda_error_string(-n).decode() if n < 0
+                              else "0 CTAs an SM"))
+    return n, torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _check_cuda_inputs(x, codes, scale, num_bits, group) -> None:
@@ -136,7 +216,7 @@ def woq_matmul(x, codes, scale, num_bits: int):
     Returns (B, Out) fp32. The JAX function's ``block_out`` chose a TPU
     tiling only and has no counterpart here.
     """
-    global launches
+    global launches, tiled_launches
     B, In = x.shape
     ng, packed, Out = codes.shape
     group = group_of(num_bits, packed)
@@ -150,7 +230,20 @@ def woq_matmul(x, codes, scale, num_bits: int):
     out = torch.empty((B, Out), dtype=torch.float32, device=x.device)
     if B == 0:
         return out
-    kind, splits, split_len = plan(B, In, Out, group)
+    ctas, sms = 1, 132
+    if B > GEMV_MAX_ROWS and x.dtype != torch.float32:
+        ctas, sms = _residency(x.device.index if x.device.index is not None
+                               else torch.cuda.current_device(), x.dtype, num_bits,
+                               mma_tile(B)[0], group < _MIN_STAGED_GROUP)
+    kind, tile_m, _, splits, split_len = plan(B, In, Out, group, x.dtype, ctas, sms)
+    x_ld = In
+    if kind == "mma" and (x.data_ptr() % 16 or In % 8):
+        # the tensor-core kernel copies x in 16-byte pieces: rows padded to
+        # a multiple of 8 elements with zeros, on a fresh allocation
+        x_ld = -(-In // 8) * 8
+        padded = x.new_zeros((B, x_ld))
+        padded[:, :In] = x
+        x = padded
     work = (torch.empty((splits, B, Out), dtype=torch.float32, device=x.device)
             if splits > 1 else None)
     lib = _kernel_lib()
@@ -158,10 +251,12 @@ def woq_matmul(x, codes, scale, num_bits: int):
         err = lib.dstt_woq_matmul(
             x.data_ptr(), codes.data_ptr(), scale.data_ptr(), out.data_ptr(),
             None if work is None else work.data_ptr(), _KERNEL_DTYPES[x.dtype], num_bits,
-            B, In, Out, group, int(kind == "tiled"), splits, split_len,
+            B, In, Out, group, _KINDS[kind], tile_m, splits, split_len, x_ld,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError("woq_matmul kernel launch failed: "
                            + lib.dstt_cuda_error_string(err).decode())
     launches += 1
+    if kind != "gemv":
+        tiled_launches += 1
     return out

@@ -11,6 +11,10 @@ On the CPU, against the JAX package, on the same numpy inputs:
   kernel in interpret mode at rtol 1e-5 / atol 1e-4, the JAX package's own
   tolerance (``tests/unit/test_woq.py:169``).
 
+On the CPU, the grid plan: it covers K exactly once at each kernel's K
+step, routes by rows and x's dtype, and splits K only where the card's
+residency leaves a wave short.
+
 On a card (``cuda``-marked, skipped here): the CUDA kernel against the plain
 version. Both form each weight as ``code * scale`` in fp32, round it to x's
 dtype and sum products in fp32, so they differ only in the order of an fp32
@@ -168,14 +172,46 @@ def test_kernel_gate(In, Out, bits, group, dtype, ok):
     (37, 4096, 4096, 128), (256, 4096, 11008, 128), (9, 200, 40, 100),
 ])
 def test_plan_covers_k_exactly_once(rows, In, Out, group):
-    kind, splits, split_len = woq_gemm.plan(rows, In, Out, group)
-    assert kind == ("gemv" if rows <= woq_gemm.GEMV_MAX_ROWS else "tiled")
-    extent = In // group if kind == "gemv" else In
-    if kind == "tiled":
-        assert split_len % 32 == 0
-    # every split is non-empty and together they cover K
-    assert (splits - 1) * split_len < extent <= splits * split_len
-    assert splits >= 1
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for ctas in (1, 2, 3):
+            kind, _, _, splits, split_len = woq_gemm.plan(rows, In, Out, group, dtype, ctas, 132)
+            extent = In // group if kind == "gemv" else In
+            if kind == "mma":
+                assert split_len % woq_gemm.MMA_TILE_K == 0
+            elif kind == "fma":
+                assert split_len % woq_gemm.FMA_TILE_K == 0
+            # every split is non-empty and together they cover K
+            assert (splits - 1) * split_len < extent <= splits * split_len
+            assert 1 <= splits <= 65535
+
+
+@pytest.mark.parametrize("rows,dtype,kind,tile", [
+    (1, torch.bfloat16, "gemv", (0, 0)), (8, torch.float32, "gemv", (0, 0)),
+    (9, torch.float32, "fma", (64, 64)), (256, torch.float32, "fma", (64, 64)),
+    (9, torch.bfloat16, "mma", (64, 128)), (64, torch.float16, "mma", (64, 128)),
+    (65, torch.bfloat16, "mma", (256, 128)), (129, torch.float16, "mma", (256, 128)),
+    (256, torch.bfloat16, "mma", (256, 128)), (300, torch.bfloat16, "mma", (256, 128)),
+])
+def test_plan_routes_by_rows_and_dtype(rows, dtype, kind, tile):
+    # decode rows take the few-rows kernel; more rows in fp32 the FMA tile
+    # kernel, in 16 bits the tensor-core kernel: 64-row tiles up to 64 rows,
+    # else 256
+    kind_, tile_m, tile_n, _, _ = woq_gemm.plan(rows, 4096, 4096, 128, dtype, 1, 132)
+    assert (kind_, (tile_m, tile_n)) == (kind, tile)
+
+
+@pytest.mark.parametrize("rows,In,Out,ctas,sms,splits", [
+    # 32 tiles of 256 x 128 on 132 SMs at 1 CTA an SM: a quarter of a wave,
+    # so K splits in 4 (one full wave of a quarter of the steps)
+    (256, 4096, 4096, 1, 132, 4), (256, 11008, 4096, 1, 132, 4),
+    # 86 tiles: 0.65 of a wave; 3 splits make 2 nearly full waves
+    (256, 4096, 11008, 1, 132, 3),
+    # tiles that fill whole waves take no split
+    (256, 4096, 132 * 128, 1, 132, 1), (256, 4096, 2 * 132 * 128, 1, 132, 1),
+    (64, 4096, 2 * 132 * 128, 2, 132, 1), (300, 4096, 66 * 128, 1, 132, 1),
+])
+def test_plan_splits_k_only_when_waves_gain(rows, In, Out, ctas, sms, splits):
+    assert woq_gemm.plan(rows, In, Out, 128, torch.bfloat16, ctas, sms)[3] == splits
 
 
 @pytest.fixture
@@ -188,8 +224,12 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("bits", [4, 6, 8])
-@pytest.mark.parametrize("B,In,Out,group", [(1, 512, 384, 128), (8, 384, 264, 96),
-                                            (37, 200, 40, 100), (256, 1024, 520, 64)])
+@pytest.mark.parametrize("B,In,Out,group", [
+    (1, 512, 384, 128), (8, 384, 264, 96), (37, 200, 40, 100), (256, 1024, 520, 64),
+    # tile cuts: 65-256 rows in one 256-row tile, 300 in two
+    (100, 640, 136, 64), (129, 512, 264, 64), (255, 384, 136, 96), (300, 200, 40, 100),
+    # llama-7b's w_gate / w_up and w_down at the prefill row count
+    (256, 4096, 11008, 128), (256, 11008, 4096, 128)])
 def test_cuda_kernel_matches_plain(B, In, Out, group, bits, dtype, cuda):
     x, codes, scale = _gemm_case(B, In, Out, group, bits, seed=B)
     x, codes, scale = x.to(cuda, dtype), codes.to(cuda), scale.to(cuda)
