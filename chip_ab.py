@@ -14,7 +14,10 @@ events behind a sleep kernel, the median of 25 after 5 warm-ups):
   sparse path's shape (1, 8192, 32, 128) over the Fixed layout;
 - where the checkout has them, the fused-CE forward (with the residual) and
   backward at llama-7b's head (N 4096, H 4096, V 32000, bf16) and at
-  gpt2-6.7b's tied head (V 50304);
+  gpt2-6.7b's tied head (V 50304), and each of their kernels apart (the
+  forward and the combine; dlogits, dX and dW), the device time a call of
+  each from ``torch.profiler`` over 10 calls, grouped as ``chip_profile.py``
+  groups them;
 - ``woq_matmul`` (bf16 x) over int8, int6 and int4 codes (group 128) of
   llama-7b's three projection shapes, at 8, 37 and 256 rows, cycling
   through copies of the codes and scales that together exceed the 50 MB L2
@@ -39,9 +42,13 @@ def turn(root):
 
     import torch
 
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    def load(name):
+        spec = importlib.util.spec_from_file_location(name, os.path.join(HERE, f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    cs, cp = load("chip_smoke"), load("chip_profile")
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 
     dev = torch.device("cuda", 0)
@@ -73,6 +80,13 @@ def turn(root):
             out[f"{label}_fwd_ms"] = cs.time_cuda(lambda: fc.fused_ce_fwd(x, w, labels))
             out[f"{label}_bwd_ms"] = cs.time_cuda(
                 lambda: fc.fused_ce_bwd(lg, lse, labels, g, x, w))
+            # each kernel of the two calls apart, from the profiler
+            for d, fn in (("fwd", lambda: fc.fused_ce_fwd(x, w, labels)),
+                          ("bwd", lambda: fc.fused_ce_bwd(lg, lse, labels, g, x, w))):
+                groups = cp.profile(fn, f"{label} {d}", steps=10)["groups_ms"]
+                for group, ms in groups.items():
+                    if group.startswith("fused_ce_"):
+                        out[f"{label}_{group[len('fused_ce_'):]}_kernel_ms"] = ms
             del x, w, lg
             torch.cuda.empty_cache()
     woq_turn(cs, dev, out)

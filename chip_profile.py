@@ -41,7 +41,9 @@ rest.
 Then one forward and backward of ``chip_smoke.py``'s fused cross-entropy
 path (``fused_ce_loss`` at llama-7b's head, bf16 x (4096, 4096), W (32000,
 4096), then ``autograd.grad``) traced, with a group for each of its five
-kernels (forward, combine, dlogits, dX, dW).
+kernels (forward, combine, dlogits, dX, dW and, in 16 bits, the label
+index and the pass that finishes dW's labelled rows: ``fused_ce_fwd`` ...
+``fused_ce_dw_label``).
 
 Last, the dequantization rates the WOQ prefill kernel's design leans on: a
 small CUDA microbenchmark (built here with ``nvcc``, not part of the
@@ -68,9 +70,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 def _group(name: str) -> str:
     n = name.lower()
-    ce = re.search(r"ce_(fwd|combine|dlogits|bwd_dx|bwd_dw)_kernel", n)
-    if ce:  # the fused cross-entropy kernels, one group each
-        return "fused_" + ce.group(0)
+    # the fused cross-entropy kernels, one group each: the 16-bit wgmma
+    # kernels, the fp32 FMA ones and the earlier WMMA kernels' names alike
+    ce = re.search(r"ce_(fwd|combine|dlogits|bwd_dx|bwd_dw|dw_label|label_rows)"
+                   r"(?:_wgmma|_fma)?_kernel", n)
+    if ce:
+        return "fused_ce_" + ce.group(1)
     if "woq_" in n:
         return "woq_matmul"
     if "paged_decode_kernel" in n:

@@ -107,8 +107,10 @@ Then fused linear cross-entropy (``fused_ce_loss``):
 ce1. the fused-CE forward (lg, lse, nll) and backward (dx, dw) kernels
      against their plain versions, fp32, bf16 and fp16, at (N, H, V) of
      (256, 128, 768), (2560, 128, 640) (a vocab not a multiple of the
-     forward's chunk), (256, 8192, 256) (the gate's H edge) and llama-7b's
-     head (4096, 4096, 32000), labels including -1 and V, the forward also
+     forward's chunk), (256, 8192, 256) (the gate's H edge), (384, 640,
+     50304) (each 128 mod 256: a half tile on every side of the 16-bit
+     kernels' 128 x 256 tiles), llama-7b's head (4096, 4096, 32000) and
+     gpt2-6.7b's (4096, 4096, 50304), labels including -1 and V, the forward also
      without the residual: lse and nll at atol 1e-4; lg, dx and dw in
      16 bits elementwise at rtol x (|ref| + median |ref|), rtol 1e-2 for
      bf16 and 2e-3 for fp16 (one rounding each way); fp32 lg at atol 1e-4,
@@ -1173,9 +1175,12 @@ def sparse_timing(bs, dev):
     return results
 
 
-CE_CASES = ((256, 128, 768), (2560, 128, 640), (256, 8192, 256), (4096, 4096, 32000))  # N, H, V
 CE_MAIN = (4096, 4096, 32000)  # llama-7b's head at the training slice's 2 x 2048 batch
 CE_GPT2 = (4096, 4096, 50304)  # gpt2-6.7b's tied head (vocab padded to 50304)
+# N, H, V; (384, 640, 50304): each 128 mod 256, a half tile on every side of
+# the 16-bit kernels' 128 x 256 tiles
+CE_CASES = ((256, 128, 768), (2560, 128, 640), (256, 8192, 256), (384, 640, 50304), CE_MAIN,
+            CE_GPT2)
 CE_NLL_ATOL = 1e-4  # lse, nll: sums of exact (16-bit) products in fp32, in another order
 
 
@@ -1411,11 +1416,7 @@ def ce_timing(fc, dev):
         fwd_flops, bwd_flops = 2 * N * V * H, 4 * N * V * H
         fwd_bytes = xw_bytes + N * 4 + N * V * elt + 2 * N * 4  # x, w, labels; lg, lse, nll
         bwd_bytes = N * V * elt + 3 * N * 4 + 2 * xw_bytes  # lg, lse, labels, g, x, w; dx, dw
-        slots = fc.fwd_slots(x.device, x.dtype)
-        per, chunks = fc.plan(N, V, slots)
-        r = {"shape": [N, H, V], "dtype": "bfloat16",
-             "fwd_plan": {"slots": slots, "tiles_per_cta": per, "chunks": chunks,
-                          "ctas": N // 64 * chunks}}
+        r = {"shape": [N, H, V], "dtype": "bfloat16", "plan": fc.kernel_plan(x, w)._asdict()}
         for d, ms, plain, lib, flops, nbytes in (
                 ("fwd", fwd_ms, plain_fwd_ms, lib_fwd_ms, fwd_flops, fwd_bytes),
                 ("bwd", bwd_ms, plain_bwd_ms, lib_bwd_ms, bwd_flops, bwd_bytes)):

@@ -18,10 +18,17 @@ kernels run in interpret mode as ``tests/unit/test_models.py:144`` runs them:
 - under ``torch.no_grad()`` (or with nothing requiring grad) the forward
   asks for no residual;
 - the plain version against a straightforward fp32 logsumexp - gather with
-  autograd.
+  autograd;
+- the kernels' planner (``plan``, ``cta_tiles``), a pure function: the
+  pinned plans at llama-7b's and gpt2-6.7b's heads, every output tile of
+  the three 16-bit products walked once, the forward's chunks in vocab
+  order (and the ordered merge of their partials equal to logsumexp), and
+  the half tiles where N, V or H is 128 mod 256 reached.
 
 On a card (``cuda``-marked, skipped here): the CUDA kernels against the
-plain versions at small shapes, lse and nll at atol 1e-4 (both sum exact
+plain versions at small shapes, at (384, 640, 50304) (N, H and V each 128
+mod 256: a half tile on every side of the 16-bit kernels' 128 x 256 tiles)
+and at gpt2-6.7b's head (4096, 4096, 50304), lse and nll at atol 1e-4 (both sum exact
 products in fp32, in another order); for 16-bit types lg, dx and dw
 elementwise at rtol x (|ref| + median |ref|), rtol 1e-2 for bf16 and 2e-3
 for fp16 (a sum on a rounding boundary may round the other way); for fp32
@@ -215,18 +222,131 @@ def test_plain_matches_autograd_reference():
     torch.testing.assert_close(dw, ref_dw, rtol=1e-4, atol=1e-5)
 
 
+H100_SMS = 132
+# (N, H, V): llama-7b's and gpt2-6.7b's heads at a 2 x 2048 batch, and a
+# head whose N, H and V are each 128 mod 256 (a half tile on every side)
+PLAN_SHAPES = [(4096, 4096, 32000), (4096, 4096, 50304), (384, 640, 50304)]
+
+
 def test_plan_fills_the_card_with_whole_vocab_tiles():
-    slots = 2 * 132  # two forward CTAs on each of an H100's 132 SMs
-    for V in (32000, 50304):  # llama-7b's and gpt2-6.7b's heads at a 2 x 2048 batch
-        v_tiles = V // 128
-        per, chunks = fc.plan(4096, V, slots)
-        assert per * (chunks - 1) < v_tiles <= per * chunks
-        # (waves) x (tiles a CTA) is the least any chunking reaches: the
-        # CTAs leave no more than one wave's tail
-        waves = -(-64 * chunks // slots)
-        assert waves * per == -(-64 * v_tiles // slots)
-    assert fc.plan(4096, 50304, slots) == (12, 33)  # 2112 CTAs: 8 whole waves
-    assert fc.plan(256, 768, slots) == (1, 6)  # few rows: one vocab tile a CTA
+    """16-bit: one persistent CTA an SM, 128 x 256 tiles; the forward's
+    chunks leave no CTA more than one tile above the even share, and of
+    those plans the chunk count is the least; fp32 keeps the FMA kernels'
+    (tiles a CTA, chunks) from waves of 64 x 128 tiles."""
+    for N, H, V in PLAN_SHAPES:
+        p = fc.plan(N, V, H, torch.bfloat16, 1, H100_SMS)
+        assert (p.tile_m, p.tile_n) == (128, 256)
+        mt, nt = N // 128, -(-V // 256)
+        assert p.tiles_per_chunk * (p.chunks - 1) < nt <= p.tiles_per_chunk * p.chunks
+        assert p.fwd_ctas == min(H100_SMS, mt * p.chunks)
+        most = max(len(t) for t in fc.cta_tiles(mt, nt, p.tiles_per_chunk, p.fwd_ctas))
+        assert most <= -(-mt * nt // H100_SMS) + 1
+        assert p.dx_ctas == min(H100_SMS, mt * -(-H // 256))
+        assert p.dw_ctas == min(H100_SMS, V // 128 * -(-H // 256))
+        assert fc.plan(N, V, H, torch.float16, 1, H100_SMS) == p
+    assert fc.plan(4096, 32000, 4096, torch.bfloat16, 1, H100_SMS)[2:4] == (1, 125)
+    assert fc.plan(4096, 50304, 4096, torch.bfloat16, 1, H100_SMS)[2:4] == (6, 33)
+    assert fc.plan(384, 50304, 640, torch.bfloat16, 1, H100_SMS)[2:4] == (5, 40)
+    # fp32: two FMA forward CTAs an SM, waves of 64 x 128 tiles
+    assert fc.plan(4096, 50304, 4096, torch.float32, 2, H100_SMS)[2:4] == (12, 33)
+    assert fc.plan(256, 768, 128, torch.float32, 2, H100_SMS)[2:4] == (1, 6)
+
+
+def _products(N, H, V, p):
+    """(name, row blocks, column tiles, tiles a chunk, CTAs, columns fastest)
+    of the three 16-bit products under plan p."""
+    ht = -(-H // 256)
+    return [("fwd", N // 128, -(-V // 256), p.tiles_per_chunk, p.fwd_ctas, False),
+            ("dx", N // 128, ht, 1, p.dx_ctas, False),
+            ("dw", V // 128, ht, 1, p.dw_ctas, True)]
+
+
+@pytest.mark.parametrize("N,H,V", PLAN_SHAPES + [(256, 128, 768), (2560, 128, 640)])
+@pytest.mark.parametrize("sms", [H100_SMS, 7])
+def test_schedule_covers_every_output_tile_once(N, H, V, sms):
+    p = fc.plan(N, V, H, torch.bfloat16, 1, sms)
+    for name, mt, nt, per, ctas, n_fastest in _products(N, H, V, p):
+        assert 0 < ctas <= sms
+        seen = [(m, t) for tiles in fc.cta_tiles(mt, nt, per, ctas, n_fastest)
+                for m, _, t in tiles]
+        assert sorted(seen) == [(m, t) for m in range(mt) for t in range(nt)], name
+
+
+@pytest.mark.parametrize("N,H,V", PLAN_SHAPES)
+def test_forward_chunks_merge_in_order(N, H, V):
+    """Each row block's chunks hold consecutive vocab tiles, chunk c before
+    c + 1, so merging the partials in chunk order walks the vocab in order;
+    and that merge, done as ce_combine_kernel does it on (m, l, gold) per
+    (row, chunk), gives the logsumexp and the gold logit."""
+    p = fc.plan(N, V, H, torch.bfloat16, 1, H100_SMS)
+    mt, nt = N // 128, -(-V // 256)
+    by_block = {}
+    for tiles in fc.cta_tiles(mt, nt, p.tiles_per_chunk, p.fwd_ctas):
+        for m, c, t in tiles:
+            by_block.setdefault(m, {}).setdefault(c, []).append(t)
+    for m in range(mt):
+        chunks = by_block[m]
+        assert sorted(chunks) == list(range(p.chunks))
+        assert [t for c in sorted(chunks) for t in chunks[c]] == list(range(nt))
+    # the merge on 8 rows of random logits, at the plan's chunk edges
+    rng = np.random.default_rng(1)
+    s = torch.from_numpy(rng.standard_normal((8, V)).astype(np.float32) * 4)
+    labels = torch.from_numpy(rng.integers(0, V, 8))
+    edges = [min(V, c * p.tiles_per_chunk * 256) for c in range(p.chunks + 1)]
+    m_run = l_run = gold = None
+    for c in range(p.chunks):
+        part = s[:, edges[c]:edges[c + 1]]
+        mc = part.max(1).values
+        lc = torch.exp(part - mc[:, None]).sum(1)
+        hit = ((labels >= edges[c]) & (labels < edges[c + 1]))
+        gc = torch.where(hit, s.gather(1, labels[:, None])[:, 0], torch.zeros(8))
+        if c == 0:
+            m_run, l_run, gold = mc, lc, gc
+        else:
+            m_new = torch.maximum(m_run, mc)
+            l_run = l_run * torch.exp(m_run - m_new) + lc * torch.exp(mc - m_new)
+            m_run, gold = m_new, gold + gc
+    torch.testing.assert_close(m_run + torch.log(l_run), torch.logsumexp(s, 1), rtol=0,
+                               atol=1e-5)
+    assert torch.equal(gold, s.gather(1, labels[:, None])[:, 0])
+
+
+@pytest.mark.parametrize("V", [7, 768, 50304])
+def test_label_rows_group_rows_by_label_in_row_order(V):
+    """The 16-bit backward's index of the label terms: every row with a
+    label in [0, V) once, grouped by label, ascending within a label; rows
+    labelled -1 or V nowhere; each label that some row has a scratch slot,
+    numbered in label order, and vlist the inverse (CPU labels: the plain
+    version)."""
+    rng = np.random.default_rng(V)
+    N = 1000
+    labels = rng.integers(-1, V + 1, N).astype(np.int32)
+    labels[:4] = (-1, V, 0, V - 1)
+    order, starts, slot, vlist = fc.label_rows(torch.from_numpy(labels), V)
+    assert {t.dtype for t in (order, starts, slot, vlist)} == {torch.int32}
+    assert order.shape == (N,) and starts.shape == (V + 1,) and slot.shape == (V,)
+    assert vlist.shape == (min(N, V),)
+    assert starts[0] == 0 and starts[-1] == int(((labels >= 0) & (labels < V)).sum())
+    named = sorted(set(labels.tolist()) & set(range(V)))
+    for v in range(V):
+        rows = order[starts[v]:starts[v + 1]].tolist()
+        assert rows == np.flatnonzero(labels == v).tolist()
+        assert slot[v] == (named.index(v) if rows else -1)
+    assert vlist.tolist() == named + [-1] * (min(N, V) - len(named))
+
+
+@pytest.mark.parametrize("N,H,V", [(4096, 4096, 50304), (384, 640, 50304), (256, 640, 384)])
+def test_tails_are_covered(N, H, V):
+    """V and H of 128 mod 256 end in a half tile: the schedule reaches the
+    tile that holds the last 128 columns, and no tile lies past them."""
+    p = fc.plan(N, V, H, torch.bfloat16, 1, H100_SMS)
+    for name, mt, nt, per, ctas, n_fastest in _products(N, H, V, p):
+        cols = V if name == "fwd" else H
+        last = max(t for tiles in fc.cta_tiles(mt, nt, per, ctas, n_fastest)
+                   for _, _, t in tiles)
+        assert last * 256 < cols <= (last + 1) * 256, name
+        if cols % 256:
+            assert cols - last * 256 == 128, name
 
 
 # ----------------------------------------------------------------------------
@@ -259,7 +379,8 @@ def _close16(got, want, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("N,H,V", [(256, 128, 768), (2560, 128, 640), (256, 8192, 256)])
+@pytest.mark.parametrize("N,H,V", [(256, 128, 768), (2560, 128, 640), (256, 8192, 256),
+                                   (384, 640, 50304), (4096, 4096, 50304)])
 def test_cuda_kernels_match_plain(N, H, V, dtype, cuda):
     torch.backends.cuda.matmul.allow_tf32 = False
     x, w, labels, g = inputs(N, H, V)
@@ -290,6 +411,25 @@ def test_cuda_kernels_match_plain(N, H, V, dtype, cuda):
     else:
         for got, want in ((lg, ref_lg), (dx, ref_dx), (dw, ref_dw)):
             _close16(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,V", [(1000, 7), (4096, 32000), (384, 50304), (2048, 2048)])
+def test_cuda_label_rows_match_plain(N, V, cuda):
+    """The label-index kernel against its plain version: bitwise, order in
+    its first starts[V] entries; labels with -1, V, many repeats and one
+    label on a quarter of the rows."""
+    rng = np.random.default_rng(N + V)
+    labels = rng.integers(-1, V + 1, N).astype(np.int32)
+    labels[: N // 4] = V // 2
+    lab = torch.from_numpy(labels).to(cuda)
+    got = fc.label_rows(lab, V)
+    want = fc.label_rows_plain(lab, V)
+    torch.cuda.synchronize()
+    valid = int(want[1][-1])
+    assert torch.equal(got[0][:valid], want[0][:valid])
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda
