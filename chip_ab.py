@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's attention, fused-CE and WOQ kernels of two checkouts on one NVIDIA GPU, in turns.
+"""Time the port's attention, paged decode, fused-CE and WOQ kernels of two checkouts on one NVIDIA GPU, in turns.
 
     python3 chip_ab.py OLD NEW    # roots of two checkouts, e.g. a parent unpacked with git archive
 
@@ -18,6 +18,14 @@ events behind a sleep kernel, the median of 25 after 5 warm-ups):
   forward and the combine; dlogits, dX and dW), the device time a call of
   each from ``torch.profiler`` over 10 calls, grouped as ``chip_profile.py``
   groups them;
+- ``paged_decode_attention`` (bf16, llama-7b's 32 heads of 128, the
+  engine's table of 64 slots of 64 keys) on ``chip_smoke.paged_case``'s
+  synthetic pool at the lens of the main path's last decode step
+  (``DECODE_LENS``, copied from ``chip_smoke.py`` phase 5's log line), and
+  at 256-row prefill chunks of one sequence, every row the same table:
+  positions 1793 to 2048 (lens 1793..2048, ``paged_chunk_ms``) and a
+  256-token prompt's first chunk (lens 1..256, ``paged_prompt_ms``, the
+  rows of ``chip_profile.py``'s prefill step);
 - ``woq_matmul`` (bf16 x) over int8, int6 and int4 codes (group 128) of
   llama-7b's three projection shapes, at 8, 37 and 256 rows, cycling
   through copies of the codes and scales that together exceed the 50 MB L2
@@ -34,6 +42,9 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# the rows of chip_smoke.py phase 5: the main path's last decode step
+# (6 live requests, 2 padding rows), as its log line prints them
+DECODE_LENS = (69, 332, 1032, 2132, 668, 664, 1, 1)
 
 
 def turn(root):
@@ -89,8 +100,37 @@ def turn(root):
                         out[f"{label}_{group[len('fused_ce_'):]}_kernel_ms"] = ms
             del x, w, lg
             torch.cuda.empty_cache()
+    paged_turn(cs, dev, out)
     woq_turn(cs, dev, out)
     print(json.dumps(out), flush=True)
+
+
+def paged_turn(cs, dev, out):
+    """``paged_decode_attention`` at the last decode step's rows
+    (``paged_decode_ms``) and at 256-row prefill chunks of one 2048-key
+    sequence: its last (``paged_chunk_ms``) and its first
+    (``paged_prompt_ms``)."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
+
+    bf16 = torch.bfloat16
+    q, kp, vp, tables, lens = cs.paged_case(len(DECODE_LENS), 32, 32, 128, 64, 64,
+                                            list(DECODE_LENS), bf16, dev, seed=2)
+    out["paged_decode_ms"] = cs.time_cuda(lambda: pa.paged_decode_attention(q, kp, vp, tables,
+                                                                             lens))
+    _, kp, vp, table, _ = cs.paged_case(1, 32, 32, 128, 64, 64, [2048], bf16, dev, seed=3)
+    q = torch.randn(256, 32, 128, device=dev, generator=torch.Generator(device=dev)
+                    .manual_seed(3)).to(bf16)
+    tables = table.expand(256, -1).contiguous()
+    lens = torch.arange(2048 - 255, 2049, dtype=torch.int32, device=dev)
+    out["paged_chunk_ms"] = cs.time_cuda(lambda: pa.paged_decode_attention(q, kp, vp, tables,
+                                                                            lens))
+    lens = torch.arange(1, 257, dtype=torch.int32, device=dev)
+    out["paged_prompt_ms"] = cs.time_cuda(lambda: pa.paged_decode_attention(q, kp, vp, tables,
+                                                                             lens))
+    del q, kp, vp
+    torch.cuda.empty_cache()
 
 
 def woq_turn(cs, dev, out):

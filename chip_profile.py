@@ -78,7 +78,7 @@ def _group(name: str) -> str:
         return "fused_ce_" + ce.group(1)
     if "woq_" in n:
         return "woq_matmul"
-    if "paged_decode_kernel" in n:
+    if "paged_decode_" in n:  # paged_decode_mma_kernel (16 bits), paged_decode_fma_kernel (fp32)
         return "paged_decode_attention"
     # the attention kernels of attention_kernels.cuh: over the dense
     # schedule (flash) or the block lists (block-sparse)

@@ -11,10 +11,17 @@ in order; any failure exits non-zero and prints no result:
 2. each kernel against its plain PyTorch version at the slice's shapes
    (llama-7b's heads, llama-70b's GQA heads, a head_dim-64 model), bfloat16
    at atol/rtol 1e-2 and float32 at atol 1e-5, ragged lens with 1, a
-   non-multiple of the block size, a full table and 0;
+   non-multiple of the block size, a full table and 0; then at the main
+   path's table (64 slots of 64 keys, 8 partitions a row) llama-7b's heads
+   in fp32, bf16 and fp16, head_dim 32 (llama-tiny's heads) and a GQA-8
+   case, with lens around each partition boundary (a block's edge, where
+   another partition wakes, and 8 blocks', where all are awake), a full
+   table and 0, each call repeated and held bitwise equal; and one row
+   alone, among 8 rows and among 256 rows, bitwise equal;
 3. the slice at a small size: the paged engine on the card against the same
    engine on the CPU (plain attention), same weights and requests, float32
-   logits at atol 1e-4;
+   logits at atol 1e-4, for a head_dim-64 model and for llama-tiny's heads
+   (head_dim 32);
 4. the main path: llama-7b at full width and depth, random bf16 weights
    from a seeded generator, served by ``InferenceEngineV2(paged=True)``:
    prompts of 37, 300, 1000 and 2100 tokens, a 640-token arrival after
@@ -35,10 +42,13 @@ q1. the WOQ kernels against their plain version: 8, 6 and 4 bits at
     tile, 256-row tiles holding 100-256 rows, and two of them), fp32 x at
     1, 8, 37 and 256, fp16 x at 37 and
     256; then group 64 and In 4000 (a group that is not a power of two, a K
-    tail) at 8 and 256 rows, and codes holding every byte value; atol 1e-4
-    and rtol 1e-5 for every x dtype (both form the weight in fp32 and round
-    it to x's dtype, so only an fp32 sum's order differs), each 16-bit call
-    run twice and held bitwise equal;
+    tail) at 8 and 256 rows, (4032, 1032) with group 96 at 8 rows (Out a
+    multiple of 8 but not of the GEMV's column tile), and codes holding
+    every byte value; atol 1e-4 and rtol 1e-5 for every x dtype (both form
+    the weight in fp32 and round it to x's dtype, so only an fp32 sum's
+    order differs), each 16-bit call run twice and held bitwise equal, and
+    each 8-row call's rows 0 and 5 computed alone and held bitwise equal to
+    its rows;
 q2. the WOQ engine small (llama, hd 64, fp32, int8/int6/int4 at group 64)
     on the card against the same on the CPU: logits at atol 1e-4, greedy
     streams equal;
@@ -230,6 +240,70 @@ def kernels_vs_plain(pa, dev):
             worst = max(worst, err)
             log(f"kernel vs plain: paged_decode_attention {label} nh={nh} kvh={kvh} "
                 f"hd={hd} BS={BS} {str(dtype)[6:]}: max_abs_err {err:.3g} ok")
+    # the main path's table: 64 slots of 64 keys, 8 partitions a row (slot j
+    # to partition j % 8); lens around the edges where a partition wakes
+    # (BS) and where all are awake (8 BS), a full table and 0
+    BS, MAXB = 64, 64
+    parts = pa.plan(MAXB, BS, 128)[0]
+    P = parts * BS
+    lens = [1, BS - 1, BS, BS + 1, P - 1, P, P + 1, 2132, MAXB * BS - 1, MAXB * BS, 0]
+    for label, nh, kvh, hd, dtypes in (
+            ("llama-7b heads", 32, 32, 128, (torch.float32, torch.bfloat16, torch.float16)),
+            ("llama-tiny heads (hd 32)", 8, 4, 32, (torch.float32, torch.bfloat16,
+                                                    torch.float16)),
+            ("GQA-8 heads", 64, 8, 128, (torch.bfloat16,))):
+        for dtype in dtypes:
+            q, kp, vp, tables, ln = paged_case(len(lens), nh, kvh, hd, BS, MAXB, lens, dtype,
+                                               dev, seed=5)
+            out = pa.paged_decode_attention(q, kp, vp, tables, ln)
+            torch.cuda.synchronize()
+            err = compare(out, pa.paged_decode_attention_plain(q, kp, vp, tables, ln), dtype)
+            check(not out[lens.index(0)].any().item(), "lens == 0 row is not zero")
+            check(torch.equal(out, pa.paged_decode_attention(q, kp, vp, tables, ln)),
+                  f"paged_decode_attention {label} {dtype}: a repeat differs")
+            worst = max(worst, err)
+            log(f"kernel vs plain: paged_decode_attention {label} nh={nh} kvh={kvh} hd={hd} "
+                f"BS={BS} MAXB={MAXB} ({parts} partitions) lens {lens} {str(dtype)[6:]}: "
+                f"max_abs_err {err:.3g}, repeat bitwise equal ok")
+    # a row's output does not depend on its batch: alone, among 8, among 256
+    gen = torch.Generator(device=dev).manual_seed(6)
+    nh, NB = 32, 1 + 8 * MAXB  # rows share the pool's blocks (as prefix hits do)
+    kp = torch.randn(nh, NB, BS, 128, device=dev, generator=gen).to(torch.bfloat16)
+    vp = torch.randn(nh, NB, BS, 128, device=dev, generator=gen).to(torch.bfloat16)
+    q = torch.randn(256, nh, 128, device=dev, generator=gen).to(torch.bfloat16)
+    tables = torch.randint(1, NB, (256, MAXB), device=dev, generator=gen, dtype=torch.int32)
+    ln = torch.randint(0, MAXB * BS + 1, (256,), device=dev, generator=gen,
+                       dtype=torch.int32)
+    full = pa.paged_decode_attention(q, kp, vp, tables, ln)  # one CTA a row
+    for rows in ([131], list(range(128, 136))):  # the partitions split over clusters
+        idx = torch.tensor(rows, device=dev)
+        args = (q[idx].contiguous(), kp, vp, tables[idx].contiguous(), ln[idx].contiguous())
+        part = pa.paged_decode_attention(*args)
+        check(torch.equal(part, full[idx]),
+              f"paged_decode_attention: rows {rows[0]}..{rows[-1]} alone differ from the "
+              "same rows among 256")
+        worst = max(worst, compare(part, pa.paged_decode_attention_plain(*args), torch.bfloat16))
+    # the rows of a prefill chunk hold one table: a CTA takes 16 of them and
+    # reads each K/V tile once for all 16; each row alone (its partitions
+    # split over a cluster) is bitwise its row of the chunk
+    table = torch.randperm(MAXB, device=dev, generator=gen).to(torch.int32) + 1
+    tables = table[None].repeat(256, 1).contiguous()
+    for lo in (1, 1793):  # a 256-token prompt, and its 8th chunk
+        ln = torch.arange(lo, lo + 256, device=dev, dtype=torch.int32)
+        full = pa.paged_decode_attention(q, kp, vp, tables, ln)
+        for rows in ([0], [200], list(range(3, 11)), list(range(248, 256))):
+            idx = torch.tensor(rows, device=dev)
+            args = (q[idx].contiguous(), kp, vp, tables[idx].contiguous(), ln[idx].contiguous())
+            part = pa.paged_decode_attention(*args)
+            check(torch.equal(part, full[idx]),
+                  f"paged_decode_attention: chunk rows {rows[0]}..{rows[-1]} (lens from {lo}) "
+                  "alone differ from the same rows in the chunk")
+            worst = max(worst, compare(full[idx], pa.paged_decode_attention_plain(*args),
+                                       torch.bfloat16))
+    torch.cuda.synchronize()
+    log("paged_decode_attention: a row alone, among 8 rows and among 256 rows bitwise equal, "
+        "and a 256-row chunk of one table (lens 1..256, 1793..2048) bitwise equal to its "
+        "rows alone, all equal to the plain version ok")
     return worst
 
 
@@ -274,14 +348,16 @@ def serve(engine, prompts, arrival, decode_steps, greedy, choices=None, stats=No
     return records, fed
 
 
-def small_slice_vs_cpu(dev):
-    """Phase 3: the slice on the card against the plain path on the CPU."""
+def small_slice_vs_cpu(dev, **widths):
+    """Phase 3: the slice on the card against the plain path on the CPU
+    (``widths`` override the head_dim-64 model's heads: llama-tiny's own,
+    hd 32)."""
     from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
     from deepspeed_tpu_torch.models import build_model
 
-    model = build_model("llama-tiny", vocab_size=1024, hidden_size=256, num_layers=2,
-                        num_heads=4, num_kv_heads=2, intermediate_size=512,
-                        max_seq_len=512)
+    model = build_model("llama-tiny", vocab_size=1024, num_layers=2, intermediate_size=512,
+                        max_seq_len=512,
+                        **dict(dict(hidden_size=256, num_heads=4, num_kv_heads=2), **widths))
     params = model.init_params(torch.Generator().manual_seed(0))
     opts = dict(paged=True, dtype=torch.float32, max_seqs=4, block_size=16,
                 prefill_chunk=64, token_budget=64, prefix_cache=True)
@@ -300,8 +376,9 @@ def small_slice_vs_cpu(dev):
             check(np.isfinite(g[u]).all() and err <= 1e-4,
                   f"uid {u}: card vs CPU logits differ by {err:.3g} (atol 1e-4)")
             worst = max(worst, err)
-    log(f"slice on the card vs CPU (llama 256-wide, 2 layers, fp32): "
-        f"{len(got)} calls, max_abs_err {worst:.3g} ok")
+    cfg = model.config
+    log(f"slice on the card vs CPU (llama {cfg.hidden_size}-wide, {cfg.num_heads} heads of "
+        f"{cfg.head_dim}, 2 layers, fp32): {len(got)} calls, max_abs_err {worst:.3g} ok")
 
 
 def main_path(pa, dev, bits=None, decode_steps=32, wq=None):
@@ -523,13 +600,19 @@ def woq_kernels_vs_plain(wq, dev):
         if x.dtype != torch.float32:  # no atomics: a repeat is bitwise equal
             check(torch.equal(out, wq.woq_matmul(x, codes, scale, bits)),
                   f"woq_matmul {label} int{bits} rows {x.shape[0]}: a repeat differs")
+        if x.shape[0] == 8:  # a row's sums do not depend on the other rows
+            for r in (0, 5):
+                check(torch.equal(wq.woq_matmul(x[r:r + 1].contiguous(), codes, scale, bits),
+                                  out[r:r + 1]),
+                      f"woq_matmul {label} int{bits}: row {r} alone differs from 8 rows")
         worst = max(worst, err)
         log(f"kernel vs plain: woq_matmul {label} int{bits} x {str(x.dtype)[6:]} "
             f"rows {x.shape[0]}: max_abs_err {err:.3g} ok")
 
     main_rows = {torch.bfloat16: (1, 8, 37, 100, 129, 256, 300), torch.float32: (1, 8, 37, 256),
                  torch.float16: (37, 256)}
-    cases = [(In, Out, 128) for In, Out in WOQ_SHAPES] + [(4096, 4096, 64), (4000, 1024, 128)]
+    cases = [(In, Out, 128) for In, Out in WOQ_SHAPES] + [(4096, 4096, 64), (4000, 1024, 128),
+                                                        (4032, 1032, 96)]
     for In, Out, group in cases:
         w = torch.randn(In, Out, device=dev, generator=gen).mul_(0.02)
         main = group == 128 and In != 4000
@@ -538,7 +621,7 @@ def woq_kernels_vs_plain(wq, dev):
             g = woq.group_of(bits, codes.shape[1])
             for dtype in ((torch.bfloat16, torch.float32, torch.float16) if main
                           else (torch.bfloat16, torch.float32)):
-                for rows in (main_rows[dtype] if main else (8, 256)):
+                for rows in (main_rows[dtype] if main else (8,) if Out == 1032 else (8, 256)):
                     x = torch.randn(rows, In, device=dev, generator=gen).to(dtype)
                     case(f"({In}, {Out}) group {g}", x, codes, scale, bits)
         del w
@@ -1472,6 +1555,7 @@ def main():
 
     kernels_vs_plain(pa, dev)
     small_slice_vs_cpu(dev)
+    small_slice_vs_cpu(dev, num_heads=8, num_kv_heads=4)  # llama-tiny's heads: hd 32
     fa.fwd_launches = fa.bwd_launches = 0  # the serving path's counts start at 0 too
     engine, free0, launches, real_pool, summary = main_path(pa, dev, wq=wq)
     check(fa.fwd_launches == fa.bwd_launches == 0, "the serving path launched flash kernels")

@@ -1,7 +1,9 @@
-// Hopper (sm_90a) PTX helpers beyond mma_ptx.cuh, shared by the WOQ prefill
-// GEMM (woq_gemm.cu) and the fused cross-entropy GEMMs (fused_ce.cu):
-// wgmma matrix descriptors and the warpgroup products, mbarriers, TMA tile
-// copies, register reallocation between warpgroups, and the lookup of
+// Hopper (sm_90a) PTX helpers beyond mma_ptx.cuh, shared by the WOQ GEMMs
+// (woq_gemm.cu), the fused cross-entropy GEMMs (fused_ce.cu) and the paged
+// decode kernel (paged_attention.cu): wgmma matrix descriptors and the
+// warpgroup products, mbarriers, TMA tile copies, register reallocation
+// between warpgroups, thread-block clusters (rank, barrier, distributed
+// shared memory), and the lookup of
 // cuTensorMapEncodeTiled through the runtime (no libcuda link). Each source
 // includes this header once, into its own library.
 //
@@ -71,6 +73,40 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       "%3}], [%4];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
       : "memory");
+}
+
+// Thread-block clusters (launched with cudaLaunchAttributeClusterDimension):
+// the CTA's rank in its cluster, the cluster barrier (every thread of every
+// CTA arrives once a phase; arrive releases, wait acquires the others'
+// shared-memory writes), and 4-byte loads and stores to the shared memory of
+// CTA `rank` of the cluster (mapa turns a shared::cta address into that
+// CTA's shared::cluster address).
+__device__ __forceinline__ unsigned cluster_ctarank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+__device__ __forceinline__ unsigned cluster_addr(const void* p, unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_cluster(unsigned addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+__device__ __forceinline__ float ld_cluster(unsigned addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 // Generic-proxy writes to shared memory (cp.async, st.shared) made visible

@@ -29,16 +29,38 @@
 // What the design does about it. The TPU kernel walks the K groups as a
 // sequential grid axis with an accumulator carried in VMEM from one grid
 // step to the next; CUDA blocks run in no order, so a loop inside the block
-// takes that axis' place, and a split of K across blocks writes partial sums
-// that a second pass adds in a fixed order (no atomics: repeated serving
-// steps are bitwise equal).
-// - Few rows (`woq_gemv_kernel`): a CTA of four warps covers 256 columns,
-//   eight contiguous columns a lane, so a warp reads 256 contiguous code
-//   bytes of a row in 8-byte loads and unpacks them in registers. The four
-//   warps take interleaved packing units of each group of the CTA's K run;
-//   B x 8 fp32 accumulators stay in registers and the warps' sums meet once
-//   in shared memory. K is split over CTAs in whole groups so that a
-//   4096-column projection still fills the 132 SMs.
+// takes that axis' place, and K split across blocks is summed in a fixed
+// order (no atomics: repeated serving steps are bitwise equal).
+// - Few rows (`woq_gemv_kernel`, decode): the weight bytes must be in
+//   flight, ~20-30 KB an SM at 3.35 TB/s and ~1 us of latency, and each
+//   weight must cost few instructions: 8 rows of fp32 FMAs a weight take
+//   ~20 instructions a weight and lane, ~5x the bytes' time. A CTA of 8
+//   warps takes 128 columns and one K split, stepping K by 64
+//   rows through a cp.async ring (4 stages for 16-bit x, 3 for fp32); a
+//   stage holds the step's code slab (byte rows padded by 16 or 32 bytes
+//   against bank conflicts; 16- or 8-byte copies: Out is only sure to be a
+//   multiple of 8), x of every row from the step's first K rounded down to
+//   8 (16-byte copies; the wrapper pads an x whose rows are not 16-byte
+//   multiples), and its 3 scale rows (a group below 32 reads its scales
+//   from L1: a second instantiation). Dequant with no conversion
+//   instruction (the prefill kernel's PRMT into 0x4B0000uu, FADD, FMUL by
+//   the scale, then round to x's dtype: the operand rule's
+//   to_float(from_float<T>(code * scale)), bit for bit). For 16-bit x the
+//   products run on mma.sync.m16n8k16 as out^T = w^T x^T: a lane
+//   dequantizes 4 K rows x 4 columns straight into the A fragments of two
+//   products (no shared-memory round trip), x's 8 rows are the 8-column B
+//   operand read as one 8-byte word a lane, and the fp32 C fragments stay
+//   in registers: ~4 instructions a weight and lane. fp32 x keeps FMAs (8
+//   rows x 8 columns of sums a thread). The K lanes' sums meet in shared
+//   memory in lane order; the K splits of a column tile (at most 8,
+//   `plan`) are one thread-block cluster, and each output is the sum of
+//   the splits' sums in split order, read through distributed shared
+//   memory: one launch a call, no workspace, no second pass. `plan` picks
+//   the splits (a pure function of the shape: a row's sums do not
+//   depend on how many rows there are) to fill the card in one wave. ptxas
+//   (CUDA 12.9, sm_90a): 66-72 registers and no spill for 16-bit x at 128
+//   columns (47,616 B of shared memory at int8, 3 CTAs an SM), 123-128 and
+//   no spill for fp32 x.
 // - Many rows, 16-bit x (`woq_mma_kernel`, the prefill path): a CTA of 16
 //   warps computes a BM x 128 tile of out (BM = 64 up to 64 rows, else
 //   256), stepping K by 64.
@@ -118,7 +140,7 @@
 // Left for later (ROADMAP R2b): a producer warpgroup that copies and
 // dequantizes so that no barrier a step holds the product, a cheaper
 // dequant for groups that are multiples of 64, an in-cluster split-K sum in
-// place of the second pass; and a decode GEMV tuned to the byte bound (R6).
+// place of the prefill's second pass.
 
 #include <cuda.h>  // CUtensorMap (the encoder is looked up at run time: no libcuda link)
 #include <cuda_bf16.h>
@@ -133,8 +155,12 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kGemvCols = kThreads / kWarps * 8;  // 256 columns a few-rows CTA covers
-constexpr int kGemvMaxRows = 8;                   // ops/quantizer/woq_gemm.py GEMV_MAX_ROWS
+// the few-rows kernel (ops/quantizer/woq_gemm.py GEMV_MAX_ROWS)
+constexpr int kGemvMaxRows = 8;
+constexpr int kGemvThreads = 256;
+constexpr int kGemvCols = 128;       // columns a CTA (ops/quantizer/woq_gemm.py GEMV_COLS)
+constexpr int kGemvK = 64;           // K rows a step
+constexpr int kGemvXW = kGemvK + 8;  // x elements a stage holds a row: from k0 rounded down to 8
 constexpr int kTileM = 64, kTileN = 64, kTileK = 32;  // the fp32 FMA tile
 
 // the 16-bit tensor-core kernel: ops/quantizer/woq_gemm.py MMA_TILE_K
@@ -158,11 +184,10 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 template <>
 __device__ __forceinline__ __half from_float<__half>(float x) { return __float2half(x); }
 
-// The weight as the operand rule forms it: fp32 product, rounded to T.
-template <typename T>
-__device__ __forceinline__ float weight(float code, float scale) {
-  return to_float(from_float<T>(code * scale));
-}
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Vec {
+  T v[N];
+};
 
 // Codes a packing unit spans along K (rows), and byte rows it takes.
 template <int BITS>
@@ -228,88 +253,6 @@ __device__ __forceinline__ void load_scale8(const float* __restrict__ p, float (
   const float4 b = __ldg(reinterpret_cast<const float4*>(p + 4));
   s[0] = a.x, s[1] = a.y, s[2] = a.z, s[3] = a.w;
   s[4] = b.x, s[5] = b.y, s[6] = b.z, s[7] = b.w;
-}
-
-// Few rows. Grid (ceil(Out / 256), splits); split z takes groups
-// [z * gps, min(ng, z * gps + gps)) and writes dst + z * rows * Out.
-template <typename T, int BITS>
-__global__ void __launch_bounds__(kThreads)
-woq_gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ codes,
-                const float* __restrict__ scale, float* __restrict__ dst, int rows, int in_dim,
-                int out_dim, int group, int gps) {
-  using U = Unit<BITS>;
-  constexpr int RB = kGemvMaxRows;  // rows >= `rows` are skipped
-  constexpr int UNR = U::ROWS == 3 ? 4 : 8;  // units a warp fetches before using any
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int col0 = blockIdx.x * kGemvCols;
-  const int col = col0 + lane * 8;
-  const int ng = in_dim / group;
-  const int g_begin = blockIdx.y * gps;
-  const int g_end = min(ng, g_begin + gps);
-  const int units = group / U::K;
-
-  float acc[RB][8];
-#pragma unroll
-  for (int b = 0; b < RB; ++b)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[b][c] = 0.f;
-
-  if (col < out_dim) {  // Out % 8 == 0: a lane's 8 columns are all in or all out
-    for (int g = g_begin; g < g_end; ++g) {
-      float s[8];
-      load_scale8(scale + (size_t)g * out_dim + col, s);
-      for (int u0 = warp; u0 < units; u0 += kWarps * UNR) {
-        // UNR units' loads in flight at once: the stream is latency-bound
-        // with one 8-byte load a lane outstanding
-        Raw<BITS> raw[UNR];
-#pragma unroll
-        for (int r = 0; r < UNR; ++r) {
-          const int u = u0 + r * kWarps;
-          if (u < units) fetch_unit<BITS>(codes, g * group + u * U::K, col, out_dim, raw[r]);
-        }
-#pragma unroll
-        for (int r = 0; r < UNR; ++r) {
-          const int u = u0 + r * kWarps;
-          if (u >= units) break;
-          const int k = g * group + u * U::K;
-          float q[U::K][8];
-          unpack_unit<BITS>(raw[r], q);
-#pragma unroll
-          for (int j = 0; j < U::K; ++j) {
-            float w[8];
-#pragma unroll
-            for (int c = 0; c < 8; ++c) w[c] = weight<T>(q[j][c], s[c]);
-#pragma unroll
-            for (int b = 0; b < RB; ++b) {
-              if (b < rows) {
-                const float xv = to_float(x[(size_t)b * in_dim + k + j]);
-#pragma unroll
-                for (int c = 0; c < 8; ++c) acc[b][c] = fmaf(xv, w[c], acc[b][c]);
-              }
-            }
-          }
-        }
-      }
-    }
-  }
-
-  // the four warps' partial sums, added in a fixed order
-  __shared__ float red[kWarps][RB][kGemvCols];
-#pragma unroll
-  for (int b = 0; b < RB; ++b)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) red[warp][b][lane * 8 + c] = acc[b][c];
-  __syncthreads();
-  dst += (size_t)blockIdx.y * rows * out_dim;
-  for (int idx = threadIdx.x; idx < RB * kGemvCols; idx += kThreads) {
-    const int b = idx / kGemvCols;
-    const int cc = idx % kGemvCols;
-    if (b < rows && col0 + cc < out_dim) {
-      dst[(size_t)b * out_dim + col0 + cc] =
-          ((red[0][b][cc] + red[1][b][cc]) + red[2][b][cc]) + red[3][b][cc];
-    }
-  }
 }
 
 // Many rows, fp32 x. Grid (ceil(Out / 64), ceil(B / 64), splits); split z
@@ -775,6 +718,415 @@ woq_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ codes,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Few rows (decode): the GEMV
+// ---------------------------------------------------------------------------
+
+// Dynamic shared memory of woq_gemv_kernel: STAGES stages of {code slab
+// (64 K rows in BITS / 8 * 64 byte rows of 128 bytes, PITCH apart), x
+// slab (8 rows x kGemvXW elements), 3 scale rows of 128 floats}; the
+// partial sums then reuse it. The pitch pads each byte row by 16 (int8)
+// or 32 bytes so that the tensor-core path's four K rows a warp reads at
+// once fall on different banks.
+template <typename T, int BITS>
+struct GemvSmem {
+  static constexpr bool MMA = sizeof(T) == 2;  // 16-bit x: the products on mma.sync
+  static constexpr int STAGES = MMA ? 4 : 3;
+  // resident CTAs an SM the registers are held to (ops/quantizer/woq_gemm.py
+  // gemv_ctas_per_sm): 3 for 16-bit x; the fp32 FMA path's registers allow 2
+  static constexpr int CTAS_PER_SM = MMA ? 3 : 2;
+  static constexpr int CODE_ROWS = kGemvK * BITS / 8;
+  static constexpr int X = kGemvMaxRows * kGemvXW * int(sizeof(T));
+  static constexpr int PITCH = kGemvCols + (BITS == 8 ? 16 : 32);
+  static constexpr int CODE = CODE_ROWS * PITCH;
+  static constexpr int STAGE = CODE + X + kScaleRows * kGemvCols * 4;
+  // the partial sums: [K lanes][8 rows][128] floats (K lanes: 2 warps on
+  // mma.sync; 16 threads on FMAs)
+  static constexpr int RED =
+      (MMA ? kGemvThreads / kGemvCols : kGemvThreads * 8 / kGemvCols) * kGemvMaxRows * kGemvCols * 4;
+  static constexpr int BYTES = STAGES * STAGE > RED ? STAGES * STAGE : RED;
+  static_assert(X % 16 == 0, "16-byte alignment");
+};
+
+// Two weights rounded to T and widened back (identity for fp32): the
+// operand rule's to_float(from_float<T>(code * scale)), round to nearest
+// even as __float2bfloat16 / __float2half.
+template <typename T>
+__device__ __forceinline__ void round_pair(float& a, float& b) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const uint32_t p = pack2<T>(a, b);
+    a = __uint_as_float(p << 16);
+    b = __uint_as_float(p & 0xFFFF0000u);
+  } else if constexpr (std::is_same<T, __half>::value) {
+    const uint32_t p = pack2<T>(a, b);
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&p));
+    a = f.x;
+    b = f.y;
+  }
+}
+
+// Four x values of row b at slab offset o: one 8- or 16-byte load where o
+// is a multiple of 4, else four.
+template <typename T>
+__device__ __forceinline__ void load_x4(const T* sx, int o, bool vec, float (&v)[4]) {
+  if (vec) {
+    const Vec<T, 4> x = *reinterpret_cast<const Vec<T, 4>*>(sx + o);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = to_float(x.v[j]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = to_float(sx[o + j]);
+  }
+}
+
+// The biased codes of K rows kr .. kr + 3 (one packing unit for every
+// width; kr a multiple of 4) at byte offset c of a code slab whose byte
+// rows lie `pitch` apart: word r holds four columns' codes of row kr + r,
+// a byte lane each (the prefill's dequant_block does the same from its
+// slab).
+template <int BITS>
+__device__ __forceinline__ void quad_codes(const int8_t* sc, int pitch, int kr, int c,
+                                           uint32_t (&q)[4]) {
+  if constexpr (BITS == 8) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      q[j] = *reinterpret_cast<const uint32_t*>(sc + (kr + j) * pitch + c) ^ 0x80808080u;
+  } else if constexpr (BITS == 4) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {  // byte row kr / 2 + j: rows kr + 2j (low nibbles), + 1 (high)
+      const uint32_t b = *reinterpret_cast<const uint32_t*>(sc + (kr / 2 + j) * pitch + c) ^
+                         0x88888888u;
+      q[2 * j] = b & 0x0F0F0F0Fu;
+      q[2 * j + 1] = (b >> 4) & 0x0F0F0F0Fu;
+    }
+  } else {
+    // unpack6 on four columns at once, a byte lane each, then the bias ^ 32
+    const int8_t* u = sc + (kr / 4 * 3) * pitch + c;
+    const uint32_t r0 = *reinterpret_cast<const uint32_t*>(u);
+    const uint32_t r1 = *reinterpret_cast<const uint32_t*>(u + pitch);
+    const uint32_t r2 = *reinterpret_cast<const uint32_t*>(u + 2 * pitch);
+    q[0] = (r0 & 0x3F3F3F3Fu) ^ 0x20202020u;
+    q[1] = (((r0 >> 6) & 0x03030303u) | ((r1 << 2) & 0x3C3C3C3Cu)) ^ 0x20202020u;
+    q[2] = (((r1 >> 4) & 0x0F0F0F0Fu) | ((r2 << 4) & 0x30303030u)) ^ 0x20202020u;
+    q[3] = ((r2 >> 2) & 0x3F3F3F3Fu) ^ 0x20202020u;
+  }
+}
+
+// Few rows (<= 8). Grid (splits, ceil(Out / 128)), clusters of `splits`
+// CTAs along x: CTA z of column tile y takes groups [z * gps, min(ng, z *
+// gps + gps)) of columns [y * ncol, y * ncol + ncol) (ncol = 128), in
+// steps of 64 K rows. 256 threads.
+// - 16-bit x (mma.sync.m16n8k16, out^T = w^T x^T): warp (cw, kw) takes
+//   columns 32 cw .. 32 cw + 31 and the 16-row slices kw, kw + 2, ... of
+//   each step; lane (g, t) dequantizes K rows 4t .. 4t + 3 of a
+//   slice for columns 4g .. 4g + 3 straight into the A fragments of two
+//   products (columns 4g + 2m and + 1 as A rows g and g + 8 of product m;
+//   rows 4t + {0, 1, 2, 3} as its K slots 2t, 2t + 1, 2t + 8, 2t + 9), and
+//   x row g's K values 4t .. 4t + 3 are its B fragment (the same K
+//   permutation on both sides). Rows past `rows` read zeros.
+// - fp32 x (FMAs): thread (ct = tid % (ncol / 8), kl = tid / (ncol / 8))
+//   owns columns 8 ct .. 8 ct + 7 and the 4-row quads kl, kl + 256 /
+//   (ncol / 8), ... of each step, 8 rows x 8 columns of sums in registers.
+// x: rows x_ld elements apart, x_ld a multiple of 8, 16-byte aligned. wide:
+// 16-byte code copies (Out % 16 == 0, codes 16-byte aligned), else 8-byte
+// ones. SMALL: group < 32 (scales from L1).
+template <typename T, int BITS, bool SMALL>
+__global__ void __launch_bounds__(kGemvThreads, GemvSmem<T, BITS>::CTAS_PER_SM)
+woq_gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ codes,
+                const float* __restrict__ scale, float* __restrict__ out, int rows, int in_dim,
+                int out_dim, int group, int gps, int x_ld, bool wide) {
+  using L = GemvSmem<T, BITS>;
+  constexpr int ncol = kGemvCols;
+  constexpr int RB = kGemvMaxRows;
+  constexpr int BIAS = BITS == 8 ? 128 : (BITS == 4 ? 8 : 32);
+  constexpr int EPC = 16 / int(sizeof(T));  // x elements a 16-byte copy
+  extern __shared__ __align__(16) unsigned char gemv_smem[];
+  const int splits = gridDim.x;
+  const int z = blockIdx.x;  // the split, and the CTA's rank in its cluster
+  const int n0 = blockIdx.y * ncol;
+  const int k_begin = z * gps * group;
+  const int k_end = min(in_dim, k_begin + gps * group);
+  const int steps = (k_end - k_begin + kGemvK - 1) / kGemvK;
+  constexpr int pitch = L::PITCH;
+  auto stage_c = [&](int st) { return reinterpret_cast<int8_t*>(gemv_smem + st * L::STAGE); };
+  auto stage_x = [&](int st) {
+    return reinterpret_cast<T*>(gemv_smem + st * L::STAGE + L::CODE);
+  };
+  auto stage_s = [&](int st) {
+    return reinterpret_cast<float*>(gemv_smem + st * L::STAGE + L::CODE + L::X);
+  };
+
+  // step s's copies into stage st: code byte rows whose unit starts below
+  // k_end (zeros past it and past Out), x of rows < `rows` from k0 rounded
+  // down to 8 (zeros past In), and the scale rows of the groups the step
+  // touches (zeros past them: a row past k_end reads a zero or a real one,
+  // times a zero code). A thread's pieces sit at the same place in every
+  // stage and move by a fixed stride a step: their addresses are set once.
+  const int cbytes = wide ? 16 : 8;
+  const int per_row = ncol / cbytes;                // pieces a byte row (8 or 16)
+  const int rstep = kGemvThreads / per_row;         // byte rows between a thread's pieces
+  constexpr int NCP = (L::CODE_ROWS * (ncol / 8) + kGemvThreads - 1) / kGemvThreads;  // 8-byte
+  const int br0 = threadIdx.x / per_row, c0 = (threadIdx.x % per_row) * cbytes;
+  const bool c_in = n0 + c0 < out_dim;
+  const int8_t* const csrc = codes + ((size_t)k_begin * BITS / 8 + br0) * out_dim + n0 + c0;
+  const size_t crow = (size_t)rstep * out_dim;      // code bytes between a thread's pieces
+  const size_t cstep = (size_t)kGemvK * BITS / 8 * out_dim;  // code bytes a step
+  constexpr int XC = kGemvXW / EPC;                           // x copies a row
+  const int xb_row = threadIdx.x / XC, xc = (threadIdx.x % XC) * EPC;
+  const bool x_in = threadIdx.x < RB * XC && xb_row < rows;
+  const T* const xsrc = x + (size_t)xb_row * x_ld + (k_begin & ~7) + xc;
+  const int sj = threadIdx.x / (ncol / 4), scol = (threadIdx.x % (ncol / 4)) * 4;
+  auto load = [&](int s, int st) {
+    if (s >= steps) return;
+    const int k0 = k_begin + s * kGemvK;
+    int8_t* const sc = stage_c(st);
+#pragma unroll
+    for (int it = 0; it < NCP; ++it) {
+      const int br = br0 + it * rstep;
+      if (br >= L::CODE_ROWS || !c_in) continue;
+      // the first K row of this byte row's packing unit
+      const int k = k0 + (BITS == 8 ? br : (BITS == 4 ? 2 * br : (br / 3) * 4));
+      const bool ok = k < k_end;
+      const int8_t* src = ok ? csrc + s * cstep + it * crow : codes;
+      if (wide) {
+        cp_async16(sc + br * pitch + c0, src, ok);
+      } else {
+        cp_async8(sc + br * pitch + c0, src, ok);
+      }
+    }
+    if (threadIdx.x < RB * XC) {
+      const bool ok = x_in && (k0 & ~7) + xc < in_dim;
+      cp_async16(stage_x(st) + xb_row * kGemvXW + xc, ok ? xsrc + s * kGemvK : x, ok);
+    }
+    if (!SMALL && threadIdx.x < kScaleRows * (ncol / 4)) {
+      const int g0 = k0 / group, g1 = (min(k_end, k0 + kGemvK) - 1) / group;
+      const bool ok = g0 + sj <= g1 && n0 + scol < out_dim;
+      cp_async16(stage_s(st) + sj * ncol + scol,
+                 ok ? scale + (size_t)(g0 + sj) * out_dim + n0 + scol : scale, ok);
+    }
+  };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int cth = ncol / 8;                                // FMA: column threads
+  const int kls = L::MMA ? kGemvThreads / ncol : kGemvThreads / cth;  // K lanes
+  const int kl = L::MMA ? warp / (ncol / 32) : threadIdx.x / cth;     // this thread's
+  const int cw = warp % (ncol / 32), lg = lane / 4, lt = lane % 4;    // MMA: column warp, lane
+  const int ct = threadIdx.x % cth;                                   // FMA: column thread
+  const int col = L::MMA ? 32 * cw + 4 * lg : 8 * ct;  // the thread's first column in the tile
+  float acc[RB][8];  // MMA: acc[m] is product m's C fragment; FMA: [row][column]
+#pragma unroll
+  for (int b = 0; b < RB; ++b)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[b][c] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < L::STAGES - 1; ++s) {
+    load(s, s);
+    cp_async_commit();
+  }
+  const bool x_vec = ((k_begin - (k_begin & ~7)) & 3) == 0;  // the same for every step
+  for (int s = 0; s < steps; ++s) {
+    // step s has landed (this thread's copies; after the barrier every
+    // thread's), and every thread is done with step s - 1's stage
+    cp_async_wait<L::STAGES - 2>();
+    __syncthreads();
+    load(s + L::STAGES - 1, (s + L::STAGES - 1) % L::STAGES);
+    cp_async_commit();
+    const int st = s % L::STAGES;
+    const int k0 = k_begin + s * kGemvK;
+    const int8_t* const sc = stage_c(st);
+    const T* const sx = stage_x(st);
+    const float* const ss = stage_s(st);
+    const int xo = k0 - (k0 & ~7);
+    // the step's rows below b1 are in its first group (scale row 0)
+    const int b1 = SMALL ? 0 : (k0 / group + 1) * group - k0;
+    if constexpr (L::MMA) {
+      // the warp's 16-row slices of the step, all loads first (ILP)
+      constexpr int KW = kGemvThreads / ncol, SPW = kGemvK / 16 / KW;
+      uint32_t q[SPW][4];
+      float4 s0[SPW], s1[SPW];
+      int split[SPW];
+      uint32_t xb[SPW][2];
+#pragma unroll
+      for (int i = 0; i < SPW; ++i) {
+        const int kr = 16 * (kl + KW * i) + 4 * lt;  // this lane's 4 K rows in the step
+        quad_codes<BITS>(sc, pitch, kr, col, q[i]);
+        // the scales of the 4 rows' columns: rows below split[i] take s0[i]
+        split[i] = 4;
+        s0[i] = s1[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if constexpr (!SMALL) {
+          const int j = (kr >= b1) + (kr >= b1 + group);
+          split[i] = b1 + j * group - kr;
+          s0[i] = *reinterpret_cast<const float4*>(ss + j * ncol + col);
+          if (split[i] < 4)  // a group boundary inside the 4 rows (group % 4 != 0)
+            s1[i] = *reinterpret_cast<const float4*>(ss + min(j + 1, kScaleRows - 1) * ncol + col);
+        }
+        // x row lg, K rows kr .. kr + 3: the B fragment
+        const T* xp = sx + lg * kGemvXW + xo + kr;
+        if (x_vec) {
+          const uint2 v = *reinterpret_cast<const uint2*>(xp);
+          xb[i][0] = v.x;
+          xb[i][1] = v.y;
+        } else {
+          const uint16_t* h = reinterpret_cast<const uint16_t*>(xp);
+          xb[i][0] = uint32_t(h[0]) | (uint32_t(h[1]) << 16);
+          xb[i][1] = uint32_t(h[2]) | (uint32_t(h[3]) << 16);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < SPW; ++i) {
+        if (k0 + 16 * (kl + KW * i) >= k_end) break;  // the whole warp: past the split's end
+        const int kr = 16 * (kl + KW * i) + 4 * lt;
+        // dequantize (scale row of row r: srow(r)) and multiply; a select a
+        // row only where a group boundary falls inside the 4 rows
+        auto product = [&](auto srow) {
+          float w[4][4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float4 sv = srow(r);
+            const float s4[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              w[r][c] = biased_to_float<BIAS>(byte_into_f32(q[i][r], c)) * s4[c];
+          }
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            const uint32_t a[4] = {pack2<T>(w[0][2 * m], w[1][2 * m]),
+                                   pack2<T>(w[0][2 * m + 1], w[1][2 * m + 1]),
+                                   pack2<T>(w[2][2 * m], w[3][2 * m]),
+                                   pack2<T>(w[2][2 * m + 1], w[3][2 * m + 1])};
+            mma16816<T>(reinterpret_cast<float (&)[4]>(acc[0][4 * m]), a, xb[i][0], xb[i][1]);
+          }
+        };
+        if constexpr (SMALL) {
+          product([&](int r) {
+            const int k = k0 + kr + r;
+            return k < k_end && n0 + col < out_dim
+                       ? __ldg(reinterpret_cast<const float4*>(scale + (size_t)(k / group) * out_dim +
+                                                               n0 + col))
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+          });
+        } else if (__all_sync(0xffffffffu, split[i] >= 4)) {  // mma.sync: the whole warp
+          product([&](int) { return s0[i]; });
+        } else {
+          product([&](int r) { return r < split[i] ? s0[i] : s1[i]; });
+        }
+      }
+    } else {
+      if (n0 + col >= out_dim) continue;  // Out % 8 == 0: all 8 columns in or out
+      for (int qd = kl; qd < kGemvK / 4; qd += kls) {
+        const int r0 = 4 * qd, k = k0 + r0;
+        if (k >= k_end) break;
+        uint32_t qw[4][2];  // biased codes of rows r0 .. r0 + 3: columns 0-3, 4-7
+        {
+          uint32_t lo[4], hi[4];
+          quad_codes<BITS>(sc, pitch, r0, col, lo);
+          quad_codes<BITS>(sc, pitch, r0, col + 4, hi);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            qw[j][0] = lo[j];
+            qw[j][1] = hi[j];
+          }
+        }
+        float w[4][8];
+        int ga = 0, split = 4;  // rows j < split take scale row ga, the rest ga + 1
+        if constexpr (!SMALL) {
+          ga = (r0 >= b1) + (r0 >= b1 + group);
+          split = b1 + ga * group - r0;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float sv[8];
+          if constexpr (!SMALL) {
+            const float* sp = ss + (j < split ? ga : min(ga + 1, kScaleRows - 1)) * ncol + col;
+            const float4 a = *reinterpret_cast<const float4*>(sp);
+            const float4 b = *reinterpret_cast<const float4*>(sp + 4);
+            sv[0] = a.x, sv[1] = a.y, sv[2] = a.z, sv[3] = a.w;
+            sv[4] = b.x, sv[5] = b.y, sv[6] = b.z, sv[7] = b.w;
+          } else {
+#pragma unroll
+            for (int c = 0; c < 8; ++c) sv[c] = 0.f;
+            if (k + j < k_end)
+              load_scale8(scale + (size_t)((k + j) / group) * out_dim + n0 + col, sv);
+          }
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            w[j][c] = biased_to_float<BIAS>(byte_into_f32(qw[j][c / 4], c % 4)) * sv[c];
+#pragma unroll
+          for (int c = 0; c < 8; c += 2) round_pair<T>(w[j][c], w[j][c + 1]);
+        }
+        const int xk = xo + r0;
+#pragma unroll
+        for (int b = 0; b < RB; ++b) {
+          if (b < rows) {
+            float xv[4];
+            load_x4<T>(sx + b * kGemvXW, xk, x_vec, xv);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int c = 0; c < 8; ++c) acc[b][c] = fmaf(xv[j], w[j][c], acc[b][c]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the partial sums go there
+
+  // the K lanes' sums, added in lane order into lane 0's place: the CTA's
+  // sums of its K run ([b][ncol] floats)
+  float* const red = reinterpret_cast<float*>(gemv_smem);  // [kls][RB][ncol]
+  if constexpr (L::MMA) {
+    // product m's C fragment: rows lg (column col + 2m) and lg + 8 (+ 1),
+    // columns 2 lt and + 1 (x rows)
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int b = 2 * lt + (e & 1), c = col + 2 * m + (e >> 1);
+        if (b < rows) red[(kl * RB + b) * ncol + c] = acc[0][4 * m + e];
+      }
+  } else {
+#pragma unroll
+    for (int b = 0; b < RB; ++b) {
+      if (b < rows) {
+        float4* dst = reinterpret_cast<float4*>(red + (kl * RB + b) * ncol + col);
+        dst[0] = make_float4(acc[b][0], acc[b][1], acc[b][2], acc[b][3]);
+        dst[1] = make_float4(acc[b][4], acc[b][5], acc[b][6], acc[b][7]);
+      }
+    }
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < rows * ncol; idx += kGemvThreads) {
+    const int b = idx / ncol, n = idx % ncol;
+    float v = red[b * ncol + n];
+    for (int j = 1; j < kls; ++j) v += red[(j * RB + b) * ncol + n];
+    if (splits == 1) {
+      if (n0 + n < out_dim) out[(size_t)b * out_dim + n0 + n] = v;
+    } else {
+      red[b * ncol + n] = v;
+    }
+  }
+  if (splits == 1) return;
+
+  // the splits' sums, added in split order, each output by one thread of
+  // the cluster, read from the CTAs' shared memory; the second barrier
+  // keeps every CTA's shared memory until all reads are done
+  cluster_arrive();
+  cluster_wait();
+  for (int idx = z * kGemvThreads + threadIdx.x; idx < rows * ncol;
+       idx += splits * kGemvThreads) {
+    const int b = idx / ncol, n = idx % ncol;
+    if (n0 + n < out_dim) {
+      float v = 0.f;
+      for (int r = 0; r < splits; ++r) v += ld_cluster(cluster_addr(red + b * ncol + n, r));
+      out[(size_t)b * out_dim + n0 + n] = v;
+    }
+  }
+  cluster_arrive();
+  cluster_wait();
+}
+
 // out[i] = sum over splits z, in order, of work[z * n + i].
 __global__ void __launch_bounds__(256)
 woq_splitk_reduce_kernel(const float* __restrict__ work, float* __restrict__ out, int splits,
@@ -848,6 +1200,40 @@ cudaError_t launch_mma_group(const Args& a, float* dst) {
                                     : launch_mma<T, BITS, MT, true>(a, dst);
 }
 
+// woq_gemv_kernel<T, BITS, SMALL>: grid (splits, ceil(Out / 128)), the
+// splits of a column tile one cluster. The dynamic shared memory opt-in is
+// made once a device.
+template <typename T, int BITS, bool SMALL>
+cudaError_t launch_gemv(const Args& a) {
+  using L = GemvSmem<T, BITS>;
+  const auto kernel = woq_gemv_kernel<T, BITS, SMALL>;
+  static bool allowed[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64 || !allowed[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) allowed[dev] = true;
+  }
+  const bool wide = a.out_dim % 16 == 0 && reinterpret_cast<uintptr_t>(a.codes) % 16 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.splits, (a.out_dim + kGemvCols - 1) / kGemvCols);
+  cfg.blockDim = dim3(kGemvThreads);
+  cfg.dynamicSmemBytes = L::BYTES;
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(a.x), a.codes, a.scale, a.out,
+                           a.rows, a.in_dim, a.out_dim, a.group, a.split_len, a.x_ld, wide);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 template <typename T, int BITS>
 cudaError_t launch(const Args& a) {
   float* dst = a.splits > 1 ? a.work : a.out;
@@ -869,12 +1255,8 @@ cudaError_t launch(const Args& a) {
           a.group, a.split_len);
       err = cudaGetLastError();
     }
-  } else {
-    const dim3 grid((a.out_dim + kGemvCols - 1) / kGemvCols, a.splits);
-    woq_gemv_kernel<T, BITS><<<grid, kThreads, 0, a.stream>>>(
-        static_cast<const T*>(a.x), a.codes, a.scale, dst, a.rows, a.in_dim, a.out_dim, a.group,
-        a.split_len);
-    err = cudaGetLastError();
+  } else {  // the GEMV sums its K splits inside its clusters: no second pass
+    return a.group < kMinStagedGroup ? launch_gemv<T, BITS, true>(a) : launch_gemv<T, BITS, false>(a);
   }
   if (err != cudaSuccess || a.splits == 1) return err;
   const size_t n = size_t(a.rows) * a.out_dim;
@@ -931,13 +1313,15 @@ int mma_ctas_per_sm_bits(int bits, int tile_m, int group) {
 }  // namespace
 
 // dtype (of x): 0 float32, 1 bfloat16, 2 float16. bits: 8, 6 or 4. kind:
-// 0 runs the few-rows kernel (rows <= 8; split_len = groups a split takes),
-// 1 the fp32 FMA tile kernel (float32 x; split_len = K rows a split takes,
-// a multiple of 32), 2 the tensor-core kernel (16-bit x, 16-byte aligned,
-// rows x_ld >= in_dim elements apart, x_ld a multiple of 8 and x zero in
-// the columns past in_dim; tile_m = 64 or 256 rows of 128 columns a CTA;
-// split_len a multiple of 64). For kinds 0 and 1, x_ld = in_dim.
-// work: (splits, rows, out_dim) fp32 when splits > 1, else unused. Returns
+// 0 runs the few-rows kernel (rows <= 8, 128 columns a CTA; split_len =
+// groups a split takes, splits <= 8, summed in a cluster), 1 the fp32 FMA
+// tile kernel (float32 x, 64 x 64 tiles; split_len = K rows a split takes,
+// a multiple of 32), 2 the tensor-core kernel (16-bit x, tile_m = 64 or 256
+// rows of 128 columns a CTA; split_len a multiple of 64). tile_m is the
+// tensor-core kernel's tile rows, and the other kinds ignore it. Kinds 0 and 2: x 16-byte aligned, rows x_ld >= in_dim elements
+// apart, x_ld a multiple of 8 and x zero in the columns past in_dim; kind
+// 1: x_ld = in_dim. work: (splits, rows, out_dim) fp32 when kinds 1 and 2
+// split K, else unused. Returns
 // cudaGetLastError()
 // after the launches (0 = launched), or cudaErrorInvalidValue for arguments
 // the kernels do not take. Launches on `stream`; does not synchronise.
@@ -948,11 +1332,14 @@ extern "C" int dstt_woq_matmul(const void* x, const void* codes, const void* sca
   const int unit = bits == 8 ? 1 : (bits == 4 ? 2 : 4);
   const bool ok_common = rows > 0 && in_dim > 0 && out_dim > 0 && out_dim % 8 == 0 &&
                          group > 0 && group % unit == 0 && in_dim % group == 0 && splits > 0 &&
-                         split_len > 0 && splits <= 65535 && (splits == 1 || work != nullptr);
+                         split_len > 0 && splits <= 65535 &&
+                         (splits == 1 || kind == kGemv || work != nullptr);
   bool ok_kind = false;
   if (kind == kGemv) {
-    ok_kind = rows <= kGemvMaxRows && x_ld == in_dim &&
-              (long long)(splits - 1) * split_len < in_dim / group;
+    ok_kind = rows <= kGemvMaxRows && splits <= 8 &&
+              x_ld >= in_dim && x_ld % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+              (long long)(splits - 1) * split_len < in_dim / group &&
+              (out_dim + kGemvCols - 1) / kGemvCols <= 65535;
   } else if (kind == kTiledFma) {
     ok_kind = dtype == 0 && x_ld == in_dim && split_len % kTileK == 0 &&
               (long long)(splits - 1) * split_len < in_dim && (rows + kTileM - 1) / kTileM <= 65535;

@@ -17,7 +17,10 @@ formed in fp32 as ``_dequant_leaf`` forms it (``code * scale``), rounded to
 version then differ only in the order of an fp32 sum.
 
 Routes (``plan``): up to ``GEMV_MAX_ROWS`` rows the few-rows kernel
-(decode); more rows in bfloat16 or float16 the tensor-core kernel
+(decode: ``woq_gemv_kernel``, a cp.async ring of code slabs, x and scale
+rows, the products on ``mma.sync`` for 16-bit x (FMAs for fp32), its K
+splits summed inside a thread-block cluster, one launch a call); more rows
+in bfloat16 or float16 the tensor-core kernel
 (``woq_mma_kernel``: a 4-stage ring of x tiles and code slabs, each weight
 dequantized once a CTA; 256-row tiles copy x by TMA and multiply on
 ``wgmma``, 64-row tiles on ``mma.sync``; prefill); more rows in
@@ -28,10 +31,10 @@ float16; ``codes`` int8 (ng, packed, Out) and ``scale`` fp32 (ng, 1, Out),
 contiguous, as ``quantize_leaf`` makes them (a layer's slice of a stacked
 leaf is such a view); 8-, 6- or 4-bit codes; any group the quantizer makes
 (a multiple of the packing unit, power of two or not); Out a multiple of 8
-(the kernels read eight columns' codes in one 8-byte load). The tensor-core
-kernel copies x in 16-byte pieces (or by TMA): an x that does not start on
-16 bytes, or an In that is not a multiple of 8, is first copied into a
-zero-padded buffer.
+(the kernels read eight columns' codes in one 8-byte load). The few-rows
+and tensor-core kernels copy x in 16-byte pieces (or by TMA): an x that
+does not start on 16 bytes, or an In that is not a multiple of 8, is first
+copied into a zero-padded buffer.
 """
 
 import ctypes
@@ -50,8 +53,10 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _KINDS = {"gemv": 0, "fma": 1, "mma": 2}
 #: rows up to which the few-rows kernel runs (decode); more take a tiled one
 GEMV_MAX_ROWS = 8
-_GEMV_COLS = 256        # columns a few-rows CTA covers (32 lanes x 8)
-_TARGET_CTAS = 528      # few-rows and FMA grids: 4 CTAs on each of the H100's 132 SMs
+#: the few-rows kernel's columns a CTA, and the most K splits a column tile
+#: takes (a cluster: the portable size)
+GEMV_COLS, GEMV_MAX_SPLITS = 128, 8
+_TARGET_CTAS = 528      # FMA grids: 4 CTAs on each of the H100's 132 SMs
 #: the fp32 FMA tile kernel's tile and K step
 FMA_TILE_M, FMA_TILE_N, FMA_TILE_K = 64, 64, 32
 #: the tensor-core kernel's K step and columns a CTA (rows: ``mma_tile``)
@@ -90,6 +95,13 @@ def woq_matmul_plain(x, codes, scale, num_bits: int):
     return x.to(torch.float32) @ w.to(torch.float32)
 
 
+def gemv_ctas_per_sm(x_dtype: torch.dtype) -> int:
+    """Resident CTAs of the few-rows kernel on one H100 SM: 3 for 16-bit x
+    (its registers are held to 3 CTAs' share, its 4-stage ring takes 47.6
+    KB), else 2 (the fp32 FMA path's 128 registers)."""
+    return 3 if x_dtype != torch.float32 else 2
+
+
 def mma_tile(rows: int):
     """(rows, columns) of a tensor-core CTA's tile: 64 rows up to 64 (the
     ``mma.sync`` tile, which does not pay for 256 rows' products), else 256
@@ -103,8 +115,14 @@ def plan(rows: int, in_dim: int, out_dim: int, group: int,
          x_dtype: torch.dtype = torch.bfloat16, ctas_per_sm: int = 1, sms: int = 132):
     """(kernel, tile_m, tile_n, splits, split_len) for one call.
 
-    - ``gemv`` (rows <= ``GEMV_MAX_ROWS``): K in ``splits`` runs of
-      ``split_len`` groups, enough CTAs to fill the card (tiles 0);
+    - ``gemv`` (rows <= ``GEMV_MAX_ROWS``): columns in tiles of
+      ``tile_n`` = ``GEMV_COLS``, K in ``splits`` runs of ``split_len``
+      groups, at most ``GEMV_MAX_SPLITS`` (one cluster a column tile, its
+      splits summed there in order): as many splits as fit one wave of
+      ``gemv_ctas_per_sm`` CTAs on each of ``sms`` SMs (measured: a
+      second, partial wave costs more than the longer K runs it saves).
+      ``tile_m`` is 0. Never a function of ``rows``: a row's sums are the
+      same at 1 and at 8 rows;
     - ``fma`` (more rows, float32 x): 64 x 64 tiles, K in runs of
       ``split_len`` rows (a multiple of ``FMA_TILE_K``), as many CTAs as
       four an SM;
@@ -118,15 +136,15 @@ def plan(rows: int, in_dim: int, out_dim: int, group: int,
       they save a tenth over no split: each split adds its partial sums
       to a reduction pass. Tiles that fill whole waves take no split.
 
-    Partial sums of a split go to a workspace that a second pass adds in a
-    fixed order: repeated calls are bitwise equal. A pure function of its
-    arguments (cached)."""
+    Partial sums of a tiled kernel's split go to a workspace that a second
+    pass adds in a fixed order: repeated calls are bitwise equal. A pure
+    function of its arguments (cached)."""
     ng = in_dim // group
     if rows <= GEMV_MAX_ROWS:
-        col_tiles = -(-out_dim // _GEMV_COLS)
-        splits = min(ng, -(-_TARGET_CTAS // col_tiles))
+        slots = gemv_ctas_per_sm(x_dtype) * sms
+        splits = max(1, min(GEMV_MAX_SPLITS, ng, slots // -(-out_dim // GEMV_COLS)))
         per = -(-ng // splits)
-        return "gemv", 0, 0, -(-ng // per), per
+        return "gemv", 0, GEMV_COLS, -(-ng // per), per
     if x_dtype == torch.float32:
         tiles = -(-rows // FMA_TILE_M) * -(-out_dim // FMA_TILE_N)
         k_tiles = -(-in_dim // FMA_TILE_K)
@@ -235,17 +253,18 @@ def woq_matmul(x, codes, scale, num_bits: int):
         ctas, sms = _residency(x.device.index if x.device.index is not None
                                else torch.cuda.current_device(), x.dtype, num_bits,
                                mma_tile(B)[0], group < _MIN_STAGED_GROUP)
-    kind, tile_m, _, splits, split_len = plan(B, In, Out, group, x.dtype, ctas, sms)
+    kind, tile_m, tile_n, splits, split_len = plan(B, In, Out, group, x.dtype, ctas, sms)
     x_ld = In
-    if kind == "mma" and (x.data_ptr() % 16 or In % 8):
-        # the tensor-core kernel copies x in 16-byte pieces: rows padded to
-        # a multiple of 8 elements with zeros, on a fresh allocation
+    if kind != "fma" and (x.data_ptr() % 16 or In % 8):
+        # the few-rows and tensor-core kernels copy x in 16-byte pieces:
+        # rows padded to a multiple of 8 elements with zeros, on a fresh
+        # allocation
         x_ld = -(-In // 8) * 8
         padded = x.new_zeros((B, x_ld))
         padded[:, :In] = x
         x = padded
     work = (torch.empty((splits, B, Out), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
+            if splits > 1 and kind != "gemv" else None)
     lib = _kernel_lib()
     with torch.cuda.device(x.device):
         err = lib.dstt_woq_matmul(

@@ -10,14 +10,29 @@ falls back to the plain version on the card.
 What the kernel takes (the Hopper counterpart of the TPU gate at
 ``deepspeed_tpu/models/transformer.py:579-587``, whose ``hd in (64, 128,
 256)`` and ``block_size % 8`` limits came from Mosaic's tiling): head_dim
-64, 128 or 256 (a warp spreads one key over its 32 lanes in contiguous
-vectors); any block size; any group ``nh / kvh`` (query heads are taken in
+32, 64, 128 or 256 (a key's score is spread over hd / 32 lanes, 32 dims a
+lane); any block size; any group ``nh / kvh`` (query heads are taken in
 chunks of at most 8 per CTA); float32, bfloat16 or float16 with q and the
 pools of one dtype; contiguous tensors whose data starts on a 16-byte
 boundary.
+
+How a call is split: ``plan``, a pure function of the table width, the
+block size and head_dim (never of the batch or of ``lens``), gives the
+wrapper the number of partitions it passes to the kernel; a row's table
+slots are dealt round-robin to them, and their softmax states fold in
+partition order. The kernel's host code picks the launch shape from the
+batch: at decode (fewer than 4 CTAs an SM from the rows alone) the
+partitions of a (row, kv head, head chunk) run as one thread-block
+cluster, a CTA each; with more rows a CTA takes up to 16 consecutive
+rows (8 in float32) that hold the same table (a prefill chunk's rows are
+one sequence) and walks their partitions in turn, reading each K/V tile
+once for all of them (in 16 bits on the tensor cores, the rows x query
+heads as the 16 rows of ``mma.sync`` products). The arithmetic is the same either way: one launch a call, and a
+row's output does not depend on the batch it is in.
 """
 
-from typing import Optional
+import functools
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -29,8 +44,49 @@ NEG_INF = -1e30
 launches = 0
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_KERNEL_HEAD_DIMS = (64, 128, 256)
+_KERNEL_HEAD_DIMS = (32, 64, 128, 256)
+#: the kernel's cluster size limit (the portable one) and the fewest keys a
+#: partition is given, as the table allows
+MAX_PARTS, MIN_PART_KEYS = 8, 256
 _lib = None
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(max_blocks: int, block_size: int, head_dim: int) -> Tuple[int, int, int]:
+    """(parts, blocks a partition holds at most, keys a pipeline tile) of
+    the kernel: ``parts = min(8, MAXB, ceil(MAXB * BS / 256))`` (at least
+    1) partitions a row, which the wrapper passes to the kernel, partition
+    p taking table slots p, p + parts, p + 2 parts, ...; tiles of ``4096 //
+    head_dim`` keys (``csrc/paged_attention.cu`` ``Cfg::TK``). A pure
+    function of the table's shape: the launch shape is known without
+    reading ``lens``, and no row's arithmetic depends on the batch."""
+    parts = max(1, min(MAX_PARTS, max_blocks, -(-max_blocks * block_size // MIN_PART_KEYS)))
+    return parts, -(-max_blocks // parts), 4096 // head_dim
+
+
+def partition_slots(length: int, max_blocks: int, block_size: int, part: int) -> List[int]:
+    """The table slots partition ``part`` reads for a row of ``length``
+    keys, walked as the kernel walks them: its keys below ``length`` are
+    a prefix of ``vkeys`` keys, key k at offset k % BS of slot part +
+    parts * (k // BS) (empty: the partition does no work; partition 0
+    still writes the row)."""
+    parts = plan(max_blocks, block_size, 32)[0]
+    length = max(length, 0)
+    nblk = min(-(-length // block_size), max_blocks)
+    if part >= nblk:
+        return []
+    nb = (nblk - 1 - part) // parts + 1  # the partition's blocks
+    last = part + parts * (nb - 1)
+    vkeys = ((nb - 1) * block_size + length - (nblk - 1) * block_size
+             if last == nblk - 1 else nb * block_size)
+    slots = []
+    for k in range(vkeys):
+        slot = part + parts * (k // block_size)
+        if slot * block_size + k % block_size >= length:
+            break
+        if not slots or slots[-1] != slot:
+            slots.append(slot)
+    return slots
 
 
 def check_kernel_config(num_heads: int, kv_heads: int, head_dim: int,
@@ -82,7 +138,7 @@ def _kernel_lib():
 
         lib = PagedAttentionBuilder().load()
         fn = lib.dstt_paged_decode_attention
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.dstt_cuda_error_string.argtypes = [ctypes.c_int]
@@ -142,12 +198,13 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lens, *,
     out = torch.empty_like(q)
     if B == 0:
         return out
+    MAXB = tables.shape[1]
     lib = _kernel_lib()
     with torch.cuda.device(q.device):
         err = lib.dstt_paged_decode_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
             lens.data_ptr(), out.data_ptr(), _KERNEL_DTYPES[q.dtype], B, nh, kvh,
-            hd, NB, BS, tables.shape[1],
+            hd, NB, BS, MAXB, plan(MAXB, BS, hd)[0],
             float(hd ** -0.5 if scale is None else scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:

@@ -13,12 +13,15 @@ On the CPU, against the JAX package, on the same numpy inputs:
 
 On the CPU, the grid plan: it covers K exactly once at each kernel's K
 step, routes by rows and x's dtype, and splits K only where the card's
-residency leaves a wave short.
+residency leaves a wave short; the decode GEMV's splits (one cluster a
+column tile, at most 8) cover every group once and never depend on the
+number of rows.
 
 On a card (``cuda``-marked, skipped here): the CUDA kernel against the plain
 version. Both form each weight as ``code * scale`` in fp32, round it to x's
 dtype and sum products in fp32, so they differ only in the order of an fp32
-sum: rtol 1e-5 / atol 1e-4 for every x dtype. Run there with
+sum: rtol 1e-5 / atol 1e-4 for every x dtype; a GEMV row computed alone is
+bitwise its row of the 8-row call. Run there with
 ``python -m pytest --noconftest -m cuda tests/test_torch_woq.py``.
 """
 
@@ -186,16 +189,16 @@ def test_plan_covers_k_exactly_once(rows, In, Out, group):
 
 
 @pytest.mark.parametrize("rows,dtype,kind,tile", [
-    (1, torch.bfloat16, "gemv", (0, 0)), (8, torch.float32, "gemv", (0, 0)),
+    (1, torch.bfloat16, "gemv", (0, 128)), (8, torch.float32, "gemv", (0, 128)),
     (9, torch.float32, "fma", (64, 64)), (256, torch.float32, "fma", (64, 64)),
     (9, torch.bfloat16, "mma", (64, 128)), (64, torch.float16, "mma", (64, 128)),
     (65, torch.bfloat16, "mma", (256, 128)), (129, torch.float16, "mma", (256, 128)),
     (256, torch.bfloat16, "mma", (256, 128)), (300, torch.bfloat16, "mma", (256, 128)),
 ])
 def test_plan_routes_by_rows_and_dtype(rows, dtype, kind, tile):
-    # decode rows take the few-rows kernel; more rows in fp32 the FMA tile
-    # kernel, in 16 bits the tensor-core kernel: 64-row tiles up to 64 rows,
-    # else 256
+    # decode rows take the few-rows kernel (128-column tiles at 4096 columns);
+    # more rows in fp32 the FMA tile kernel, in 16 bits the tensor-core
+    # kernel: 64-row tiles up to 64 rows, else 256
     kind_, tile_m, tile_n, _, _ = woq_gemm.plan(rows, 4096, 4096, 128, dtype, 1, 132)
     assert (kind_, (tile_m, tile_n)) == (kind, tile)
 
@@ -212,6 +215,44 @@ def test_plan_routes_by_rows_and_dtype(rows, dtype, kind, tile):
 ])
 def test_plan_splits_k_only_when_waves_gain(rows, In, Out, ctas, sms, splits):
     assert woq_gemm.plan(rows, In, Out, 128, torch.bfloat16, ctas, sms)[3] == splits
+
+
+GEMV_SHAPES = [(4096, 4096, 128), (4096, 11008, 128), (11008, 4096, 128), (384, 264, 96),
+               (4000, 1024, 125), (200, 40, 100), (512, 384, 128), (64, 8, 1), (4096, 4096, 2)]
+
+
+@pytest.mark.parametrize("In,Out,group", GEMV_SHAPES)
+def test_gemv_plan_covers_every_group_once_in_one_cluster(In, Out, group):
+    ng = In // group
+    for sms in (132, 114, 8):
+        kind, _, ncol, splits, per = woq_gemm.plan(8, In, Out, group, torch.bfloat16, 1, sms)
+        assert kind == "gemv" and ncol == woq_gemm.GEMV_COLS
+        assert 1 <= splits <= woq_gemm.GEMV_MAX_SPLITS  # a portable cluster
+        # split z takes groups [z * per, min(ng, z * per + per)): each once
+        covered = [g for z in range(splits) for g in range(z * per, min(ng, z * per + per))]
+        assert covered == list(range(ng)) and (splits - 1) * per < ng
+        tiles = -(-Out // ncol)
+        # splits only as many as one wave of CTAs takes (or none to take)
+        slots = woq_gemm.gemv_ctas_per_sm(torch.bfloat16) * sms
+        assert splits == 1 or tiles * splits <= slots
+
+
+@pytest.mark.parametrize("In,Out,group", GEMV_SHAPES)
+def test_gemv_plan_never_depends_on_rows(In, Out, group):
+    # a row's sums are the same at 1 and at 8 rows: one plan for every row count
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        plans = {woq_gemm.plan(r, In, Out, group, dtype, 1, 132) for r in range(1, 9)}
+        assert len(plans) == 1
+
+
+def test_gemv_plan_at_the_main_paths_shapes():
+    # llama-7b's projections at 8 decode rows, bf16: one wave of 256-344
+    # CTAs at 3 an SM; fp32 x (2 an SM) takes fewer splits where a wave is short
+    assert woq_gemm.plan(8, 4096, 4096, 128) == ("gemv", 0, 128, 8, 4)
+    assert woq_gemm.plan(8, 4096, 11008, 128) == ("gemv", 0, 128, 4, 8)
+    assert woq_gemm.plan(8, 11008, 4096, 128) == ("gemv", 0, 128, 8, 11)
+    assert woq_gemm.plan(8, 4096, 11008, 128, torch.float32) == ("gemv", 0, 128, 3, 11)
+    assert woq_gemm.gemv_ctas_per_sm(torch.float32) == 2
 
 
 @pytest.fixture
@@ -242,3 +283,28 @@ def test_cuda_kernel_matches_plain(B, In, Out, group, bits, dtype, cuda):
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4)
     again = woq_gemm.woq_matmul(x, codes, scale, bits)
     assert torch.equal(out, again)  # no atomics: repeated calls are bitwise equal
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("bits", [4, 6, 8])
+@pytest.mark.parametrize("In,Out,group", [
+    (4096, 11008, 128),  # llama-7b's w_gate / w_up: 3 splits a cluster
+    (4096, 4096, 128),   # 8 splits a cluster
+    (4000, 1032, 125),   # int8 group 125 (odd K starts: x read unaligned), Out 1032 = 8 mod 16
+    (1024, 520, 16),     # a group below 32: scales from L1
+])
+def test_cuda_gemv_one_row_equals_eight_rows(In, Out, group, bits, dtype, cuda):
+    x, codes, scale = _gemm_case(8, In, Out, group, bits, seed=In + Out)
+    x, codes, scale = x.to(cuda, dtype), codes.to(cuda), scale.to(cuda)
+    before = woq_gemm.launches
+    out = woq_gemm.woq_matmul(x, codes, scale, bits)
+    torch.cuda.synchronize()
+    assert woq_gemm.launches == before + 1 and woq_gemm.plan(
+        8, In, Out, woq.group_of(bits, codes.shape[1]), dtype)[0] == "gemv"
+    torch.testing.assert_close(out, woq_gemm.woq_matmul_plain(x, codes, scale, bits),
+                               rtol=1e-5, atol=1e-4)
+    for r in (0, 5, 7):  # a row alone, and among 3: bitwise its row of the 8
+        assert torch.equal(woq_gemm.woq_matmul(x[r:r + 1].contiguous(), codes, scale, bits),
+                           out[r:r + 1])
+    assert torch.equal(woq_gemm.woq_matmul(x[5:8].contiguous(), codes, scale, bits), out[5:8])
