@@ -32,7 +32,35 @@ in order; any failure exits non-zero and prints no result:
 5. the paged-attention kernel on the engine's own pool (layer 0) with the
    tables and lens of the last decode step: checked against the plain
    version and timed with CUDA events beside the plain version,
-   ``scaled_dot_product_attention`` over the gathered cache, and the bound.
+   ``scaled_dot_product_attention`` over the gathered cache, and the bound;
+6. serving through ``ContinuousBatchScheduler`` on phase 4's engine (its
+   weights, no second copy), preemption on, the real clock (admission
+   without its age term, so that the schedule is a function of the traffic
+   alone and a replay can be held to it): (c) first
+   ``sample_or_argmax`` on the card against the CPU over a seeded
+   (64, 32000) block of bf16-rounded fp32 logits across temperatures, top-k
+   and top-p (threefry keys, bits and uniforms bitwise, greedy rows bitwise,
+   sampled rows equal except where a draw's top-2 margin of ``gumbel + x``
+   is at most 1e-4 or a token sits within 1e-6 of the nucleus edge: at most
+   1% of the draws, and the count is printed), and its cost at 8 rows; then
+   phase 4's four prompts greedy and four sampled requests over the
+   640-token and 300-token prompts (temperature 0.7 and 1.0, top-k 0 and
+   50, top-p 1.0 and 0.9, seeds 1-4), 32 new tokens each; once all 8 slots
+   are live and decoding a priority-1000 arrival preempts the lowest
+   priority, a sampled request, which is re-admitted later; then a greedy
+   request that stops at its first even token and a sampled one whose logit
+   bias forces token 1234. (a) every request finishes and ``close()``
+   drains, the paged kernel launched num_layers x ragged steps times; (b)
+   the same traffic again after a rebuild runs the same ragged steps (each
+   step's tokens, tables, starts, logit rows and slots) and gives bitwise
+   the same streams, the preempted one's included; (d) the stop ends its stream, the biased
+   token is every token, and a fan-out ``n=2`` child 0 equals the ``n=1``
+   stream of the same seed; (e) at phase 3's head_dim-64 fp32 size the
+   scheduler on the card against the scheduler on the CPU, greedy and
+   sampled, streams equal under the same margin rule. A
+   ``{"serve_summary": ...}`` line gives the card, requests, tokens, wall
+   seconds, TTFT/TPOT p50/p90, preemptions, prefix hits, paged launches and
+   host ms a scheduler step with the engine's share.
 
 Then weight-only-quantized serving (the bf16 engine is freed first):
 
@@ -560,6 +588,365 @@ def kernel_on_real_pool(pa, real_pool, cfg, dev):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: serving through ContinuousBatchScheduler
+# ---------------------------------------------------------------------------
+MARGIN = 1e-4      # a draw whose top-2 margin is below this may differ (ROADMAP rule 2)
+EDGE_TOL = 1e-6    # a token this close to the nucleus edge may flip
+
+
+def shaped_row(lg, temp, top_k, top_p):
+    """One row as ``sample_or_argmax`` shapes it before the draw (fp32 on
+    the CPU), and whether a token sits within EDGE_TOL of the nucleus edge."""
+    x = lg.float() / (temp if temp > 0 else 1.0)
+    srt = torch.sort(x, descending=True).values
+    if top_k > 0:
+        x = torch.where(x < srt[min(top_k - 1, x.numel() - 1)], -torch.inf, x)
+    probs = torch.softmax(srt, -1)
+    before = torch.cumsum(probs, -1) - probs
+    keep = before < top_p
+    keep[0] = True
+    if top_p < 1.0:
+        x = torch.where(x < srt[keep].min(), -torch.inf, x)
+    return x, top_p < 1.0 and bool(((before - top_p).abs() < EDGE_TOL).any())
+
+
+def draw_margin(prng, lg, sp, position):
+    """Top-2 margin of the selection for logits ``lg`` (bias added): argmax's
+    for a greedy row, ``gumbel + x``'s under the row's key for a sampled one;
+    and whether the row sits at the nucleus edge."""
+    if sp is None or sp.temperature == 0:
+        top2 = lg.float().topk(2).values
+        return float(top2[0] - top2[1]), False
+    x, edge = shaped_row(lg, sp.temperature, sp.top_k, sp.top_p)
+    key = prng.fold_in(prng.PRNGKey(sp.seed), position)
+    top2 = (prng.gumbel(key, x.shape) + x).topk(2).values
+    return float(top2[0] - top2[1]), edge
+
+
+def sampling_on_card(dev):
+    """Check (c): ``sample_or_argmax`` on the card against the CPU over a
+    seeded (64, 32000) block of bf16-rounded logits in fp32, temperatures
+    0-1.5, top-k {0, 1, 50, V}, top-p {1, 0.9, 0.5, 1e-6}: keys, bits and
+    uniforms bitwise, greedy rows bitwise, sampled rows under the margin
+    rule. Then the cost of selection at the engine's 8 rows: wall ms a call
+    (host clock, synchronized) and device operations a call (profiler),
+    greedy against sampled."""
+    from deepspeed_tpu_torch.models import sample_or_argmax
+    from deepspeed_tpu_torch.utils import prng
+
+    R, V = 64, 32000
+    rng = np.random.default_rng(3)
+    lg = torch.from_numpy((rng.standard_normal((R, V)) * 3).astype(np.float32))
+    lg = lg.to(torch.bfloat16).float()
+    temps = np.array([(0.0, 0.5, 0.7, 1.0, 1.5)[i % 5] for i in range(R)], np.float32)
+    top_ks = np.array([(0, 1, 50, V)[i % 4] for i in range(R)], np.int32)
+    top_ps = np.array([(1.0, 0.9, 0.5, 1e-6)[(i // 4) % 4] for i in range(R)], np.float32)
+    seeds = rng.integers(0, 2**31 - 1, R).astype(np.int32)
+    pos = rng.integers(0, 4097, R).astype(np.int32)
+    key = prng.fold_in(prng.PRNGKey(torch.from_numpy(seeds)), torch.from_numpy(pos))
+    dkey = prng.fold_in(prng.PRNGKey(torch.from_numpy(seeds).to(dev)),
+                        torch.from_numpy(pos).to(dev))
+    check(torch.equal(dkey.cpu(), key), "threefry keys on the card differ from the CPU's")
+    check(torch.equal(prng.random_bits(dkey, (V,)).cpu(), prng.random_bits(key, (V,))),
+          "threefry bits on the card differ from the CPU's")
+    check(torch.equal(prng.uniform(dkey, (V,)).cpu().view(torch.int32),
+                      prng.uniform(key, (V,)).view(torch.int32)),
+          "uniforms on the card differ bitwise from the CPU's")
+    cpu = sample_or_argmax(lg, seeds, pos, temps, top_ks, top_ps)
+    card = sample_or_argmax(lg.to(dev), seeds, pos, temps, top_ks, top_ps)
+    check(card.device.type == torch.device(dev).type,
+          "the card's draw came back from another device")
+    card = card.cpu()
+    greedy = temps == 0
+    check(torch.equal(card[greedy], cpu[greedy]), "greedy rows differ between card and CPU")
+    g = prng.gumbel(key, (V,))
+    excluded = 0
+    for r in np.nonzero(~greedy)[0]:
+        x, edge = shaped_row(lg[r], float(temps[r]), int(top_ks[r]), float(top_ps[r]))
+        top2 = (g[r] + x).topk(2).values
+        if edge or float(top2[0] - top2[1]) <= MARGIN:
+            excluded += 1
+            continue
+        check(int(card[r]) == int(cpu[r]),
+              f"row {r}: the card drew {int(card[r])}, the CPU {int(cpu[r])}")
+    n_sampled = int((~greedy).sum())
+    check(excluded <= 0.01 * n_sampled,
+          f"{excluded} of {n_sampled} draws fell under the margin rule (limit 1%)")
+
+    # the cost at the main path's selection shape: 8 rows of llama-7b's vocab
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    lg8 = lg[:8].to(dev)
+    s8 = [seeds[:8], pos[:8], np.full(8, 0.8, np.float32), np.full(8, 50, np.int32),
+          np.full(8, 0.9, np.float32)]
+    calls = {"greedy": lambda: sample_or_argmax(lg8, s8[0], s8[1], np.zeros(8, np.float32),
+                                                s8[3], s8[4]),
+             "sampled": lambda: sample_or_argmax(lg8, *s8)}
+    cost = {}
+    for name, fn in calls.items():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = sum(e.count for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+        cost[name] = {"wall_ms_median": float(np.median(walls)), "device_ops": int(ops)}
+    log(f"sample_or_argmax on the card vs CPU ({R} x {V}, {n_sampled} sampled rows): keys, "
+        f"bits and uniforms bitwise, greedy rows bitwise, sampled rows equal with {excluded} "
+        f"excluded by the margin rule; at 8 rows {cost}")
+    return {"rows": R, "vocab": V, "sampled_rows": n_sampled, "excluded": excluded,
+            "at_8_rows": cost}
+
+
+class EngineTimer:
+    """Wraps an engine's ``put`` and ``decode_step`` on the instance to sum
+    the host seconds the scheduler spends inside them (each call ends in the
+    step's device-to-host copy, so that time includes the device's). A call
+    inside another (``decode_step`` calls ``put``) is not counted twice.
+    ``schedule`` holds the host inputs of every ragged step in order."""
+
+    def __init__(self, engine):
+        self.engine, self.seconds, self.calls, self._depth = engine, 0.0, 0, 0
+        self.schedule = []
+        for name in ("put", "decode_step"):
+            setattr(engine, name, self._timed(getattr(engine, name)))
+        ragged = engine._ragged
+
+        def recorded(ids, tables, starts, logit_rows, greedy, sampling):
+            self.schedule.append(tuple(np.asarray(a).tobytes() for a in
+                                       (ids, tables, starts, logit_rows, sampling[0])))
+            return ragged(ids, tables, starts, logit_rows, greedy, sampling)
+        engine._ragged = recorded
+
+    def _timed(self, fn):
+        def call(*args, **kwargs):
+            self._depth += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self._depth -= 1
+                if not self._depth:
+                    self.seconds += time.perf_counter() - t0
+                    self.calls += 1
+        return call
+
+    def remove(self):
+        for name in ("put", "decode_step", "_ragged"):
+            delattr(self.engine, name)
+
+
+def serve_traffic(engine, prompts, arrival, vip_prompt):
+    """Phase 6's traffic through a ``ContinuousBatchScheduler`` (preemption
+    on, the real clock) over ``engine``, rebuilt first so that every run
+    starts from the same empty pool and cold prefix cache. Admission drops
+    its age term (``age_weight=0``): with it, whether a preempted request
+    overtakes a later arrival turns on the wall time between them, which
+    differs from run to run, and a different schedule gives other bf16 GEMM
+    shapes and so other logits. The real clock still times TTFT and TPOT.
+    Returns the requests in a fixed order, the scheduler and the host timing
+    with the ragged steps' inputs."""
+    from deepspeed_tpu_torch.serve import ContinuousBatchScheduler, RequestState, SamplingParams
+
+    engine.rebuild()
+    V = engine.cfg.vocab_size
+    sched = ContinuousBatchScheduler(engine, preemption=True, age_weight=0.0)
+    greedy = [sched.submit(p, max_new_tokens=32, priority=1, uid=u)
+              for u, p in prompts.items()]
+    grid = ((arrival, 0.7, 50, 0.9, 1), (prompts[2], 1.0, 0, 1.0, 2),
+            (arrival, 1.0, 50, 1.0, 3), (prompts[2], 0.7, 0, 0.9, 4))
+    sampled = [sched.submit(p, max_new_tokens=32, priority=0, uid=10 + i,
+                            sampling=SamplingParams(temperature=t, top_k=k, top_p=q, seed=s))
+               for i, (p, t, k, q, s) in enumerate(grid)]
+    timer = EngineTimer(engine)
+    step_s = []
+
+    def step():
+        t0 = time.perf_counter()
+        more = sched.step()
+        step_s.append(time.perf_counter() - t0)
+        return more
+
+    t_start = time.perf_counter()
+    step()
+    live = [r for r in greedy + sampled if r.state is not RequestState.QUEUED]
+    check(len(live) == engine.max_seqs, f"{len(live)} requests live after the first step, "
+          f"not all {engine.max_seqs} slots")
+    # every slot live and decoding: the arrival preempts a sampled request
+    # mid-stream (the lowest priority, then the most blocks held)
+    while not all(r.tokens for r in live):
+        check(step(), "the scheduler ran dry before every request decoded")
+    vip = sched.submit(vip_prompt, max_new_tokens=32, priority=1000, uid=20)
+    stop = sched.submit(prompts[1], max_new_tokens=32, priority=1, uid=21,
+                        sampling=SamplingParams(stop=[(t,) for t in range(0, V, 2)]))
+    biased = sched.submit(prompts[2], max_new_tokens=32, priority=1, uid=22,
+                          sampling=SamplingParams(temperature=0.7, seed=5,
+                                                  logit_bias={1234: 1e4}))
+    while step():
+        pass
+    sched.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    timer.remove()
+    return (greedy + sampled + [vip, stop, biased], sched,
+            {"wall_s": wall, "step_s": step_s, "engine_s": timer.seconds,
+             "schedule": timer.schedule})
+
+
+def serve_phase(engine, pa, dev):
+    """Phase 6 on phase 4's engine: (a) every request finishes and the
+    scheduler drains; (b) a second run of the same traffic gives bitwise the
+    same streams, the preempted sampled request's included; (d) the stop
+    sequence ends its stream, the biased token is produced, and fan-out
+    child 0 equals the n=1 stream. Returns the serve_summary fields."""
+    from deepspeed_tpu_torch.serve import ContinuousBatchScheduler, RequestState, SamplingParams
+
+    cfg = engine.cfg
+    rng = np.random.default_rng(0)  # phase 4's prompts and arrival
+    prompts = {u: rng.integers(0, cfg.vocab_size, n).tolist()
+               for u, n in zip((1, 2, 3, 4), (37, 300, 1000, 2100))}
+    arrival = rng.integers(0, cfg.vocab_size, 640).tolist()
+    vip_prompt = np.random.default_rng(6).integers(0, cfg.vocab_size, 100).tolist()
+
+    steps0 = engine.ragged_steps
+    pa.launches = 0  # the kernel's count, just before the first run
+    reqs, sched, timing = serve_traffic(engine, prompts, arrival, vip_prompt)
+    launches = pa.launches  # read just after
+    ragged = engine.ragged_steps - steps0
+    check(all(r.state is RequestState.DONE for r in reqs),
+          f"requests not done: {[(r.uid, r.state.value) for r in reqs if not r.finished]}")
+    check(not engine.state.seqs and not sched.live_count and not sched.queue_depth,
+          "the scheduler did not drain")
+    check(launches == cfg.num_layers * ragged and launches > 0,
+          f"paged_decode_attention launched {launches} times in {ragged} ragged steps")
+    preempted = [r for r in reqs if r.preemptions]
+    check(any(r.sampling is not None and r.sampling.temperature > 0 for r in preempted),
+          f"no sampled request was preempted (preempted: {[r.uid for r in preempted]})")
+    tokens = [t for r in reqs for t in r.tokens]
+    check(all(0 <= t < cfg.vocab_size for t in tokens), "a token lies outside [0, vocab)")
+    m = sched.metrics
+    pc = engine.prefix_cache_stats()
+
+    # (b) the same traffic again: the same ragged steps, bitwise the same streams
+    again, sched2, timing2 = serve_traffic(engine, prompts, arrival, vip_prompt)
+    sch, sch2 = timing["schedule"], timing2["schedule"]
+    first = next((i for i, (a, b) in enumerate(zip(sch, sch2)) if a != b), None)
+    check(first is None and len(sch) == len(sch2),
+          f"the replayed run's schedule differs ({len(sch)} vs {len(sch2)} ragged steps, "
+          f"first difference at step {first})")
+    for r, r2 in zip(reqs, again):
+        check(r2.tokens == r.tokens, f"uid {r.uid}: the replayed run's stream differs "
+              f"({r.tokens[:8]}... vs {r2.tokens[:8]}...)")
+    check(sched2.metrics.preemptions == m.preemptions,
+          "the replayed run preempted a different number of times")
+
+    # (d) stop, bias and fan-out semantics
+    stop, biased = reqs[-2], reqs[-1]
+    check(stop.tokens and stop.tokens[-1] % 2 == 0 and all(t % 2 for t in stop.tokens[:-1]),
+          f"the stop sequence did not end its stream: {stop.tokens}")
+    check(biased.tokens == [1234] * 32, f"the biased token was not produced: {biased.tokens}")
+    engine.rebuild()
+    fan_sched = ContinuousBatchScheduler(engine, preemption=True)
+    sp = SamplingParams(temperature=1.0, top_k=50, seed=7)
+    fan = fan_sched.submit(prompts[1], max_new_tokens=32, uid=30,
+                           sampling=SamplingParams(temperature=1.0, top_k=50, seed=7, n=2))
+    single = fan_sched.submit(prompts[1], max_new_tokens=32, uid=31, sampling=sp)
+    fan_sched.run_until_complete()
+    fan_sched.close()
+    check(fan.fanout[0].tokens == single.tokens and len(single.tokens) == 32,
+          "fan-out child 0 differs from the n=1 stream")
+    check(fan.fanout[1].tokens != fan.fanout[0].tokens, "the fan-out's children are equal")
+    engine.rebuild()
+
+    ttft = np.asarray(m.ttft_s) * 1e3
+    tpot = np.asarray([(r.finish_time - r.first_token_time) / (len(r.tokens) - 1) * 1e3
+                       for r in reqs if len(r.tokens) > 1])
+    step_ms = np.asarray(timing["step_s"]) * 1e3
+    summary = {
+        "model": "llama-7b", "layers": cfg.num_layers, "dtype": "bfloat16",
+        "requests": len(reqs), "generated_tokens": len(tokens),
+        "prompt_tokens": sum(len(r.prompt) for r in reqs), "wall_s": timing["wall_s"],
+        "generated_tokens_per_s": len(tokens) / timing["wall_s"],
+        "ttft_ms_p50": float(np.percentile(ttft, 50)),
+        "ttft_ms_p90": float(np.percentile(ttft, 90)),
+        "tpot_ms_p50": float(np.percentile(tpot, 50)),
+        "tpot_ms_p90": float(np.percentile(tpot, 90)),
+        "preemptions": m.preemptions, "prefix_hits": pc["hits"],
+        "sampled_tokens": m.sampling["sampled_tokens"], "stop_hits": m.sampling["stop_hits"],
+        "paged_launches": launches, "ragged_steps": ragged,
+        "scheduler_steps": len(step_ms),
+        "host_ms_per_step_mean": float(step_ms.mean()),
+        "host_ms_per_step_p50": float(np.median(step_ms)),
+        "engine_share": timing["engine_s"] / float(step_ms.sum() / 1e3),
+        "replay_bitwise": True,
+    }
+    log(f"serving through ContinuousBatchScheduler: {len(reqs)} requests, {len(tokens)} tokens "
+        f"in {timing['wall_s']:.3f} s, {m.preemptions} preemption(s), paged_decode_attention "
+        f"launched {launches} times (= {cfg.num_layers} layers x {ragged} steps); the replay "
+        f"run bitwise equal; stop, bias and fan-out ok")
+    return summary
+
+
+def small_scheduler_vs_cpu(dev):
+    """Check (e): phase 3's head_dim-64 model in fp32, the scheduler on the
+    card against the same on the CPU, greedy and sampled requests; streams
+    equal, a divergence allowed only at a draw under the margin rule
+    (recomputed from the CPU engine's logits at that position)."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.serve import ContinuousBatchScheduler, SamplingParams
+    from deepspeed_tpu_torch.utils import prng
+
+    model = build_model("llama-tiny", vocab_size=1024, num_layers=2, intermediate_size=512,
+                        max_seq_len=512, hidden_size=256, num_heads=4, num_kv_heads=2)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    opts = dict(paged=True, dtype=torch.float32, max_seqs=4, block_size=16,
+                prefill_chunk=64, token_budget=64, prefix_cache=True)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 1024, n).tolist() for n in (20, 150, 48, 90, 33, 70)]
+    params_of = [None, SamplingParams(temperature=0.8, top_k=40, seed=1), None,
+                 SamplingParams(temperature=1.0, top_p=0.9, seed=2),
+                 SamplingParams(temperature=1.5, seed=3), SamplingParams(temperature=0.7, seed=4)]
+
+    def run(device):
+        eng = InferenceEngineV2(model, params, device=device, **opts)
+        sched = ContinuousBatchScheduler(eng, preemption=True)
+        reqs = [sched.submit(p, max_new_tokens=16, uid=i + 1, priority=i % 2, sampling=sp)
+                for i, (p, sp) in enumerate(zip(prompts, params_of))]
+        sched.run_until_complete()
+        sched.close()
+        return reqs
+
+    ref, got = run("cpu"), run(dev)
+    excluded, draws = 0, 0
+    for r, g in zip(ref, got):
+        draws += len(r.tokens)
+        if g.tokens == r.tokens:
+            continue
+        i = next((k for k, (a, b) in enumerate(zip(r.tokens, g.tokens)) if a != b), None)
+        check(i is not None, f"uid {r.uid}: streams of different lengths agree where both run")
+        ctx = r.prompt + r.tokens[:i]
+        lg = InferenceEngineV2(model, params, device="cpu", **opts).put([1], [ctx])[1]
+        margin, edge = draw_margin(prng, torch.from_numpy(lg), r.sampling, len(ctx))
+        check(margin <= MARGIN or edge, f"uid {r.uid}: card and CPU differ at token {i} "
+              f"where the draw's margin is {margin:.3g}")
+        excluded += 1
+    check(excluded <= 0.01 * draws, f"{excluded} of {draws} draws excluded (limit 1%)")
+    log(f"scheduler on the card vs CPU (llama 256-wide, hd 64, fp32, {len(ref)} requests, "
+        f"{sum(1 for sp in params_of if sp)} sampled): {draws} tokens equal, {excluded} "
+        f"excluded by the margin rule")
+    return excluded
 
 
 WOQ_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))  # (In, Out): wq/wk/wv/wo, w_gate/w_up, w_down
@@ -1566,8 +1953,15 @@ def main():
           f"free blocks {engine.block_mgr.free_blocks} != {free0} after flushing")
     summary["kernel"] = {"decode_rows": int(real_pool[2].shape[0]), **k}
     log(json.dumps({"summary": summary}))
-    del engine, real_pool
+    del real_pool
+    sampling = sampling_on_card(dev)
+    serve_summary = serve_phase(engine, pa, dev)
+    small_excluded = small_scheduler_vs_cpu(dev)
+    del engine
     torch.cuda.empty_cache()
+    log(json.dumps({"serve_summary": dict(
+        card=smi.stdout.strip(), **serve_summary, sample_or_argmax=sampling,
+        small_vs_cpu_excluded=small_excluded)}))
 
     woq_worst = woq_kernels_vs_plain(wq, dev)
     small_woq_vs_cpu(wq, dev)

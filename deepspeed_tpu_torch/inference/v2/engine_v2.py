@@ -9,7 +9,12 @@ position and its sequence's block table. Two row counts exist, as in the JAX
 engine: ``token_budget`` and, for a pure decode round, ``max_seqs``.
 
 ``put(uids, tokens)`` is the reference surface: new sequences join, pending
-tokens advance, and per-uid last-token logits (or greedy tokens) come back.
+tokens advance, and per-uid last-token logits (or selected tokens) come back.
+``put(max_steps=...)`` bounds the dispatches (chunked prefill), and the
+calls ``ContinuousBatchScheduler`` makes of its engine are here:
+``set_sampling``/``refresh_bias`` (per-row threefry sampling and the
+per-slot logit-bias pool), ``prefill_backlog``, ``monitor_events``,
+``rebuild``, ``prefix_probe`` and ``set_kv_owner``/``set_kv_quota``.
 """
 
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -30,7 +35,6 @@ from .ragged_manager import BlockedKVCache, DSStateManager
 # the ROADMAP.md items that lift each unported part of the engine
 _ENGINE_ITEM = "ROADMAP.md Queue 1 item 5, the rest of the paged engine"
 _TIER_ITEM = "ROADMAP.md Queue 1 item 9, KV tiers and swap"
-_SAMPLING_ITEM = "ROADMAP.md Queue 1 item 3, threefry sampling"
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -68,6 +72,7 @@ class InferenceEngineV2:
         if host_tier_blocks or nvme_tier_blocks or nvme_tier_dir:
             raise _not_ported("the host and NVMe KV tiers", _TIER_ITEM)
         self.device = resolve_device(device)
+        self.paged = True  # the scheduler reads it
         self.model = model
         self.cfg = model.config
         if self.device.type == "cuda":
@@ -91,6 +96,7 @@ class InferenceEngineV2:
             self._check_woq_leaves()
         self.state = DSStateManager(max_seqs, self.max_seq_len)
         self.flush_noops = 0  # idempotent-flush debug counter (see flush())
+        self.rebuilds = 0     # engine-loss rebuilds (see rebuild())
         #: rows deferred out of a ragged dispatch because their blocks could
         #: not be allocated
         self.plan_deferrals = 0
@@ -106,6 +112,14 @@ class InferenceEngineV2:
                                         prefix_cache=self.prefix_cache)
         self.kv = model.init_kv_pool(num_blocks, block_size, dtype=dtype,
                                      device=self.device)
+        # per-request sampling (``engine_v2.py:190-203``): duck-typed params
+        # records (``.seed``/``.temperature``/``.top_k``/``.top_p``) fill
+        # per-row arrays each step; bias rows live in a (max_seqs, V) fp32
+        # per-slot pool on the device, written at (re-)registration only
+        self._sampling: Dict[int, object] = {}
+        self._bias_rows: Dict[int, np.ndarray] = {}   # uid -> host row
+        self._bias_slots: Dict[int, int] = {}         # uid -> installed slot
+        self._bias_pool: Optional[torch.Tensor] = None
         log_dist(
             f"InferenceEngineV2(paged): blocks={num_blocks}x{block_size} "
             f"seqs<={max_seqs} ctx={self.max_seq_len} chunk={prefill_chunk} "
@@ -150,10 +164,15 @@ class InferenceEngineV2:
         for pool in self.kv:  # (L, kvh, NB, BS, hd); block axis = 2
             pool[:, :, dst].copy_(pool[:, :, src])
 
-    def _ragged(self, ids, tables, starts, logit_rows, greedy: bool):
+    def _ragged(self, ids, tables, starts, logit_rows, greedy: bool, sampling):
         """THE paged-mode step (``_get_ragged``): one ragged forward over the
         rows, projecting only ``logit_rows`` through the vocabulary head.
-        Each host array moves to the device in one copy."""
+        Each host array moves to the device in one copy. With ``greedy``
+        the rows' tokens are selected on the device from ``lg +
+        bias_pool[slots]`` (every step, as the JAX program does: a zero
+        row leaves argmax unchanged); ``sampling`` is the step's per-row
+        host arrays (slots, seeds, positions, temps, top-ks, top-ps), and
+        only the slots cross to the device unless a row samples."""
         dev = self.device
         lg = self.model.forward_paged(
             self.params, torch.from_numpy(ids).to(dev), self.kv,
@@ -161,7 +180,9 @@ class InferenceEngineV2:
             logit_rows=torch.from_numpy(logit_rows).to(dev))
         self.ragged_steps += 1
         if greedy:
-            return sample_or_argmax(lg)
+            slots, seeds, poss, temps, top_ks, top_ps = sampling
+            lg = lg + self._bias()[torch.from_numpy(slots).to(dev)]
+            return sample_or_argmax(lg, seeds, poss, temps, top_ks, top_ps)
         return lg.float()
 
     def _scratch_for(self, key: Tuple, shapes, dtypes) -> Tuple[np.ndarray, ...]:
@@ -175,14 +196,20 @@ class InferenceEngineV2:
                 a.fill(0)
         return bufs
 
-    def _put_paged(self, out: Dict[int, object], greedy: bool = False) -> None:
-        """Advance every pending token through fixed-budget ragged steps
+    def _put_paged(self, out: Dict[int, object], greedy: bool = False,
+                   max_steps: Optional[int] = None) -> None:
+        """Advance pending tokens through fixed-budget ragged steps
         (``engine_v2.py:1007``): sequences with the fewest pending tokens go
-        first, so live decodes always beat prefill chunks."""
-        while True:
+        first, so live decodes always beat prefill chunks. ``max_steps``
+        bounds the dispatches (``None`` drains everything, ``0`` dispatches
+        nothing); a sequence whose prompt is not fully consumed keeps its
+        ``pending`` tail across calls."""
+        steps = 0
+        while max_steps is None or steps < max_steps:
             work = [d for d in self.state.seqs.values() if d.in_flight > 0]
             if not work:
                 return
+            steps += 1
             work.sort(key=lambda d: (d.in_flight, d.slot))
             # decode-round shape: every pending item is one token and they fit
             # in max_seqs rows, so the step does not pay the budget's padding
@@ -232,11 +259,13 @@ class InferenceEngineV2:
                         if self.block_mgr.refcount(d.blocks[j]) > 1:
                             src, dst = self.block_mgr.copy_on_write(d, j)
                             self._cow(src, dst)
-            ids, tables, starts, logit_rows = self._scratch_for(
+            M = self.max_seqs
+            (ids, tables, starts, logit_rows, slots, seeds, poss, top_ks,
+             temps, top_ps) = self._scratch_for(
                 ("ragged", T),
                 ((T, 1), (T, self.block_mgr.max_blocks_per_seq), (T,),
-                 (self.max_seqs,)),
-                (np.int32,) * 4)
+                 (M,), (M,), (M,), (M,), (M,), (M,), (M,)),
+                (np.int32,) * 8 + (np.float32, np.float32))
             finals = []
             r = 0
             for d, take in plan:
@@ -251,12 +280,17 @@ class InferenceEngineV2:
                     r += 1
                 if completes:
                     logit_rows[len(finals)] = r - 1
+                    # the produced token's absolute index: seen_tokens is
+                    # pre-advance here, so the key's position is seen + take
+                    self._fill_sampling(d, len(finals), slots, seeds, temps,
+                                        top_ks, top_ps, poss, d.seen_tokens + take)
                     finals.append(d)
                 if self.prefix_cache:
                     d.history.extend(d.pending[:take])
                 del d.pending[:take]
                 d.seen_tokens += take
-            lg = self._ragged(ids, tables, starts, logit_rows, greedy)
+            lg = self._ragged(ids, tables, starts, logit_rows, greedy,
+                              (slots, seeds, poss, temps, top_ks, top_ps))
             if self.prefix_cache:
                 # the step's writes are issued: every block it filled holds
                 # valid prefix content, publish it to the content index
@@ -271,19 +305,30 @@ class InferenceEngineV2:
     # reference surface
     # ------------------------------------------------------------------
     def put(self, batch_uids: Sequence[int], batch_tokens: Sequence[Sequence[int]],
-            greedy: bool = False) -> Dict[int, object]:
+            greedy: bool = False, max_steps: Optional[int] = None) -> Dict[int, object]:
         """Advance the engine with new/continuing requests (``engine_v2.py:1150``).
 
         For each uid the tokens are queued (chunked prefill); pending tokens
         then advance through ragged steps. Returns {uid: (V,) float32 numpy
         logits} for every sequence whose pending tokens were all consumed,
-        or with ``greedy=True`` {uid: int token} selected on the device.
+        or with ``greedy=True`` {uid: int token} selected on the device
+        (argmax, or a threefry draw for a row registered with a
+        temperature through ``set_sampling``).
+
+        ``max_steps`` bounds the ragged dispatches: ``None`` drains every
+        pending token, ``0`` only registers (the prefix-cache lookup still
+        runs), ``N`` runs at most N steps. A sequence whose prompt is not
+        fully consumed yields no entry yet.
         """
         if len(batch_uids) > self.state.max_seqs:
             raise EngineUsageError(
                 f"batch of {len(batch_uids)} exceeds {self.state.max_seqs} slots")
         for uid, toks in zip(batch_uids, batch_tokens):
             desc = self.state.get_or_create_sequence(uid)
+            if self._bias_rows:
+                # (re-)bind a pending bias row to this uid's slot: fresh
+                # admission, re-admission after preemption, replay
+                self._install_bias(desc)
             if toks is not None and len(toks):
                 fresh = (self.prefix_cache and desc.seen_tokens == 0
                          and not desc.blocks and not desc.pending)
@@ -297,7 +342,7 @@ class InferenceEngineV2:
                         del desc.pending[:skipped]
                         desc.seen_tokens = skipped
         out: Dict[int, object] = {}
-        self._put_paged(out, greedy=greedy)
+        self._put_paged(out, greedy=greedy, max_steps=max_steps)
         return out
 
     def decode_step(self, tokens: Dict[int, int],
@@ -319,18 +364,90 @@ class InferenceEngineV2:
         uids = list(tokens)
         return self.put(uids, [[tokens[u]] for u in uids], greedy=greedy)
 
+    # ------------------------------------------------------------------
+    # per-request sampling state (``engine_v2.py:862-963``)
+    # ------------------------------------------------------------------
+    def _bias(self) -> torch.Tensor:
+        """The (max_seqs, vocab) fp32 per-slot bias pool on the device,
+        made at first use; zero rows leave selection untouched."""
+        if self._bias_pool is None:
+            self._bias_pool = torch.zeros((self.max_seqs, self.cfg.vocab_size),
+                                          dtype=torch.float32, device=self.device)
+        return self._bias_pool
+
+    def _install_bias(self, d) -> None:
+        """Copy ``d.uid``'s pending bias row into its slot's pool row, once
+        per (uid, slot) binding: re-registration after preemption or a
+        rebuild installs into the new slot."""
+        row = self._bias_rows.get(d.uid)
+        if row is None or self._bias_slots.get(d.uid) == d.slot:
+            return
+        self._bias()[d.slot].copy_(torch.from_numpy(row))
+        self._bias_slots[d.uid] = d.slot
+
+    def _drop_bias(self, uid: int) -> None:
+        slot = self._bias_slots.pop(uid, None)
+        if slot is not None and self._bias_pool is not None:
+            self._bias_pool[slot].zero_()
+
     def set_sampling(self, uid: int, params, bias_row=None) -> None:
-        """Accept a request's sampling record (duck-typed ``.temperature``).
-        Only greedy records (``temperature == 0``, or ``params=None``) are
-        ported, and greedy is what every step already does."""
-        if bias_row is not None:
-            raise _not_ported("the logit-bias pool", _ENGINE_ITEM)
-        if params is not None and params.temperature > 0:
-            raise _not_ported("sampling with temperature > 0", _SAMPLING_ITEM)
+        """Register (or with ``params=None`` clear) a request's sampling
+        state before its tokens are fed. ``params`` is duck-typed: the
+        engine reads ``.seed``/``.temperature``/``.top_k``/``.top_p``.
+        ``bias_row`` is the combined logit-bias row ((vocab,) fp32) or
+        None; it is installed into the slot pool at registration and again
+        at every slot re-binding. Cleared by :meth:`flush`; re-admission
+        re-registers, and the counter-based keys make its replayed samples
+        bitwise those of the first pass."""
+        if params is None:
+            self._sampling.pop(uid, None)
+            self._bias_rows.pop(uid, None)
+            self._drop_bias(uid)
+            return
+        self._sampling[uid] = params
+        if bias_row is None:
+            self._bias_rows.pop(uid, None)
+            self._drop_bias(uid)
+        else:
+            self._bias_rows[uid] = np.asarray(bias_row, np.float32)
+            d = self.state.seqs.get(uid)
+            if d is not None:
+                self._install_bias(d)
+
+    def refresh_bias(self, uid: int, bias_row) -> None:
+        """Replace a resident request's bias row (dynamic logit processors
+        recompute it per committed token); rewrites the slot's row even when
+        the binding is unchanged."""
+        if bias_row is None:
+            self._bias_rows.pop(uid, None)
+            self._drop_bias(uid)
+            return
+        self._bias_rows[uid] = np.asarray(bias_row, np.float32)
+        self._bias_slots.pop(uid, None)
+        d = self.state.seqs.get(uid)
+        if d is not None:
+            self._install_bias(d)
+
+    def _fill_sampling(self, d, i, slots, seeds, temps, top_ks, top_ps, poss,
+                       pos) -> None:
+        """Row ``i`` of the step's sampling arrays from ``d.uid``'s
+        registered params (zeros, plain argmax, otherwise)."""
+        slots[i] = d.slot
+        sp = self._sampling.get(d.uid)
+        if sp is not None:
+            seeds[i] = sp.seed
+            temps[i] = sp.temperature
+            top_ks[i] = sp.top_k
+            top_ps[i] = sp.top_p
+            poss[i] = pos
 
     def flush(self, uid: int) -> None:
         """Release a sequence's slot and KV blocks. Idempotent: flushing an
-        unknown uid is a counted no-op, never a double free."""
+        unknown uid is a counted no-op, never a double free. The sampling
+        state goes too: re-admission registers it again."""
+        self._sampling.pop(uid, None)
+        self._bias_rows.pop(uid, None)
+        self._drop_bias(uid)
         if uid not in self.state.seqs:
             self.flush_noops += 1
             log_dist(f"flush({uid}): unknown uid (no-op #{self.flush_noops})",
@@ -346,6 +463,49 @@ class InferenceEngineV2:
         freed = len(desc.blocks) if desc is not None else 0
         self.flush(uid)
         return freed
+
+    def rebuild(self) -> None:
+        """Engine-loss rebuild (``engine_v2.py:1754``): fresh sequence
+        state, block manager and KV pool of the same geometry; the weights
+        stay. Resident sequences are not migrated: the scheduler replays
+        them from its journal, and the counter-based keys make replayed
+        samples bitwise. The host tier and swap store are item 9's and do
+        not exist here."""
+        old = self.block_mgr
+        self.state = DSStateManager(self.max_seqs, self.max_seq_len)
+        self._sampling.clear()
+        self._bias_rows.clear()
+        self._bias_slots.clear()
+        self._bias_pool = None
+        self.rebuilds += 1
+        self.block_mgr = BlockedKVCache(old.num_blocks, old.block_size,
+                                        old.max_blocks_per_seq,
+                                        prefix_cache=self.prefix_cache)
+        self.kv = None  # the old pool leaves the device before the new one
+        self.kv = self.model.init_kv_pool(old.num_blocks, old.block_size,
+                                          dtype=self.dtype, device=self.device)
+        log_dist(f"InferenceEngineV2.rebuild #{self.rebuilds}: block pool replaced "
+                 f"({old.num_blocks}x{old.block_size}, prefix cache cold)", ranks=[0])
+
+    def prefill_backlog(self) -> int:
+        """Pending (registered but undispatched) tokens across all resident
+        sequences: the chunked-prefill backlog. Zero on a drained engine."""
+        return sum(d.in_flight for d in self.state.seqs.values())
+
+    def prefix_probe(self, tokens) -> int:
+        """Leading full blocks of ``tokens`` present in the prefix content
+        index (0 with the prefix cache off); read-only."""
+        if not self.prefix_cache:
+            return 0
+        return self.block_mgr.probe(tokens)
+
+    def set_kv_owner(self, uid: int, owner: str) -> None:
+        """Tag ``uid``'s KV blocks with a tenant, billed against its quota."""
+        self.block_mgr.set_seq_owner(uid, owner)
+
+    def set_kv_quota(self, owner: str, max_blocks) -> None:
+        """Cap ``owner``'s at-rest prefix-cache blocks (``None`` lifts it)."""
+        self.block_mgr.set_owner_quota(owner, max_blocks)
 
     def query(self) -> Tuple[int, int]:
         """(free sequence slots, per-sequence token capacity bounded by the
@@ -364,7 +524,22 @@ class InferenceEngineV2:
         s["hit_rate"] = (s["hits"] / s["lookups"]) if s["lookups"] else 0.0
         s["cached_blocks"] = self.block_mgr.cached_blocks
         s["free_blocks"] = self.block_mgr.free_blocks
+        # the KV tiers' and swap's gauges and counters, zero without them
+        # (item 9), so dashboards read the same keys as the JAX engine's
+        for k in ("host_blocks", "host_capacity_blocks", "host_bytes", "nvme_blocks",
+                  "nvme_capacity_blocks", "nvme_bytes", "swap_out", "swap_in",
+                  "swap_out_blocks", "swap_in_blocks", "swap_export", "swap_import",
+                  "export_blocks", "import_blocks", "orphan_drops", "swap_out_bytes",
+                  "swap_in_bytes"):
+            s[k] = 0
         return s
+
+    def monitor_events(self, step: int = 0) -> List[Tuple[str, float, int]]:
+        """Prefix-cache counters as ``(label, value, step)`` events
+        (``engine_v2.py:1864``). The JAX engine's ``serve/transfer/*``
+        events come with its TransferEngine (ROADMAP.md Queue 1 item 9)."""
+        return [(f"inference/prefix_cache/{k}", float(v), step)
+                for k, v in sorted(self.prefix_cache_stats().items())]
 
     def can_schedule(self, n_new: int = 1) -> bool:
         """Admit only if every new sequence gets a slot and one prefill
@@ -391,9 +566,6 @@ class InferenceEngineV2:
 
     def rollback(self, uid, n=0):
         raise _not_ported("rollback", _ENGINE_ITEM)
-
-    def rebuild(self):
-        raise _not_ported("rebuild (engine-loss recovery)", _ENGINE_ITEM)
 
     def load_params(self, params, version=None):
         raise _not_ported("load_params (hot weight swap)", _ENGINE_ITEM)

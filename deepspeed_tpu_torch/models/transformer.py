@@ -6,7 +6,8 @@ the JAX package's leaf names and shapes. Block leaves stay stacked along a
 leading layer axis ``(L, ...)``; each layer reads its slice as a view.
 
 Ported: ``init_params``, ``init_kv_pool``, ``forward_paged`` (with
-``n_valid`` and ``logit_rows``), greedy ``sample_or_argmax``, and the
+``n_valid`` and ``logit_rows``), ``sample_or_argmax`` (greedy and
+threefry-sampled), and the
 training path: ``apply`` (the next-token loss), ``logits`` and the cacheless
 block, whose attention goes through ``attention()`` (the flash kernels on
 the card). ``forward_paged`` and ``logits`` take weight-only-quantized
@@ -21,6 +22,7 @@ for the training-only fields (dropout, remat, PLD, random-LTD) in ``apply``.
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -28,12 +30,13 @@ from ..accelerator import resolve_device
 from ..ops.quantizer.woq_gemm import woq_matmul
 from ..ops.transformer.attention import attention as _attention_op
 from ..ops.transformer.paged_attention import paged_decode_attention
+from ..utils import prng
 from ..utils.tree import tree_leaves
 
 # the ROADMAP.md items that lift each unported branch
 _MODEL_ITEM = "ROADMAP.md Queue 1 item 2, the remaining TransformerLM branches"
 _MOE_ITEM = "ROADMAP.md Queue 1 item 17, moe/"
-_SAMPLING_ITEM = "ROADMAP.md Queue 1 item 3, threefry sampling"
+_DROPOUT_ITEM = "ROADMAP.md Queue 1 item 3, training dropout"
 _REMAT_ITEM = "ROADMAP.md Queue 1 item 17, activation checkpointing"
 _DATA_ITEM = "ROADMAP.md Queue 1 item 17, runtime/data_pipeline"
 _WOQ_TRAIN_ITEM = "ROADMAP.md Queue 1 item 14, training over a quantized tree"
@@ -446,7 +449,7 @@ class TransformerLM:
             ("remat", cfg.remat, _REMAT_ITEM),
             ("progressive_layer_drop", cfg.progressive_layer_drop, _DATA_ITEM),
             ("random_ltd", cfg.random_ltd, _DATA_ITEM),
-            ("dropout", train and cfg.dropout > 0, _SAMPLING_ITEM),
+            ("dropout", train and cfg.dropout > 0, _DROPOUT_ITEM),
         )
         for field_name, bad, item in unsupported:
             if bad:
@@ -532,16 +535,71 @@ class TransformerLM:
         return nll.sum() / mask.sum().clamp(min=1)
 
 
-def sample_or_argmax(lg, temps=None):
-    """Per-row token selection (``transformer.py:1233``), greedy part: rows
-    with ``temps == 0`` (every row when ``temps`` is None) take
-    ``torch.argmax``, the first index on ties as ``jnp.argmax``. Any row with
-    ``temps > 0`` raises: sampling needs the port of JAX's threefry keys.
-    Returns (R,) int32 token ids."""
-    if temps is not None and bool((torch.as_tensor(temps) > 0).any()):
-        raise NotImplementedError(
-            f"sampled token selection (temperature > 0) is not ported ({_SAMPLING_ITEM})")
-    return torch.argmax(lg, dim=-1).to(torch.int32)
+def _host_any_positive(temps) -> bool:
+    """``any(temps > 0)`` read on the host: numpy arrays and CPU tensors
+    cost no device sync (a CUDA tensor does)."""
+    if isinstance(temps, torch.Tensor):
+        return bool((temps > 0).any())
+    return bool((np.asarray(temps) > 0).any())
+
+
+def sample_or_argmax(lg, seeds=None, positions=None, temps=None, top_ks=None,
+                     top_ps=None):
+    """Per-row token selection shared by greedy and sampled serving
+    (``transformer.py:1233``): a row with ``temps[r] == 0`` takes plain
+    argmax (the first index on ties, as ``jnp.argmax``); a row with
+    ``temps[r] > 0`` draws one categorical sample from the
+    temperature/top-k/top-p-shaped distribution under the counter-based key
+    ``fold_in(PRNGKey(seeds[r]), positions[r])`` (``utils.prng``, bit for
+    bit jax's threefry). ``positions`` is the produced token's 0-based
+    absolute index over prompt + generated, so a replay that re-feeds the
+    committed history lands on the same (seed, position) keys and draws
+    the same tokens. A sampled row is drawn on ``lg``'s device.
+
+    Where the JAX package skips the sampling arithmetic with a ``lax.cond``
+    on the device, this decides on the host from ``temps`` (a numpy array
+    from the engine: no sync), so a step whose rows are all greedy launches
+    the argmax alone. The sampled rows' arithmetic is batched over the
+    (R, V) block: one descending sort of the scaled rows serves the top-k
+    threshold (the ``top_ks``-th value) and the top-p mass (``softmax`` of
+    the sorted rows before the top-k mask, the first entry always kept).
+
+    ``lg`` (R, V) logits (bias already added by the caller); the per-row
+    arguments (R,) as numpy arrays or tensors: ``seeds``, ``positions``,
+    ``top_ks`` integers, ``temps``, ``top_ps`` float32. ``temps=None``
+    means every row is greedy. Returns (R,) int32 token ids on ``lg``'s
+    device."""
+    greedy = torch.argmax(lg, dim=-1).to(torch.int32)
+    if temps is None or not _host_any_positive(temps):
+        return greedy
+    dev = lg.device
+
+    def rows(a, dtype):
+        return torch.as_tensor(a).to(device=dev, dtype=dtype)
+
+    temps = rows(temps, torch.float32)
+    top_ks = rows(top_ks, torch.int64)[:, None]
+    top_ps = rows(top_ps, torch.float32)[:, None]
+    V = lg.shape[-1]
+    sampled = temps > 0.0
+    x = lg.float() / torch.where(sampled, temps, 1.0)[:, None]
+    srt = torch.sort(x, dim=-1, descending=True).values
+    kth = srt.gather(1, (top_ks - 1).clamp(0, V - 1))
+    x = torch.where((top_ks > 0) & (x < kth), -torch.inf, x)
+    probs = torch.softmax(srt, dim=-1)
+    keep = (torch.cumsum(probs, dim=-1) - probs) < top_ps
+    keep[:, 0] = True  # the nucleus is never empty
+    thr = torch.where(keep, srt, torch.inf).amin(dim=-1, keepdim=True)
+    x = torch.where((top_ps < 1.0) & (x < thr), -torch.inf, x)
+    # the (R, 2) keys are derived where the seeds and positions live (on the
+    # host for the engine's numpy rows: the hash's ~170 ops on R words cost
+    # no launch there) and copied once; the (R, V) draw runs on lg's device.
+    # Both are exact integer arithmetic, so the keys' bits do not depend on
+    # where they were made.
+    keys = prng.fold_in(prng.PRNGKey(torch.as_tensor(seeds)),
+                        torch.as_tensor(positions)).to(dev)
+    tok = prng.categorical(keys, x).to(torch.int32)
+    return torch.where(sampled, tok, greedy)
 
 
 def build_model(preset: str, **overrides) -> TransformerLM:

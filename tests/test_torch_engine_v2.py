@@ -157,8 +157,10 @@ def test_sampling_with_temperature_raises(models):
         temperature = 0.8
 
     eng.set_sampling(1, Greedy())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
-        eng.set_sampling(2, Sampled())
+    # a temperature is taken since threefry sampling was ported; the KV
+    # tiers' calls still raise naming their item
+    eng.set_sampling(2, Sampled())
+    assert eng._sampling[2].temperature == 0.8
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
         eng.swap_out(1)
 

@@ -28,7 +28,8 @@ print(" ".join(names))
 print(bad)
 """
 
-# the training, WOQ, sparse-attention and fused-CE slices' modules: each must be among those the probe imported
+# the training, WOQ, sparse-attention, fused-CE and serving slices' modules: each must be among
+# those the probe imported
 _TRAINING_MODULES = {
     "deepspeed_tpu_torch.ops.transformer.attention",
     "deepspeed_tpu_torch.ops.transformer.flash_attention",
@@ -54,6 +55,20 @@ _TRAINING_MODULES = {
     "deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention",
     # the fused linear cross-entropy slice
     "deepspeed_tpu_torch.ops.transformer.fused_ce",
+    # the serving front end: threefry sampling, the scheduler and its host modules
+    "deepspeed_tpu_torch.utils.prng",
+    "deepspeed_tpu_torch.analysis.sanitizer",
+    "deepspeed_tpu_torch.resilience.breaker",
+    "deepspeed_tpu_torch.resilience.recovery",
+    "deepspeed_tpu_torch.resilience.retry",
+    "deepspeed_tpu_torch.resilience.watchdog",
+    "deepspeed_tpu_torch.serve",
+    "deepspeed_tpu_torch.serve.metrics",
+    "deepspeed_tpu_torch.serve.request",
+    "deepspeed_tpu_torch.serve.sampling",
+    "deepspeed_tpu_torch.serve.scheduler",
+    "deepspeed_tpu_torch.serve.speculation",
+    "deepspeed_tpu_torch.serve.tenancy",
 }
 
 
@@ -65,6 +80,30 @@ def test_package_imports_neither_jax_nor_the_jax_package():
     names = set(names.split())
     assert len(names) >= 28 and bad == "[]"
     assert _TRAINING_MODULES <= names, sorted(_TRAINING_MODULES - names)
+
+
+def test_no_source_imports_jax_even_inside_a_function():
+    # the probe above sees only imports made at import time; this reads every
+    # import statement of the package and of chip_smoke.py, lazy ones included
+    import ast
+    import glob
+
+    files = glob.glob(os.path.join(_REPO, "deepspeed_tpu_torch", "**", "*.py"), recursive=True)
+    files.append(os.path.join(_REPO, "chip_smoke.py"))
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, _REPO)}:{node.lineno} {m}" for m in mods
+                    if m.split(".")[0] in ("jax", "jaxlib", "deepspeed_tpu")]
+    assert len(files) > 40 and bad == []
 
 
 @pytest.fixture

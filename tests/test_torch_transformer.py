@@ -126,12 +126,15 @@ def test_unported_branch_raises_naming_field_and_item(field, value):
 def test_sample_or_argmax_greedy_first_index_on_ties():
     lg = torch.tensor([[0.0, 3.0, 3.0, 1.0], [2.0, 2.0, 2.0, 2.0]])
     want = np.asarray(jnp.argmax(jnp.asarray(lg.numpy()), -1)).tolist()
+    zeros = np.zeros(2, np.int32)
     for temps in (None, np.zeros(2, np.float32)):
-        toks = sample_or_argmax(lg, temps)
+        toks = sample_or_argmax(lg, zeros, zeros, temps, zeros, np.ones(2, np.float32))
         assert toks.dtype == torch.int32
         assert toks.tolist() == want
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
-        sample_or_argmax(lg, np.asarray([0.0, 0.7], np.float32))
+    # a sampled row beside a greedy one: the greedy row keeps its argmax
+    toks = sample_or_argmax(lg, zeros, zeros, np.asarray([0.0, 0.7], np.float32), zeros,
+                            np.ones(2, np.float32))
+    assert toks[0] == want[0] and 0 <= int(toks[1]) < 4
 
 
 def test_params_from_jax_bfloat16_and_woq_leaves():
