@@ -3,11 +3,23 @@
 
     python3 chip_profile.py      # from the root of a checkout, one CUDA card
 
-Runs ``chip_smoke.py``'s serving main path (llama-7b, full width and depth,
-random bf16 weights, the same requests), then traces with ``torch.profiler``:
+First the host cost of one call of each kernel wrapper, eager, at the
+serving main path's shapes (``paged_decode_attention`` at the decode step's
+8 rows, ``woq_matmul`` int8 at 8 and 256 rows of (4096, 11008),
+``flash_attention_fwd`` at (1, 512, 32, 128)), beside a bf16
+``torch.matmul`` at the decode shape and an elementwise add: 200 calls
+enqueued back to back after a warm-up, the host clock until the last call
+returns (no synchronize inside the window), per call.
 
-- 5 decode steps of the requests still live (the ``max_seqs``-row shape);
-- 1 prefill step (a fresh 256-token prompt: the ``token_budget``-row shape).
+Then ``chip_smoke.py``'s serving main path (llama-7b, full width and depth,
+random bf16 weights, the same requests; the engine's steps captured, as by
+default), then traces with ``torch.profiler``:
+
+- 5 decode steps of the requests still live (the ``max_seqs``-row shape),
+  eager (``engine.capture = False``) and then as replays of the captured
+  step;
+- 1 prefill step (a fresh 256-token prompt: the ``token_budget``-row shape),
+  eager and captured.
 
 The same again over int8 weight-only-quantized weights
 (``quantize_model(num_bits=8, group_size=128)``), where the block
@@ -144,6 +156,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    launch_costs(dev)
     engine, _, _, real_pool, summary = chip_smoke.main_path(pa, dev)
     print(json.dumps({"main_path": {k: summary[k] for k in (
         "decode_step_ms_median", "prefill_tokens_per_s", "ragged_steps")}}), flush=True)
@@ -153,11 +166,17 @@ def main():
         nonlocal live
         live = engine.decode_step(live, greedy=True)
 
-    profile(decode, "decode (6 live rows, max_seqs=8 row shape)", steps=5)
     rng = np.random.default_rng(3)
-    prompt = rng.integers(0, engine.cfg.vocab_size, engine.token_budget).tolist()
-    profile(lambda: engine.put([99], [prompt], greedy=True),
-            f"prefill ({engine.token_budget}-token prompt, token_budget rows)", steps=1)
+    for capture, label in ((False, "eager"), (True, "captured")):
+        engine.capture = capture
+        decode()  # the step of this mode once before the window
+        profile(decode, f"decode, {label} (6 live rows, max_seqs=8 row shape)", steps=5)
+        prompt = rng.integers(0, engine.cfg.vocab_size, engine.token_budget).tolist()
+        uid = 99 + capture
+        profile(lambda: engine.put([uid], [prompt], greedy=True),
+                f"prefill, {label} ({engine.token_budget}-token prompt, token_budget rows)",
+                steps=1)
+        engine.flush(uid)
     kernel_rows(pa, real_pool, engine.cfg, dev)
     del engine, real_pool
     torch.cuda.empty_cache()
@@ -166,6 +185,52 @@ def main():
     sparse_profile(dev)
     ce_profile(dev)
     dequant_rates(dev)
+
+
+def launch_costs(dev, calls=200):
+    """Host microseconds a call of each wrapper, eager (see the module
+    docstring)."""
+    import chip_smoke
+    from deepspeed_tpu_torch.ops.quantizer import woq, woq_gemm as wq
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bf16 = torch.bfloat16
+    q = torch.randn(8, 32, 128, device=dev, generator=gen).to(bf16)
+    kp = torch.randn(32, 65, 64, 128, device=dev, generator=gen).to(bf16)
+    vp = kp.clone()
+    tables = torch.arange(1, 65, dtype=torch.int32, device=dev).repeat(8, 1).contiguous()
+    lens = torch.full((8,), 600, dtype=torch.int32, device=dev)
+    codes, scale = woq.quantize_leaf(torch.randn(4096, 11008, device=dev, generator=gen)
+                                     .mul_(0.02), 8, 128)
+    x8, x256 = (torch.randn(r, 4096, device=dev, generator=gen).to(bf16) for r in (8, 256))
+    w = torch.randn(4096, 4096, device=dev, generator=gen).to(bf16)
+    fq, fk, fv, _ = chip_smoke.flash_case(1, 512, 32, 32, 128, bf16, dev)
+    cases = {
+        "paged_decode_attention (8 rows)": lambda: pa.paged_decode_attention(q, kp, vp, tables,
+                                                                            lens),
+        "woq_matmul int8 (8 rows, 4096x11008)": lambda: wq.woq_matmul(x8, codes, scale, 8),
+        "woq_matmul int8 (256 rows, 4096x11008)": lambda: wq.woq_matmul(x256, codes, scale, 8),
+        "flash_attention_fwd (1, 512, 32, 128)": lambda: fa.flash_attention_fwd(
+            fq, fk, fv, causal=True),
+        "torch.matmul bf16 (8, 4096) x (4096, 4096)": lambda: torch.matmul(x8, w),
+        "torch.add bf16 (8, 4096)": lambda: torch.add(x8, x8),
+    }
+    result = {}
+    for name, fn in cases.items():
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host_us = (time.perf_counter() - t0) * 1e6 / calls
+        torch.cuda.synchronize()
+        result[name] = host_us
+    print(json.dumps({"host_us_per_call_eager": result,
+                      "card": torch.cuda.get_device_name(dev)}), flush=True)
+    return result
 
 
 def woq_profile(pa, dev):

@@ -28,7 +28,13 @@ in order; any failure exits non-zero and prints no result:
    decode step 4, a request repeating that prompt after step 8 (a
    full-prompt prefix hit, so a copy-on-write block copy), 32 greedy decode
    steps, then a flush of every request. The kernels' launch counts are
-   set to 0 just before and read just after;
+   set to 0 just before and read just after. The engine's steps are captured
+   CUDA graphs (its default): a key's first step runs eagerly and is
+   captured, later ones replay, and each replay adds to the counts what its
+   capture counted; two more decode rounds, replays, are traced with
+   ``torch.profiler``: the paged (and in q3 WOQ) kernels it saw run, by
+   name, must equal what the replays added to the counts and num_layers x
+   rounds (x 7 projections);
 5. the paged-attention kernel on the engine's own pool (layer 0) with the
    tables and lens of the last decode step: checked against the plain
    version and timed with CUDA events beside the plain version,
@@ -42,7 +48,8 @@ in order; any failure exits non-zero and prints no result:
    and top-p (threefry keys, bits and uniforms bitwise, greedy rows bitwise,
    sampled rows equal except where a draw's top-2 margin of ``gumbel + x``
    is at most 1e-4 or a token sits within 1e-6 of the nucleus edge: at most
-   1% of the draws, and the count is printed), and its cost at 8 rows; then
+   1% of the draws, and the count is printed), and the cost of the
+   engine's selection call at 8 rows; then
    phase 4's four prompts greedy and four sampled requests over the
    640-token and 300-token prompts (temperature 0.7 and 1.0, top-k 0 and
    50, top-p 1.0 and 0.9, seeds 1-4), 32 new tokens each; once all 8 slots
@@ -53,7 +60,9 @@ in order; any failure exits non-zero and prints no result:
    drains, the paged kernel launched num_layers x ragged steps times; (b)
    the same traffic again after a rebuild runs the same ragged steps (each
    step's tokens, tables, starts, logit rows and slots) and gives bitwise
-   the same streams, the preempted one's included; (d) the stop ends its stream, the biased
+   the same streams, the preempted one's included, and so do three further
+   runs on the same engine, from the graphs already captured (no new one);
+   (d) the stop ends its stream, the biased
    token is every token, and a fan-out ``n=2`` child 0 equals the ``n=1``
    stream of the same seed; (e) at phase 3's head_dim-64 fp32 size the
    scheduler on the card against the scheduler on the CPU, greedy and
@@ -61,6 +70,38 @@ in order; any failure exits non-zero and prints no result:
    ``{"serve_summary": ...}`` line gives the card, requests, tokens, wall
    seconds, TTFT/TPOT p50/p90, preemptions, prefix hits, paged launches and
    host ms a scheduler step with the engine's share.
+7. the rest of the serving surface, on phase 4's weights (shared, not
+   copied) in a new engine at ``decode_horizon=4``, made after phase 4's
+   pool is freed: (a) phase 4's traffic eager (``engine.capture = False``),
+   captured and replayed, from a rebuild each: bitwise equal streams and
+   equal launch counts (32 x ragged steps), and phase 4's decode step timed
+   eager and captured (host clock; device time from ``torch.profiler``);
+   the paged kernels the profiler saw run equal to the launches counted
+   and to 32 x steps, eager and replayed;
+   (b) 8 single decode steps against two fused K=4 steps from the same
+   state, greedy and with two sampled rows, bitwise; (c)-(d) 6 requests
+   (4 greedy, 2 sampled, 48 new tokens) of a repeated 10-token pattern
+   through the plain scheduler (horizon 1), the fused horizon, the target
+   as its own draft model (window 64) and ``pipelined=True``, then with
+   the greedy prompts 4000 distinct tokens each (so the prompt lookup
+   drafts whenever the model gives a token of its prompt) through the plain
+   scheduler and a prompt-lookup proposer: fused and pipelined streams
+   bitwise the plain ones; a speculative stream may turn from the plain
+   one only where the plain engine's logits there give a margin within 8
+   bf16 units of the top logit (the verify GEMMs run 4x the rows), each
+   turn printed; both speculative runs must verify; TTFT and TPOT stamped on the host clock
+   when the step that brought the token returns; (e) at phase 3's size
+   each option on the card against the CPU under the margin rule (the
+   prompt-lookup run must verify), and the target as its own draft
+   model on short greedy prompts: every draft accepted, streams bitwise the
+   plain run's, its window forward through the flash kernel; a small bf16
+   int8 WOQ engine's speculative streams (its verify rows on the
+   tensor-core WOQ kernel, its decode rows on the GEMV) against its plain
+   ones under (c)'s rule; (f) the step
+   programs within the JAX engine's bounds (ragged 4, fused 1, verify 1). A
+   ``{"horizon_summary": ...}`` line gives the card, host and device ms a
+   decode step eager and captured, tokens/s, TTFT and TPOT a mode,
+   acceptance, the graph counts and launches.
 
 Then weight-only-quantized serving (the bf16 engine is freed first):
 
@@ -409,6 +450,64 @@ def small_slice_vs_cpu(dev, **widths):
         f"{cfg.head_dim}, 2 layers, fp32): {len(got)} calls, max_abs_err {worst:.3g} ok")
 
 
+#: the counters the replay trace checks, each with the kernels (by name)
+#: that one counted launch runs on the device
+KERNEL_FAMILIES = (
+    ("paged_attention.launches", ("paged_decode_fma_kernel", "paged_decode_mma_kernel")),
+    ("woq_gemm.launches", ("woq_gemv_kernel", "woq_mma_kernel", "woq_tiled_fma_kernel")),
+    ("woq_gemm.tiled_launches", ("woq_mma_kernel", "woq_tiled_fma_kernel")),
+)
+
+
+def family_counters(pa, wq):
+    return [pa.launches, wq.launches, wq.tiled_launches]
+
+
+def kernel_runs(prof):
+    """The kernels of each of KERNEL_FAMILIES that a ``torch.profiler``
+    trace saw run on the device, by name: a graph's replay runs its kernels
+    with no Python, so this is what the counters' replay bookkeeping is held
+    against."""
+    ran = [0] * len(KERNEL_FAMILIES)
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        for i, (_, names) in enumerate(KERNEL_FAMILIES):
+            if any(n in e.key for n in names):
+                ran[i] += e.count
+    return ran
+
+
+def check_kernel_runs(ran, counted, want, what):
+    """Kernels run (trace), launches counted (the wrappers' counters, a
+    replay's added by the engine) and the expected layers x steps agree."""
+    names = [n for n, _ in KERNEL_FAMILIES]
+    check(ran == counted == want, f"{what}: kernels run (trace) {dict(zip(names, ran))}, "
+          f"counted {dict(zip(names, counted))}, expected {dict(zip(names, want))}")
+
+
+def replay_trace(engine, toks, pa, wq, projections, steps=2):
+    """``steps`` more decode rounds of the main path, each a replay of the
+    graph its run captured, traced with ``torch.profiler``: the paged and
+    WOQ kernels the device ran, counted by name, against what the replays
+    added to the counters and against num_layers x steps (x ``projections``
+    WOQ projections, all on the few-rows kernel)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    L, graphs = engine.cfg.num_layers, engine.captured_graphs
+    c0 = family_counters(pa, wq)
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            toks = engine.decode_step(toks, greedy=True)
+        torch.cuda.synchronize()
+    counted = [a - b for a, b in zip(family_counters(pa, wq), c0)]
+    check(engine.captured_graphs == graphs, "the traced decode rounds captured a new graph")
+    ran = kernel_runs(prof)
+    check_kernel_runs(ran, counted, [L * steps, projections * L * steps, 0],
+                      f"{steps} replayed decode rounds")
+    return {"steps": steps, "kernels_ran": ran, "launches_counted": counted}
+
+
 def main_path(pa, dev, bits=None, decode_steps=32, wq=None):
     """Phase 4 (and q3 with ``bits``): llama-7b at full width and depth
     through the paged engine, bf16 weights, or with ``bits`` those weights
@@ -512,6 +611,9 @@ def main_path(pa, dev, bits=None, decode_steps=32, wq=None):
         lens[r] = d.seen_tokens
     real_pool = (engine.kv[0][0], engine.kv[1][0], torch.from_numpy(tables).to(dev),
                  torch.from_numpy(lens).to(dev))
+    # the replay counts backed by a trace (decode writes only past the
+    # positions ``real_pool`` covers)
+    replays = replay_trace(engine, records[-1], pa, wq, 7 if bits else 0)
 
     decode_ms = [s * 1e3 for s in stats["decode_s"]]
     n_prefill = sum(len(p) for p in prompts.values())
@@ -527,13 +629,15 @@ def main_path(pa, dev, bits=None, decode_steps=32, wq=None):
         "max_memory_allocated_gib": peak / 2**30,
         "prefix_cache": {k: pc[k] for k in ("lookups", "hits", "hit_blocks",
                                               "skipped_prefill_tokens", "cow_copies")},
+        "replay_trace": replays,
     }
     if woq is not None:
         summary["woq"] = dict(woq, woq_launches=woq_launches, woq_tiled_launches=woq_tiled,
                               paged_launches=launches)
     log(f"main path ({label}): {len(tokens)} tokens, {ragged} ragged steps, "
         f"paged_decode_attention launched {launches} times (= {cfg.num_layers} layers x "
-        f"{ragged} steps), woq_matmul {woq_launches} times")
+        f"{ragged} steps), woq_matmul {woq_launches} times; {replays['steps']} more rounds "
+        f"replayed and traced: kernels run {replays['kernels_ran']} = counted")
     return engine, free0, launches, real_pool, summary
 
 
@@ -631,9 +735,10 @@ def sampling_on_card(dev):
     seeded (64, 32000) block of bf16-rounded logits in fp32, temperatures
     0-1.5, top-k {0, 1, 50, V}, top-p {1, 0.9, 0.5, 1e-6}: keys, bits and
     uniforms bitwise, greedy rows bitwise, sampled rows under the margin
-    rule. Then the cost of selection at the engine's 8 rows: wall ms a call
-    (host clock, synchronized) and device operations a call (profiler),
-    greedy against sampled."""
+    rule. Then the cost of the engine's selection call (its inputs on the
+    card, as a step program holds them) at 8 rows: wall ms a call (host
+    clock, synchronized) and device operations a call (profiler), greedy
+    against sampled."""
     from deepspeed_tpu_torch.models import sample_or_argmax
     from deepspeed_tpu_torch.utils import prng
 
@@ -676,15 +781,24 @@ def sampling_on_card(dev):
     check(excluded <= 0.01 * n_sampled,
           f"{excluded} of {n_sampled} draws fell under the margin rule (limit 1%)")
 
-    # the cost at the main path's selection shape: 8 rows of llama-7b's vocab
+    # the cost at the main path's selection shape (8 rows of llama-7b's
+    # vocabulary) as the engine's step programs call it: the per-row
+    # arrays, the bias rows and the keys (derived on the host, int32 words)
+    # already on the card, the greedy-or-sampled decision made
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
+    from deepspeed_tpu_torch.models.transformer import row_keys
+
     lg8 = lg[:8].to(dev)
-    s8 = [seeds[:8], pos[:8], np.full(8, 0.8, np.float32), np.full(8, 50, np.int32),
-          np.full(8, 0.9, np.float32)]
-    calls = {"greedy": lambda: sample_or_argmax(lg8, s8[0], s8[1], np.zeros(8, np.float32),
-                                                s8[3], s8[4]),
-             "sampled": lambda: sample_or_argmax(lg8, *s8)}
+    s8, t8, k8, p8 = (torch.from_numpy(a).to(dev) for a in (
+        seeds[:8], np.full(8, 0.8, np.float32), np.full(8, 50, np.int32),
+        np.full(8, 0.9, np.float32)))
+    bias8 = torch.zeros((8, V), dtype=torch.float32, device=dev)
+    keys8 = torch.from_numpy(row_keys(seeds[:8], pos[:8]).numpy().astype(np.uint32)
+                             .view(np.int32)).to(dev)
+    calls = {mode: (lambda sampled=(mode == "sampled"): sample_or_argmax(
+        lg8, s8, None, t8, k8, p8, bias=bias8, keys=keys8, sampled=sampled))
+        for mode in ("greedy", "sampled")}
     cost = {}
     for name, fn in calls.items():
         for _ in range(3):
@@ -723,10 +837,10 @@ class EngineTimer:
             setattr(engine, name, self._timed(getattr(engine, name)))
         ragged = engine._ragged
 
-        def recorded(ids, tables, starts, logit_rows, greedy, sampling):
-            self.schedule.append(tuple(np.asarray(a).tobytes() for a in
-                                       (ids, tables, starts, logit_rows, sampling[0])))
-            return ragged(ids, tables, starts, logit_rows, greedy, sampling)
+        def recorded(prog, T, greedy):
+            # the step's staged ids, tables, starts, logit rows and slots
+            self.schedule.append(tuple(a.tobytes() for a in prog.views[:5]))
+            return ragged(prog, T, greedy)
         engine._ragged = recorded
 
     def _timed(self, fn):
@@ -747,7 +861,7 @@ class EngineTimer:
             delattr(self.engine, name)
 
 
-def serve_traffic(engine, prompts, arrival, vip_prompt):
+def serve_traffic(engine, prompts, arrival, vip_prompt, **sched_kw):
     """Phase 6's traffic through a ``ContinuousBatchScheduler`` (preemption
     on, the real clock) over ``engine``, rebuilt first so that every run
     starts from the same empty pool and cold prefix cache. Admission drops
@@ -761,7 +875,7 @@ def serve_traffic(engine, prompts, arrival, vip_prompt):
 
     engine.rebuild()
     V = engine.cfg.vocab_size
-    sched = ContinuousBatchScheduler(engine, preemption=True, age_weight=0.0)
+    sched = ContinuousBatchScheduler(engine, preemption=True, age_weight=0.0, **sched_kw)
     greedy = [sched.submit(p, max_new_tokens=32, priority=1, uid=u)
               for u, p in prompts.items()]
     grid = ((arrival, 0.7, 50, 0.9, 1), (prompts[2], 1.0, 0, 1.0, 2),
@@ -850,6 +964,20 @@ def serve_phase(engine, pa, dev):
               f"({r.tokens[:8]}... vs {r2.tokens[:8]}...)")
     check(sched2.metrics.preemptions == m.preemptions,
           "the replayed run preempted a different number of times")
+    # three further replays on the same engine, its steps replayed from the
+    # graphs the first runs captured: the same schedule, the same streams
+    graphs = engine.captured_graphs
+    check(graphs > 0, "phase 6 captured no step graph")
+    for k in range(3):
+        more, sched_k, timing_k = serve_traffic(engine, prompts, arrival, vip_prompt)
+        check(timing_k["schedule"] == sch, f"further replay {k + 1}: the schedule differs")
+        for r, r2 in zip(reqs, more):
+            check(r2.tokens == r.tokens, f"further replay {k + 1}, uid {r.uid}: the stream "
+                  f"differs ({r.tokens[:8]}... vs {r2.tokens[:8]}...)")
+        check(sched_k.metrics.preemptions == m.preemptions,
+              f"further replay {k + 1} preempted a different number of times")
+    check(engine.captured_graphs == graphs,
+          f"the further replays captured {engine.captured_graphs - graphs} new graphs")
 
     # (d) stop, bias and fan-out semantics
     stop, biased = reqs[-2], reqs[-1]
@@ -889,20 +1017,25 @@ def serve_phase(engine, pa, dev):
         "host_ms_per_step_mean": float(step_ms.mean()),
         "host_ms_per_step_p50": float(np.median(step_ms)),
         "engine_share": timing["engine_s"] / float(step_ms.sum() / 1e3),
-        "replay_bitwise": True,
+        "replay_bitwise": True, "further_replays_bitwise": 3,
+        "captured_graphs": engine.captured_graphs,
     }
     log(f"serving through ContinuousBatchScheduler: {len(reqs)} requests, {len(tokens)} tokens "
         f"in {timing['wall_s']:.3f} s, {m.preemptions} preemption(s), paged_decode_attention "
         f"launched {launches} times (= {cfg.num_layers} layers x {ragged} steps); the replay "
-        f"run bitwise equal; stop, bias and fan-out ok")
+        f"run and three further replays bitwise equal; stop, bias and fan-out ok")
     return summary
 
 
-def small_scheduler_vs_cpu(dev):
-    """Check (e): phase 3's head_dim-64 model in fp32, the scheduler on the
-    card against the same on the CPU, greedy and sampled requests; streams
-    equal, a divergence allowed only at a draw under the margin rule
-    (recomputed from the CPU engine's logits at that position)."""
+def small_scheduler_vs_cpu(dev, engine_kw=None, sched_kw=None, prompts=None, greedy=False,
+                           label="plain"):
+    """Check (e) of phases 6 and 7: phase 3's head_dim-64 model in fp32, the
+    scheduler on the card against the same on the CPU, greedy and sampled
+    requests; streams equal, a divergence allowed only at a draw under the
+    margin rule (recomputed from the CPU engine's logits at that position).
+    ``engine_kw`` and ``sched_kw`` (a function of the engine) set phase 7's
+    options, ``prompts`` other prompts and ``greedy`` greedy requests
+    only. Returns the excluded draws and the card's requests and scheduler."""
     from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
     from deepspeed_tpu_torch.models import build_model
     from deepspeed_tpu_torch.serve import ContinuousBatchScheduler, SamplingParams
@@ -914,21 +1047,24 @@ def small_scheduler_vs_cpu(dev):
     opts = dict(paged=True, dtype=torch.float32, max_seqs=4, block_size=16,
                 prefill_chunk=64, token_budget=64, prefix_cache=True)
     rng = np.random.default_rng(4)
-    prompts = [rng.integers(0, 1024, n).tolist() for n in (20, 150, 48, 90, 33, 70)]
+    prompts = prompts or [rng.integers(0, 1024, n).tolist() for n in (20, 150, 48, 90, 33, 70)]
     params_of = [None, SamplingParams(temperature=0.8, top_k=40, seed=1), None,
                  SamplingParams(temperature=1.0, top_p=0.9, seed=2),
                  SamplingParams(temperature=1.5, seed=3), SamplingParams(temperature=0.7, seed=4)]
+    if greedy:
+        params_of = [None] * len(prompts)
 
     def run(device):
-        eng = InferenceEngineV2(model, params, device=device, **opts)
-        sched = ContinuousBatchScheduler(eng, preemption=True)
+        eng = InferenceEngineV2(model, params, device=device, **opts, **(engine_kw or {}))
+        sched = ContinuousBatchScheduler(eng, preemption=True,
+                                         **(sched_kw(eng) if sched_kw else {}))
         reqs = [sched.submit(p, max_new_tokens=16, uid=i + 1, priority=i % 2, sampling=sp)
                 for i, (p, sp) in enumerate(zip(prompts, params_of))]
         sched.run_until_complete()
         sched.close()
-        return reqs
+        return reqs, sched
 
-    ref, got = run("cpu"), run(dev)
+    (ref, _), (got, sched) = run("cpu"), run(dev)
     excluded, draws = 0, 0
     for r, g in zip(ref, got):
         draws += len(r.tokens)
@@ -939,14 +1075,406 @@ def small_scheduler_vs_cpu(dev):
         ctx = r.prompt + r.tokens[:i]
         lg = InferenceEngineV2(model, params, device="cpu", **opts).put([1], [ctx])[1]
         margin, edge = draw_margin(prng, torch.from_numpy(lg), r.sampling, len(ctx))
-        check(margin <= MARGIN or edge, f"uid {r.uid}: card and CPU differ at token {i} "
-              f"where the draw's margin is {margin:.3g}")
+        check(margin <= MARGIN or edge, f"{label}: uid {r.uid}: card and CPU differ at token "
+              f"{i} where the draw's margin is {margin:.3g}")
         excluded += 1
-    check(excluded <= 0.01 * draws, f"{excluded} of {draws} draws excluded (limit 1%)")
-    log(f"scheduler on the card vs CPU (llama 256-wide, hd 64, fp32, {len(ref)} requests, "
-        f"{sum(1 for sp in params_of if sp)} sampled): {draws} tokens equal, {excluded} "
-        f"excluded by the margin rule")
-    return excluded
+    check(excluded <= 0.01 * draws, f"{label}: {excluded} of {draws} draws excluded (limit 1%)")
+    log(f"scheduler ({label}) on the card vs CPU (llama 256-wide, hd 64, fp32, {len(ref)} "
+        f"requests, {sum(1 for sp in params_of[:len(prompts)] if sp)} sampled): {draws} tokens "
+        f"equal, {excluded} excluded by the margin rule")
+    return excluded, got, sched
+
+
+# ---------------------------------------------------------------------------
+# phase 7: captured steps, the fused horizon, speculation, pipelined dispatch
+# ---------------------------------------------------------------------------
+def decode_window(engine, prompts, capture, pa, wq, steps=4):
+    """Phase 4's decode step, eager or captured: the prompts put, two decode
+    steps, then ``steps`` decode steps timed on the host clock (each ends in
+    the step's device-to-host copy) and traced (device time summed over the
+    kernels; a short spin kernel opens the window and is left out). The
+    paged kernels the trace saw run are held against the launches counted
+    (by the wrapper eagerly, by the engine's bookkeeping on a replay) and
+    against num_layers x steps."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    engine.rebuild()
+    engine.capture = capture
+    out = engine.put(list(prompts), [list(p) for p in prompts.values()], greedy=True)
+    for _ in range(2):
+        out = engine.decode_step(out, greedy=True)
+    torch.cuda.synchronize()
+    c0 = family_counters(pa, wq)
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            out = engine.decode_step(out, greedy=True)
+        host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    counted = [a - b for a, b in zip(family_counters(pa, wq), c0)]
+    ran = kernel_runs(prof)
+    check_kernel_runs(ran, counted, [engine.cfg.num_layers * steps, 0, 0],
+                      f"phase 7 (a), {'captured' if capture else 'eager'} decode steps")
+    dev_us, ops = 0.0, 0
+    for e in prof.key_averages():
+        if (getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                and "spin_kernel" not in e.key):
+            us = getattr(e, "self_device_time_total", None)
+            dev_us += e.self_cuda_time_total if us is None else us
+            ops += e.count
+    for uid in list(engine.state.seqs):
+        engine.flush(uid)
+    return {"host_ms": host_ms, "device_ms": dev_us / 1e3 / steps if dev_us else None,
+            "device_ops": ops / steps, "paged_kernels_ran": ran[0]}
+
+
+def phase4_traffic(engine, pa, prompts, arrival, capture):
+    """Phase 4's traffic (``serve``, 32 greedy decode steps) from a rebuilt
+    engine, eager or captured; the kernel's count set to 0 just before and
+    read just after."""
+    engine.rebuild()
+    engine.capture = capture
+    stats, steps0 = {}, engine.ragged_steps
+    pa.launches = 0
+    records, _ = serve(engine, prompts, arrival, 32, greedy=True, stats=stats,
+                       launches=lambda: pa.launches)
+    torch.cuda.synchronize()
+    launches, ragged = pa.launches, engine.ragged_steps - steps0
+    for uid in list(engine.state.seqs):
+        engine.flush(uid)
+    return records, launches, ragged, stats
+
+
+def fused_vs_single(engine, prompts, sampled):
+    """Check (b): 8 single decode steps against two fused K=4 steps from the
+    same state, greedy or with two sampled rows, bitwise."""
+    from deepspeed_tpu_torch.serve import SamplingParams
+
+    streams = []
+    for fused in (False, True):
+        engine.rebuild()
+        engine.capture = True
+        if sampled:
+            engine.set_sampling(2, SamplingParams(temperature=0.8, top_k=50, seed=11))
+            engine.set_sampling(4, SamplingParams(temperature=1.0, top_p=0.9, seed=12))
+        toks = engine.put(list(prompts), [list(p) for p in prompts.values()], greedy=True)
+        out = {u: [t] for u, t in toks.items()}
+        for _ in range(2 if fused else 8):
+            if fused:
+                step = engine.decode_multi(toks, 4)
+                for u in step:
+                    engine.rollback(u, 0)
+            else:
+                step = {u: [t] for u, t in engine.decode_step(toks, greedy=True).items()}
+            for u, seq in step.items():
+                out[u] += seq
+            toks = {u: seq[-1] for u, seq in step.items()}
+        streams.append(out)
+        for uid in list(engine.state.seqs):
+            engine.flush(uid)
+    check(streams[0] == streams[1], f"fused K=4 differs from 4 single steps "
+          f"({'sampled' if sampled else 'greedy'}): {streams[0]} vs {streams[1]}")
+    return sum(len(s) for s in streams[1].values())
+
+
+def scheduler_mode(engine, prompts, samplings, **sched_kw):
+    """One scheduler run of phase 7's traffic from a rebuilt engine (real
+    clock, admission without its age term), stepped here so that each
+    request's first and last token are stamped on the host clock when the
+    step that brought them returns (after its device-to-host copy): the
+    scheduler stamps them at the start of the step that emits them, before
+    the device has run it. Returns the requests, the scheduler, the wall
+    seconds and the host times from the submits of each request's first
+    and last token."""
+    from deepspeed_tpu_torch.serve import ContinuousBatchScheduler
+
+    engine.rebuild()
+    engine.capture = True
+    sched = ContinuousBatchScheduler(engine, age_weight=0.0, **sched_kw)
+    t0 = time.perf_counter()
+    reqs = [sched.submit(p, max_new_tokens=48, uid=100 + i, sampling=sp)
+            for i, (p, sp) in enumerate(zip(prompts, samplings))]
+    first, last = {}, {}
+    while True:
+        more = sched.step()
+        now = time.perf_counter() - t0
+        for r in reqs:
+            if r.tokens and r.uid not in first:
+                first[r.uid] = now
+            if r.finished and r.uid not in last:
+                last[r.uid] = now
+        if not more:
+            break
+    sched.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in reqs:  # any token ``close()`` brought in
+        first.setdefault(r.uid, wall)
+        last.setdefault(r.uid, wall)
+    return reqs, sched, wall, (first, last)
+
+
+def mode_stats(reqs, wall, stamps):
+    """Tokens/s over the run; TTFT from the submits to the return of the
+    step that brought the first token; TPOT from there to the last token's."""
+    first, last = stamps
+    tokens = sum(len(r.tokens) for r in reqs)
+    ttft = np.asarray([first[r.uid] for r in reqs]) * 1e3
+    tpot = np.asarray([(last[r.uid] - first[r.uid]) / (len(r.tokens) - 1) * 1e3
+                       for r in reqs if len(r.tokens) > 1])
+    return {"tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+            "ttft_ms_p50": float(np.percentile(ttft, 50)),
+            "ttft_ms_max": float(ttft.max()),
+            "tpot_ms_p50": float(np.percentile(tpot, 50)),
+            "tpot_ms_p90": float(np.percentile(tpot, 90))}
+
+
+def phase7_traffic(V, seed=7):
+    """Phase 7's two sets of 6 prompts (4 greedy requests, then 2 sampled).
+    ``pattern``: a 10-token pattern repeated 4 times, so that every prompt
+    prefills in the first 256-row step and every later token of every mode
+    is computed in a decode round of the same 8 rows (the condition for
+    bitwise equal streams in bf16, whose GEMMs round by row count).
+    ``wide``: the greedy prompts replaced by 4000 distinct tokens each
+    (one eighth of llama-7b's vocabulary, none shared between them), where
+    the prompt lookup drafts whenever the model gives a token its prompt
+    holds. Random weights do not copy their context: on ``pattern`` no lookup
+    drafted in three card runs, and a prompt of one token repeated after
+    the token the model gives after it did not make the model give that
+    token again (0 of 16 candidates). Their prefill runs over ~63 mixed
+    steps, so decode tokens meet other row counts from mode to mode."""
+    rng = np.random.default_rng(seed)
+    short = [rng.integers(0, V, 10).tolist() * 4 for _ in range(6)]
+    wide = np.random.default_rng(seed + 1).permutation(V)[:4 * 4000].reshape(4, 4000).tolist()
+    return short, wide + short[4:]
+
+
+def lookup_positions(prompts, reqs, k=3):
+    """Tokens of each plain stream after which the prompt lookup has a
+    draft (the context up to that token): where a speculative run of the
+    same traffic can verify, when a round starts there."""
+    from deepspeed_tpu_torch.serve import PromptLookupProposer
+
+    prop = PromptLookupProposer()
+    return [sum(bool(prop.propose(0, list(p) + r.tokens[:i + 1], k))
+                for i in range(len(r.tokens) - 1)) for p, r in zip(prompts, reqs)]
+
+
+def ulps_bf16(x):
+    """One bfloat16 unit in the last place at magnitude ``x``."""
+    return 2.0 ** (np.floor(np.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+
+def spec_vs_plain(engine, plain, spec, prompts):
+    """Check (c): the speculative streams against the plain scheduler's. In
+    16 bits the verify forward's GEMMs run 4x the rows of a decode round and
+    may round differently, so a stream may turn at a near tie: each first
+    difference is located, the plain engine's logits there recomputed
+    (``put`` from a rebuilt engine) and its selection margin measured. A
+    difference at a margin within 8 bf16 units of the top logit is a
+    rounding turn, counted and printed; a wider one fails."""
+    from deepspeed_tpu_torch.utils import prng
+
+    found = []
+    for r, g, p in zip(plain, spec, prompts):
+        if g.tokens == r.tokens:
+            continue
+        i = next((k for k, (a, b) in enumerate(zip(r.tokens, g.tokens)) if a != b), None)
+        check(i is not None, f"uid {r.uid}: spec and plain streams of different lengths "
+              "agree where both run")
+        ctx = list(p) + r.tokens[:i]
+        engine.rebuild()
+        lg = torch.from_numpy(engine.put([1], [ctx])[1])
+        engine.flush(1)
+        margin, edge = draw_margin(prng, lg, r.sampling, len(ctx))
+        limit = 8 * ulps_bf16(float(lg.abs().max()))
+        check(margin <= limit or edge, f"uid {r.uid}: spec and plain differ at token {i} "
+              f"where the margin is {margin:.4g} (> {limit:.3g}, 8 bf16 units)")
+        found.append({"uid": r.uid, "token": i, "margin": margin, "context_len": len(ctx),
+                      "plain": r.tokens[i], "spec": g.tokens[i]})
+    return found
+
+
+def woq_spec_vs_plain(dev):
+    """Check (e) over int8 weights: a small bf16 WOQ engine (phase q2's
+    model, group 64) whose decode rounds (4 rows) run ``woq_gemv_kernel``
+    and whose verify forward (16 rows) runs the tensor-core kernel, so the
+    sums go in another order: the speculative streams (the target as its
+    own draft model) against the plain scheduler's, turns allowed only at
+    a near tie as in (c). Returns the turns and the WOQ launches."""
+    from deepspeed_tpu_torch.inference.quantization import quantize_model
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.ops.quantizer import woq_gemm as wq
+    from deepspeed_tpu_torch.serve import DraftModelProposer
+
+    model = build_model("llama-tiny", vocab_size=1024, hidden_size=256, num_layers=2,
+                        num_heads=4, num_kv_heads=2, intermediate_size=512, max_seq_len=512)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               dtype=torch.bfloat16)
+    _, qp = quantize_model(model, params, num_bits=8, group_size=64)
+    engine = InferenceEngineV2(model, qp, paged=True, dtype=torch.bfloat16, max_seqs=4,
+                               block_size=16, prefill_chunk=64, token_budget=64,
+                               device=dev, decode_horizon=4)
+    prompts = [np.random.default_rng(8).integers(0, 1024, n).tolist() for n in (20, 30, 12, 25)]
+    plain = scheduler_mode(engine, prompts, [None] * 4, decode_horizon=1)[0]
+    l0, t0 = wq.launches, wq.tiled_launches
+    spec, sched, _, _ = scheduler_mode(
+        engine, prompts, [None] * 4,
+        proposer=DraftModelProposer(model, engine.params, window=64, max_draft=3))
+    launches = {"woq": wq.launches - l0, "tiled": wq.tiled_launches - t0}
+    check(sched.metrics.spec["steps"] > 0 and launches["tiled"] > 0,
+          f"the WOQ speculative run verified nothing on the tensor-core kernel: {launches}")
+    turns = spec_vs_plain(engine, plain, spec, prompts)
+    log(f"phase 7 (e), int8 WOQ: acceptance {sched.metrics.spec['acceptance_rate']:.3f}, "
+        f"{len(turns)} stream(s) turned at a near tie: {turns}; launches {launches}")
+    return {"acceptance_rate": sched.metrics.spec["acceptance_rate"], "turns": turns,
+            "launches": launches}
+
+
+def horizon_phase(params, pa, fa, wq, dev, card):
+    """Phase 7 on phase 4's weights (shared, not copied) with a new engine at
+    ``decode_horizon=4``, capture on."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.serve import DraftModelProposer, PromptLookupProposer, SamplingParams
+
+    model = build_model("llama-7b")
+    cfg = model.config
+    engine = InferenceEngineV2(model, params, paged=True, dtype=torch.bfloat16, max_seqs=8,
+                               block_size=64, prefill_chunk=256, token_budget=256,
+                               prefix_cache=True, device=dev, decode_horizon=4)
+    check(all(engine.params["blocks"][k] is v for k, v in params["blocks"].items()),
+          "phase 7's engine copied phase 4's weights")
+    rng = np.random.default_rng(0)  # phase 4's prompts and arrival
+    prompts = {u: rng.integers(0, cfg.vocab_size, n)
+               for u, n in zip((1, 2, 3, 4), (37, 300, 1000, 2100))}
+    arrival = rng.integers(0, cfg.vocab_size, 640)
+
+    # (a) phase 4's traffic: eager, captured (the first use of each key runs
+    # eagerly, then is captured), captured again (every step a replay)
+    runs = {}
+    for mode, capture in (("eager", False), ("capture", True), ("replay", True)):
+        runs[mode] = phase4_traffic(engine, pa, prompts, arrival, capture)
+    for mode in ("capture", "replay"):
+        check(runs[mode][0] == runs["eager"][0],
+              f"phase 4's traffic {mode}d differs from eager")
+        check(runs[mode][1:3] == runs["eager"][1:3],
+              f"launches/steps {mode}d {runs[mode][1:3]} != eager {runs['eager'][1:3]}")
+    launches, ragged = runs["replay"][1:3]
+    check(launches == cfg.num_layers * ragged, f"paged_decode_attention launched {launches} "
+          f"times in {ragged} replayed ragged steps")
+    windows = {mode: decode_window(engine, prompts, capture, pa, wq)
+               for mode, capture in (("eager", False), ("captured", True))}
+    log(f"phase 7 (a): phase 4's traffic eager, captured and replayed bitwise equal, "
+        f"{launches} paged launches in {ragged} steps each; decode step {windows}")
+
+    # (b) fused K=4 against K single steps
+    fused_tokens = [fused_vs_single(engine, prompts, s) for s in (False, True)]
+    log(f"phase 7 (b): fused K=4 equals 4 single steps bitwise, greedy and sampled "
+        f"({fused_tokens} tokens)")
+
+    # (c), (d): phase 7's traffic through each scheduler mode: on the short
+    # prompts the plain scheduler, the fused horizon, the target as its own
+    # draft model (a 64-token window: the longer contexts are cut, so some
+    # drafts fail; it drafts every round) and pipelined dispatch; on the
+    # wide ones the plain scheduler and the prompt lookup
+    pattern, wide = phase7_traffic(cfg.vocab_size)
+    samplings = [None, None, None, None, SamplingParams(temperature=0.8, top_k=50, seed=21),
+                 SamplingParams(temperature=1.0, top_p=0.9, seed=22)]
+    modes = {"plain": (pattern, dict(decode_horizon=1)), "fused": (pattern, dict()),
+             "spec_draft": (pattern, dict(proposer=DraftModelProposer(
+                 model, engine.params, window=64, max_draft=3))),
+             "pipelined": (pattern, dict(decode_horizon=1, pipelined=True)),
+             "plain_wide": (wide, dict(decode_horizon=1)),
+             "spec": (wide, dict(proposer=PromptLookupProposer()))}
+    results, stats = {}, {}
+    for name, (traffic, kw) in modes.items():
+        reqs, sched, wall, stamps = scheduler_mode(engine, traffic, samplings, **kw)
+        check(all(r.state.value == "done" for r in reqs), f"{name}: requests not done")
+        results[name] = (reqs, sched)
+        stats[name] = mode_stats(reqs, wall, stamps)
+    plain = results["plain"][0]
+    drafts_at = lookup_positions(wide, results["plain_wide"][0])
+    for name in ("fused", "pipelined"):
+        for r, g in zip(plain, results[name][0]):
+            check(g.tokens == r.tokens, f"{name}: uid {r.uid} differs from the plain "
+                  f"scheduler ({r.tokens[:8]}... vs {g.tokens[:8]}...)")
+    for name, base, traffic in (("spec", "plain_wide", wide), ("spec_draft", "plain", pattern)):
+        spec_m = results[name][1].metrics.spec
+        turns = spec_vs_plain(engine, results[base][0], results[name][0], traffic)
+        stats[name].update(acceptance_rate=spec_m["acceptance_rate"],
+                           verify_steps=spec_m["steps"],
+                           accepted_tokens=spec_m["accepted_tokens"], differs_from_plain=turns)
+        log(f"phase 7 (c), {name}: acceptance {spec_m['acceptance_rate']:.3f} over "
+            f"{spec_m['steps']} verify steps; {len(turns)} stream(s) turned from {base} at a "
+            f"near tie: {turns}")
+    for name in ("spec", "spec_draft"):  # else spec vs plain compares plain with itself
+        check(results[name][1].metrics.spec["steps"] > 0,
+              f"{name}: the speculative run verified nothing (the plain streams offer the "
+              f"prompt lookup a draft after {drafts_at} tokens)")
+    log("phase 7 (d): pipelined and fused streams bitwise equal to the plain scheduler's")
+
+    # (f) the step-program counters
+    counts = {"ragged_cache_size": engine.ragged_cache_size,
+              "fused_cache_size": engine.fused_cache_size,
+              "verify_cache_size": engine.verify_cache_size,
+              "captured_graphs": engine.captured_graphs}
+    check(counts["ragged_cache_size"] <= 4 and counts["fused_cache_size"] <= 1
+          and counts["verify_cache_size"] <= 1,
+          f"step programs past the JAX engine's bounds (4, 1, 1): {counts}")
+    engine.kv = None
+    del engine
+    torch.cuda.empty_cache()
+
+    # (e) the small model, each option on the card against the CPU; and the
+    # target as its own draft model, whose window forward runs the flash kernel
+    small = {}
+    for label, ekw, skw in (
+            ("fused", dict(decode_horizon=4), None),
+            ("spec", dict(decode_horizon=4), lambda e: dict(proposer=PromptLookupProposer())),
+            ("pipelined", None, lambda e: dict(pipelined=True))):
+        small[label], _, ssched = small_scheduler_vs_cpu(dev, ekw, skw, label=label)
+        if label == "spec":
+            check(ssched.metrics.spec["steps"] > 0,
+                  "the small prompt-lookup run on the card verified nothing")
+            small["spec_verify_steps"] = ssched.metrics.spec["steps"]
+    fa.fwd_launches = 0
+    short = [np.random.default_rng(5).integers(0, 1024, n).tolist() for n in (20, 30, 12, 25)]
+    plain_small = small_scheduler_vs_cpu(dev, prompts=short, greedy=True,
+                                         label="plain, short greedy prompts")[1]
+    excl, drafted, dsched = small_scheduler_vs_cpu(
+        dev, dict(decode_horizon=4),
+        lambda e: dict(proposer=DraftModelProposer(e.model, e.params, window=64, max_draft=3)),
+        prompts=short, greedy=True, label="draft model = target")
+    small["draft_model"] = excl
+    draft_launches = fa.fwd_launches
+    check(draft_launches > 0, "the draft model's forward launched no flash kernel")
+    rate = dsched.metrics.spec["acceptance_rate"]
+    check(rate == 1.0, f"the target as its own draft accepted {rate:.3f} of its drafts")
+    for r, g in zip(plain_small, drafted):
+        check(g.tokens == r.tokens, f"draft model: uid {r.uid} differs from the plain run")
+    log(f"phase 7 (e): fused, spec, pipelined on the card vs CPU; the target as its own draft "
+        f"accepted every draft, streams bitwise the plain run's, {draft_launches} flash "
+        f"forward launches")
+    woq_spec = woq_spec_vs_plain(dev)
+    summary = {
+        "card": card, "model": "llama-7b", "layers": cfg.num_layers, "dtype": "bfloat16",
+        "decode_horizon": 4,
+        "phase4_decode_step": windows,
+        "phase4_traffic": {m: {"decode_step_ms_median": float(np.median(r[3]["decode_s"]) * 1e3),
+                               "paged_launches": r[1], "ragged_steps": r[2]}
+                           for m, r in runs.items()},
+        "fused_vs_single_tokens": fused_tokens,
+        "lookup_draft_positions": drafts_at,
+        "modes": stats, "small_vs_cpu_excluded": small,
+        "draft_model": {"acceptance_rate": rate, "flash_fwd_launches": draft_launches},
+        "woq_int8_spec": woq_spec,
+        "graphs": counts,
+    }
+    log(f"phase 7 (f): step programs {counts}")
+    return summary
 
 
 WOQ_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))  # (In, Out): wq/wk/wv/wo, w_gate/w_up, w_down
@@ -1956,12 +2484,19 @@ def main():
     del real_pool
     sampling = sampling_on_card(dev)
     serve_summary = serve_phase(engine, pa, dev)
-    small_excluded = small_scheduler_vs_cpu(dev)
+    small_excluded = small_scheduler_vs_cpu(dev)[0]
+    params = engine.params  # phase 7 serves the same weights
+    engine.kv = None  # phase 4's pool leaves the card before phase 7's is made
     del engine
     torch.cuda.empty_cache()
     log(json.dumps({"serve_summary": dict(
         card=smi.stdout.strip(), **serve_summary, sample_or_argmax=sampling,
         small_vs_cpu_excluded=small_excluded)}))
+    horizon = horizon_phase(params, pa, fa, wq, dev, smi.stdout.strip())
+    del params
+    torch.cuda.empty_cache()
+    log(json.dumps({"horizon_summary": horizon}))
+    fa.fwd_launches = fa.bwd_launches = 0  # phase 7's draft model ran flash; WOQ serving must not
 
     woq_worst = woq_kernels_vs_plain(wq, dev)
     small_woq_vs_cpu(wq, dev)

@@ -6,8 +6,9 @@ the JAX package's leaf names and shapes. Block leaves stay stacked along a
 leading layer axis ``(L, ...)``; each layer reads its slice as a view.
 
 Ported: ``init_params``, ``init_kv_pool``, ``forward_paged`` (with
-``n_valid`` and ``logit_rows``), ``sample_or_argmax`` (greedy and
-threefry-sampled), and the
+``n_valid`` and ``logit_rows``), the multi-token programs
+``decode_paged_multi``, ``verify_paged_multi`` and ``draft_greedy``,
+``sample_or_argmax`` (greedy and threefry-sampled), and the
 training path: ``apply`` (the next-token loss), ``logits`` and the cacheless
 block, whose attention goes through ``attention()`` (the flash kernels on
 the card). ``forward_paged`` and ``logits`` take weight-only-quantized
@@ -440,6 +441,81 @@ class TransformerLM:
             x_last = x_last[logit_rows]
         return self._head(params, x_last)
 
+    def decode_paged_multi(self, params, kv_pool, toks, tables, starts, k: int,
+                           sampling=None, keys=None, sampled=None):
+        """Fused ``k``-round decode against the blocked pool
+        (``transformer.py:1110``): each round runs the length-1
+        :meth:`forward_paged` over all B rows and feeds its selection back
+        as the next round's input on the device, with no host round trip.
+
+        ``toks`` (B,) int32, each row's last sampled token, written at
+        ``starts[r]`` in round 0; ``tables`` (B, MAXB) must already cover
+        positions ``starts .. starts+k-1`` (all-zero rows are padding whose
+        writes land in trash block 0). Each round computes what the ragged
+        decode round computes per row, at the same (B, 1) shape, so ``k``
+        fused rounds give ``k`` single steps' tokens.
+
+        ``sampling``: None for plain argmax, else the per-row
+        ``(seeds, temps, top_ks, top_ps, bias)`` with (B, V) ``bias``;
+        round j selects under the key of absolute position ``starts + j +
+        1``. ``keys`` (k, B, 2), when given, are those keys precomputed
+        (the engine derives them on the host); ``sampled`` is the host's
+        decision that some row samples (None: read ``temps``). Returns
+        (B, k) int32 tokens; the pool is written in place."""
+        seeds, temps, top_ks, top_ps, bias = sampling or (None,) * 5
+        t, pos, ys = toks, starts, []
+        for j in range(int(k)):
+            lg = self.forward_paged(params, t[:, None], kv_pool, tables, pos)
+            t = sample_or_argmax(lg, seeds, pos + 1, temps, top_ks, top_ps, bias=bias,
+                                 keys=None if keys is None else keys[j], sampled=sampled)
+            ys.append(t)
+            pos = pos + 1
+        return torch.stack(ys, dim=1)
+
+    def verify_paged_multi(self, params, kv_pool, segs, tables, starts, sampling=None,
+                           keys=None, sampled=None):
+        """Speculative verification against the blocked pool
+        (``transformer.py:1151``): B rows' K-token segments (the last
+        sampled token, then K-1 drafts) as B·K length-1 rows of one
+        :meth:`forward_paged`, each row with its sequence's table and
+        position ``starts + j``. The segment's K/V are written before
+        attention, so position j reads positions < j of the same dispatch.
+        Output ``[r, j]`` is the selection after ``segs[r, :j+1]``, under
+        the key of position ``starts[r] + j + 1`` for a sampled row.
+
+        ``sampling`` as in :meth:`decode_paged_multi`, per row and repeated
+        over the row's K positions; ``keys`` (B, K, 2) precomputed. Returns
+        (B, K) int32."""
+        B, K = segs.shape
+        ids = segs.reshape(B * K, 1)
+        tab = tables.repeat_interleave(K, dim=0)
+        pos = (starts[:, None] + torch.arange(K, dtype=starts.dtype,
+                                              device=starts.device)).reshape(B * K)
+        lg = self.forward_paged(params, ids, kv_pool, tab, pos)
+        if sampling is not None:
+            sampling = tuple(a.repeat_interleave(K, dim=0) for a in sampling)
+        seeds, temps, top_ks, top_ps, bias = sampling or (None,) * 5
+        ys = sample_or_argmax(lg, seeds, pos + 1, temps, top_ks, top_ps, bias=bias,
+                              keys=None if keys is None else keys.reshape(B * K, 2),
+                              sampled=sampled)
+        return ys.reshape(B, K)
+
+    def draft_greedy(self, params, window, n_valid: int, k: int):
+        """Greedy ``k``-token continuation for a draft model
+        (``transformer.py:1204``): ``k`` rounds of the full-window
+        :meth:`logits` over ``window`` (W,) int32, right-padded past
+        ``n_valid`` and position-rebased (the context tail starts at
+        position 0), each round's argmax at the last valid position written
+        into the window on the device. The caller guarantees ``n_valid + k
+        <= W``. Returns the (k,) drafted tokens on ``window``'s device."""
+        win, ys = window.clone(), []
+        for j in range(int(k)):
+            lg = self.logits(params, win[None, :])[0]  # (W, V)
+            nxt = torch.argmax(lg[n_valid + j - 1], dim=-1).to(win.dtype)
+            win[n_valid + j] = nxt
+            ys.append(nxt)
+        return torch.stack(ys)
+
     # ------------------------------------------------------------------
     # training and evaluation: the full sequence, no cache
     # ------------------------------------------------------------------
@@ -543,43 +619,25 @@ def _host_any_positive(temps) -> bool:
     return bool((np.asarray(temps) > 0).any())
 
 
-def sample_or_argmax(lg, seeds=None, positions=None, temps=None, top_ks=None,
-                     top_ps=None):
-    """Per-row token selection shared by greedy and sampled serving
-    (``transformer.py:1233``): a row with ``temps[r] == 0`` takes plain
-    argmax (the first index on ties, as ``jnp.argmax``); a row with
-    ``temps[r] > 0`` draws one categorical sample from the
-    temperature/top-k/top-p-shaped distribution under the counter-based key
-    ``fold_in(PRNGKey(seeds[r]), positions[r])`` (``utils.prng``, bit for
-    bit jax's threefry). ``positions`` is the produced token's 0-based
-    absolute index over prompt + generated, so a replay that re-feeds the
-    committed history lands on the same (seed, position) keys and draws
-    the same tokens. A sampled row is drawn on ``lg``'s device.
+def row_keys(seeds, positions) -> torch.Tensor:
+    """The counter-based keys ``fold_in(PRNGKey(seeds), positions)``,
+    (..., 2) int64 words, computed where ``seeds`` and ``positions`` live
+    (the engine passes host arrays: the hash's ~170 ops on a few words cost
+    no launch there). Exact integer arithmetic, so the bits do not depend on
+    the device."""
+    return prng.fold_in(prng.PRNGKey(torch.as_tensor(seeds)), torch.as_tensor(positions))
 
-    Where the JAX package skips the sampling arithmetic with a ``lax.cond``
-    on the device, this decides on the host from ``temps`` (a numpy array
-    from the engine: no sync), so a step whose rows are all greedy launches
-    the argmax alone. The sampled rows' arithmetic is batched over the
-    (R, V) block: one descending sort of the scaled rows serves the top-k
-    threshold (the ``top_ks``-th value) and the top-p mass (``softmax`` of
-    the sorted rows before the top-k mask, the first entry always kept).
 
-    ``lg`` (R, V) logits (bias already added by the caller); the per-row
-    arguments (R,) as numpy arrays or tensors: ``seeds``, ``positions``,
-    ``top_ks`` integers, ``temps``, ``top_ps`` float32. ``temps=None``
-    means every row is greedy. Returns (R,) int32 token ids on ``lg``'s
-    device."""
+def select_sampled(lg, temps, top_ks, top_ps, keys):
+    """The sampled branch of :func:`sample_or_argmax` on (R, V) ``lg``, all
+    on ``lg``'s device: ``temps``/``top_ps`` (R,) floats, ``top_ks`` (R,)
+    integers, ``keys`` (R, 2) key words (int64, or int32 holding the uint32
+    bits). Rows with ``temps == 0`` take plain argmax. Launches no host
+    copy and reads nothing back, so it can run inside a captured step."""
     greedy = torch.argmax(lg, dim=-1).to(torch.int32)
-    if temps is None or not _host_any_positive(temps):
-        return greedy
-    dev = lg.device
-
-    def rows(a, dtype):
-        return torch.as_tensor(a).to(device=dev, dtype=dtype)
-
-    temps = rows(temps, torch.float32)
-    top_ks = rows(top_ks, torch.int64)[:, None]
-    top_ps = rows(top_ps, torch.float32)[:, None]
+    temps = temps.to(torch.float32)
+    top_ks = top_ks.to(torch.int64)[:, None]
+    top_ps = top_ps.to(torch.float32)[:, None]
     V = lg.shape[-1]
     sampled = temps > 0.0
     x = lg.float() / torch.where(sampled, temps, 1.0)[:, None]
@@ -591,15 +649,57 @@ def sample_or_argmax(lg, seeds=None, positions=None, temps=None, top_ks=None,
     keep[:, 0] = True  # the nucleus is never empty
     thr = torch.where(keep, srt, torch.inf).amin(dim=-1, keepdim=True)
     x = torch.where((top_ps < 1.0) & (x < thr), -torch.inf, x)
-    # the (R, 2) keys are derived where the seeds and positions live (on the
-    # host for the engine's numpy rows: the hash's ~170 ops on R words cost
-    # no launch there) and copied once; the (R, V) draw runs on lg's device.
-    # Both are exact integer arithmetic, so the keys' bits do not depend on
-    # where they were made.
-    keys = prng.fold_in(prng.PRNGKey(torch.as_tensor(seeds)),
-                        torch.as_tensor(positions)).to(dev)
-    tok = prng.categorical(keys, x).to(torch.int32)
+    tok = prng.categorical(keys.to(torch.int64) & 0xFFFFFFFF, x).to(torch.int32)
     return torch.where(sampled, tok, greedy)
+
+
+def sample_or_argmax(lg, seeds=None, positions=None, temps=None, top_ks=None,
+                     top_ps=None, *, bias=None, keys=None, sampled=None):
+    """Per-row token selection shared by greedy and sampled serving
+    (``transformer.py:1233``), and the one the engine's step programs run:
+    a row with ``temps[r] == 0`` takes plain argmax (the first index on
+    ties, as ``jnp.argmax``); a row with ``temps[r] > 0`` draws one
+    categorical sample from the temperature/top-k/top-p-shaped distribution
+    under the counter-based key ``fold_in(PRNGKey(seeds[r]), positions[r])``
+    (``utils.prng``, bit for bit jax's threefry). ``positions`` is the
+    produced token's 0-based absolute index over prompt + generated, so a
+    replay that re-feeds the committed history lands on the same (seed,
+    position) keys and draws the same tokens. A sampled row is drawn on
+    ``lg``'s device.
+
+    Where the JAX package skips the sampling arithmetic with a ``lax.cond``
+    on the device, this decides on the host, so a step whose rows are all
+    greedy launches the argmax alone: ``sampled`` is that decision, read
+    from ``temps`` when None (a numpy array from the caller: no sync). The
+    sampled rows' arithmetic is batched over the (R, V) block
+    (:func:`select_sampled`): one descending sort of the scaled rows serves
+    the top-k threshold (the ``top_ks``-th value) and the top-p mass
+    (``softmax`` of the sorted rows before the top-k mask, the first entry
+    always kept).
+
+    ``lg`` (R, V) logits; ``bias`` (R, V), when given, is added first (the
+    engine's logit-bias rows); the per-row arguments (R,) as numpy arrays or
+    tensors: ``seeds``, ``positions``, ``top_ks`` integers, ``temps``,
+    ``top_ps`` float32. ``temps=None`` means every row is greedy. ``keys``
+    (R, 2), when given, are the rows' keys already derived (the engine
+    derives them on the host and stages them with the step's inputs, so
+    with tensors on ``lg``'s device the call copies nothing and can run
+    inside a captured step); else they come from ``seeds`` and
+    ``positions``. Returns (R,) int32 token ids on ``lg``'s device."""
+    if bias is not None:
+        lg = lg + bias
+    if sampled is None:
+        sampled = temps is not None and _host_any_positive(temps)
+    if not sampled:
+        return torch.argmax(lg, dim=-1).to(torch.int32)
+    dev = lg.device
+
+    def rows(a):
+        return torch.as_tensor(a).to(device=dev)
+
+    if keys is None:
+        keys = row_keys(seeds, positions)
+    return select_sampled(lg, rows(temps), rows(top_ks), rows(top_ps), rows(keys))
 
 
 def build_model(preset: str, **overrides) -> TransformerLM:

@@ -43,11 +43,14 @@ import functools
 import torch
 
 from .woq import PACK_UNIT, _dequant_leaf, group_of
+from ..launch_counters import register as _register_counters
 
 #: kernel launches made by :func:`woq_matmul` (CUDA tensors only)
 launches = 0
 #: those of them that ran a many-rows kernel (``mma`` or ``fma``: prefill)
 tiled_launches = 0
+
+_register_counters(globals(), "launches", "tiled_launches")
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _KINDS = {"gemv": 0, "fma": 1, "mma": 2}

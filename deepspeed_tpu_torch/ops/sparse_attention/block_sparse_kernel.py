@@ -45,11 +45,14 @@ import torch
 
 from ..transformer import flash_attention as fa
 from ..transformer.flash_attention import NEG_INF
+from ..launch_counters import register as _register_counters
 
 #: kernel launches made by :func:`block_sparse_attention_fwd` (CUDA tensors only)
 fwd_launches = 0
 #: calls of :func:`block_sparse_attention_bwd` that launched its kernels
 bwd_launches = 0
+
+_register_counters(globals(), "fwd_launches", "bwd_launches")
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _TILE = 64  # the kernels' largest tile: a layout block is walked as whole tiles

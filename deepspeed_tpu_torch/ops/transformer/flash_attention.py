@@ -32,6 +32,7 @@ from typing import Optional
 import torch
 
 from .attention import register_impl
+from ..launch_counters import register as _register_counters
 
 NEG_INF = -1e30
 
@@ -39,6 +40,8 @@ NEG_INF = -1e30
 fwd_launches = 0
 #: calls of :func:`flash_attention_bwd` that launched its kernels
 bwd_launches = 0
+
+_register_counters(globals(), "fwd_launches", "bwd_launches")
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _KERNEL_HEAD_DIMS = (32, 64, 128, 256)

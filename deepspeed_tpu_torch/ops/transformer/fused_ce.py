@@ -45,10 +45,14 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 
+from ..launch_counters import register as _register_counters
+
 #: calls of :func:`fused_ce_fwd` that launched its kernels (CUDA tensors only)
 fwd_launches = 0
 #: calls of :func:`fused_ce_bwd` that launched its kernels (CUDA tensors only)
 bwd_launches = 0
+
+_register_counters(globals(), "fwd_launches", "bwd_launches")
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_H = 8192           # fused_ce.py:233

@@ -37,11 +37,14 @@ from typing import List, Optional, Tuple
 import torch
 
 from .attention import xla_attention
+from ..launch_counters import register as _register_counters
 
 NEG_INF = -1e30
 
 #: kernel launches made by :func:`paged_decode_attention` (CUDA tensors only)
 launches = 0
+
+_register_counters(globals(), "launches")
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _KERNEL_HEAD_DIMS = (32, 64, 128, 256)

@@ -2,12 +2,11 @@
 
 A copy of ``deepspeed_tpu/serve/scheduler.py`` for the port, which imports nothing
 of the JAX package; the text below is the JAX module's. The port's engine
-runs the synchronous schedule at horizon 1 (``_decode_sync``) with chunked
-or monolithic prefill; the options whose engine calls are not ported yet
-(a decode horizon above 1, a draft proposer, pipelined dispatch, swap
-preemption, a host or NVMe KV tier) raise ``NotImplementedError`` naming
-their ROADMAP.md item at construction, before any request is taken. The
-drain in ``close()`` waits for the card with ``torch.cuda.synchronize``
+runs every schedule here (the fused decode horizon, speculative
+verification, pipelined dispatch) except those whose engine calls are not
+ported yet: swap preemption and a host or NVMe KV tier raise
+``NotImplementedError`` naming their ROADMAP.md item at construction, before
+any request is taken. The drain in ``close()`` waits for the card with ``torch.cuda.synchronize``
 where the JAX package blocks on the pool.
 
 The engine exposes the mechanism (``put`` / ``decode_step`` / ``flush`` /
@@ -127,24 +126,13 @@ from .speculation import DraftProposer, SpecPolicy
 from .tenancy import TenantRegistry
 
 
-#: the ROADMAP.md items that lift each unported scheduler option
-_HORIZON_ITEM = ("ROADMAP.md Queue 1 item 6, the fused decode horizon (with item 5's "
-                 "decode_multi)")
-_SPEC_ITEM = ("ROADMAP.md Queue 1 item 6, speculative decoding (with item 5's "
-              "verify_multi)")
-_PIPE_ITEM = ("ROADMAP.md Queue 1 item 6, pipelined dispatch (with item 5's "
-              "decode_dispatch and commit_step)")
+#: the ROADMAP.md item that lifts the unported scheduler options
 _TIER_ITEM = "ROADMAP.md Queue 1 item 9, KV tiers and swap"
 
 
-def _check_ported(engine, decode_horizon, proposer, pipelined, swap_preemption) -> None:
+def _check_ported(engine, swap_preemption) -> None:
     """Raise for a constructor option whose engine calls the port lacks."""
-    horizon = (decode_horizon if decode_horizon is not None
-               else getattr(engine, "decode_horizon", 1))
     unported = (
-        (horizon != 1, f"decode_horizon={horizon}", _HORIZON_ITEM),
-        (proposer is not None, "a draft proposer (speculative decoding)", _SPEC_ITEM),
-        (pipelined, "pipelined=True", _PIPE_ITEM),
         (swap_preemption is True, "swap_preemption=True", _TIER_ITEM),
         (bool(getattr(engine, "host_tier_blocks", 0)
               or getattr(engine, "nvme_tier_blocks", 0)),
@@ -212,7 +200,7 @@ class ContinuousBatchScheduler:
                  deadline_guard: bool = False,
                  pipelined: bool = False,
                  tenancy: Optional[TenantRegistry] = None):
-        _check_ported(engine, decode_horizon, proposer, pipelined, swap_preemption)
+        _check_ported(engine, swap_preemption)
         self.engine = engine
         #: multi-tenant QoS (docs/SERVING.md "Multi-tenant QoS"): when a
         #: :class:`TenantRegistry` is attached, every submit must name a

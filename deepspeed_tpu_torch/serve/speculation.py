@@ -2,7 +2,9 @@
 (docs/SERVING.md).
 
 A copy of ``deepspeed_tpu/serve/speculation.py`` for the port, which imports nothing
-of the JAX package; the text below is the JAX module's.
+of the JAX package; the text below is the JAX module's, except that
+:class:`DraftModelProposer` runs the port's ``draft_greedy`` on torch tensors
+on the draft weights' device (the flash forward kernel on the card).
 
 Speculative decoding splits every decode round into a cheap **draft** and a
 batched **verify**: a proposer guesses the next ``k`` tokens, the target
@@ -37,7 +39,11 @@ nothing is accepted, so it must switch itself off.
 
 from typing import Callable, Dict, List, Sequence
 
+import numpy as np
+import torch
+
 from ..utils.logging import logger
+from ..utils.tree import tree_leaves
 
 
 class DraftProposer:
@@ -107,17 +113,44 @@ class PromptLookupProposer(DraftProposer):
 
 
 class DraftModelProposer(DraftProposer):
-    """A small ``TransformerLM`` drafting ``k`` tokens with one fused greedy
-    scan (``draft_greedy``) in the JAX package. The port's model has no
-    ``draft_greedy`` and its engine no ``verify_multi`` yet, so this raises
-    at construction."""
+    """A small ``TransformerLM`` drafts ``k`` tokens with one greedy loop
+    (``draft_greedy``) over a fixed ``window``-token, position-rebased
+    context tail — one shape regardless of context length or the adaptive
+    budget (the loop always drafts ``max_draft`` tokens; the host slices).
+    Draft quality degrades on rebasing long contexts; the verifier makes
+    that a throughput concern only. Runs on the device of ``params`` (for
+    ``params=None``, weights drawn on ``device`` from seed 0)."""
 
     def __init__(self, model, params=None, *, window: int = 64,
-                 max_draft: int = 8):
-        raise NotImplementedError(
-            "DraftModelProposer (a draft model's fused greedy scan) is not "
-            "ported to deepspeed_tpu_torch (ROADMAP.md Queue 1 item 5, the "
-            "rest of the paged engine)")
+                 max_draft: int = 8, device="cuda"):
+        from ..accelerator import resolve_device
+
+        if max_draft >= window:
+            raise ValueError(f"max_draft {max_draft} must leave context "
+                             f"room in window {window}")
+        self.model = model
+        if params is None:
+            params = model.init_params(
+                torch.Generator(device=resolve_device(device)).manual_seed(0))
+        self.params = params
+        self.window = window
+        self.max_draft = max_draft
+        self._win = np.zeros((window,), np.int32)  # reused host scratch
+        self._device = next(tree_leaves(params)).device
+
+    def propose(self, uid: int, context: Sequence[int],
+                k: int) -> List[int]:
+        if k <= 0 or not context:
+            return []
+        keep = min(len(context), self.window - self.max_draft)
+        self._win.fill(0)
+        self._win[:keep] = context[len(context) - keep:]
+        ys = self.model.draft_greedy(self.params, torch.from_numpy(self._win).to(self._device),
+                                     keep, self.max_draft)
+        # one copy per draft round: the draft tokens must reach the host to
+        # enter verify_multi's staged segments
+        ys = ys.cpu().numpy()
+        return [int(t) for t in ys[:k]]
 
 
 class SpecPolicy:

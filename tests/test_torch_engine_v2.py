@@ -136,8 +136,8 @@ def test_block_tables_and_stats_match_jax(models, jax_logits_run):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(decode_horizon=2), "item 5"),
-    (dict(paged=False), "item 5"),
+    (dict(nvme_tier_blocks=4, nvme_tier_dir="nvme"), "item 9"),
+    (dict(paged=False), "item 5c"),
     (dict(host_tier_blocks=4), "item 9"),
 ])
 def test_unported_options_raise_naming_roadmap_item(models, kwargs, item):

@@ -22,7 +22,8 @@ priority preemption and re-admission (greedy and sampled), sampled streams,
 stop sequences, logit bias, fan-out and a dynamic logit processor, cancel,
 deadline expiry and queue-full backpressure, engine loss through a stub that
 raises ``UnrecoverableEngineError`` once, two tenants with cache quotas, the
-``NotImplementedError`` of each unported option, and ``DSTPU_SANITIZE=1``.
+``NotImplementedError`` of each option still unported (swap, KV tiers, slot
+mode), and ``DSTPU_SANITIZE=1``.
 """
 
 import jax
@@ -400,19 +401,19 @@ def test_two_tenants_with_cache_quotas(models):
 # --------------------------------------------------------------------------
 # unported options and checked mode
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(decode_horizon=4), "item 6, the fused decode horizon"),
-    (dict(proposer=ts.PromptLookupProposer()), "item 6, speculative decoding"),
-    (dict(pipelined=True), "item 6, pipelined dispatch"),
-    (dict(swap_preemption=True), "item 9"),
+@pytest.mark.parametrize("call,item", [
+    (lambda eng, models: eng.swap_in(1), "item 9"),
+    (lambda eng, models: eng.export_swap(1), "item 9"),
+    (lambda eng, models: engine("torch", models, paged=False), "item 5c"),
+    (lambda eng, models: ts.ContinuousBatchScheduler(eng, swap_preemption=True), "item 9"),
 ])
-def test_unported_options_raise_at_construction(models, kwargs, item):
+def test_unported_options_raise_at_construction(models, call, item):
     eng = engine("torch", models)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-        ts.ContinuousBatchScheduler(eng, **kwargs)
+        call(eng, models)
     assert not eng.state.seqs
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ts.DraftModelProposer(None)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        eng.import_swap(1, {})
 
 
 def test_engine_with_a_tier_raises_at_construction(models):
