@@ -10,6 +10,10 @@ events behind a sleep kernel, the median of 25 after 5 warm-ups):
 
 - the flash forward and backward at the training shape (B 2, S 2048, 32
   heads, head_dim 128, bf16, causal);
+- where the checkout's forward takes row offsets, the slot forward at
+  ``chip_smoke.py``'s ``SLOT_CASES`` (phase 8: a decode call, a 256-row chunk
+  at offset 256, a 16-row bucket; bf16, llama-7b's heads over an 8-slot,
+  4096-token cache), ``slot_<case>_ms``;
 - where the checkout has them, the block-sparse forward and backward at the
   sparse path's shape (1, 8192, 32, 128) over the Fixed layout;
 - where the checkout has them, the fused-CE forward (with the residual) and
@@ -36,6 +40,7 @@ OLD and NEW times (the mean of each side's two turns). Nothing is checked
 against a reference here: ``chip_smoke.py`` does that.
 """
 
+import inspect
 import json
 import os
 import subprocess
@@ -69,6 +74,14 @@ def turn(root):
     out["flash_fwd_ms"] = cs.time_cuda(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
     out["flash_bwd_ms"] = cs.time_cuda(
         lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True))
+    del q, k, v, do
+    if "kv_rows" in inspect.signature(fa.flash_attention_fwd).parameters:
+        for label, B, Sq, offs, rows in cs.SLOT_CASES:
+            q, k, v, off, kr = cs.slot_case(B, Sq, offs, rows, torch.bfloat16, dev, seed=3)
+            out[f"slot_{label.split()[0]}_ms"] = cs.time_cuda(
+                lambda: fa.flash_attention_fwd(q, k, v, q_offset=off, kv_rows=kr))
+            del q, k, v
+        torch.cuda.empty_cache()
     if os.path.isdir(os.path.join(root, "deepspeed_tpu_torch", "ops", "sparse_attention")):
         from deepspeed_tpu_torch.ops.sparse_attention import block_sparse_kernel as bs
 

@@ -102,6 +102,40 @@ in order; any failure exits non-zero and prints no result:
    ``{"horizon_summary": ...}`` line gives the card, host and device ms a
    decode step eager and captured, tokens/s, TTFT and TPOT a mode,
    acceptance, the graph counts and launches.
+8. slot mode on phase 4's weights (shared): (a) the flash forward with
+   per-row offsets and kv rows (llama-7b's heads over an 8-slot, 4096-token
+   cache) against its plain version in bf16 and fp32: a decode call (8
+   rows, one query each, four live at offsets 36/299/999/2099 and four at
+   0), a 256-row chunk at offset 256 and a 16-row bucket, each call
+   repeated bitwise, and with zero offsets bitwise the forward without
+   them; (b) the decode and chunk calls timed with CUDA events beside the
+   plain version, SDPA with a boolean mask over the same cache rows and the
+   bound; (c) ``InferenceEngineV2`` with its defaults (slot mode, 8 slots,
+   4096 tokens) serving phase 4's traffic: flash forward launches = 32
+   layers x slot dispatches, the slot programs within the JAX engine's
+   bounds (32 a bucket, 2 decode), one captured graph a program, and the
+   streams equal to phase 7's paged run of the same traffic, turning only
+   where the slot engine's logits give a margin within 8 bf16 units (the
+   engines' GEMMs and attention kernels differ); the decode step replayed,
+   host clock and traced device time, the traced flash kernels = the
+   replays' counts; the memory reserved; a scheduler run over the slot
+   engine finishing every request; (e) at phase 3's size the slot engine
+   on the card against the CPU, fp32 logits at atol 1e-4. A
+   ``{"slot_summary": ...}`` line;
+9. the KV tiers on phase 4's weights: a paged engine with a 32-block pool
+   (1 GiB), a 32-block host tier and a 16-block NVMe tier in a temporary
+   directory (removed at the end), through
+   ``ContinuousBatchScheduler(swap_preemption=True)``: 12 prompts of 384
+   tokens (demotion and NVMe spills), the same prompts again newest first
+   (promotion from the host tier and loads from disk), then four decoding
+   requests and phase 6's priority-1000 arrival (swap-out, swap-in). Each
+   of demoted, promoted, NVMe spilled and loaded, swap-out and swap-in > 0;
+   every block that landed back (promotion, swap-in, an NVMe read) bitwise
+   the bytes it left with; the run again with ``transfer_overlap=False``
+   bitwise (streams, counters, the transfers submitted) and with preemption
+   by replay (streams equal but for turns at a near tie); the ledger
+   conserved. A ``{"tier_summary": ...}`` line gives the counters, the D2H
+   and H2D bandwidth EMAs (GB/s) and the milliseconds a swapped-in block.
 
 Then weight-only-quantized serving (the bf16 engine is freed first):
 
@@ -1335,7 +1369,8 @@ def woq_spec_vs_plain(dev):
 
 def horizon_phase(params, pa, fa, wq, dev, card):
     """Phase 7 on phase 4's weights (shared, not copied) with a new engine at
-    ``decode_horizon=4``, capture on."""
+    ``decode_horizon=4``, capture on. Returns the summary and the records
+    of phase 4's traffic replayed (phase 8 holds the slot engine to them)."""
     from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
     from deepspeed_tpu_torch.models import build_model
     from deepspeed_tpu_torch.serve import DraftModelProposer, PromptLookupProposer, SamplingParams
@@ -1474,6 +1509,527 @@ def horizon_phase(params, pa, fa, wq, dev, card):
         "graphs": counts,
     }
     log(f"phase 7 (f): step programs {counts}")
+    return summary, runs["replay"][0]
+
+
+# ---------------------------------------------------------------------------
+# phase 8: slot mode
+# ---------------------------------------------------------------------------
+#: the offset kernel's cases at llama-7b's heads over an 8-slot, 4096-token
+#: cache: label, rows, query rows a row, offsets, kv rows (None: row b)
+SLOT_CASES = (
+    ("decode", 8, 1, (36, 299, 999, 2099, 0, 0, 0, 0), None),
+    ("256-row chunk at offset 256", 1, 256, (256,), (3,)),
+    ("16-row bucket", 2, 16, (0, 1000), (5, 1)),
+)
+
+
+def slot_case(B, Sq, offs, rows, dtype, dev, seed=0):
+    """q (B, Sq, 32, 128), a slot cache (8, 4096, 32, 128) for K and for V
+    from a seeded generator, and the offsets and kv rows on the card."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((B, Sq, 32, 128), (8, 4096, 32, 128), (8, 4096, 32, 128)))
+    off = torch.tensor(offs, dtype=torch.int32, device=dev)
+    kr = None if rows is None else torch.tensor(rows, dtype=torch.int32, device=dev)
+    return q, k, v, off, kr
+
+
+def slot_kernels_vs_plain(fa, dev):
+    """Phase 8 (a): the flash forward with per-row offsets and kv rows
+    against its plain version, bf16 and fp32, each call repeated bitwise;
+    with zero offsets, bitwise the forward without them (phase a's path)."""
+    worst = 0.0
+    for label, B, Sq, offs, rows in SLOT_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, off, kr = slot_case(B, Sq, offs, rows, dtype, dev)
+            out, lse = fa.flash_attention_fwd(q, k, v, q_offset=off, kv_rows=kr)
+            again = fa.flash_attention_fwd(q, k, v, q_offset=off, kv_rows=kr)
+            check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+                  f"slot {label} {dtype}: a repeated offset forward is not bitwise equal")
+            ref, ref_lse = fa.flash_attention_plain(q, k, v, q_offset=off, kv_rows=kr)
+            err = max(compare(out, ref, dtype), compare(lse, ref_lse, dtype))
+            kk, vv = (k, v) if kr is None else (k[kr.long()].contiguous(),
+                                                v[kr.long()].contiguous())
+            base = fa.flash_attention_fwd(q, kk, vv)
+            zero = fa.flash_attention_fwd(q, kk, vv, q_offset=torch.zeros_like(off))
+            check(torch.equal(base[0], zero[0]) and torch.equal(base[1], zero[1]),
+                  f"slot {label} {dtype}: zero offsets differ from the forward without them")
+            worst = max(worst, err)
+            log(f"kernel vs plain: flash forward with row offsets, {label} (B={B} Sq={Sq} "
+                f"offsets {list(offs)} rows {rows}) {str(dtype)[6:]}: max_abs_err {err:.3g}, "
+                "bitwise repeatable, zero offsets bitwise the plain causal call ok")
+            del q, k, v, ref
+    return worst
+
+
+def slot_timing(fa, dev):
+    """Phase 8 (b): the offset forward at the decode and chunk shapes, CUDA
+    events, beside its plain version, SDPA with a boolean mask over the same
+    cache rows (copied to (B, heads, T, hd) beforehand) and the bound."""
+    import torch.nn.functional as F
+
+    out = {}
+    for label, B, Sq, offs, rows in SLOT_CASES[:2]:
+        dtype = torch.bfloat16
+        q, k, v, off, kr = slot_case(B, Sq, offs, rows, dtype, dev, seed=3)
+        kw = dict(q_offset=off, kv_rows=kr)
+        res, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        ref = fa.flash_attention_plain(q, k, v, **kw)[0]
+        err = compare(res, ref, dtype)
+        ms = time_cuda(lambda: fa.flash_attention_fwd(q, k, v, **kw))
+        plain_ms = time_cuda(lambda: fa.flash_attention_plain(q, k, v, **kw), warmup=2, iters=5)
+        idx = torch.arange(B, device=dev) if kr is None else kr.long()
+        Skv = k.shape[1]
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k[idx], v[idx]))
+        mask = (torch.arange(Skv, device=dev)[None, None, :]
+                <= torch.arange(Sq, device=dev)[None, :, None] + off.long()[:, None, None])
+        mask = mask[:, None]  # (B, 1, Sq, Skv)
+        lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        compare(lib.transpose(1, 2), ref, dtype)
+        library_ms = time_cuda(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                      attn_mask=mask))
+        # the bound: each row's visible keys (offset + Sq of them) read once for
+        # K and V, q and the output moved once, lse written; the products over
+        # the visible (query, key) pairs at the bf16 peak
+        elt, nh, kvh, hd = q.element_size(), q.shape[2], k.shape[2], q.shape[3]
+        keys = sum(min(Skv, o + Sq) for o in offs)
+        pairs = sum(Sq * o + Sq * (Sq + 1) // 2 for o in offs)
+        nbytes = (2 * keys * kvh * hd * elt + 2 * q.numel() * elt + lse.numel() * 4
+                  + 4 * B * (1 if kr is None else 2))
+        flops = 4 * pairs * nh * hd
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+        out[label] = {"B": B, "Sq": Sq, "offsets": list(offs), "max_abs_err": err, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                      "library_ms": library_ms, "bytes": nbytes, "flops": flops}
+        log(f"flash forward with row offsets, {label}: {ms:.4f} ms (plain {plain_ms:.4f}, "
+            f"masked SDPA {library_ms:.4f}, bound {max(t_bytes, t_ops):.4f} by "
+            f"{out[label]['bound_by']})")
+        del q, k, v, qt, kt, vt, ref
+    return out
+
+
+def slot_traffic(engine, prompts, arrival, decode_steps, stats=None):
+    """Phase 4's traffic through a slot engine: ``put`` returns logits (the
+    slot prefill path), whose argmax is fed; ``decode_step`` selects on the
+    card. Records as ``serve``'s: {uid: token} a call."""
+    records = []
+    out = engine.put(list(prompts), [list(p) for p in prompts.values()])
+    toks = {u: int(np.argmax(v)) for u, v in sorted(out.items())}
+    records.append(dict(toks))
+    uid = max(prompts)
+    for step in range(decode_steps):
+        feed = dict(toks)
+        if step in (4, 8):
+            uid += 1
+            arrived = engine.put([uid], [list(arrival)])
+            got = {u: int(np.argmax(v)) for u, v in arrived.items()}
+            records.append(dict(got))
+            feed.update(got)
+        t0 = time.perf_counter()
+        toks = engine.decode_step(feed, greedy=True)
+        if stats is not None:
+            stats.setdefault("decode_s", []).append(time.perf_counter() - t0)
+        records.append(dict(toks))
+    return records
+
+
+def streams_of(records, prompts, arrival):
+    """Each uid's (context, tokens) from ``serve``-style records."""
+    out = {}
+    for rec in records:
+        for u, t in rec.items():
+            out.setdefault(u, []).append(int(t))
+    return {u: (list(prompts[u]) if u in prompts else list(arrival), toks)
+            for u, toks in out.items()}
+
+
+def turns_at_near_ties(engine, got, want, what):
+    """Streams ``got`` against ``want`` ({uid: (context, tokens)}): where
+    one turns, ``engine``'s own logits at that position (``put`` from a
+    rebuilt engine) must give a top-2 margin within 8 bf16 units of the top
+    logit. Returns the turns."""
+    from deepspeed_tpu_torch.utils import prng
+
+    found = []
+    for u, (ctx, w) in want.items():
+        g = got[u][1]
+        i = next((k for k, (a, b) in enumerate(zip(w, g)) if a != b), None)
+        if i is None:
+            check(len(g) == len(w), f"{what}: uid {u} streams of different lengths")
+            continue
+        context = list(ctx) + w[:i]
+        engine.rebuild()
+        lg = engine.put([1], [context])[1]
+        lg = torch.from_numpy(np.asarray(lg, np.float32))
+        engine.flush(1)
+        margin, _ = draw_margin(prng, lg, None, len(context))
+        limit = 8 * ulps_bf16(float(lg.abs().max()))
+        check(margin <= limit, f"{what}: uid {u} turns at token {i} where the margin is "
+              f"{margin:.4g} (> {limit:.3g}, 8 bf16 units)")
+        found.append({"uid": u, "token": i, "margin": margin})
+    return found
+
+
+def small_slot_vs_cpu(dev):
+    """Phase 8 (e): the slot programs at phase 3's size (head_dim 64, fp32)
+    on the card against the CPU, fp32 logits at atol 1e-4."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models import build_model
+
+    model = build_model("llama-tiny", vocab_size=1024, num_layers=2, intermediate_size=512,
+                        max_seq_len=512, hidden_size=256, num_heads=4, num_kv_heads=2)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    opts = dict(dtype=torch.float32, max_seqs=4, prefill_chunk=64)
+    rng = np.random.default_rng(1)
+    prompts = {1: rng.integers(0, 1024, 20), 2: rng.integers(0, 1024, 150)}
+    arrival = rng.integers(0, 1024, 48)
+    ref, fed = serve(InferenceEngineV2(model, params, device="cpu", **opts),
+                     prompts, arrival, 12, greedy=False)
+    card = InferenceEngineV2(model, params, device=dev, **opts)
+    got, _ = serve(card, prompts, arrival, 12, greedy=False, choices=fed)
+    worst = 0.0
+    for g, r in zip(got, ref):
+        check(sorted(g) == sorted(r), "card and CPU slot engines returned different uids")
+        for u in r:
+            err = float(np.abs(g[u] - r[u]).max())
+            check(np.isfinite(g[u]).all() and err <= 1e-4,
+                  f"slot uid {u}: card vs CPU logits differ by {err:.3g} (atol 1e-4)")
+            worst = max(worst, err)
+    check(card.captured_graphs > 0, "the small slot engine captured no graph")
+    log(f"slot engine on the card vs CPU (hd 64, fp32): {len(got)} calls, max_abs_err "
+        f"{worst:.3g}, {card.captured_graphs} graphs ok")
+    return worst
+
+
+def slot_phase(params, fa, dev, paged_records):
+    """Phase 8: slot mode. The kernel checks and timing, then
+    ``InferenceEngineV2(paged=False)`` with its defaults on phase 4's
+    weights (shared) serving phase 4's traffic: launches, programs within
+    the JAX engine's bounds, streams against phase 4's paged ones, the
+    decode step's host and device ms, memory; a scheduler run; the small
+    model card vs CPU."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.serve import ContinuousBatchScheduler
+
+    kernel_err = slot_kernels_vs_plain(fa, dev)
+    timing = slot_timing(fa, dev)
+    torch.cuda.empty_cache()
+    model = build_model("llama-7b")
+    cfg = model.config
+    torch.cuda.reset_peak_memory_stats()
+    engine = InferenceEngineV2(model, params, dtype=torch.bfloat16, device=dev)
+    check(not engine.paged and engine.max_seqs == 8 and engine.max_seq_len == 4096,
+          "the default engine is not an 8-slot, 4096-token slot engine")
+    check(all(engine.params["blocks"][k] is v for k, v in params["blocks"].items()),
+          "phase 8's engine copied phase 4's weights")
+    rng = np.random.default_rng(0)  # phase 4's prompts and arrival
+    prompts = {u: rng.integers(0, cfg.vocab_size, n)
+               for u, n in zip((1, 2, 3, 4), (37, 300, 1000, 2100))}
+    arrival = rng.integers(0, cfg.vocab_size, 640)
+    stats = {}
+    steps0 = engine.slot_steps
+    fa.fwd_launches = 0  # just before the slot path
+    records = slot_traffic(engine, prompts, arrival, 32, stats)
+    torch.cuda.synchronize()
+    launches, steps = fa.fwd_launches, engine.slot_steps - steps0
+    check(launches == cfg.num_layers * steps and launches > 0,
+          f"flash forward launched {launches} times in {steps} slot dispatches")
+    prefill, decode = engine._slot_program_counts()
+    check(max(prefill.values()) <= 32 and decode <= 2,
+          f"slot programs past the JAX engine's bounds (32 a bucket, 2): {prefill}, {decode}")
+    graphs = engine.captured_graphs
+    check(graphs == sum(prefill.values()) + decode,
+          f"{graphs} graphs for {sum(prefill.values())} prefill and {decode} decode keys")
+    tokens = [t for rec in records for t in rec.values()]
+    check(all(0 <= t < cfg.vocab_size for t in tokens), "a token lies outside [0, vocab)")
+    # the same traffic's paged streams (phase 7's run of phase 4's traffic)
+    turns = turns_at_near_ties(engine, streams_of(records, prompts, arrival),
+                               streams_of(paged_records, prompts, arrival), "slot vs paged")
+    log(f"phase 8 (c): slot engine served phase 4's traffic, {len(tokens)} tokens, flash "
+        f"forward launched {launches} times (= {cfg.num_layers} layers x {steps} slot "
+        f"dispatches); programs {prefill} + {decode} decode, {graphs} graphs; streams vs "
+        f"paged: {len(turns)} turn(s) at a near tie {turns}")
+    # the decode step, replayed: host clock and traced device time
+    engine.rebuild()
+    out = engine.put(list(prompts), [list(p) for p in prompts.values()])
+    toks = {u: int(np.argmax(v)) for u, v in out.items()}
+    for _ in range(2):
+        toks = engine.decode_step(toks, greedy=True)
+    torch.cuda.synchronize()
+    n0 = fa.fwd_launches
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(4):
+            toks = engine.decode_step(toks, greedy=True)
+        host_ms = (time.perf_counter() - t0) * 1e3 / 4
+    dev_us, ran = 0.0, 0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        if "spin_kernel" in e.key:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        dev_us += e.self_cuda_time_total if us is None else us
+        if "attn_fwd" in e.key:
+            ran += e.count
+    check(ran == fa.fwd_launches - n0 == 4 * cfg.num_layers,
+          f"decode replays: flash kernels run (trace) {ran}, counted {fa.fwd_launches - n0}, "
+          f"expected {4 * cfg.num_layers}")
+    reserved = torch.cuda.memory_reserved()
+    peak = torch.cuda.max_memory_allocated()
+    # the scheduler over the slot engine
+    engine.rebuild()
+    sched = ContinuousBatchScheduler(engine, age_weight=0.0)
+    steps0, n0 = engine.slot_steps, fa.fwd_launches
+    reqs = [sched.submit(list(p), max_new_tokens=16, uid=u) for u, p in prompts.items()]
+    reqs.append(sched.submit(list(arrival), max_new_tokens=16, uid=5))
+    sched.run_until_complete()
+    sched.close()
+    check(all(r.state.value == "done" and len(r.tokens) == 16 for r in reqs),
+          "the scheduler over the slot engine did not finish every request")
+    sched_launches = fa.fwd_launches - n0
+    check(sched_launches == cfg.num_layers * (engine.slot_steps - steps0),
+          "the scheduler's slot dispatches and flash launches disagree")
+    engine.kv = None
+    del engine
+    torch.cuda.empty_cache()
+    small_err = small_slot_vs_cpu(dev)
+    decode_ms = np.asarray(stats["decode_s"]) * 1e3
+    summary = {
+        "model": "llama-7b", "layers": cfg.num_layers, "dtype": "bfloat16",
+        "slots": 8, "max_seq_len": 4096, "kernel_max_abs_err": kernel_err,
+        "kernel_timing": timing, "flash_fwd_launches": launches,
+        "scheduler_flash_fwd_launches": sched_launches, "slot_dispatches": steps,
+        "prefill_programs": {str(k): v for k, v in prefill.items()},
+        "decode_programs": decode, "captured_graphs": graphs,
+        "decode_step_ms_median": float(np.median(decode_ms)),
+        "decode_step_replayed_host_ms": host_ms,
+        "decode_step_device_ms": dev_us / 1e3 / 4,
+        "memory_reserved_gib": reserved / 2**30, "max_memory_allocated_gib": peak / 2**30,
+        "turns_vs_paged": turns, "scheduler_requests": len(reqs),
+        "small_vs_cpu_max_abs_err": small_err,
+    }
+    log(f"phase 8: decode step host {host_ms:.3f} ms (replayed; median over the traffic "
+        f"{summary['decode_step_ms_median']:.3f}), device {summary['decode_step_device_ms']:.3f}"
+        f" ms; memory reserved {summary['memory_reserved_gib']:.2f} GiB, peak allocated "
+        f"{summary['max_memory_allocated_gib']:.2f} GiB")
+    return summary, launches + sched_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the KV tiers, swap preemption
+# ---------------------------------------------------------------------------
+#: phase 9's paged engine: a 32-block pool (1 GiB at llama-7b) under a
+#: 32-block host tier (pinned) and a 16-block NVMe tier; 1024-token slots
+#: keep the staging batch (a slot's blocks) at 16 blocks
+TIER_ENGINE = dict(paged=True, max_seqs=4, max_seq_len=1024, block_size=64, num_blocks=33,
+                   prefill_chunk=256, token_budget=256, host_tier_blocks=32,
+                   nvme_tier_blocks=16)
+
+
+def tier_traffic(engine, V, swap, seed=9):
+    """Phase 9's traffic through ``ContinuousBatchScheduler(swap_preemption=
+    swap)`` (preemption on, admission without its age term) on a fresh
+    engine: (1) 12 prompts of 384 distinct tokens, 4 new tokens each: their
+    72 full blocks overflow the pool's 32, so cached prefix blocks are
+    demoted to the host tier and, past its 32, spilled to NVMe; (2) the 12
+    prompts again with 16-token tails, newest first, whose prefix blocks hit
+    on the device, on the host tier and (the oldest) on disk; (3) four
+    300-token requests decoding 48
+    tokens and, once every slot decodes, phase 6's priority-1000 arrival,
+    which preempts one: by swap-out and swap-in with ``swap``, by replay
+    without. Returns the requests in a fixed order and the scheduler."""
+    from deepspeed_tpu_torch.serve import ContinuousBatchScheduler
+
+    rng = np.random.default_rng(seed)
+    first = [rng.integers(0, V, 384).tolist() for _ in range(12)]
+    sched = ContinuousBatchScheduler(engine, preemption=True, age_weight=0.0,
+                                     swap_preemption=swap)
+    reqs = [sched.submit(p, max_new_tokens=4, uid=100 + i) for i, p in enumerate(first)]
+    sched.run_until_complete()
+    reqs += [sched.submit(first[i] + rng.integers(0, V, 16).tolist(), max_new_tokens=4,
+                          uid=200 + i) for i in reversed(range(len(first)))]
+    sched.run_until_complete()
+    live = [sched.submit(rng.integers(0, V, 300).tolist(), max_new_tokens=48, uid=300 + i)
+            for i in range(4)]
+    while not all(r.tokens for r in live):
+        check(sched.step(), "phase 9: the scheduler ran dry before every request decoded")
+    vip = sched.submit(np.random.default_rng(6).integers(0, V, 100).tolist(), max_new_tokens=16,
+                       priority=1000, uid=400)
+    sched.run_until_complete()
+    sched.close()
+    return reqs + live + [vip], sched
+
+
+class TierProbe:
+    """Wraps phase 9's engine on the instance to hold the KV bytes a block
+    had when it left the pool (demotion, swap-out) against the bytes that
+    land back (promotion, swap-in; and a spilled block against what the
+    NVMe store reads back), bitwise. Each method takes the engine's own
+    function and returns its wrapper."""
+
+    def __init__(self, engine):
+        self.engine, self.snaps, self.spilled = engine, {}, {}
+        self.checked = {"promoted": 0, "swapped_in": 0, "nvme_loaded": 0}
+        for name in ("_demote_block", "swap_out", "_spill_block", "_load_block",
+                     "_scatter_blocks"):
+            setattr(engine, name, getattr(self, name.lstrip("_"))(getattr(engine, name)))
+
+    def demote_block(self, fn):
+        def call(block):
+            snap = self.engine._tier_gather(block)
+            t = fn(block)
+            self.snaps[id(t)] = (t, snap, "promoted")
+            return t
+        return call
+
+    def swap_out(self, fn):
+        def call(uid):
+            eng = self.engine
+            d = eng.state.seqs.get(uid)
+            snaps = [eng._tier_gather(b) for b in d.blocks] if d is not None else []
+            ok = fn(uid)
+            if ok:
+                for t, snap in zip(eng._swaps[uid][0], snaps):
+                    self.snaps[id(t)] = (t, snap, "swapped_in")
+            return ok
+        return call
+
+    def spill_block(self, fn):
+        def call(hid, payload):
+            entry = self.snaps.get(id(payload))
+            if entry is not None:
+                self.spilled[hid] = entry[1]
+            return fn(hid, payload)
+        return call
+
+    def load_block(self, fn):
+        def call(hid):
+            arr = fn(hid)
+            if arr is not None and hid in self.spilled:
+                check(torch.equal(arr.to(self.engine.device), self.spilled[hid]),
+                      f"NVMe block {hid}: the bytes read back differ from those spilled")
+                self.checked["nvme_loaded"] += 1
+            return arr
+        return call
+
+    def scatter_blocks(self, fn):
+        def call(payloads, dsts):
+            eng = self.engine
+            fn(payloads, dsts)
+            for p, d in zip(payloads, dsts):
+                entry = self.snaps.get(id(p))
+                if entry is not None:
+                    check(torch.equal(eng._tier_gather(d), entry[1]),
+                          f"pool block {d}: the bytes landed differ from those that left "
+                          f"({entry[2]})")
+                    self.checked[entry[2]] += 1
+                elif isinstance(p, torch.Tensor):
+                    check(torch.equal(eng._tier_gather(d).cpu(), p),
+                          f"pool block {d}: the bytes landed differ from the NVMe block")
+        return call
+
+
+def tier_phase(params, dev):
+    """Phase 9: phase 4's weights (shared) in a tiered paged engine
+    (``TIER_ENGINE``, the NVMe tier in a temporary directory removed at the
+    end) serving ``tier_traffic`` three times from fresh engines: swap
+    preemption with ``transfer_overlap`` on (the blocks' bytes probed), the
+    same with it off (bitwise the same streams, ledger and counters), and
+    preemption by replay (the same streams but for turns at a near tie)."""
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch.analysis.sanitizer import check_transfer_ledger
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models import build_model
+
+    model = build_model("llama-7b")
+    V = model.config.vocab_size
+    root = tempfile.mkdtemp(prefix="chip_smoke_nvme_")
+    runs = {}
+    try:
+        for name, overlap, swap in (("swap", True, True), ("swap_sync", False, True),
+                                    ("replay", True, False)):
+            engine = InferenceEngineV2(model, params, dtype=torch.bfloat16, device=dev,
+                                       transfer_overlap=overlap,
+                                       nvme_tier_dir=os.path.join(root, name), **TIER_ENGINE)
+            check(engine.host_tier_blocks == 32 and engine.nvme_tier_blocks == 16
+                  and engine.block_bytes == 32 * 2**20,
+                  f"phase 9's engine: tiers {engine.host_tier_blocks}/{engine.nvme_tier_blocks},"
+                  f" {engine.block_bytes} bytes a block")
+            probe = TierProbe(engine) if name == "swap" else None
+            t0 = time.perf_counter()
+            reqs, sched = tier_traffic(engine, V, swap)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(all(r.state.value == "done" for r in reqs), f"phase 9 ({name}): requests "
+                  f"not done: {[(r.uid, r.state.value) for r in reqs if not r.finished]}")
+            check_transfer_ledger(engine.transfer)
+            te = engine.transfer
+            runs[name] = {
+                "streams": {r.uid: (list(r.prompt), list(r.tokens)) for r in reqs},
+                "stats": engine.prefix_cache_stats(), "ledger": te.ledger(),
+                "nvme": dict(te.nvme.counters), "preemptions": sched.metrics.preemptions,
+                "readmit_s": list(sched.metrics.swap_readmit_s), "wall_s": wall,
+                "d2h_gb_per_s": 1e-9 / te.s_per_byte("d2h") if te.s_per_byte("d2h") else 0.0,
+                "h2d_gb_per_s": 1e-9 / te.s_per_byte("h2d") if te.s_per_byte("h2d") else 0.0,
+                "probe": dict(probe.checked) if probe else None,
+            }
+            if name != "replay":
+                engine.kv = None
+                del engine, probe
+                torch.cuda.empty_cache()
+        s, sync, replay = runs["swap"], runs["swap_sync"], runs["replay"]
+        st = s["stats"]
+        for key in ("demoted_blocks", "promoted_blocks", "nvme_spilled_blocks",
+                    "nvme_loaded_blocks", "swap_out", "swap_in"):
+            check(st[key] > 0, f"phase 9: {key} is {st[key]}")
+        for key, n in s["probe"].items():
+            check(n > 0, f"phase 9: no {key} block was held against its bytes")
+        check(sync["streams"] == s["streams"], "phase 9: overlap off changed the streams")
+        # the same transfers submitted; overlap off settles each at submit,
+        # so only its completed / in-flight split differs
+        check(sync["ledger"]["submitted"] == s["ledger"]["submitted"]
+              and sync["stats"] == s["stats"] and sync["nvme"] == s["nvme"],
+              f"phase 9: overlap off changed the ledger or counters: {s['ledger']} vs "
+              f"{sync['ledger']}")
+        check(replay["stats"]["swap_out"] == 0 and replay["preemptions"] >= 1,
+              "phase 9: the replay run swapped or did not preempt")
+        turns = turns_at_near_ties(engine, replay["streams"], s["streams"], "replay vs swap")
+        engine.kv = None
+        del engine
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    per_block_ms = sum(s["readmit_s"]) / st["swap_in_blocks"] * 1e3
+    summary = {
+        "model": "llama-7b", "dtype": "bfloat16", "engine": TIER_ENGINE,
+        "block_bytes": 32 * 2**20, "max_inflight_bytes": 32 * 2**20,
+        "counters": {k: st[k] for k in ("demoted_blocks", "promoted_blocks",
+                                        "nvme_spilled_blocks", "nvme_loaded_blocks",
+                                        "host_evicted_blocks", "swap_out", "swap_in",
+                                        "swap_in_blocks", "hits")},
+        "blocks_held_bitwise": s["probe"], "ledger": s["ledger"],
+        "ledger_overlap_off": sync["ledger"], "nvme": s["nvme"],
+        "d2h_gb_per_s": s["d2h_gb_per_s"], "h2d_gb_per_s": s["h2d_gb_per_s"],
+        "swap_in_ms_per_block": per_block_ms, "swap_in_s": s["readmit_s"],
+        "wall_s": {k: r["wall_s"] for k, r in runs.items()},
+        "overlap_off_bitwise": True, "replay_turns": turns,
+    }
+    log(f"phase 9: demoted {st['demoted_blocks']}, promoted {st['promoted_blocks']}, NVMe "
+        f"spilled {st['nvme_spilled_blocks']} / loaded {st['nvme_loaded_blocks']}, swap out "
+        f"{st['swap_out']} / in {st['swap_in']}; bytes held bitwise {s['probe']}; overlap off "
+        f"bitwise; replay vs swap {len(turns)} turn(s) at a near tie; D2H "
+        f"{s['d2h_gb_per_s']:.2f} GB/s, H2D {s['h2d_gb_per_s']:.2f} GB/s, swap-in "
+        f"{per_block_ms:.3f} ms a block")
     return summary
 
 
@@ -2492,11 +3048,16 @@ def main():
     log(json.dumps({"serve_summary": dict(
         card=smi.stdout.strip(), **serve_summary, sample_or_argmax=sampling,
         small_vs_cpu_excluded=small_excluded)}))
-    horizon = horizon_phase(params, pa, fa, wq, dev, smi.stdout.strip())
-    del params
+    horizon, paged_records = horizon_phase(params, pa, fa, wq, dev, smi.stdout.strip())
     torch.cuda.empty_cache()
     log(json.dumps({"horizon_summary": horizon}))
-    fa.fwd_launches = fa.bwd_launches = 0  # phase 7's draft model ran flash; WOQ serving must not
+    slot_summary, slot_launches = slot_phase(params, fa, dev, paged_records)
+    log(json.dumps({"slot_summary": dict(card=smi.stdout.strip(), **slot_summary)}))
+    tier_summary = tier_phase(params, dev)
+    log(json.dumps({"tier_summary": dict(card=smi.stdout.strip(), **tier_summary)}))
+    del params
+    torch.cuda.empty_cache()
+    fa.fwd_launches = fa.bwd_launches = 0  # phases 7-8 ran flash; WOQ serving must not
 
     woq_worst = woq_kernels_vs_plain(wq, dev)
     small_woq_vs_cpu(wq, dev)
@@ -2557,9 +3118,11 @@ def main():
              source="deepspeed_tpu_torch/csrc/paged_attention.cu",
              replaces="deepspeed_tpu/ops/transformer/paged_attention.py:76",
              launches=launches, **k),
+        # the training path's launches and the slot path's (phase 8); the
+        # times at the training shape, the slot shapes' on slot_summary
         dict(name="flash_attention_fwd", route="cuda", source=flash_src,
              replaces="deepspeed_tpu/ops/transformer/flash_attention.py:43",
-             launches=train_launches["fwd"], **fwd),
+             launches=train_launches["fwd"] + slot_launches, **fwd),
         dict(name="flash_attention_bwd", route="cuda", source=flash_src,
              replaces="deepspeed_tpu/ops/transformer/flash_attention.py:124",
              launches=train_launches["bwd"], **bwd),

@@ -9,9 +9,10 @@ between-steps and drain checks below. Violations raise
 loop's typed ``RuntimeError`` handling can never swallow one. With the
 variable unset everything here is dormant.
 
-The functions are copies of the JAX module's. Its checked
-``BlockedKVCache`` (``checked_cache_cls``) and the pool, tenancy, transfer
-and training checks come with ROADMAP.md Queue 1 item 10.
+The functions are copies of the JAX module's, with its TransferEngine
+ledger check (``check_transfer_ledger``). Its checked ``BlockedKVCache``
+(``checked_cache_cls``) and the pool, tenancy and training checks come with
+ROADMAP.md Queue 1 item 10.
 """
 
 import os
@@ -323,6 +324,57 @@ def check_tier_conservation(engine) -> None:
                             f"tokens (needs {need})")
     if problems:
         raise SanitizerError("[sanitizer] tier conservation violated: "
+                             + "; ".join(problems))
+
+
+def check_transfer_ledger(transfer) -> None:
+    """TransferEngine byte-ledger conservation, checked at every drain
+    boundary under ``DSTPU_SANITIZE`` (``sanitizer.py:528``):
+
+    - per direction, bytes **submitted == completed + cancelled + in
+      flight**;
+    - the in-flight byte count equals the sum over open tickets (and a
+      ticket in the open table is open);
+    - the engine's recorded violations (a staging buffer re-requested while
+      its ticket is open, a ``.value`` read without ``drain_before``) are
+      reported once and cleared.
+
+    Duck-typed on the engine's ledger surface; a no-op for engines without
+    one."""
+    ledger = getattr(transfer, "ledger", None)
+    if ledger is None:
+        return
+    problems: List[str] = []
+    led = ledger()
+    open_bytes = {"d2h": 0, "h2d": 0}
+    for t in getattr(transfer, "_open", {}).values():
+        open_bytes[t.direction] = open_bytes.get(t.direction, 0) + t.nbytes
+        if not t.open:
+            problems.append(f"ticket {t.tid} ({t.direction}) is closed but "
+                            "still tracked as open")
+    for d in ("d2h", "h2d"):
+        sub = led["submitted"][d]
+        acct = (led["completed"][d] + led.get("cancelled", {}).get(d, 0)
+                + led["inflight"][d])
+        if sub != acct:
+            problems.append(
+                f"{d} bytes not conserved: submitted {sub} != completed "
+                f"{led['completed'][d]} + cancelled "
+                f"{led.get('cancelled', {}).get(d, 0)} + inflight "
+                f"{led['inflight'][d]}")
+        if led["inflight"][d] < 0:
+            problems.append(f"{d} in-flight byte count went negative "
+                            f"({led['inflight'][d]})")
+        if led["inflight"][d] != open_bytes.get(d, 0):
+            problems.append(
+                f"{d} in-flight ledger {led['inflight'][d]} B disagrees "
+                f"with the open-ticket table ({open_bytes.get(d, 0)} B)")
+    recorded = list(getattr(transfer, "violations", ()))
+    if recorded:
+        transfer.violations = []
+        problems.extend(recorded)
+    if problems:
+        raise SanitizerError("[sanitizer] transfer ledger violated: "
                              + "; ".join(problems))
 
 

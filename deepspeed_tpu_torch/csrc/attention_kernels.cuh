@@ -15,7 +15,21 @@
 // and every product accumulate in fp32; p is rounded to v's dtype before P.V
 // and dS to q's dtype before the dK and dQ products; l sums the unrounded p.
 // Inside a visited tile a key is visible when kpos < Skv and, if causal,
-// qpos >= kpos. head_dim is 32, 64, 128 or 256.
+// qpos + off >= kpos. head_dim is 32, 64, 128 or 256.
+//
+// The forward also serves the slot engine, under a schedule for which
+// RowOffsets (below) holds (flash_attention.cu's SlotSched), which carries
+// two (B,) device arrays: one causal offset a batch row (query qpos of row b
+// sees keys <= qpos + off[b]: a segment written at position off[b] of its
+// cache), and, or null, the batch row of k and v that row b reads (it picks
+// K/V's batch stride alone, never q's, o's or lse's), so a group of slots
+// attends to a whole slot cache in place. Its key_tiles ends a row's key
+// loop at the shifted diagonal, so a short segment at a small offset walks
+// its own keys, not the cache's, and a warp whose rows all lie past Sq (a
+// decode call's Sq = 1) skips every tile. Every other schedule compiles to
+// the code it had before (off 0, row b): with the two arrays in Shape and
+// read at run time the dense forward took 0.407 ms against 0.350 and the
+// backward 1.61 against 1.52 (chip_ab.py, PERF.md section 6).
 //
 // The design for bf16 and fp16 (the `Mma` kernels below). Every tile product
 // is an inline-PTX mma.sync.m16n8k16 (16-bit in, fp32 accumulate) fed by
@@ -79,6 +93,8 @@
 // A schedule is a struct passed by value to the kernels, with:
 //   fwd_cta(s, BQ, b, h, q0)      the forward's and dQ's CTA: batch, head, first query row
 //   key_tiles(s, h, q0, q_valid, BK)  how many key tiles that query tile visits
+//                                  (with RowOffsets, key_tiles(..., BK, off), off the
+//                                  batch row's causal offset; and off, rows members)
 //   key_tile(s, h, q0, q_valid, j, BK)  the j-th one's first key, or -1 to skip it
 //   kv_cta(s, BK, b, kh, k0)      the dK/dV CTA: batch, KV head, first key
 //   query_tiles(s, h, k0, BQ)     how many query tiles of head h see key tile k0
@@ -132,6 +148,46 @@ struct Shape {
 
 __device__ __forceinline__ bool visible(const Shape& s, int qpos, int kpos) {
   return qpos < s.Sq && kpos < s.Skv && (!s.causal || qpos >= kpos);
+}
+
+// Whether a schedule's forward reads per-row offsets and kv rows (the slot
+// engine's); a schedule specialises it.
+template <typename Sched>
+struct RowOffsets {
+  static constexpr bool value = false;
+};
+
+// Batch row b's causal offset and the batch row its keys and values lie in:
+// 0 and b unless the schedule holds them.
+template <typename Sched>
+__device__ __forceinline__ void row_of(const Sched& sched, int b, int& off, int& kvb) {
+  off = 0;
+  kvb = b;
+  if constexpr (RowOffsets<Sched>::value) {
+    off = sched.off[b];
+    if (sched.rows) kvb = sched.rows[b];
+  }
+}
+
+// visible() with the row's causal offset (the forward's test).
+template <typename Sched>
+__device__ __forceinline__ bool fwd_visible(const Shape& s, int qpos, int kpos, int off) {
+  if constexpr (RowOffsets<Sched>::value) {
+    return qpos < s.Sq && kpos < s.Skv && (!s.causal || qpos + off >= kpos);
+  } else {
+    return visible(s, qpos, kpos);
+  }
+}
+
+// The forward's key tiles for a query tile of batch row with offset ``off``.
+template <typename Sched>
+__device__ __forceinline__ int fwd_key_tiles(const Sched& sched, const Shape& s, int h, int q0,
+                                             int q_valid, int BK, int off) {
+  if constexpr (RowOffsets<Sched>::value) {
+    return sched.key_tiles(s, h, q0, q_valid, BK, off);
+  } else {
+    return sched.key_tiles(s, h, q0, q_valid, BK);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -273,6 +329,8 @@ attn_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q_valid = min(BQ, s.Sq - q0);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  int off, kvb;
+  row_of(sched, b, off, kvb);
 
   load_tile<HD, BQ>(sQ, Tl::LDT, q + b * s.q_sb + q0 * s.q_ss + h * s.q_sh, s.q_ss, q_valid);
   for (int i = threadIdx.x; i < BQ * Tl::LDA; i += kThreads) sO[i] = 0.f;
@@ -280,9 +338,9 @@ attn_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     sM[i] = kNegInf;
     sL[i] = 0.f;
   }
-  const float* kb = k + b * s.k_sb + kh * s.k_sh;
-  const float* vb = v + b * s.v_sb + kh * s.v_sh;
-  const int nkt = sched.key_tiles(s, h, q0, q_valid, BK);
+  const float* kb = k + kvb * s.k_sb + kh * s.k_sh;
+  const float* vb = v + kvb * s.v_sb + kh * s.v_sh;
+  const int nkt = fwd_key_tiles(sched, s, h, q0, q_valid, BK, off);
   for (int j = 0; j < nkt; ++j) {
     const int k0 = sched.key_tile(s, h, q0, q_valid, j, BK);
     if (k0 < 0) continue;
@@ -298,7 +356,8 @@ attn_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int qpos = q0 + r;
       float mx = kNegInf;
       for (int c = lane; c < BK; c += 32) {
-        const float x = visible(s, qpos, k0 + c) ? sS[r * Tl::LDS + c] * s.scale : kNegInf;
+        const float x =
+            fwd_visible<Sched>(s, qpos, k0 + c, off) ? sS[r * Tl::LDS + c] * s.scale : kNegInf;
         sS[r * Tl::LDS + c] = x;
         mx = fmaxf(mx, x);
       }
@@ -307,7 +366,8 @@ attn_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float m_new = fmaxf(m_old, mx);
       float sum = 0.f;
       for (int c = lane; c < BK; c += 32) {
-        const float pr = visible(s, qpos, k0 + c) ? expf(sS[r * Tl::LDS + c] - m_new) : 0.f;
+        const float pr =
+            fwd_visible<Sched>(s, qpos, k0 + c, off) ? expf(sS[r * Tl::LDS + c] - m_new) : 0.f;
         sum += pr;
         sP[r * Tl::LDP + c] = pr;
       }
@@ -693,9 +753,11 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const int r0 = warp * RW;
   const int qw = q0 + r0;  // the warp's first query row
   const float c = s.scale * kLog2e;
-  const T* kb = k + b * s.k_sb + kh * s.k_sh;
-  const T* vb = v + b * s.v_sb + kh * s.v_sh;
-  const int nkt = sched.key_tiles(s, h, q0, q_valid, BK);
+  int off, kvb;
+  row_of(sched, b, off, kvb);
+  const T* kb = k + kvb * s.k_sb + kh * s.k_sh;
+  const T* vb = v + kvb * s.v_sb + kh * s.v_sh;
+  const int nkt = fwd_key_tiles(sched, s, h, q0, q_valid, BK, off);
 
   load_rows_async<T, HD, BQ, NT>(sQ, q + b * s.q_sb + q0 * s.q_ss + h * s.q_sh, s.q_ss, q_valid);
   auto prefetch = [&](int j) {  // key tile j into stage j % 2, one commit group
@@ -724,14 +786,17 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     cp_async_wait<1>();  // every group but the newest: tile j has landed
     __syncthreads();
     const int k0 = sched.key_tile(s, h, q0, q_valid, j, BK);
-    if (k0 >= 0 && !(s.causal && k0 > qw + RW - 1)) {
+    // a warp whose rows all end before the tile (the diagonal, shifted by
+    // off) skips it; under RowOffsets so does one whose rows lie past Sq
+    if (k0 >= 0 && (!RowOffsets<Sched>::value || qw < s.Sq)
+        && !(s.causal && k0 > qw + off + RW - 1)) {
       const T* tK = sK + (j & 1) * BK * LD;
       const T* tV = sV + (j & 1) * BK * LD;
       float sc[MT][SN][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) zero(sc[mt]);
       mma_abt<T, LD, HD / 16, SN, MT>(sc, sQ, r0, tK, lane);  // S = Q K^T
-      const bool full = k0 + BK <= s.Skv && (!s.causal || k0 + BK - 1 <= qw);
+      const bool full = k0 + BK <= s.Skv && (!s.causal || k0 + BK - 1 <= qw + off);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         float mx[2] = {m[mt][0], m[mt][1]};
@@ -740,8 +805,8 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             float x = sc[mt][n][e] * c;
-            if (!full && !visible(s, qw + 16 * mt + gr + (e >> 1) * 8,
-                                  k0 + n * 8 + 2 * tq + (e & 1))) {
+            if (!full && !fwd_visible<Sched>(s, qw + 16 * mt + gr + (e >> 1) * 8,
+                                             k0 + n * 8 + 2 * tq + (e & 1), off)) {
               x = __int_as_float(0xff800000);  // -inf: p = 0 exactly
             }
             sc[mt][n][e] = x;
@@ -1118,11 +1183,20 @@ cudaError_t run_bwd(const Args& a, const Sched& sched) {
 
 template <typename T, typename Sched>
 cudaError_t dispatch_head_dim(int head_dim, bool backward, const Args& a, const Sched& sched) {
+  // a RowOffsets schedule has a forward only
+  auto run = [&](auto hd) -> cudaError_t {
+    constexpr int HD = decltype(hd)::value;
+    if constexpr (RowOffsets<Sched>::value) {
+      return backward ? cudaErrorInvalidValue : run_fwd<T, HD>(a, sched);
+    } else {
+      return backward ? run_bwd<T, HD>(a, sched) : run_fwd<T, HD>(a, sched);
+    }
+  };
   switch (head_dim) {
-    case 32: return backward ? run_bwd<T, 32>(a, sched) : run_fwd<T, 32>(a, sched);
-    case 64: return backward ? run_bwd<T, 64>(a, sched) : run_fwd<T, 64>(a, sched);
-    case 128: return backward ? run_bwd<T, 128>(a, sched) : run_fwd<T, 128>(a, sched);
-    case 256: return backward ? run_bwd<T, 256>(a, sched) : run_fwd<T, 256>(a, sched);
+    case 32: return run(std::integral_constant<int, 32>{});
+    case 64: return run(std::integral_constant<int, 64>{});
+    case 128: return run(std::integral_constant<int, 128>{});
+    case 256: return run(std::integral_constant<int, 256>{});
     default: return cudaErrorInvalidValue;
   }
 }

@@ -76,10 +76,32 @@ struct DenseSched {
   dim3 kv_grid(const Shape& s, int BK) const { return dim3((s.Skv + BK - 1) / BK, s.kvh, s.B); }
 };
 
+// The slot engine's forward (attention_kernels.cuh, RowOffsets): the dense
+// schedule with each batch row's diagonal shifted by its offset off[b], so
+// its key loop ends at the tile holding key q0 + q_valid - 1 + off, and its
+// keys and values read from batch row rows[b] (rows null: row b).
+struct SlotSched : DenseSched {
+  const int* off;
+  const int* rows;
+  __device__ int key_tiles(const Shape& s, int, int q0, int q_valid, int BK, int off) const {
+    const int n = (s.Skv + BK - 1) / BK;
+    return s.causal ? min(n, (q0 + off + q_valid - 1) / BK + 1) : n;
+  }
+};
+
+template <>
+struct RowOffsets<SlotSched> {
+  static constexpr bool value = true;
+};
+
 // Two 16-row m-tiles a forward warp, 128 query rows a CTA: at the training
 // shape (B 2, S 2048, 32 heads, hd 128, bf16, causal) the forward took
 // 0.436 ms with one m-tile and 0.34 with two (chip_ab.py, NVIDIA H100 80GB
-// HBM3, 700 W; PERF.md section 6).
+// HBM3, 700 W; PERF.md section 6). The slot forward keeps one (the default):
+// with two its hd-128 instantiations spilled 112 bytes at 255 registers, and
+// one took its decode call (8 rows of one query over a 4096-token cache)
+// from 0.098 to 0.061 ms and a 256-row chunk from 0.030 to 0.021 (168
+// registers, no spill; chip_ab.py, same card and limit).
 template <>
 struct FwdWarpTiles<DenseSched> {
   static constexpr int value = 2;
@@ -92,11 +114,16 @@ struct FwdWarpTiles<DenseSched> {
 // are contiguous: o / dq (B, Sq, nh, hd), dk / dv (B, Skv, kvh, hd), lse
 // (B, nh, Sq) fp32. Returns cudaGetLastError() after the launches (0 =
 // launched), or cudaErrorInvalidValue for a shape the kernels do not take.
-// Launches on `stream`; does not synchronise.
+// Launches on `stream`; does not synchronise. The forward's `q_offset` and
+// `kv_rows` are (batch,) int32 on the device, or null; with offsets it runs
+// SlotSched (with `kv_rows` k and v may have any batch), and `kv_rows`
+// needs them (zeros for none).
 extern "C" int dstt_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                         void* lse, int dtype, int batch, int seq_q, int seq_kv,
                                         int num_heads, int kv_heads, int head_dim, int causal,
-                                        float scale, const long long* strides, void* stream) {
+                                        float scale, const long long* strides,
+                                        const void* q_offset, const void* kv_rows,
+                                        void* stream) {
   Args a{};
   if (!make_shape(&a.s, batch, seq_q, seq_kv, num_heads, kv_heads, causal, scale, strides)) {
     return (int)cudaErrorInvalidValue;
@@ -107,6 +134,13 @@ extern "C" int dstt_flash_attention_fwd(const void* q, const void* k, const void
   a.o = o;
   a.lse_out = lse;
   a.stream = static_cast<cudaStream_t>(stream);
+  if (q_offset) {
+    SlotSched slot{};
+    slot.off = static_cast<const int*>(q_offset);
+    slot.rows = static_cast<const int*>(kv_rows);
+    return (int)dispatch(dtype, head_dim, false, a, slot);
+  }
+  if (kv_rows) return (int)cudaErrorInvalidValue;  // rows need the slot schedule's offsets
   return (int)dispatch(dtype, head_dim, false, a, DenseSched{});
 }
 

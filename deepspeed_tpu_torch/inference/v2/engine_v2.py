@@ -1,4 +1,14 @@
-"""Continuous-batching inference engine, paged mode (counterpart of ``deepspeed_tpu/inference/v2/engine_v2.py``).
+"""Continuous-batching inference engine (counterpart of ``deepspeed_tpu/inference/v2/engine_v2.py``).
+
+Two KV layouts, as in the JAX engine. ``paged=False`` (the default) keeps a
+dense slot cache ``(L, max_seqs, max_seq_len, kvh, hd)``, one row a slot:
+``put`` prefills pending prompt tokens in chunks of at most
+``prefill_chunk``, grouped by padded segment length (a power-of-two bucket
+from 16), each group one slot prefill program; ``decode_step`` runs one
+program over every slot, writing K/V only for the slots it feeds. Slot
+programs read and write the cache in place: a group's attention reads its
+slots' rows of the whole cache through the flash forward kernel's
+per-row offsets and row index (``attention.py``), with no gathered copy.
 
 ``InferenceEngineV2(paged=True)`` keeps the KV cache as one blocked pool
 ``(L, kvh, num_blocks, block_size, hd)`` shared by all sequences through
@@ -21,7 +31,9 @@ logit-bias pool), ``prefill_backlog``, ``monitor_events``, ``rebuild``,
 
 **Step programs.** The JAX engine compiles a fixed set of step programs and
 counts their traces (``ragged_cache_size <= 4``, ``fused_cache_size <= 1``,
-``verify_cache_size <= 1``). Here each program is a :class:`_StepProgram`:
+``verify_cache_size <= 1``; in slot mode one prefill trace per bucket and
+group size, at most 32 a bucket, and at most 2 decode traces, one per
+greedy mode). Here each program is a :class:`_StepProgram`:
 fixed-shape inputs staged through one host buffer (pinned on the card) and
 one device buffer, and on the card one captured CUDA graph per variant.
 The counters count the same keys (program, row shape, greedy mode); the
@@ -34,34 +46,72 @@ copy-on-write copies. The graphs hold the weights, the KV pool and the bias
 pool by address: ``rebuild`` zeroes the pools in place, and ``load_params``,
 which rebinds the weights (the caller's trees are never written), drops the
 graphs, to be captured again at each key's next step. On the CPU, or with
-``capture=False``, every step runs eagerly over the same staged inputs.
+``capture=False``, every step runs eagerly over the same staged inputs. The
+engine's graphs share one memory pool (``torch.cuda.graph_pool_handle``):
+they run one at a time on one stream and every step's output is read
+before the next step runs, so the up to 32 slot prefill graphs at
+llama-7b's size do not each keep a pool of their own.
+
+**KV tiers and swap** (paged mode, with the prefix cache;
+``engine_v2.py:447-807``). ``host_tier_blocks > 0`` turns pool eviction into
+demotion: the block is gathered (a fresh copy) and copied to pinned host
+memory through the engine's :class:`~deepspeed_tpu_torch.runtime.transfer_engine.TransferEngine`
+(``self.transfer``), and a later prefix hit promotes it back: the payloads
+land in a staging buffer, cross in one copy a chunk, and are written into
+their pool blocks before the next step reads the pool, on the same stream
+and outside any graph. ``nvme_tier_blocks`` with ``nvme_tier_dir`` spills the
+host tier's oldest blocks to disk. ``swap_out`` / ``swap_in`` park a
+preempted sequence's KV in the host swap store and land it back by block
+copy; ``export_swap`` / ``import_swap`` hand it to another engine under a
+CRC, and take the JAX engine's payloads as they are (numpy blocks).
+``transfer_overlap=False`` is the synchronous twin.
 """
 
+import weakref
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ...accelerator import resolve_device
+from ...analysis.sanitizer import check_transfer_ledger, sanitize_enabled
 from ...models.transformer import row_keys, sample_or_argmax
 from ...ops import launch_counters
 from ...ops.quantizer.woq import group_of
 from ...ops.quantizer.woq_gemm import check_woq_config
+from ...ops.transformer import flash_attention
 from ...ops.transformer.paged_attention import check_kernel_config
 from ...resilience.errors import (ContextOverflowError, EngineUsageError,
                                   PoolExhaustedError)
+from ...runtime.transfer_engine import (TransferCorruptError, TransferEngine,
+                                        blocks_crc32, dtype_name, host_array,
+                                        host_tensor)
 from ...utils.logging import log_dist
 from .ragged_manager import BlockedKVCache, DSStateManager
-
-# the ROADMAP.md items that lift each unported part of the engine
-_SLOT_ITEM = "ROADMAP.md Queue 1 item 5c, slot mode"
-_TIER_ITEM = "ROADMAP.md Queue 1 item 9, KV tiers and swap"
 
 _TORCH_DTYPES = {np.dtype(np.int32): torch.int32, np.dtype(np.float32): torch.float32}
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to deepspeed_tpu_torch ({item})")
+def _weak_method(obj, name: str) -> Callable:
+    """``getattr(obj, name)`` as a hook that holds ``obj`` weakly: the block
+    manager's tier hooks would otherwise make a reference cycle through the
+    engine, and a deleted engine's device memory would wait for the garbage
+    collector."""
+    ref = weakref.ref(obj)
+
+    def call(*args):
+        return getattr(ref(), name)(*args)
+
+    return call
+
+
+def _bucket(n: int, lo: int = 16) -> int:
+    """The slot prefill's segment length for ``n`` tokens: a power of two
+    from ``lo`` (``engine_v2.py:44``)."""
+    b = lo
+    while b < n:
+        b *= 2
+    return b
 
 
 def _host_keys(out: np.ndarray, seeds, positions) -> None:
@@ -145,12 +195,14 @@ class _StepProgram:
         return self.views
 
     def run(self, variant: Tuple, step: Callable[[], torch.Tensor], capture: bool,
-            side: Optional[Callable[[], object]] = None) -> torch.Tensor:
+            side: Optional[Callable[[], object]] = None,
+            pool: Optional[Callable[[], object]] = None) -> torch.Tensor:
         """Copy the staged inputs to the device, then run ``step`` (a
         function of ``self.args`` and the engine's tensors): eagerly, or
-        with ``capture`` (on the card) as set out in the class docstring.
-        Returns the step's output: on a replay the graph's own output
-        tensor, valid until the next replay."""
+        with ``capture`` (on the card) as set out in the class docstring,
+        the graph's memory from the pool ``pool()`` returns. Returns the
+        step's output: on a replay the graph's own output tensor, valid
+        until the next replay of any graph of that pool."""
         self.dev.copy_(self.host, non_blocking=True)
         if self._copied is not None:
             self._copied.record()
@@ -170,7 +222,7 @@ class _StepProgram:
         out.record_stream(cur)
         before = launch_counters.snapshot()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
+        with torch.cuda.graph(graph, pool=pool() if pool else None, stream=stream):
             static = step()
         after = launch_counters.snapshot()
         # what every wrapper counted while capturing, each replay's launches;
@@ -183,19 +235,24 @@ class _StepProgram:
 
 
 class InferenceEngineV2:
-    """Continuous-batching engine over a ``TransformerLM``, paged mode.
+    """Continuous-batching engine over a ``TransformerLM``, in slot mode
+    (``paged=False``, the default, 8 slots) or paged mode (32 slots).
 
-    The pool ``self.kv`` is updated in place: ``forward_paged`` writes each
-    step's K/V with ``index_put_`` and the copy-on-write block copy uses
-    ``copy_``, where the JAX engine donates the pool to each compiled
-    program and gets a new one back (``engine_v2.py:422``).
+    The cache ``self.kv`` is updated in place: ``forward_paged`` and
+    ``forward_with_cache`` write each step's K/V with ``index_put_`` and the
+    copy-on-write block copy uses ``copy_``, where the JAX engine donates the
+    cache to each compiled program and gets a new one back
+    (``engine_v2.py:422``).
 
     Runs on ``device`` (default ``"cuda"``); without CUDA it raises unless
     ``device="cpu"`` is passed, which runs the plain attention. On CUDA the
-    model's attention shape must be one the paged-attention kernel takes,
-    and every weight-only-quantized leaf one the WOQ kernel takes;
-    otherwise construction raises. ``decode_horizon`` is the one fused
-    horizon besides 1 (``decode_multi``, ``verify_multi``). ``capture``
+    model's attention shape must be one the paged-attention kernel (paged)
+    or the flash kernel (slot mode) takes, and every weight-only-quantized
+    leaf one the WOQ kernel takes; otherwise construction raises.
+    ``decode_horizon`` is the one fused horizon besides 1 (paged:
+    ``decode_multi``, ``verify_multi``). The KV tiers and swap take
+    ``host_tier_blocks``, ``nvme_tier_blocks`` with ``nvme_tier_dir`` and
+    ``transfer_overlap`` (module docstring). ``capture``
     (default on; an attribute read at every step) replays captured CUDA
     graphs on the card; turning it off runs every step eagerly, which
     exists so that tests can hold the two against each other, as
@@ -208,7 +265,8 @@ class InferenceEngineV2:
                  block_size: int = 64, num_blocks: Optional[int] = None,
                  token_budget: int = 0, prefix_cache: bool = True,
                  decode_horizon: int = 1, host_tier_blocks: int = 0,
-                 nvme_tier_blocks: int = 0, nvme_tier_dir: Optional[str] = None,
+                 transfer_overlap: bool = True, nvme_tier_blocks: int = 0,
+                 nvme_tier_dir: Optional[str] = None,
                  device: Union[str, torch.device] = "cuda", capture: bool = True):
         # the one fused horizon besides 1 (``engine_v2.py:119-128``)
         if decode_horizon < 1:
@@ -216,19 +274,17 @@ class InferenceEngineV2:
         if decode_horizon > 1 and not paged:
             raise ValueError("decode_horizon > 1 is paged-mode only (the "
                              "fused loop runs over the blocked pool)")
-        if not paged:
-            raise _not_ported("slot mode (paged=False)", _SLOT_ITEM)
-        if host_tier_blocks or nvme_tier_blocks or nvme_tier_dir:
-            raise _not_ported("the host and NVMe KV tiers", _TIER_ITEM)
         self.device = resolve_device(device)
-        self.paged = True  # the scheduler reads it
+        self.paged = bool(paged)  # the scheduler reads it
         self.model = model
         self.cfg = model.config
         if self.device.type == "cuda":
-            check_kernel_config(self.cfg.num_heads, self.cfg.kv_heads,
-                                self.cfg.head_dim, dtype)
+            check = check_kernel_config if self.paged else flash_attention.check_kernel_config
+            check(self.cfg.num_heads, self.cfg.kv_heads, self.cfg.head_dim, dtype)
+        # the slot layout dedicates max_seqs x max_seq_len of cache, so its
+        # default width stays small (``engine_v2.py:106-107``)
         if max_seqs is None:
-            max_seqs = 32
+            max_seqs = 32 if self.paged else 8
         self.max_seqs = max_seqs
         self.max_seq_len = max_seq_len or model.config.max_seq_len
         self.prefill_chunk = prefill_chunk
@@ -255,22 +311,61 @@ class InferenceEngineV2:
         self.plan_deferrals = 0
         #: ragged forwards dispatched (each runs every layer's attention once)
         self.ragged_steps = 0
+        #: slot programs dispatched, prefill groups and decode steps (each
+        #: runs every layer's attention once)
+        self.slot_steps = 0
         # per-shape step programs (staged inputs, graphs), made at first use
         self._scratch: Dict[Tuple, _StepProgram] = {}
         # (program, rows, greedy) keys built: the JAX engine's trace keys
         self._keys: set = set()
         self._side_stream = None
+        self._graph_pool = None  # one memory pool for every graph (module docstring)
         self._dispatch_host: Optional[torch.Tensor] = None
         #: the one unfetched pipelined dispatch (scratch-reuse contract)
         self._undrained_dispatch: Optional[DecodeDispatchHandle] = None
-        self.prefix_cache = bool(prefix_cache)
-        max_blocks_per_seq = -(-self.max_seq_len // block_size)
-        if num_blocks is None:
-            num_blocks = 1 + max_seqs * max_blocks_per_seq  # = slot capacity
-        self.block_mgr = BlockedKVCache(num_blocks, block_size, max_blocks_per_seq,
-                                        prefix_cache=self.prefix_cache)
-        self.kv = model.init_kv_pool(num_blocks, block_size, dtype=dtype,
-                                     device=self.device)
+        self.prefix_cache = bool(prefix_cache) and self.paged
+        # the host tier needs the prefix cache (its content index finds
+        # demoted blocks), the NVMe tier the host tier and a directory
+        # (``engine_v2.py:156-166``)
+        self.host_tier_blocks = host_tier_blocks if self.prefix_cache else 0
+        self.nvme_tier_blocks = nvme_tier_blocks \
+            if (self.host_tier_blocks and nvme_tier_dir) else 0
+        #: the engine's one owner of host-device byte movement
+        self.transfer = TransferEngine(
+            overlap=transfer_overlap,
+            nvme_dir=nvme_tier_dir if self.nvme_tier_blocks else None, device=self.device)
+        #: swapped-out preemption victims and imported handoffs: uid ->
+        #: (block payloads, history, seen_tokens); a cache, never the source
+        #: of truth (engine loss, weight swaps and flushes drop entries)
+        self._swaps: Dict[int, Tuple] = {}
+        #: uids whose entry came from another engine through ``import_swap``
+        self._swap_imports: set = set()
+        self.swap_stats = {"swap_out": 0, "swap_in": 0,
+                           "swap_out_blocks": 0, "swap_in_blocks": 0,
+                           "swap_export": 0, "swap_import": 0,
+                           "export_blocks": 0, "import_blocks": 0,
+                           "orphan_drops": 0}
+        if self.paged:
+            max_blocks_per_seq = -(-self.max_seq_len // block_size)
+            if num_blocks is None:
+                num_blocks = 1 + max_seqs * max_blocks_per_seq  # = slot capacity
+            self.block_mgr = BlockedKVCache(num_blocks, block_size, max_blocks_per_seq,
+                                            prefix_cache=self.prefix_cache,
+                                            host_tier_blocks=self.host_tier_blocks)
+            self.block_mgr.demote_fn = _weak_method(self, "_demote_block")
+            self._bind_nvme_tier()
+            self.kv = model.init_kv_pool(num_blocks, block_size, dtype=dtype,
+                                         device=self.device)
+            #: device bytes of one block's K+V over all layers: the unit of
+            #: every tier and swap byte counter and of the scheduler's
+            #: swap-vs-recompute cost model
+            self.block_bytes = sum(a.numel() * a.element_size() for a in self.kv) // num_blocks
+        else:
+            self.block_mgr = None
+            self.block_bytes = 0
+            # slot cache (L, max_seqs, max_seq_len, kvh, hd)
+            self.kv = model.init_kv_cache(max_seqs, self.max_seq_len, dtype=dtype,
+                                          device=self.device)
         # per-request sampling (``engine_v2.py:190-203``): duck-typed params
         # records (``.seed``/``.temperature``/``.top_k``/``.top_p``) fill
         # per-row arrays each step; bias rows live in a (max_seqs, V) fp32
@@ -282,14 +377,18 @@ class InferenceEngineV2:
         # by address; zero rows leave selection untouched
         self._bias_pool = torch.zeros((max_seqs, self.cfg.vocab_size),
                                       dtype=torch.float32, device=self.device)
-        log_dist(
-            f"InferenceEngineV2(paged): blocks={num_blocks}x{block_size} "
-            f"seqs<={max_seqs} ctx={self.max_seq_len} chunk={prefill_chunk} "
-            f"token_budget={self.token_budget} decode_horizon={decode_horizon} "
-            f"prefix_cache={'on' if self.prefix_cache else 'off'} "
-            f"device={self.device}",
-            ranks=[0],
-        )
+        if self.paged:
+            log_dist(
+                f"InferenceEngineV2(paged): blocks={num_blocks}x{block_size} "
+                f"seqs<={max_seqs} ctx={self.max_seq_len} chunk={prefill_chunk} "
+                f"token_budget={self.token_budget} decode_horizon={decode_horizon} "
+                f"prefix_cache={'on' if self.prefix_cache else 'off'} "
+                f"host_tier_blocks={self.host_tier_blocks} device={self.device}",
+                ranks=[0],
+            )
+        else:
+            log_dist(f"InferenceEngineV2: slots={max_seqs} ctx={self.max_seq_len} "
+                     f"chunk={prefill_chunk} device={self.device}", ranks=[0])
 
     def _cast_params(self, tree):
         """Every leaf to the engine's device; float leaves to its dtype,
@@ -361,6 +460,11 @@ class InferenceEngineV2:
             self._side_stream = torch.cuda.Stream(self.device)
         return self._side_stream
 
+    def _pool(self):
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return self._graph_pool
+
     def _ragged_program(self, T: int) -> _StepProgram:
         M, maxb = self.max_seqs, self.block_mgr.max_blocks_per_seq
         i32, f32 = np.int32, np.float32
@@ -394,7 +498,75 @@ class InferenceEngineV2:
             return sample_or_argmax(lg, seeds, None, temps_d, top_ks, top_ps,
                                     bias=self._bias_pool[slots], keys=keys_d, sampled=sampled)
 
-        return prog.run((greedy, sampled), step, self._capturing(), self._side)
+        return prog.run((greedy, sampled), step, self._capturing(), self._side, self._pool)
+
+    # ------------------------------------------------------------------
+    # slot-mode programs (``engine_v2.py:321-379``)
+    # ------------------------------------------------------------------
+    def _slot_prefill(self, grp: List, S: int) -> np.ndarray:
+        """One slot prefill program: the group's next segments of at most
+        ``S`` tokens (``S`` a bucket) at their slots' offsets, written into
+        the cache in place; returns each row's fp32 logits at its last valid
+        token. Keyed by (S, group size), as the JAX engine's vmapped trace."""
+        n = len(grp)
+        prog = self._program(("prefill", S, n), (((n, S), np.int32), ((n,), np.int32),
+                                                 ((n,), np.int32), ((n,), np.int32)))
+        ids, starts, slots, nval = prog.views
+        for i, d in enumerate(grp):
+            take = min(S, d.in_flight, self.prefill_chunk)
+            ids[i, :take] = d.pending[:take]
+            del d.pending[:take]
+            starts[i] = d.seen_tokens
+            slots[i] = d.slot
+            nval[i] = take
+            d.seen_tokens += take
+        self._keys.add(("prefill", S, n))
+        self.slot_steps += 1
+        ids_d, starts_d, slots_d, nval_d = prog.args
+
+        def step():
+            return self.model.forward_with_cache(self.params, ids_d, self.kv, starts_d,
+                                                 kv_rows=slots_d, n_valid=nval_d).float()
+
+        return prog.run((), step, self._capturing(), self._side, self._pool).cpu().numpy()
+
+    def _slot_decode(self, tokens: Dict[int, int], greedy: bool) -> Dict[int, object]:
+        """One decode step over every slot (``_get_decode``): the fed slots
+        write their token's K/V at their position, the others write nothing
+        (``active``); returns each fed uid's fp32 logits or, with ``greedy``,
+        its argmax token. Keyed by ``greedy``, as the JAX trace."""
+        M = self.max_seqs
+        prog = self._program(("decode", greedy), (((M,), np.int32),) * 3)
+        toks, poss, active = prog.views
+        by_slot: Dict[int, int] = {}
+        for uid, tok in tokens.items():
+            d = self.state.seqs[uid]
+            toks[d.slot] = tok
+            poss[d.slot] = d.seen_tokens
+            active[d.slot] = 1
+            by_slot[d.slot] = uid
+            d.seen_tokens += 1
+        self._keys.add(("decode", greedy))
+        self.slot_steps += 1
+        toks_d, poss_d, active_d = prog.args
+
+        def step():
+            lg = self.model.forward_with_cache(self.params, toks_d[:, None], self.kv, poss_d,
+                                               active=active_d)
+            return torch.argmax(lg, dim=-1).to(torch.int32) if greedy else lg.float()
+
+        lg = prog.run((), step, self._capturing(), self._side, self._pool).cpu().numpy()
+        return {uid: (int(lg[slot]) if greedy else lg[slot]) for slot, uid in by_slot.items()}
+
+    def _slot_program_counts(self) -> Tuple[Dict[int, int], int]:
+        """The slot programs built: ({S: prefill keys of bucket S}, decode
+        keys), the counts the JAX engine's ``_prefill_fns[S]._cache_size()``
+        and ``_decode_fn._cache_size()`` give (bounds 32 and 2)."""
+        prefill: Dict[int, int] = {}
+        for k in self._keys:
+            if k[0] == "prefill":
+                prefill[k[1]] = prefill.get(k[1], 0) + 1
+        return prefill, sum(k[0] == "decode" for k in self._keys)
 
     @property
     def ragged_cache_size(self) -> int:
@@ -435,6 +607,9 @@ class InferenceEngineV2:
         bounds the dispatches (``None`` drains everything, ``0`` dispatches
         nothing); a sequence whose prompt is not fully consumed keeps its
         ``pending`` tail across calls."""
+        # queued promotions (admission-time hits on demoted blocks) land
+        # before a step reads the pool
+        self._drain_promotions()
         steps = 0
         while max_steps is None or steps < max_steps:
             work = [d for d in self.state.seqs.values() if d.in_flight > 0]
@@ -519,6 +694,272 @@ class InferenceEngineV2:
                 out[d.uid] = int(lg[i]) if greedy else lg[i]
 
     # ------------------------------------------------------------------
+    # KV tiers: data movement (``engine_v2.py:447-585``)
+    # ------------------------------------------------------------------
+    def _tier_gather(self, block: int) -> torch.Tensor:
+        """Pool block ``block`` as one fresh (2, L, kvh, BS, hd) tensor, K
+        stacked on V (the JAX ``_get_tier_gather`` program), on the engine's
+        stream in order with its steps."""
+        k, v = self.kv  # (L, kvh, NB, BS, hd); block axis = 2
+        return torch.stack((k[:, :, block], v[:, :, block]))
+
+    def _tier_buf_shape(self) -> Tuple[int, ...]:
+        """The staging batch of promotions and swap-ins: (max_blocks_per_seq,
+        2, L, kvh, BS, hd), the JAX engine's fixed capacity (a larger batch
+        goes in chunks)."""
+        k = self.kv[0]
+        return ((self.block_mgr.max_blocks_per_seq, 2)
+                + tuple(k.shape[:2]) + tuple(k.shape[3:]))
+
+    def _bind_nvme_tier(self) -> None:
+        """Wire the allocator's NVMe hooks to the TransferEngine's store
+        (nothing with the tier off)."""
+        if not self.nvme_tier_blocks:
+            return
+        self.block_mgr.nvme_blocks = self.nvme_tier_blocks
+        self.block_mgr.spill_fn = _weak_method(self, "_spill_block")
+        self.block_mgr.load_fn = _weak_method(self, "_load_block")
+        self.block_mgr.drop_fn = _weak_method(self, "_drop_block")
+
+    def _spill_block(self, hid: int, payload) -> bool:
+        """Host-LRU eviction hook: write one host-tier payload to the NVMe
+        store (manifest last, with its CRC) instead of dropping it."""
+        arr = self.transfer.drain_before([payload])[0]
+        if arr is None:
+            return False
+        self.transfer.nvme.save(f"kvblock_{-hid}", arr)
+        return True
+
+    def _load_block(self, hid: int):
+        """Promotion hook for an NVMe block; None on a file that fails
+        verification, and the allocator then truncates the hit there."""
+        try:
+            return self.transfer.nvme.load(f"kvblock_{-hid}")
+        except TransferCorruptError:
+            return None
+
+    def _drop_block(self, hid: int) -> None:
+        self.transfer.nvme.delete(f"kvblock_{-hid}")
+
+    def _demote_block(self, block: int):
+        """The allocator's ``demote_fn``: gather one pool block and start its
+        copy to the host; the payload is an open ticket, settled when a
+        promotion or a spill needs it."""
+        return self.transfer.submit_d2h(self._tier_gather(block))
+
+    def _scatter_blocks(self, payloads, dsts) -> None:
+        """Land host payloads (tickets, CPU tensors or numpy blocks) in pool
+        blocks ``dsts``: settle the tickets, stage up to the staging batch's
+        capacity, copy the whole batch to the card (the JAX engine's one
+        ``device_put`` a chunk) and write each row into its block, on the
+        engine's stream before the next step reads the pool."""
+        if not payloads:
+            return
+        te = self.transfer
+        buf = te.acquire_staging(self._tier_buf_shape(), self.kv[0].dtype)
+        try:
+            cap = buf.shape[0]
+            k, v = self.kv
+            for base in range(0, len(dsts), cap):
+                chunk = range(base, min(base + cap, len(dsts)))
+                vals = te.drain_before([payloads[j] for j in chunk])
+                for i, val in enumerate(vals):
+                    buf[i].copy_(host_tensor(val))
+                batch = te.submit_h2d(buf).value
+                for i, j in enumerate(chunk):
+                    k[:, :, dsts[j]].copy_(batch[i, 0])
+                    v[:, :, dsts[j]].copy_(batch[i, 1])
+        finally:
+            te.release_staging(buf)
+
+    def _drain_promotions(self) -> None:
+        """Land every queued promotion before the next step reads the pool
+        (a prefix hit on a demoted block rekeys the bookkeeping at once and
+        queues the bytes here)."""
+        if not self.host_tier_blocks:
+            return
+        orders = self.block_mgr.take_promotions()
+        if orders:
+            self._scatter_blocks([p for p, _ in orders], [d for _, d in orders])
+            if sanitize_enabled():
+                check_transfer_ledger(self.transfer)
+
+    # ------------------------------------------------------------------
+    # swap preemption and the cross-engine handoff (``engine_v2.py:590-807``)
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _cancel_payloads(payloads) -> None:
+        """Drop payloads without landing them: open tickets settle into the
+        ledger's cancelled bucket (host arrays pass)."""
+        for p in payloads:
+            cancel = getattr(p, "cancel", None)
+            if cancel is not None:
+                cancel()
+
+    def _drop_swaps(self) -> None:
+        """Drop every swap-store entry, cancelling its open tickets; each
+        imported entry dropped here is an orphaned handoff
+        (``orphan_drops``)."""
+        for payloads, _, _ in self._swaps.values():
+            self._cancel_payloads(payloads)
+        self.swap_stats["orphan_drops"] += len(self._swap_imports)
+        self._swap_imports.clear()
+        self._swaps.clear()
+
+    def swap_resident(self, uid: int) -> bool:
+        """True when ``uid``'s KV is parked in the host swap store."""
+        return uid in self._swaps
+
+    def swap_out(self, uid: int) -> bool:
+        """Preempt a live sequence by parking its KV in host memory: start
+        the copy of every held block, then flush the sequence (slot and
+        blocks reclaimed). Returns False, doing nothing, where swapping does
+        not apply (no host tier, unknown uid, pending prefill, uncommitted
+        speculation): the caller flushes and replays instead."""
+        if not self.host_tier_blocks:
+            return False
+        d = self.state.seqs.get(uid)
+        if d is None or not d.at_rest:
+            return False
+        payloads = [self.transfer.submit_d2h(self._tier_gather(b)) for b in d.blocks]
+        entry = (payloads, list(d.history), d.seen_tokens)
+        self.flush(uid)
+        self._swaps[uid] = entry
+        self.swap_stats["swap_out"] += 1
+        self.swap_stats["swap_out_blocks"] += len(payloads)
+        return True
+
+    def swap_in(self, uid: int) -> bool:
+        """Re-admit a swapped-out sequence by block copy: allocate blocks,
+        land the payloads, restore the descriptor as it was at swap-out and
+        register it (the dedup pass folds it back onto shared index
+        blocks). Returns False, with the entry consumed and every partial
+        step undone, when no slot or not enough blocks are free: the caller
+        replays the prompt instead."""
+        entry = self._swaps.pop(uid, None)
+        if entry is None:
+            return False
+        self._swap_imports.discard(uid)  # landing: the import is not orphaned
+        payloads, history, seen = entry
+        if not self.state.can_allocate():
+            self._cancel_payloads(payloads)
+            return False
+        desc = self.state.get_or_create_sequence(uid)
+        try:
+            self.block_mgr.ensure(desc, seen)
+        except (PoolExhaustedError, ContextOverflowError):
+            self.block_mgr.free(desc)
+            self.state.flush_sequence(uid)
+            self._cancel_payloads(payloads)
+            return False
+        assert len(desc.blocks) == len(payloads), f"uid {uid}: swap-in geometry drift"
+        self._drain_promotions()  # pool writes in queue order
+        self._scatter_blocks(payloads, desc.blocks)
+        if sanitize_enabled():
+            check_transfer_ledger(self.transfer)
+        desc.history = list(history)
+        desc.seen_tokens = seen
+        desc.n_indexed = 0
+        if self.prefix_cache:
+            self.block_mgr.register(desc)
+        if self._bias_rows:
+            self._install_bias(desc)  # re-bind the bias row to the new slot
+        self.swap_stats["swap_in"] += 1
+        self.swap_stats["swap_in_blocks"] += len(payloads)
+        return True
+
+    def export_ready(self, uid: int) -> bool:
+        """True when ``uid``'s KV could be exported now: parked in the swap
+        store, or live and at rest (False on slot engines)."""
+        if not self.paged:
+            return False
+        if uid in self._swaps:
+            return True
+        d = self.state.seqs.get(uid)
+        return d is not None and d.at_rest
+
+    def export_swap(self, uid: int):
+        """Take ``uid``'s at-rest KV out of this engine for another engine:
+        copy every block to the host (the handoff's one wait), flush the
+        sequence and return a payload dict stamped with a CRC32 over the
+        block bytes. Blocks are numpy arrays, as the JAX engine's (CPU
+        tensors where numpy has no such dtype: bfloat16), so a payload of
+        either package imports into the other. Returns None, leaving the
+        engine unchanged, where export does not apply: the caller replays."""
+        if not self.paged:
+            return None
+        entry = self._swaps.pop(uid, None)
+        if entry is not None:
+            self._swap_imports.discard(uid)
+            payloads, history, seen = entry
+            blocks = self.transfer.drain_before(payloads)
+        else:
+            d = self.state.seqs.get(uid)
+            if d is None or not d.at_rest:
+                return None
+            tickets = [self.transfer.submit_d2h(self._tier_gather(b)) for b in d.blocks]
+            blocks = self.transfer.drain_before(tickets)
+            history, seen = list(d.history), d.seen_tokens
+            self.flush(uid)
+        if any(b is None for b in blocks):
+            return None  # a payload did not settle: the caller replays
+        tensors = [host_tensor(b) for b in blocks]
+        blocks = [host_array(t) for t in tensors]
+        self.swap_stats["swap_export"] += 1
+        self.swap_stats["export_blocks"] += len(blocks)
+        return {
+            "uid": uid,
+            "blocks": blocks,
+            "history": list(history),
+            "seen_tokens": int(seen),
+            "nbytes": sum(t.numel() * t.element_size() for t in tensors),
+            "crc32": blocks_crc32(blocks),
+            "block_shape": tuple(self._tier_buf_shape()[1:]),
+            "dtype": dtype_name(self.kv[0]),
+        }
+
+    def import_swap(self, uid: int, payload) -> int:
+        """Install another engine's exported payload (either package's) in
+        this engine's swap store, from where ``swap_in`` lands it. Validates
+        first, so a refused import leaves the engine untouched: a uid
+        already swap-resident or live, or geometry drift (block shape or
+        dtype, block count for ``seen_tokens``) raise
+        :class:`EngineUsageError`; a CRC mismatch raises
+        ``TransferCorruptError``. Returns the payload's byte count."""
+        if not self.paged:
+            raise EngineUsageError("import_swap is paged-mode only", uid=uid)
+        if uid in self._swaps:
+            raise EngineUsageError(
+                f"uid {uid}: double import — already swap-resident here", uid=uid)
+        if uid in self.state.seqs:
+            raise EngineUsageError(
+                f"uid {uid}: import over a live sequence — the uid would "
+                "be resident in two stores", uid=uid)
+        blocks = payload["blocks"]
+        seen = int(payload["seen_tokens"])
+        shape = tuple(self._tier_buf_shape()[1:])
+        dtype = dtype_name(self.kv[0])
+        need = self.block_mgr.blocks_needed(seen)
+        if len(blocks) != need or len(blocks) > self.block_mgr.max_blocks_per_seq:
+            raise EngineUsageError(
+                f"uid {uid}: import geometry drift — {len(blocks)} blocks "
+                f"for {seen} tokens (this pool needs {need}, cap "
+                f"{self.block_mgr.max_blocks_per_seq})", uid=uid)
+        for b in blocks:
+            if tuple(b.shape) != shape or dtype_name(b) != dtype:
+                raise EngineUsageError(
+                    f"uid {uid}: import geometry drift — block "
+                    f"{tuple(b.shape)}/{dtype_name(b)} vs pool {shape}/{dtype}", uid=uid)
+        if blocks_crc32(blocks) != int(payload["crc32"]):
+            raise TransferCorruptError(
+                f"uid {uid}: handoff payload failed CRC verification")
+        self._swaps[uid] = (list(blocks), list(payload["history"]), seen)
+        self._swap_imports.add(uid)
+        self.swap_stats["swap_import"] += 1
+        self.swap_stats["import_blocks"] += len(blocks)
+        return int(payload["nbytes"])
+
+    # ------------------------------------------------------------------
     # reference surface
     # ------------------------------------------------------------------
     def put(self, batch_uids: Sequence[int], batch_tokens: Sequence[Sequence[int]],
@@ -536,10 +977,23 @@ class InferenceEngineV2:
         pending token, ``0`` only registers (the prefix-cache lookup still
         runs), ``N`` runs at most N steps. A sequence whose prompt is not
         fully consumed yields no entry yet.
+
+        In slot mode every pending token is prefilled (``greedy`` and
+        ``max_steps`` are paged-mode only, as in the JAX engine), in chunks
+        of at most ``prefill_chunk`` grouped by bucket, and the logits of
+        each sequence whose prompt is consumed come back.
         """
         if len(batch_uids) > self.state.max_seqs:
             raise EngineUsageError(
                 f"batch of {len(batch_uids)} exceeds {self.state.max_seqs} slots")
+        if greedy and not self.paged:
+            raise ValueError(
+                "put(greedy=True) is paged-mode only (the slot prefill path "
+                "returns logits; decode_step supports greedy in both modes)")
+        if max_steps is not None and not self.paged:
+            raise ValueError(
+                "put(max_steps=...) is paged-mode only (slot prefill has no "
+                "mixed ragged dispatch to bound)")
         for uid, toks in zip(batch_uids, batch_tokens):
             desc = self.state.get_or_create_sequence(uid)
             if self._bias_rows:
@@ -559,14 +1013,50 @@ class InferenceEngineV2:
                         del desc.pending[:skipped]
                         desc.seen_tokens = skipped
         out: Dict[int, object] = {}
-        self._put_paged(out, greedy=greedy, max_steps=max_steps)
+        if self.paged:
+            self._put_paged(out, greedy=greedy, max_steps=max_steps)
+        else:
+            self._put_slots(out)
         return out
+
+    def _put_slots(self, out: Dict[int, object]) -> None:
+        """Slot mode's chunked prefill (``engine_v2.py:1208-1248``): each
+        round takes every pending sequence's next chunk, grouped by padded
+        segment length; a sequence near the end of its slot gets an
+        exact-fit segment, and one whose chunk does not fit raises."""
+        while True:
+            work = [d for d in self.state.seqs.values() if d.in_flight > 0]
+            if not work:
+                return
+            groups: Dict[int, List] = {}
+            for d in work:
+                take = min(self.prefill_chunk, d.in_flight)
+                room = self.max_seq_len - d.seen_tokens
+                if room < take:
+                    raise ContextOverflowError(
+                        f"uid {d.uid}: prompt exceeds slot context "
+                        f"({d.seen_tokens}+{take} > {self.max_seq_len})", uid=d.uid)
+                groups.setdefault(min(_bucket(take), room), []).append(d)
+            for S, grp in groups.items():
+                lg = self._slot_prefill(grp, S)
+                for i, d in enumerate(grp):
+                    if d.in_flight == 0:  # the prompt is consumed: its logits are live
+                        out[d.uid] = lg[i]
 
     def decode_step(self, tokens: Dict[int, int],
                     greedy: bool = False) -> Dict[int, object]:
         """One continuous-batching decode step (``engine_v2.py:1250``): feed
         each live uid its sampled token and get next-token logits (or, with
         ``greedy=True``, the on-device argmax token) for all of them."""
+        if not self.paged:
+            # every uid validated before any state is touched
+            for uid in tokens:
+                d = self.state.seqs[uid]
+                if d.seen_tokens >= self.max_seq_len:
+                    raise ContextOverflowError(
+                        f"uid {uid}: context full ({d.seen_tokens} >= {self.max_seq_len}); "
+                        "flush the sequence or raise max_seq_len", uid=uid)
+            return self._slot_decode(tokens, greedy)
         # all-or-nothing validation before any state is touched
         for uid in tokens:
             d = self.state.seqs[uid]
@@ -607,7 +1097,11 @@ class InferenceEngineV2:
         None; it is installed into the slot pool at registration and again
         at every slot re-binding. Cleared by :meth:`flush`; re-admission
         re-registers, and the counter-based keys make its replayed samples
-        bitwise those of the first pass."""
+        bitwise those of the first pass. Paged mode only."""
+        if not self.paged:
+            raise ValueError("set_sampling is paged-mode only (sampled "
+                             "selection rides the ragged/fused/verify "
+                             "programs)")
         if params is None:
             self._sampling.pop(uid, None)
             self._bias_rows.pop(uid, None)
@@ -652,25 +1146,36 @@ class InferenceEngineV2:
                 poss[i] = pos
 
     def flush(self, uid: int) -> None:
-        """Release a sequence's slot and KV blocks. Idempotent: flushing an
-        unknown uid is a counted no-op, never a double free. The sampling
-        state goes too: re-admission registers it again."""
+        """Release a sequence's slot and (paged) KV blocks. Idempotent:
+        flushing an unknown uid is a counted no-op, never a double free. The
+        sampling state goes too: re-admission registers it again. A
+        swapped-out uid's entry is dropped (an imported one is counted in
+        ``orphan_drops``)."""
         self._sampling.pop(uid, None)
         self._bias_rows.pop(uid, None)
         self._drop_bias(uid)
         if uid not in self.state.seqs:
+            entry = self._swaps.pop(uid, None)
+            if entry is not None:
+                self._cancel_payloads(entry[0])
+                if uid in self._swap_imports:
+                    self._swap_imports.discard(uid)
+                    self.swap_stats["orphan_drops"] += 1
+                return
             self.flush_noops += 1
             log_dist(f"flush({uid}): unknown uid (no-op #{self.flush_noops})",
                      ranks=[0], level=10)  # DEBUG
             return
-        self.block_mgr.free(self.state.seqs[uid])
+        if self.paged:
+            self.block_mgr.free(self.state.seqs[uid])
         self.state.flush_sequence(uid)
 
     def preempt(self, uid: int) -> int:
         """Evict a live sequence under pool pressure; returns how many blocks
-        it held. With the prefix cache on, its full blocks stay indexed."""
+        it held (0 in slot mode). With the prefix cache on, its full blocks
+        stay indexed."""
         desc = self.state.seqs.get(uid)
-        freed = len(desc.blocks) if desc is not None else 0
+        freed = len(desc.blocks) if (desc is not None and self.paged) else 0
         self.flush(uid)
         return freed
 
@@ -683,21 +1188,36 @@ class InferenceEngineV2:
         compiled programs across a rebuild too). Resident sequences are not
         migrated: the scheduler replays them from its journal, and the
         counter-based keys make replayed samples bitwise. An unfetched
-        dispatch dies with the incarnation. The host tier and swap store
-        are item 9's and do not exist here."""
-        old = self.block_mgr
+        dispatch dies with the incarnation. The host and NVMe tiers and the
+        swap store die with it too (caches of a pool that no longer exists):
+        open transfer tickets are cancelled, swap entries dropped and the
+        old tier's NVMe files deleted. A slot engine's cache is zeroed in
+        place likewise."""
         self.state = DSStateManager(self.max_seqs, self.max_seq_len)
         self._undrained_dispatch = None
+        self.transfer.cancel_all()
+        self._drop_swaps()  # counts any orphaned handoff imports
         self._sampling.clear()
         self._bias_rows.clear()
         self._bias_slots.clear()
         self._bias_pool.zero_()
         self.rebuilds += 1
-        self.block_mgr = BlockedKVCache(old.num_blocks, old.block_size,
-                                        old.max_blocks_per_seq,
-                                        prefix_cache=self.prefix_cache)
         for pool in self.kv:
             pool.zero_()
+        if not self.paged:
+            log_dist(f"InferenceEngineV2.rebuild #{self.rebuilds}: slot cache cleared "
+                     f"({self.max_seqs} slots), step programs retained", ranks=[0])
+            return
+        old = self.block_mgr
+        self.block_mgr = BlockedKVCache(old.num_blocks, old.block_size,
+                                        old.max_blocks_per_seq,
+                                        prefix_cache=self.prefix_cache,
+                                        host_tier_blocks=self.host_tier_blocks)
+        if self.nvme_tier_blocks:
+            for hid in list(old._nvme):
+                self._drop_block(hid)
+        self.block_mgr.demote_fn = _weak_method(self, "_demote_block")
+        self._bind_nvme_tier()
         log_dist(f"InferenceEngineV2.rebuild #{self.rebuilds}: block pool cleared "
                  f"({old.num_blocks}x{old.block_size}, prefix cache cold), step "
                  "programs retained", ranks=[0])
@@ -709,23 +1229,30 @@ class InferenceEngineV2:
 
     def prefix_probe(self, tokens) -> int:
         """Leading full blocks of ``tokens`` present in the prefix content
-        index (0 with the prefix cache off); read-only."""
+        index, either tier (0 for slot engines or with the prefix cache
+        off); read-only."""
         if not self.prefix_cache:
             return 0
         return self.block_mgr.probe(tokens)
 
     def set_kv_owner(self, uid: int, owner: str) -> None:
-        """Tag ``uid``'s KV blocks with a tenant, billed against its quota."""
-        self.block_mgr.set_seq_owner(uid, owner)
+        """Tag ``uid``'s KV blocks with a tenant, billed against its quota
+        (a no-op on slot engines)."""
+        if self.paged:
+            self.block_mgr.set_seq_owner(uid, owner)
 
     def set_kv_quota(self, owner: str, max_blocks) -> None:
-        """Cap ``owner``'s at-rest prefix-cache blocks (``None`` lifts it)."""
-        self.block_mgr.set_owner_quota(owner, max_blocks)
+        """Cap ``owner``'s at-rest prefix-cache blocks (``None`` lifts it; a
+        no-op on slot engines)."""
+        if self.paged:
+            self.block_mgr.set_owner_quota(owner, max_blocks)
 
     def query(self) -> Tuple[int, int]:
-        """(free sequence slots, per-sequence token capacity bounded by the
-        free block pool)."""
+        """(free sequence slots, per-sequence token capacity, in paged mode
+        bounded by the free block pool)."""
         free_slots = self.state.max_seqs - self.state.n_active
+        if not self.paged:
+            return free_slots, self.max_seq_len
         return free_slots, min(self.max_seq_len,
                                self.block_mgr.free_blocks * self.block_mgr.block_size)
 
@@ -739,28 +1266,36 @@ class InferenceEngineV2:
         s["hit_rate"] = (s["hits"] / s["lookups"]) if s["lookups"] else 0.0
         s["cached_blocks"] = self.block_mgr.cached_blocks
         s["free_blocks"] = self.block_mgr.free_blocks
-        # the KV tiers' and swap's gauges and counters, zero without them
-        # (item 9), so dashboards read the same keys as the JAX engine's
-        for k in ("host_blocks", "host_capacity_blocks", "host_bytes", "nvme_blocks",
-                  "nvme_capacity_blocks", "nvme_bytes", "swap_out", "swap_in",
-                  "swap_out_blocks", "swap_in_blocks", "swap_export", "swap_import",
-                  "export_blocks", "import_blocks", "orphan_drops", "swap_out_bytes",
-                  "swap_in_bytes"):
-            s[k] = 0
+        # the host and NVMe tiers' gauges and the swap counters (zero with
+        # the tiers off)
+        s["host_blocks"] = self.block_mgr.host_blocks
+        s["host_capacity_blocks"] = self.host_tier_blocks
+        s["host_bytes"] = self.block_mgr.host_blocks * self.block_bytes
+        nvme_res = self.block_mgr.nvme_resident_blocks
+        s["nvme_blocks"] = nvme_res
+        s["nvme_capacity_blocks"] = self.nvme_tier_blocks
+        s["nvme_bytes"] = nvme_res * self.block_bytes
+        s.update(self.swap_stats)
+        s["swap_out_bytes"] = self.swap_stats["swap_out_blocks"] * self.block_bytes
+        s["swap_in_bytes"] = self.swap_stats["swap_in_blocks"] * self.block_bytes
         return s
 
     def monitor_events(self, step: int = 0) -> List[Tuple[str, float, int]]:
         """Prefix-cache counters as ``(label, value, step)`` events
-        (``engine_v2.py:1864``). The JAX engine's ``serve/transfer/*``
-        events come with its TransferEngine (ROADMAP.md Queue 1 item 9)."""
-        return [(f"inference/prefix_cache/{k}", float(v), step)
-                for k, v in sorted(self.prefix_cache_stats().items())]
+        (``engine_v2.py:1864``), and the TransferEngine's bandwidth EMAs and
+        ledger bytes under ``serve/transfer/*``."""
+        events = [(f"inference/prefix_cache/{k}", float(v), step)
+                  for k, v in sorted(self.prefix_cache_stats().items())]
+        events.extend(self.transfer.monitor_events("serve/transfer", step))
+        return events
 
     def can_schedule(self, n_new: int = 1) -> bool:
-        """Admit only if every new sequence gets a slot and one prefill
-        chunk of blocks."""
+        """Admit only if every new sequence gets a slot and, in paged mode,
+        one prefill chunk of blocks."""
         if not self.state.can_allocate(n_new):
             return False
+        if not self.paged:
+            return True
         per_seq = self.block_mgr.blocks_needed(min(self.prefill_chunk, self.max_seq_len))
         return self.block_mgr.free_blocks >= n_new * per_seq
 
@@ -773,6 +1308,8 @@ class InferenceEngineV2:
         descriptor intact and the step retries verbatim), then
         copy-on-write over every block the K writes reach. Returns the
         descriptors in slot order, the row order of the program."""
+        if not self.paged:
+            raise ValueError(f"{what} is paged-mode only")
         if len(tokens) > self.max_seqs:
             raise EngineUsageError(
                 f"batch of {len(tokens)} exceeds {self.max_seqs} slots")
@@ -787,6 +1324,7 @@ class InferenceEngineV2:
                     f"uid {uid}: {what} width {K} exceeds context "
                     f"({d.seen_tokens}+{K} > {self.max_seq_len}); collapse "
                     "to horizon 1 or flush the sequence", uid=uid)
+        self._drain_promotions()  # queued tier promotions land first
         for uid in tokens:
             d = self.state.seqs[uid]
             self.block_mgr.ensure(d, d.seen_tokens + K)
@@ -830,7 +1368,8 @@ class InferenceEngineV2:
             return multi(self.params, self.kv, a[0], a[1], a[2], *width, sampling=sampling,
                          keys=a[8], sampled=sampled)
 
-        return prog.run((True, sampled), step, self._capturing(), self._side).cpu().numpy()
+        return prog.run((True, sampled), step, self._capturing(), self._side,
+                        self._pool).cpu().numpy()
 
     def decode_multi(self, tokens: Dict[int, int], horizon: int) -> Dict[int, List[int]]:
         """Fused multi-token decode (``engine_v2.py:1304``): feed each live
@@ -845,6 +1384,8 @@ class InferenceEngineV2:
         step's tokens are not registered in the prefix index until
         :meth:`rollback` commits them (``uncommitted``). Validation is
         all-or-nothing."""
+        if not self.paged:
+            raise ValueError("decode_multi is paged-mode only")
         if horizon == 1:
             return {u: [t] for u, t in self.decode_step(tokens, greedy=True).items()}
         if horizon != self.decode_horizon:
@@ -889,6 +1430,8 @@ class InferenceEngineV2:
         must :meth:`rollback` the rest, padding included, before the next
         dispatch. Drafts never reach the prefix index before that commit.
         Validation is all-or-nothing."""
+        if not self.paged:
+            raise ValueError("verify_multi is paged-mode only")
         K = self.decode_horizon
         if K <= 1:
             raise EngineUsageError(
@@ -940,6 +1483,8 @@ class InferenceEngineV2:
         prefix index until :meth:`commit_step`. Validation is
         all-or-nothing, and the previous round's handle must be fetched
         first."""
+        if not self.paged:
+            raise ValueError("decode_dispatch is paged-mode only")
         if not tokens:
             raise EngineUsageError("decode_dispatch with an empty feed")
         if self._undrained_dispatch is not None:
@@ -988,6 +1533,8 @@ class InferenceEngineV2:
         successor round runs; that is safe because the steps run in
         dispatch order on one stream and attention reads only positions
         below each row's length. Returns the block references released."""
+        if not self.paged:
+            raise ValueError("commit_step is paged-mode only")
         d = self.state.seqs.get(uid)
         if d is None:
             return 0
@@ -1021,6 +1568,8 @@ class InferenceEngineV2:
         the last ``decode_multi``/``verify_multi`` (``uncommitted``):
         committed tokens are immutable. Idempotent on unknown uids. Returns
         the block references released."""
+        if not self.paged:
+            raise ValueError("rollback is paged-mode only")
         d = self.state.seqs.get(uid)
         if d is None:
             return 0
@@ -1059,7 +1608,8 @@ class InferenceEngineV2:
         (``graph_captures`` counts it; the cache counters, like the JAX
         engine's traces, do not change). Refuses while a sequence is
         resident (its KV was computed under the old weights), and flushes
-        the prefix index, which holds old-weights KV."""
+        the prefix index of both tiers and the swap store, which hold
+        old-weights KV."""
         if self.state.n_active:
             raise EngineUsageError(
                 f"load_params with {self.state.n_active} resident "
@@ -1073,7 +1623,9 @@ class InferenceEngineV2:
             prog.graphs.clear()
         self.params = new
         self.weights_version = version
-        self.block_mgr.flush_cache()
+        if self.paged:
+            self.block_mgr.flush_cache()  # both tiers
+            self._drop_swaps()
 
     def _match_params(self, served, tree, path: str) -> None:
         """Raise unless ``tree`` has the served weights' structure and
@@ -1089,15 +1641,3 @@ class InferenceEngineV2:
             if shape != tuple(dst.shape):
                 raise ValueError(f"load_params: '{path}/{name}' has shape "
                                  f"{shape}, the served leaf {tuple(dst.shape)}")
-
-    def swap_out(self, uid):
-        raise _not_ported("swap_out", _TIER_ITEM)
-
-    def swap_in(self, uid):
-        raise _not_ported("swap_in", _TIER_ITEM)
-
-    def export_swap(self, uid):
-        raise _not_ported("export_swap (cross-engine KV handoff)", _TIER_ITEM)
-
-    def import_swap(self, uid, payload):
-        raise _not_ported("import_swap (cross-engine KV handoff)", _TIER_ITEM)

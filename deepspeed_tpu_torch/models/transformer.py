@@ -6,7 +6,8 @@ the JAX package's leaf names and shapes. Block leaves stay stacked along a
 leading layer axis ``(L, ...)``; each layer reads its slice as a view.
 
 Ported: ``init_params``, ``init_kv_pool``, ``forward_paged`` (with
-``n_valid`` and ``logit_rows``), the multi-token programs
+``n_valid`` and ``logit_rows``), the slot cache (``init_kv_cache``,
+``forward_with_cache``, ``forward_with_cache_all``), the multi-token programs
 ``decode_paged_multi``, ``verify_paged_multi`` and ``draft_greedy``,
 ``sample_or_argmax`` (greedy and threefry-sampled), and the
 training path: ``apply`` (the next-token loss), ``logits`` and the cacheless
@@ -320,6 +321,17 @@ class TransformerLM:
         return (torch.zeros(shape, dtype=dtype, device=dev),
                 torch.zeros(shape, dtype=dtype, device=dev))
 
+    def init_kv_cache(self, batch_size: int, max_len: int,
+                      dtype: torch.dtype = torch.bfloat16,
+                      device: Union[str, torch.device] = "cuda"):
+        """Dense slot cache ``(L, batch_size, max_len, kvh, hd)`` for K and for
+        V (``transformer.py:1026``): one row a slot."""
+        cfg = self.config
+        dev = resolve_device(device)
+        shape = (cfg.num_layers, batch_size, max_len, cfg.kv_heads, cfg.head_dim)
+        return (torch.zeros(shape, dtype=dtype, device=dev),
+                torch.zeros(shape, dtype=dtype, device=dev))
+
     # ------------------------------------------------------------------
     def _embed(self, params, input_ids, positions, dtype):
         cfg = self.config
@@ -410,6 +422,86 @@ class TransformerLM:
         lens = (positions + 1).reshape(B * S).to(torch.int32)
         attn = paged_decode_attention(q.reshape(B * S, nh, hd), kp, vp, rows, lens)
         return self._block_out(x, attn, blk)
+
+    def _block_cached(self, x, blk, positions, ck, cv, cache_index, kv_rows, active):
+        """One pre-LN block on (B, S, H) against one layer of the slot cache
+        (``ck``/``cv`` (Bc, T, kvh, hd)), the JAX block's ``kv_cache`` branch
+        (``transformer.py:608-618``) for every row at once:
+
+        1. row b's K/V are written in place at its cache row ``kv_rows[b]``
+           (b by default), positions ``cache_index[b] .. + S - 1``; with
+           ``active`` (B,), an inactive row writes back what its cache held
+           there (bitwise unchanged), as the JAX decode's
+           ``where(active, new, old)`` (``engine_v2.py:369-371``);
+        2. causal attention with ``q_offset=cache_index`` over the cache
+           rows (``kv_rows``), read in place;
+        3. the MLP."""
+        cfg = self.config
+        B, S, _ = x.shape
+        q, kk, v = self._qkv(x, blk, positions)
+        ar = torch.arange(S, dtype=cache_index.dtype, device=x.device)
+        pos = (cache_index[:, None] + ar).long()  # (B, S) write positions
+        rows = (torch.arange(B, device=x.device) if kv_rows is None
+                else kv_rows.long())[:, None].expand(B, S)
+        kn, vn = kk.to(ck.dtype), v.to(cv.dtype)
+        if active is not None:
+            keep = active.bool()[:, None, None, None]
+            kn = torch.where(keep, kn, ck[rows, pos])
+            vn = torch.where(keep, vn, cv[rows, pos])
+        ck[rows, pos] = kn
+        cv[rows, pos] = vn
+        attn = _attention_op(q, ck, cv, causal=True, q_offset=cache_index,
+                             num_kv_groups=cfg.num_heads // cfg.kv_heads,
+                             softcap=cfg.logit_softcap, kv_rows=kv_rows)
+        return self._block_out(x, attn, blk)
+
+    def _trunk_with_cache(self, params, input_ids, kv_cache, cache_index, positions=None,
+                          kv_rows=None, active=None):
+        """Every block against the slot cache (``transformer.py:1031``), the
+        cache written in place; ``cache_index`` is an int or a (B,) integer
+        tensor, one write offset a row (the JAX engine vmaps a scalar)."""
+        B, S = input_ids.shape
+        dev = input_ids.device
+        if not isinstance(cache_index, torch.Tensor):
+            cache_index = torch.full((B,), int(cache_index), dtype=torch.int32, device=dev)
+        if positions is None:
+            positions = cache_index[:, None] + torch.arange(S, dtype=cache_index.dtype,
+                                                            device=dev)
+        ck_all, cv_all = kv_cache
+        x = self._embed(params, input_ids, positions, ck_all.dtype)
+        blocks = params["blocks"]
+        for i in range(self.config.num_layers):
+            blk = {k: w[i] for k, w in blocks.items()}
+            x = self._block_cached(x, blk, positions, ck_all[i], cv_all[i], cache_index,
+                                   kv_rows, active)
+        return x
+
+    def forward_with_cache_all(self, params, input_ids, kv_cache, cache_index,
+                               positions=None, *, kv_rows=None):
+        """Run a (B, S) segment against the slot cache ``kv_cache`` (the pair
+        from :meth:`init_kv_cache`), written in place where the JAX function
+        returns a new cache (``transformer.py:1052``); returns (B, S, V)
+        logits. ``kv_rows`` ((B,), optional) names each row's cache row, so
+        a group of slots runs against the whole cache."""
+        x = self._trunk_with_cache(params, input_ids, kv_cache, cache_index, positions,
+                                   kv_rows)
+        return self._head(params, x)
+
+    def forward_with_cache(self, params, input_ids, kv_cache, cache_index, positions=None,
+                           *, kv_rows=None, n_valid=None, active=None):
+        """:meth:`forward_with_cache_all` projecting one position a row
+        through the vocabulary head (``transformer.py:1225``): the last, or
+        with ``n_valid`` ((B,)) row b's position ``n_valid[b] - 1`` (the JAX
+        prefill projects all S and keeps that one). ``active`` ((B,)) marks
+        the rows whose K/V are written (see :meth:`_block_cached`).
+        Returns (B, V)."""
+        x = self._trunk_with_cache(params, input_ids, kv_cache, cache_index, positions,
+                                   kv_rows, active)
+        B, S, _ = x.shape
+        if n_valid is None:
+            return self._head(params, x[:, -1])
+        last = (n_valid - 1).clamp(0, S - 1).long()
+        return self._head(params, x[torch.arange(B, device=x.device), last])
 
     def forward_paged(self, params, input_ids, kv_pool, tables, starts,
                       n_valid=None, logit_rows=None):

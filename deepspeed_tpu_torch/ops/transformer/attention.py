@@ -47,15 +47,20 @@ def _auto_impl(q) -> str:
 
 
 @register_impl("xla")
-def xla_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+def xla_attention(q, k, v, *, causal: bool = True, q_offset=0,
                   num_kv_groups: int = 1, softcap: float = 0.0, bias=None,
-                  scale: Optional[float] = None):
+                  scale: Optional[float] = None, kv_rows=None):
     """Plain einsum attention on (B, Sq, h, d) q and (B, Skv, hkv, d) k/v.
 
     fp32 softmax; GQA handled by reshaping q into (hkv, groups); ``q_offset``
-    shifts the causal diagonal (query i attends to keys <= i + q_offset).
-    Returns (B, Sq, h, d) in q's dtype.
+    (an int, or a (B,) tensor: one a row) shifts the causal diagonal (query
+    i attends to keys <= i + q_offset); ``kv_rows`` ((B,), optional) takes
+    row b's k/v from their batch row ``kv_rows[b]``. Returns (B, Sq, h, d)
+    in q's dtype.
     """
+    if kv_rows is not None:
+        rows = kv_rows.to(device=k.device, dtype=torch.long)
+        k, v = k[rows], v[rows]
     B, Sq, nh, hd = q.shape
     Skv, kvh = k.shape[1], k.shape[2]
     scale = hd ** -0.5 if scale is None else scale
@@ -66,20 +71,32 @@ def xla_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     if bias is not None:
         logits = logits + bias.float()
     if causal:
-        qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
-        kpos = torch.arange(Skv, device=q.device)[None, :]
-        logits = logits.masked_fill(~(qpos >= kpos), -1e30)
+        logits = logits.masked_fill(~causal_mask(Sq, Skv, q_offset, q.device), -1e30)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
     return out.reshape(B, Sq, nh, hd).to(q.dtype)
 
 
+def causal_mask(Sq: int, Skv: int, q_offset, device) -> torch.Tensor:
+    """True where query i may see key j, ``j <= i + q_offset``: (Sq, Skv)
+    for an int offset, (B, 1, 1, Sq, Skv) for a (B,) tensor of offsets (to
+    broadcast over the (B, kvh, g, Sq, Skv) scores)."""
+    kpos = torch.arange(Skv, device=device)
+    qpos = torch.arange(Sq, device=device)[:, None]
+    if not isinstance(q_offset, torch.Tensor):
+        return qpos + q_offset >= kpos[None, :]
+    off = q_offset.to(device=device, dtype=torch.long).reshape(-1, 1, 1)
+    return (qpos[None] + off >= kpos[None, None, :])[:, None, None]
+
+
 def attention(q, k, v, *, causal=True, q_offset=0, num_kv_groups=1,
-              softcap=0.0, bias=None, scale=None, impl: Optional[str] = None):
+              softcap=0.0, bias=None, scale=None, impl: Optional[str] = None,
+              kv_rows=None):
     """Multi-head attention with optional GQA / causal offset / softcap.
 
-    q: (B, Sq, num_heads, head_dim); k/v: (B, Skv, kv_heads, head_dim).
-    Returns (B, Sq, num_heads, head_dim) in q's dtype.
+    q: (B, Sq, num_heads, head_dim); k/v: (B, Skv, kv_heads, head_dim), or
+    any batch with ``kv_rows`` (B,) naming row b's. ``q_offset``: an int or
+    a (B,) tensor. Returns (B, Sq, num_heads, head_dim) in q's dtype.
     """
     name = impl or _auto_impl(q)
     if name not in _IMPLS:
@@ -91,6 +108,8 @@ def attention(q, k, v, *, causal=True, q_offset=0, num_kv_groups=1,
                          "the flash kernel on the card")
     kw = dict(causal=causal, q_offset=q_offset, num_kv_groups=num_kv_groups,
               softcap=softcap, bias=bias, scale=scale)
+    if kv_rows is not None:
+        kw["kv_rows"] = kv_rows
     if on_card:
         return _IMPLS[name](q, k, v, **kw)
     try:

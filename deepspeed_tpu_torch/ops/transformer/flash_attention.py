@@ -22,8 +22,17 @@ gate's 64/128/256, and 32, which the JAX package sends to its XLA path, so
 that a model such as ``llama-tiny`` runs on the card); any sequence
 length (a tail tile is masked); any GQA group ``nh / kvh``; float32,
 bfloat16 or float16 with q, k, v (and do) of one dtype; a contiguous last
-dimension, 16-byte-aligned data and row strides. Bias, softcap and a
-nonzero ``q_offset`` raise ``NotImplementedError``.
+dimension, 16-byte-aligned data and row strides. Bias and softcap raise
+``NotImplementedError``.
+
+The forward also takes the slot engine's two arguments (``attention.py``):
+``q_offset``, one causal offset a row ((B,) int32 on the card: query i of
+row b sees keys <= i + q_offset[b]), and ``kv_rows``, the (B,) int32 batch
+rows of k and v that the rows of q read, so that a group of slots attends
+to a whole (max_seqs, T, kvh, hd) cache in place. With either,
+``flash_attention`` runs the forward alone and refuses inputs that need
+gradients: the backward kernels take neither (the slot engine serves, it
+does not train).
 """
 
 import ctypes
@@ -31,7 +40,7 @@ from typing import Optional
 
 import torch
 
-from .attention import register_impl
+from .attention import causal_mask, register_impl
 from ..launch_counters import register as _register_counters
 
 NEG_INF = -1e30
@@ -70,7 +79,7 @@ def _scale(q, scale):
     return q.shape[-1] ** -0.5 if scale is None else float(scale)
 
 
-def _scores(q, k, causal, num_kv_groups, scale):
+def _scores(q, k, causal, num_kv_groups, scale, q_offset=0):
     """fp32 scores (B, kvh, g, Sq, Skv), masked keys at NEG_INF, and q as
     (B, Sq, kvh, g, hd)."""
     B, Sq, nh, hd = q.shape
@@ -78,19 +87,21 @@ def _scores(q, k, causal, num_kv_groups, scale):
     qg = q.reshape(B, Sq, kvh, num_kv_groups, hd)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
     if causal:
-        qpos = torch.arange(Sq, device=q.device)[:, None]
-        kpos = torch.arange(Skv, device=q.device)[None, :]
-        s = s.masked_fill(~(qpos >= kpos), NEG_INF)
+        s = s.masked_fill(~causal_mask(Sq, Skv, q_offset, q.device), NEG_INF)
     return s, qg
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, num_kv_groups: int = 1,
-                          scale: Optional[float] = None):
+                          scale: Optional[float] = None, q_offset=0, kv_rows=None):
     """The kernel's function in plain PyTorch: (out (B, Sq, nh, hd) in q's
     dtype, lse (B, nh, Sq) fp32). As the kernel, p is rounded to v's dtype
-    before P.V and the sum l is taken over the unrounded p."""
+    before P.V and the sum l is taken over the unrounded p. ``q_offset`` and
+    ``kv_rows`` as in the module docstring."""
+    if kv_rows is not None:
+        rows = kv_rows.to(device=k.device, dtype=torch.long)
+        k, v = k[rows], v[rows]
     B, Sq, nh, hd = q.shape
-    s, _ = _scores(q, k, causal, num_kv_groups, _scale(q, scale))
+    s, _ = _scores(q, k, causal, num_kv_groups, _scale(q, scale), q_offset)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
@@ -136,7 +147,7 @@ def _kernel_lib():
         lib = FlashAttentionBuilder().load()
         lib.dstt_flash_attention_fwd.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+            + [ctypes.c_float] + [ctypes.c_void_p] * 4)
         lib.dstt_flash_attention_bwd.argtypes = (
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
             + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
@@ -148,11 +159,12 @@ def _kernel_lib():
     return _lib
 
 
-def _check_cuda_inputs(q, k, v, num_kv_groups, extra=()):
+def _check_cuda_inputs(q, k, v, num_kv_groups, extra=(), any_kv_batch=False):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash attention expects q (B, Sq, nh, hd) and k/v (B, Skv, kvh, hd)")
     B, Sq, nh, hd = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+    if (k.shape != v.shape or (k.shape[0] != B and not any_kv_batch)
+            or k.shape[3] != hd):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}")
     kvh = k.shape[2]
     if kvh * num_kv_groups != nh:
@@ -183,19 +195,40 @@ def _raise_if(err, lib, what):
                            + lib.dstt_cuda_error_string(err).decode())
 
 
+def _row_index(t, B, device, what):
+    """A (B,) int32 contiguous CUDA tensor of per-row indices, or raise."""
+    if (not isinstance(t, torch.Tensor) or t.shape != (B,) or t.dtype != torch.int32
+            or t.device != device or not t.is_contiguous()):
+        raise ValueError(f"flash attention: {what} must be a contiguous ({B},) int32 "
+                         f"tensor on {device}")
+    return t
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = True, num_kv_groups: int = 1,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None, q_offset=0, kv_rows=None):
     """(out, lse): out (B, Sq, nh, hd) in q's dtype, contiguous; lse
     (B, nh, Sq) fp32. CPU tensors run the plain version; CUDA tensors launch
-    the forward kernel or raise."""
+    the forward kernel or raise. ``q_offset`` (an int, or a (B,) int32
+    tensor on q's device) and ``kv_rows`` ((B,) int32, rows of k/v, which
+    may then have any batch) as in the module docstring; the caller keeps
+    ``kv_rows`` inside k's batch and the offsets >= 0 (the kernel reads
+    them on the card, where checking would cost a copy to the host)."""
     global fwd_launches
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, num_kv_groups=num_kv_groups,
-                                     scale=scale)
+                                     scale=scale, q_offset=q_offset, kv_rows=kv_rows)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    _check_cuda_inputs(q, k, v, num_kv_groups)
+    _check_cuda_inputs(q, k, v, num_kv_groups, any_kv_batch=kv_rows is not None)
     B, Sq, nh, hd = q.shape
+    offsets = None
+    if isinstance(q_offset, torch.Tensor):
+        offsets = _row_index(q_offset, B, q.device, "q_offset")
+    elif q_offset:
+        offsets = torch.full((B,), int(q_offset), dtype=torch.int32, device=q.device)
+    rows = None if kv_rows is None else _row_index(kv_rows, B, q.device, "kv_rows")
+    if rows is not None and offsets is None:  # the kernel's row index rides with offsets
+        offsets = torch.zeros((B,), dtype=torch.int32, device=q.device)
     out = torch.empty((B, Sq, nh, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, nh, Sq), dtype=torch.float32, device=q.device)
     lib = _kernel_lib()
@@ -203,7 +236,10 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, num_kv_groups: int = 1,
         err = lib.dstt_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             _KERNEL_DTYPES[q.dtype], B, Sq, k.shape[1], nh, k.shape[2], hd, int(causal),
-            _scale(q, scale), _strides(q, k, v), torch.cuda.current_stream(q.device).cuda_stream)
+            _scale(q, scale), _strides(q, k, v),
+            None if offsets is None else offsets.data_ptr(),
+            None if rows is None else rows.data_ptr(),
+            torch.cuda.current_stream(q.device).cuda_stream)
     _raise_if(err, lib, "forward")
     fwd_launches += 1
     return out, lse
@@ -262,11 +298,20 @@ class _FlashAttention(torch.autograd.Function):
 
 @register_impl("pallas_flash")
 def flash_attention(q, k, v, *, causal=True, q_offset=0, num_kv_groups=1,
-                    softcap=0.0, bias=None, scale=None):
+                    softcap=0.0, bias=None, scale=None, kv_rows=None):
     """Flash attention entry (same (B, S, h, d) surface as
     ``attention.xla_attention``), differentiable in q, k and v. The JAX
     entry's ``block_q`` / ``block_k`` chose TPU tiles; the CUDA kernels pick
-    their own."""
-    if bias is not None or (softcap and softcap > 0.0) or q_offset != 0:
+    their own. With a ``q_offset`` or ``kv_rows`` it runs the forward alone
+    and raises if an input needs gradients."""
+    if bias is not None or (softcap and softcap > 0.0):
         raise NotImplementedError("flash kernel: bias/softcap/q_offset unsupported")
+    offset = isinstance(q_offset, torch.Tensor) or q_offset != 0
+    if offset or kv_rows is not None:
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            raise NotImplementedError(
+                "flash kernel: bias/softcap/q_offset unsupported in the backward (a "
+                "q_offset or kv_rows forward serves the slot engine and does not train)")
+        return flash_attention_fwd(q, k, v, causal=bool(causal), num_kv_groups=int(num_kv_groups),
+                                   scale=_scale(q, scale), q_offset=q_offset, kv_rows=kv_rows)[0]
     return _FlashAttention.apply(q, k, v, bool(causal), int(num_kv_groups), _scale(q, scale))

@@ -2,12 +2,10 @@
 
 A copy of ``deepspeed_tpu/serve/scheduler.py`` for the port, which imports nothing
 of the JAX package; the text below is the JAX module's. The port's engine
-runs every schedule here (the fused decode horizon, speculative
-verification, pipelined dispatch) except those whose engine calls are not
-ported yet: swap preemption and a host or NVMe KV tier raise
-``NotImplementedError`` naming their ROADMAP.md item at construction, before
-any request is taken. The drain in ``close()`` waits for the card with ``torch.cuda.synchronize``
-where the JAX package blocks on the pool.
+runs every schedule here: slot and paged engines, the fused decode horizon,
+speculative verification, pipelined dispatch, and swap preemption over the
+host KV tier. The drain in ``close()`` waits for the card with
+``torch.cuda.synchronize`` where the JAX package blocks on the pool.
 
 The engine exposes the mechanism (``put`` / ``decode_step`` / ``flush`` /
 ``can_schedule``); every consumer so far hand-rolled the policy around it.
@@ -126,25 +124,6 @@ from .speculation import DraftProposer, SpecPolicy
 from .tenancy import TenantRegistry
 
 
-#: the ROADMAP.md item that lifts the unported scheduler options
-_TIER_ITEM = "ROADMAP.md Queue 1 item 9, KV tiers and swap"
-
-
-def _check_ported(engine, swap_preemption) -> None:
-    """Raise for a constructor option whose engine calls the port lacks."""
-    unported = (
-        (swap_preemption is True, "swap_preemption=True", _TIER_ITEM),
-        (bool(getattr(engine, "host_tier_blocks", 0)
-              or getattr(engine, "nvme_tier_blocks", 0)),
-         "an engine with a host or NVMe KV tier", _TIER_ITEM),
-    )
-    for bad, what, item in unported:
-        if bad:
-            raise NotImplementedError(
-                f"ContinuousBatchScheduler with {what} is not ported to "
-                f"deepspeed_tpu_torch ({item})")
-
-
 class QueueFullError(RuntimeError):
     """Bounded-queue backpressure: the caller must retry later or shed load."""
 
@@ -200,7 +179,6 @@ class ContinuousBatchScheduler:
                  deadline_guard: bool = False,
                  pipelined: bool = False,
                  tenancy: Optional[TenantRegistry] = None):
-        _check_ported(engine, swap_preemption)
         self.engine = engine
         #: multi-tenant QoS (docs/SERVING.md "Multi-tenant QoS"): when a
         #: :class:`TenantRegistry` is attached, every submit must name a

@@ -6,8 +6,9 @@ engine geometry and prompts of ``test_torch_engine_v2.py``).
   dispatches nothing; ``max_steps=1`` / ``N`` run at most that many ragged
   steps; ``None`` drains. ``prefill_backlog`` follows the same numbers in
   both packages, and every logit row returned is allclose at atol 1e-4.
-- ``monitor_events``: the prefix-cache events equal the JAX engine's (its
-  ``serve/transfer/*`` events come with item 9).
+- ``monitor_events``: the prefix-cache events equal the JAX engine's, and
+  so do the ``serve/transfer/*`` labels and byte counters (the bandwidth
+  gauges read the wall clock).
 - ``set_sampling``/``refresh_bias``: sampled rows, a static bias row and a
   per-step refreshed one, each engine fed its own tokens: the streams equal
   the JAX engine's token for token; a zero bias leaves greedy tokens
@@ -92,8 +93,10 @@ def test_monitor_events_match_jax(models):
         eng.put([1], [P1], greedy=True)
         eng.put([2], [P1 + P3[:5]], greedy=True)  # a prefix hit
         eng.flush(1)
-    jev = [e for e in je.monitor_events(step=5) if not e[0].startswith("serve/transfer/")]
-    assert te.monitor_events(step=5) == jev
+    jall, tall = je.monitor_events(step=5), te.monitor_events(step=5)
+    assert [e[0] for e in tall] == [e[0] for e in jall]
+    jev = [e for e in jall if not e[0].endswith("_bytes_per_s")]
+    assert [e for e in tall if not e[0].endswith("_bytes_per_s")] == jev
     assert dict((k, v) for k, v, _ in jev)["inference/prefix_cache/hits"] >= 1
     assert te.prefix_cache_stats() == je.prefix_cache_stats()
 

@@ -141,10 +141,16 @@ def test_block_tables_and_stats_match_jax(models, jax_logits_run):
     (dict(host_tier_blocks=4), "item 9"),
 ])
 def test_unported_options_raise_naming_roadmap_item(models, kwargs, item):
-    _, _, tm, tparams = models
+    # ported since: slot mode (item 5c) and the KV tiers (item 9) construct,
+    # gated as the JAX engine gates them (the NVMe tier needs the host tier)
+    jm, params, tm, tparams = models
     opts = dict(ENGINE, **kwargs)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-        InferenceEngineV2(tm, tparams, device="cpu", **opts)
+    je = JaxEngine(jm, params, dtype=np.float32, **opts)
+    te = InferenceEngineV2(tm, tparams, device="cpu", **opts)
+    for attr in ("paged", "max_seqs", "prefix_cache", "host_tier_blocks", "nvme_tier_blocks",
+                 "block_bytes"):
+        assert getattr(te, attr) == getattr(je, attr), (item, attr)
+    assert (te.transfer.nvme is None) == (je.transfer.nvme is None)
 
 
 def test_sampling_with_temperature_raises(models):
@@ -157,12 +163,11 @@ def test_sampling_with_temperature_raises(models):
         temperature = 0.8
 
     eng.set_sampling(1, Greedy())
-    # a temperature is taken since threefry sampling was ported; the KV
-    # tiers' calls still raise naming their item
+    # a temperature is taken since threefry sampling was ported; swap_out,
+    # ported since, declines without a host tier (the caller replays)
     eng.set_sampling(2, Sampled())
     assert eng._sampling[2].temperature == 0.8
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
-        eng.swap_out(1)
+    assert eng.swap_out(1) is False
 
 
 def test_deleted_engine_is_freed_without_the_garbage_collector(models):

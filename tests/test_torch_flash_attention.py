@@ -169,7 +169,8 @@ def test_attention_on_cpu_runs_the_plain_version():
 @pytest.mark.parametrize("kw", [dict(bias=torch.zeros(1, 1, 1, 1, 8)), dict(softcap=30.0),
                                 dict(q_offset=3)])
 def test_flash_entry_refuses_what_the_kernel_does_not_compute(kw):
-    q = torch.zeros(1, 8, 2, 64)
+    # an offset runs the forward since slot mode; only its backward is refused
+    q = torch.zeros(1, 8, 2, 64, requires_grad="q_offset" in kw)
     with pytest.raises(NotImplementedError, match="bias/softcap/q_offset"):
         fa.flash_attention(q, q, q, **kw)
 
@@ -280,7 +281,10 @@ def test_cuda_llama_tiny_trains_through_the_kernel(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kw", [dict(bias=0), dict(softcap=30.0), dict(q_offset=3)])
 def test_cuda_dispatch_raises_instead_of_running_the_plain_version(kw, cuda):
-    q = torch.zeros(1, 128, 2, 64, device=cuda, dtype=torch.bfloat16)
+    # an offset runs the kernel's forward since slot mode: with gradients
+    # (the backward kernels take none) it raises
+    q = torch.zeros(1, 128, 2, 64, device=cuda, dtype=torch.bfloat16,
+                    requires_grad="q_offset" in kw)
     if "bias" in kw:
         kw = dict(bias=torch.zeros(1, 1, 1, 1, 128, device=cuda))
     with pytest.raises(NotImplementedError):

@@ -73,7 +73,8 @@ def prompts(n=3, seed=0):
 def counters(sched, eng):
     """Every reported counter that does not read the wall clock."""
     ev = {k: v for k, v, _ in sched.monitor_events()
-          if "lat" not in k and not k.endswith("_ms") and not k.startswith("serve/transfer/")}
+          if "lat" not in k and not k.endswith("_ms") and not k.startswith("serve/transfer/")
+          and not k.endswith("bytes_per_s")}
     ev["prefix_hits"] = eng.prefix_cache_stats().get("hits", 0)
     return ev
 

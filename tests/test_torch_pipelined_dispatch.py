@@ -3,7 +3,8 @@
 The scenarios of the JAX package's ``tests/unit/test_pipelined_dispatch.py``
 that run on one engine, each through both packages: the ``pipelined=True``
 scheduler against its synchronous twin (plain greedy, EOS, a stop sequence's
-speculative-absorb rollback, sampled, preemption churn, a device loss with a
+speculative-absorb rollback, sampled, preemption churn, the same churn
+with a host tier and forced swap preemption, a device loss with a
 round in flight, detach/adopt migration, cancellation mid-flight, the stage
 timing split), the engine seam (``decode_dispatch`` / ``commit_step``), and
 the ``check_pipeline_coherence`` sanitizer's planted violations. Inside the
@@ -11,9 +12,8 @@ port the pipelined streams must equal the synchronous ones bitwise; across
 packages streams and counters must be equal under the margin rule. The
 harness is ``tests/test_torch_fused_decode.py``'s.
 
-Not ported: the KV-swap twin (ROADMAP.md Queue 1 item 9), the checked
-cache's register guard (item 10) and the engine pool's two-phase step
-(item 8).
+Not ported: the checked cache's register guard (ROADMAP.md Queue 1 item
+10) and the engine pool's two-phase step (item 8).
 """
 
 import numpy as np
@@ -93,6 +93,19 @@ def test_preemption_churn(models):
     _, pipe = twin(models, ps, gen=40, num_blocks=13,
                    sched_kw={"retry": PKG["torch"][0].RetryPolicy(max_attempts=5)})
     assert pipe[2].metrics.preemptions > 0
+
+
+def test_kv_swap(models):
+    """The churn with a host tier and forced swap preemption: victims leave
+    through swap-out and re-admit through swap-in under the pipelined loop."""
+    rng = np.random.default_rng(0)
+    ps = [rng.integers(1, 127, 17).tolist() for _ in range(4)]
+    _, pipe = twin(models, ps, gen=40, num_blocks=13, host_tier_blocks=32,
+                   sched_kw={"retry": PKG["torch"][0].RetryPolicy(max_attempts=5),
+                             "swap_preemption": True})
+    assert pipe[2].metrics.preemptions > 0
+    kv = pipe[2].metrics.kvtier
+    assert kv["swap_out"] >= 1 and kv["swap_in"] >= 1
 
 
 def test_mid_step_engine_loss(models):

@@ -7,8 +7,8 @@ sleeps, and the same scripted requests with explicit uids. Token streams
 must be equal, and so must every counter the schedulers report (the
 ``serve/*`` events, prefill/decode/sampling/fault counters, preemptions,
 prefix-cache hits, request states), except the wall-clock latencies and the
-JAX engine's ``serve/transfer/*`` events, which come with its TransferEngine
-(ROADMAP.md Queue 1 item 9). A stream that differs must do so first at a
+``serve/transfer/*`` events (the TransferEngine's bandwidth, which reads the
+wall clock). A stream that differs must do so first at a
 draw whose top-2 margin is under 1e-4 (for a sampled row the margin of
 ``gumbel + x``, x the shaped logits, or a token within 1e-6 of the nucleus
 edge), recomputed from the port's logits at that position; such draws are
@@ -22,8 +22,9 @@ priority preemption and re-admission (greedy and sampled), sampled streams,
 stop sequences, logit bias, fan-out and a dynamic logit processor, cancel,
 deadline expiry and queue-full backpressure, engine loss through a stub that
 raises ``UnrecoverableEngineError`` once, two tenants with cache quotas, the
-``NotImplementedError`` of each option still unported (swap, KV tiers, slot
-mode), and ``DSTPU_SANITIZE=1``.
+options once unported (swap, KV tiers, slot mode; their scenarios are in
+``tests/test_torch_slot_engine.py`` and ``tests/test_torch_kv_tier.py``), and
+``DSTPU_SANITIZE=1``.
 """
 
 import jax
@@ -399,7 +400,7 @@ def test_two_tenants_with_cache_quotas(models):
 
 
 # --------------------------------------------------------------------------
-# unported options and checked mode
+# once-unported options and checked mode
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("call,item", [
     (lambda eng, models: eng.swap_in(1), "item 9"),
@@ -408,20 +409,29 @@ def test_two_tenants_with_cache_quotas(models):
     (lambda eng, models: ts.ContinuousBatchScheduler(eng, swap_preemption=True), "item 9"),
 ])
 def test_unported_options_raise_at_construction(models, call, item):
+    # ported since (ROADMAP.md items 5c and 9): each call now behaves as
+    # the JAX package's does on the same engine
     eng = engine("torch", models)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-        call(eng, models)
+    got = call(eng, models)
+    if isinstance(got, InferenceEngineV2):
+        assert not got.paged and got.max_seqs == ENGINE["max_seqs"]
+    elif isinstance(got, ts.ContinuousBatchScheduler):
+        assert got.swap_preemption is True
+    else:  # swap_in declines, export_swap has nothing to export
+        assert got == call(engine("jax", models), models), item
     assert not eng.state.seqs
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(KeyError):  # an empty payload, as in the JAX package
         eng.import_swap(1, {})
 
 
 def test_engine_with_a_tier_raises_at_construction(models):
-    class Tiered:
-        paged, decode_horizon, host_tier_blocks = True, 1, 8
-
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
-        ts.ContinuousBatchScheduler(Tiered())
+    # ported since (item 9): a tiered engine is served, its tier reported
+    eng = engine("torch", models, host_tier_blocks=8)
+    sched = ts.ContinuousBatchScheduler(eng, clock=Clock(), sleep=lambda s: None)
+    sched.submit([1, 2, 3, 4, 5], max_new_tokens=3, uid=900)
+    sched.run_until_complete()
+    assert eng.prefix_cache_stats()["host_capacity_blocks"] == 8
+    assert "serve/kvtier/demotions" in {k for k, _, _ in sched.monitor_events()}
 
 
 @pytest.mark.parametrize("script", [interleave_script, _preempt_script(True)],
