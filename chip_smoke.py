@@ -136,6 +136,35 @@ in order; any failure exits non-zero and prints no result:
    by replay (streams equal but for turns at a near tie); the ledger
    conserved. A ``{"tier_summary": ...}`` line gives the counters, the D2H
    and H2D bandwidth EMAs (GB/s) and the milliseconds a swapped-in block.
+10. the engine pool on phase 4's weights (shared by every replica, never
+   copied), after phase 9's engine is freed: paged llama-7b replicas of 4
+   slots and 128 blocks of 64 tokens (``POOL_ENGINE``), ``age_weight=0``,
+   serving ``pool_requests``: four requests sharing a 640-token prefix
+   (the first alone until it has a token), phase 4's four prompts and two
+   sampled requests (seeds 1-2), 24 new tokens each. (a) ``EnginePool.build
+   (factory, 2)``: the shared-prefix requests placed on the replica that
+   holds the prefix (placement hits >= 3), the same traffic from
+   ``rebuild()`` bitwise (streams and owners), and the pool's streams
+   against one engine's under phase 8's rule (a sampled row may turn where
+   its two tokens' ``gumbel + x`` scores are within 8 bf16 units over the
+   temperature, or either sits on the top-k boundary or the nucleus edge);
+   (b) a decoding request migrated mid-stream, then ``rebalance()``; (c) a
+   ``FaultInjector`` ``device_lost`` at replica 1's third ``decode_step``,
+   absorbed by journal replay on replica 0; (d) ``rolling_update`` to v2
+   (phase 4's tree with a new final norm and head) mid-traffic: no
+   admission rejected, the graphs captured again, a request admitted after
+   it against one v2 engine; (e) a ``DisaggPool`` (prefill, decode): every
+   handoff by KV transfer, every exported block bitwise the source's and
+   every landed block bitwise the payload (``HandoffProbe``), a corrupted
+   payload refused with ``TransferCorruptError``, and corrupted handoffs
+   falling back to replay; (f) a durable journal in a temporary directory
+   (removed at the end), the pool dropped mid-traffic and restored on
+   fresh engines: every request finishes with its committed prefix kept;
+   (g) ``scale_to(3)`` then ``scale_to(2)`` mid-traffic. The paged kernel's
+   count is set to 0 before (a) and read after (g): 32 layers x the ragged
+   steps of every replica, replays included. A ``{"pool_summary": ...}``
+   line gives the card, tokens/s, TTFT/TPOT, host ms a pool step, the
+   handoffs and ms a handoff, and the memory reserved at 2 and 3 replicas.
 
 Then weight-only-quantized serving (the bf16 engine is freed first):
 
@@ -188,7 +217,15 @@ c. the training main path: ``initialize`` -> ``train_batch`` x 6 on llama-7b
    (the fall is memorisation of the fixed batch, not a causal leak);
 d. the flash kernels at the main path's shape timed with CUDA events beside
    their plain versions, ``scaled_dot_product_attention`` (forward, and the
-   backward of its graph) and their bounds.
+   backward of its graph) and their bounds;
+c2. phase c's model, batch and settings with ``dropout=0.1``, 6 steps, the
+   flash counts set to 0 just before and read just after (4 layers x 6
+   steps each): losses finite and falling; step 1's layer-0 masks (the
+   attention output's and the MLP output's, (2, 2048, 4096)) drawn on the
+   card bitwise the CPU's from the same keys, and those keys the
+   reference's chain; the last step traced with ``torch.profiler``: the
+   device ms of the threefry draws (``prng.bernoulli`` annotated) beside
+   the step's, on a ``{"dropout_summary": ...}`` line.
 
 Then block-sparse attention:
 
@@ -1761,24 +1798,33 @@ def slot_phase(params, fa, dev, paged_records):
     for _ in range(2):
         toks = engine.decode_step(toks, greedy=True)
     torch.cuda.synchronize()
-    n0 = fa.fwd_launches
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(4):
-            toks = engine.decode_step(toks, greedy=True)
-        host_ms = (time.perf_counter() - t0) * 1e3 / 4
-    dev_us, ran = 0.0, 0
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        if "spin_kernel" in e.key:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        dev_us += e.self_cuda_time_total if us is None else us
-        if "attn_fwd" in e.key:
-            ran += e.count
+    # a trace whose kernel records fall short of the launches is taken once
+    # more: the profiler has dropped a window's records before (PERF.md §5);
+    # a replay that does not run its kernels falls short both times
+    for attempt in range(2):
+        n0 = fa.fwd_launches
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(4):
+                toks = engine.decode_step(toks, greedy=True)
+            host_ms = (time.perf_counter() - t0) * 1e3 / 4
+            torch.cuda.synchronize()
+        dev_us, ran = 0.0, 0
+        for e in prof.key_averages():
+            if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+                continue
+            if "spin_kernel" in e.key:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            dev_us += e.self_cuda_time_total if us is None else us
+            if "attn_fwd" in e.key:
+                ran += e.count
+        if ran == fa.fwd_launches - n0 or attempt:
+            break
+        log(f"decode replays: the trace holds {ran} flash kernels of the "
+            f"{fa.fwd_launches - n0} launched; tracing the next 4 steps again")
     check(ran == fa.fwd_launches - n0 == 4 * cfg.num_layers,
           f"decode replays: flash kernels run (trace) {ran}, counted {fa.fwd_launches - n0}, "
           f"expected {4 * cfg.num_layers}")
@@ -2031,6 +2077,512 @@ def tier_phase(params, dev):
         f"{s['d2h_gb_per_s']:.2f} GB/s, H2D {s['h2d_gb_per_s']:.2f} GB/s, swap-in "
         f"{per_block_ms:.3f} ms a block")
     return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the engine pool
+# ---------------------------------------------------------------------------
+# each replica: phase 4's model geometry at max_seqs 4; 128 blocks of 64
+# tokens (4 GiB of bf16 KV, room for four 2100-token rows), every request
+# of the traffic under 2560 tokens
+POOL_ENGINE = dict(paged=True, max_seqs=4, max_seq_len=2560, block_size=64, num_blocks=128,
+                   prefill_chunk=256, token_budget=256, prefix_cache=True)
+POOL_NEW_TOKENS = 24
+
+
+def pool_requests(V, seed=10):
+    """Phase 10's traffic as (uid, prompt, sampling kwargs): the first of
+    four requests sharing a 640-token prefix (submitted alone, so that its
+    prefix is cached before the rest are placed), then the other three,
+    phase 4's four prompts (37, 300, 1000 and 2100 tokens) and two sampled
+    requests (seeds 1 and 2)."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, V, 640).tolist()
+    shared = [(1 + i, prefix + rng.integers(0, V, 16 + 8 * i).tolist(), None)
+              for i in range(4)]
+    r0 = np.random.default_rng(0)  # phase 4's prompts
+    p4 = [r0.integers(0, V, n).tolist() for n in (37, 300, 1000, 2100)]
+    plain = [(11 + i, p, None) for i, p in enumerate(p4)]
+    sampled = [(21, p4[1], dict(temperature=0.8, top_k=50, seed=1)),
+               (22, rng.integers(0, V, 200).tolist(), dict(temperature=1.0, top_p=0.9, seed=2))]
+    return shared[:1], shared[1:] + plain + sampled
+
+
+def pool_submit(target, reqs, max_new_tokens=POOL_NEW_TOKENS):
+    from deepspeed_tpu_torch.serve import SamplingParams
+
+    return [target.submit(p, max_new_tokens=max_new_tokens, uid=u,
+                          sampling=None if s is None else SamplingParams(**s))
+            for u, p, s in reqs]
+
+
+def pool_drive(target, first, rest, on_step=None, step_s=None):
+    """Submit ``first``, step until it has a token (its prefix blocks are
+    then cached on its replica), submit ``rest`` and step to the end.
+    ``on_step(i)`` runs after pool step i; ``step_s`` collects each step's
+    host seconds. Returns the requests and the owners at placement."""
+    reqs = pool_submit(target, first)
+    while not reqs[0].tokens:
+        check(target.step(), "phase 10: the first request never produced a token")
+    more = pool_submit(target, rest)
+    owners = {r.uid: target.owner_of(r.uid) for r in reqs + more} \
+        if hasattr(target, "owner_of") else {}
+    reqs += more
+    i = 0
+    while True:
+        t0 = time.perf_counter()
+        work = target.step()
+        if step_s is not None:
+            step_s.append(time.perf_counter() - t0)
+        if on_step is not None:
+            on_step(i)
+        i += 1
+        if not work:
+            break
+    check(all(r.state.value == "done" for r in reqs),
+          f"phase 10: requests not done: {[(r.uid, r.state.value) for r in reqs if not r.finished]}")
+    return reqs, owners
+
+
+def pool_streams(reqs):
+    return {r.uid: (list(r.prompt), list(r.tokens)) for r in reqs}
+
+
+def sampled_tie(lg, sp, position, a, b, delta):
+    """Whether a sampled row's draw could pick ``a`` in one run and ``b``
+    in another, the runs' logits ``delta`` apart (phase 8's 8 bf16 units,
+    as for a greedy row's top-2 margin): the two tokens' ``gumbel + x``
+    scores (x = logits / temperature) within ``delta / temperature``, or
+    either token on the top-k boundary (its logit within ``delta`` of the
+    k-th largest, so that the candidate set itself may differ) or at the
+    nucleus edge (the probability mass before it within ``delta /
+    temperature`` of top-p). Returns (tie, score gap, reason)."""
+    from deepspeed_tpu_torch.utils import prng
+
+    t = sp.temperature
+    x = lg.float() / t
+    srt = torch.sort(lg.float(), descending=True).values
+    reasons = []
+    if sp.top_k > 0:
+        kth = float(srt[min(sp.top_k, srt.numel()) - 1])
+        if any(abs(float(lg[tok]) - kth) <= delta for tok in (a, b)):
+            reasons.append("top-k boundary")
+    if sp.top_p < 1.0:
+        probs = torch.softmax(srt / t, -1)
+        before = torch.cumsum(probs, -1) - probs
+        rank = {tok: int((lg.float() > lg[tok]).sum()) for tok in (a, b)}
+        if any(abs(float(before[rank[tok]]) - sp.top_p) <= delta / t for tok in (a, b)):
+            reasons.append("nucleus edge")
+    g = prng.gumbel(prng.fold_in(prng.PRNGKey(sp.seed), position), x.shape)
+    gap = abs(float(g[a] + x[a] - g[b] - x[b]))
+    if gap <= delta / t:
+        reasons.append("scores")
+    return bool(reasons), gap, ",".join(reasons)
+
+
+def pool_turns(engine, got, want, samplings, what):
+    """Streams ``got`` against ``want`` ({uid: (context, tokens)}) under
+    phase 8's rule, the logits at the first turn recomputed by ``engine``
+    (``put`` from a rebuild), the runs' logits allowed to differ by 8 bf16
+    units of the top one: a greedy row may turn where its top-2 margin is
+    within that; a sampled row where ``sampled_tie`` finds the two runs'
+    tokens tied. Returns the turns."""
+    from deepspeed_tpu_torch.serve import SamplingParams
+
+    found = []
+    for u, (ctx, w) in want.items():
+        g = got[u][1]
+        i = next((k for k, (a, b) in enumerate(zip(w, g)) if a != b), None)
+        if i is None:
+            check(len(g) == len(w), f"{what}: uid {u} streams of different lengths")
+            continue
+        context = list(ctx) + w[:i]
+        engine.rebuild()
+        lg = torch.from_numpy(np.asarray(engine.put([1], [context])[1], np.float32))
+        engine.flush(1)
+        delta = 8 * ulps_bf16(float(lg.abs().max()))
+        s = samplings.get(u)
+        if s is None:
+            top2 = lg.topk(2).values
+            margin = float(top2[0] - top2[1])
+            check(margin <= delta, f"{what}: uid {u} turns at token {i} where the top-2 "
+                  f"margin is {margin:.4g} (> {delta:.3g}, 8 bf16 units)")
+            found.append({"uid": u, "token": i, "margin": margin})
+            continue
+        tie, gap, why = sampled_tie(lg, SamplingParams(**s), len(context), w[i], g[i], delta)
+        check(tie, f"{what}: sampled uid {u} turns at token {i} ({w[i]} vs {g[i]}) where "
+              f"the scores differ by {gap:.4g} (> {delta / s['temperature']:.3g}) and "
+              f"neither token is at the top-k or nucleus edge (8 bf16 units: {delta:.3g})")
+        found.append({"uid": u, "token": i, "score_gap": gap, "tie": why})
+    return found
+
+
+class HandoffProbe:
+    """Holds every block of a KV handoff bitwise: the source's blocks on
+    the card against the payload ``export_swap`` returns (the D2H), and the
+    payload against the blocks ``swap_in`` lands in the destination's pool
+    (the H2D). Wraps the two engines' methods on the instance, and keeps the
+    host seconds of the real ``export_swap`` and ``import_swap`` calls and
+    of its own copies and compares inside a handoff (``probe_s``), which
+    the handoff's time excludes."""
+
+    def __init__(self, src, dst):
+        self.src, self.dst = src, dst
+        self.exported = self.landed = 0
+        self.export_s = self.import_s = self.probe_s = 0.0
+        self.payloads, self._ids = [], set()
+        src.export_swap = self._export(src.export_swap)
+        dst.import_swap = self._import(dst.import_swap)
+        dst._scatter_blocks = self._scatter(dst._scatter_blocks)
+
+    def _export(self, fn):
+        def call(uid):
+            t0 = time.perf_counter()
+            d = self.src.state.seqs.get(uid)
+            snaps = [self.src._tier_gather(b).cpu() for b in d.blocks] if d is not None else []
+            t1 = time.perf_counter()
+            p = fn(uid)
+            t2 = time.perf_counter()
+            if p is not None:
+                for b, s in zip(p["blocks"], snaps):
+                    check(torch.equal(torch.as_tensor(b), s),
+                          f"uid {uid}: an exported block differs from the source's bytes")
+                    self.exported += 1
+                self.payloads.append(p)
+            self.export_s += t2 - t1
+            self.probe_s += (t1 - t0) + (time.perf_counter() - t2)
+            return p
+        return call
+
+    def _import(self, fn):
+        def call(uid, payload):
+            t0 = time.perf_counter()
+            n = fn(uid, payload)
+            self.import_s += time.perf_counter() - t0
+            self._ids.update(id(b) for b in payload["blocks"])
+            return n
+        return call
+
+    def _scatter(self, fn):
+        def call(payloads, dsts):
+            fn(payloads, dsts)
+            for p, d in zip(payloads, dsts):
+                if id(p) in self._ids:
+                    check(torch.equal(self.dst._tier_gather(d).cpu(), torch.as_tensor(p)),
+                          f"pool block {d}: the handed-off bytes landed changed")
+                    self.landed += 1
+        return call
+
+    def remove(self):
+        for eng, names in ((self.src, ("export_swap",)),
+                           (self.dst, ("import_swap", "_scatter_blocks"))):
+            for name in names:
+                delattr(eng, name)
+
+
+def latency_stats(reqs):
+    ttft = [r.first_token_time - r.arrival_time for r in reqs]
+    tpot = [(r.finish_time - r.first_token_time) / (len(r.tokens) - 1)
+            for r in reqs if len(r.tokens) > 1]
+    pct = lambda xs, q: float(np.percentile(np.asarray(xs) * 1e3, q))  # noqa: E731
+    return {"ttft_ms_p50": pct(ttft, 50), "ttft_ms_p90": pct(ttft, 90),
+            "tpot_ms_p50": pct(tpot, 50), "tpot_ms_p90": pct(tpot, 90)}
+
+
+def pool_phase(params, pa, dev, card):
+    """Phase 10: ``EnginePool`` over llama-7b replicas sharing phase 4's
+    weights, on the paged kernel: (a) placement, and a replay from
+    ``rebuild()`` bitwise; (b) migration and rebalance; (c) a replica's
+    death absorbed by journal replay; (d) a rolling update to v2; (e) a
+    ``DisaggPool`` handoff, its bytes held bitwise, and a CRC corruption
+    refused and replayed; (f) a durable-journal restore on fresh engines;
+    (g) ``scale_to(3)`` then ``scale_to(2)`` mid-traffic. Returns the
+    pool_summary fields and the paged launches."""
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.resilience import DurableRequestJournal, FaultInjector, FaultSpec
+    from deepspeed_tpu_torch.runtime.transfer_engine import TransferCorruptError, blocks_crc32
+    from deepspeed_tpu_torch.serve import ContinuousBatchScheduler, DisaggPool, EnginePool
+
+    model = build_model("llama-7b")
+    cfg = model.config
+    first, rest = pool_requests(cfg.vocab_size)
+    samplings = {u: s for u, _, s in first + rest if s is not None}
+    engines, retired = [], [0]
+
+    def new_engine():
+        eng = InferenceEngineV2(model, params, dtype=torch.bfloat16, device=dev, **POOL_ENGINE)
+        check(eng.params["blocks"]["wq"].data_ptr() == params["blocks"]["wq"].data_ptr(),
+              "phase 10: a replica copied the shared weights")
+        engines.append(eng)
+        return eng
+
+    def retire(eng):
+        retired[0] += eng.ragged_steps
+        engines.remove(eng)
+        eng.kv = None
+
+    def build(cls=EnginePool, n=2, reps=None, **kw):
+        reps = reps or engines[:n]
+        for e in reps:
+            e.rebuild()
+        return cls.build(lambda i: reps[i], n, age_weight=0.0, **kw)
+
+    t_phase = time.perf_counter()
+    pa.launches = 0  # the pool path's count, just before
+    e0, e1 = new_engine(), new_engine()
+
+    # (a) placement; the same traffic again from rebuilt engines, bitwise
+    pool = build()
+    step_s = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs, owners = pool_drive(pool, first, rest, step_s=step_s)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hits = pool.metrics.pool["placement_hits"]
+    shared_owner = owners[1]
+    check(hits >= 3 and all(owners[u] == shared_owner for u in (2, 3, 4)),
+          f"phase 10 (a): the shared-prefix requests were not placed by affinity: owners "
+          f"{owners}, placement hits {hits}")
+    lat = latency_stats(reqs)
+    run_a = pool_streams(reqs)
+    pool.close()
+    reserved2 = torch.cuda.memory_reserved()
+    pool = build()
+    again, owners2 = pool_drive(pool, first, rest)
+    pool.close()
+    check(pool_streams(again) == run_a and owners2 == owners,
+          "phase 10 (a): the replay from rebuild() differs from the first run")
+    e0.rebuild()
+    single = ContinuousBatchScheduler(e0, age_weight=0.0)
+    sreqs, _ = pool_drive(single, first, rest)
+    single.close()
+    turns_single = pool_turns(e0, run_a, pool_streams(sreqs), samplings,
+                              "phase 10 (a) pool vs one engine")
+    log(f"phase 10 (a): placement hits {hits}, shared-prefix requests on replica "
+        f"{shared_owner}, replay from rebuild() bitwise, pool vs one engine "
+        f"{len(turns_single)} turn(s) at a near tie")
+
+    # (b) migration mid-decode, then rebalance
+    pool = build()
+    moved = {}
+
+    def migrate(i):
+        if moved:
+            return
+        r = pool._requests.get(12)
+        if r is not None and len(r.tokens) >= 4 and not r.finished:
+            moved["uid"], moved["src"] = 12, pool.owner_of(12)
+            pool.migrate(12, 1 - moved["src"])
+            moved["rebalanced"] = pool.rebalance()
+    mreqs, _ = pool_drive(pool, first, rest, on_step=migrate)
+    migrations = pool.metrics.pool["migrations"]
+    pool.close()
+    check(moved and migrations >= 1, "phase 10 (b): no request was migrated mid-decode")
+    turns_mig = pool_turns(e0, pool_streams(mreqs), run_a, samplings, "phase 10 (b) migration")
+    log(f"phase 10 (b): uid 12 migrated from replica {moved['src']} mid-decode, rebalance "
+        f"moved {moved['rebalanced']}, {migrations} migration(s); streams vs (a): "
+        f"{len(turns_mig)} turn(s) at a near tie")
+
+    # (c) replica 1 dies at its third decode_step; replica 0 replays its journal
+    inj = FaultInjector([FaultSpec(site="decode_step", kind="device_lost", nth=3)])
+    for e in (e0, e1):
+        e.rebuild()
+    pool = EnginePool.build(lambda i: (e0, inj.wrap(e1))[i], 2, age_weight=0.0)
+    dreqs, _ = pool_drive(pool, first, rest)
+    states = [r.state for r in pool.replicas]
+    deaths, replays = pool.metrics.pool["replica_deaths"], pool.metrics.pool["death_replays"]
+    pool.close()
+    check(inj.deaths == 1 and states == ["serving", "dead"] and deaths == 1 and replays >= 1,
+          f"phase 10 (c): deaths {inj.deaths}, states {states}, replays {replays}")
+    turns_death = pool_turns(e0, pool_streams(dreqs), run_a, samplings, "phase 10 (c) death")
+    log(f"phase 10 (c): replica 1 lost at its 3rd decode_step, {replays} request(s) replayed "
+        f"on replica 0; streams vs (a): {len(turns_death)} turn(s) at a near tie")
+
+    # (d) rolling update to v2 (new final norm and head, the rest shared)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    v2 = dict(params)
+    v2["lnf_scale"] = 1.0 + 0.1 * torch.randn(params["lnf_scale"].shape, generator=gen,
+                                               device=dev).to(params["lnf_scale"].dtype)
+    v2["lm_head"] = (0.02 * torch.randn(params["lm_head"].shape, generator=gen, device=dev)
+                     ).to(params["lm_head"].dtype)
+    pool = build()
+    captures = [e.graph_captures for e in (e0, e1)]
+    # admitted after the update: one by prefix affinity (uid 12's prompt),
+    # one on the least-loaded replica, so that both replicas step on v2
+    after = [(31, rest[4][1], None),
+             (32, np.random.default_rng(31).integers(0, cfg.vocab_size, 200).tolist(), None)]
+    late = {}
+
+    def update(i):
+        if i == 4:
+            pool.rolling_update(v2, version="v2", steps_between=2)
+            late["reqs"] = pool_submit(pool, after)
+            late["owners"] = [pool.owner_of(u) for u, _, _ in after]
+    ureqs, _ = pool_drive(pool, first, rest, on_step=update)
+    rejects = [(r.scheduler.metrics.admission_rejects, r.scheduler.metrics.deadline_cancels)
+               for r in pool.replicas]
+    versions = [e.weights_version for e in (e0, e1)]
+    swaps = pool.metrics.pool["weight_swaps"]
+    pool.close()
+    check(all(r.state.value == "done" for r in late["reqs"] + ureqs)
+          and versions == ["v2", "v2"] and swaps == 2 and rejects == [(0, 0), (0, 0)]
+          and sorted(late["owners"]) == [0, 1],
+          f"phase 10 (d): versions {versions}, swaps {swaps}, rejects {rejects}, the "
+          f"requests after the update on replicas {late['owners']}")
+    check(all(e.graph_captures > c for e, c in zip((e0, e1), captures)),
+          "phase 10 (d): the graphs were not captured again after the update")
+    e0.rebuild()
+    one = ContinuousBatchScheduler(e0, age_weight=0.0)
+    ref_late = pool_submit(one, after)
+    one.run_until_complete()
+    one.close()
+    turns_v2 = pool_turns(e0, pool_streams(late["reqs"]), pool_streams(ref_late), {},
+                          "phase 10 (d) v2 requests")
+    for e in (e0, e1):
+        e.rebuild()
+        e.load_params(params)
+    log(f"phase 10 (d): rolling update to v2 mid-traffic, {swaps} weight swaps, no admission "
+        f"rejected, graphs captured again, the two requests admitted after it (replicas "
+        f"{late['owners']}) vs one v2 engine {len(turns_v2)} turn(s) at a near tie")
+
+    # (e) disaggregation: replica 0 prefills, replica 1 decodes
+    pool = build(DisaggPool, roles=["prefill", "decode"])
+    probe = HandoffProbe(e0, e1)
+    hreqs, _ = pool_drive(pool, first, rest)
+    pm = dict(pool.metrics.pool)
+    n_kv = max(pm["handoffs_kv"], 1)
+    # the pool's handoff time less what the probe's own copies took
+    handoff_ms = (float(np.sum(pool.metrics._handoff_s)) - probe.probe_s) / n_kv * 1e3
+    split = {"export_ms": probe.export_s / n_kv * 1e3, "import_ms": probe.import_s / n_kv * 1e3}
+    big = max(probe.payloads, key=lambda p: len(p["blocks"]))
+    t0 = time.perf_counter()
+    blocks_crc32(big["blocks"])
+    split["crc_ms_largest"] = (time.perf_counter() - t0) * 1e3
+    split["largest_blocks"] = len(big["blocks"])
+    pool.close()
+    check(pm["handoffs_kv"] > 0 and pm["handoffs"] == pm["handoffs_kv"]
+          and probe.exported > 0 and probe.landed == probe.exported,
+          f"phase 10 (e): handoffs {pm['handoffs']}, by KV {pm['handoffs_kv']}, blocks "
+          f"exported {probe.exported}, landed bitwise {probe.landed}")
+    turns_disagg = pool_turns(e0, pool_streams(hreqs), run_a, samplings, "phase 10 (e) disagg")
+    e1.rebuild()
+    bad = dict(probe.payloads[0], crc32=int(probe.payloads[0]["crc32"]) ^ 1)
+    try:
+        e1.import_swap(bad["uid"], bad)
+        check(False, "phase 10 (e): a corrupted payload was imported")
+    except TransferCorruptError:
+        pass
+    probe.remove()
+    # a corruption in transit on every handoff: each falls back to journal replay
+    pool = build(DisaggPool, roles=["prefill", "decode"])
+    real_export = e0.export_swap
+
+    def tampered(uid):
+        p = real_export(uid)
+        return None if p is None else dict(p, crc32=int(p["crc32"]) ^ 1)
+    e0.export_swap = tampered
+    creqs = pool_submit(pool, [(41, rest[3][1], None), (42, rest[4][1][:300], None)],
+                        max_new_tokens=8)
+    pool.run_until_complete()
+    cm = dict(pool.metrics.pool)
+    pool.close()
+    del e0.export_swap
+    check(cm["handoffs"] == 2 and cm["handoffs_kv"] == 0
+          and all(r.state.value == "done" for r in creqs),
+          f"phase 10 (e): corrupted handoffs {cm['handoffs']}, by KV {cm['handoffs_kv']}")
+    log(f"phase 10 (e): {pm['handoffs_kv']} handoffs by KV transfer, 0 by replay, "
+        f"{probe.exported} blocks exported and landed bitwise, {handoff_ms:.2f} ms a handoff "
+        f"({split});"
+        f" a corrupted payload raised TransferCorruptError and 2 corrupted handoffs replayed; "
+        f"streams vs (a): {len(turns_disagg)} turn(s) at a near tie")
+
+    # (f) a durable journal; the pool dropped mid-traffic and restored on fresh engines
+    root = tempfile.mkdtemp(prefix="chip_smoke_journal_")
+    try:
+        pool = build(journal_factory=lambda i: DurableRequestJournal(
+            EnginePool.journal_path(root, i)))
+        pool_submit(pool, first + rest)
+        for _ in range(12):
+            pool.step()
+        committed = {e.uid: list(e.tokens) for rep in pool.replicas
+                     for e in rep.scheduler.journal.live()}
+        for rep in pool.replicas:
+            rep.scheduler.journal.close()
+        del pool
+        for e in (e0, e1):
+            retire(e)
+        del e0, e1
+        torch.cuda.empty_cache()
+        fresh = [new_engine(), new_engine()]
+        pool = EnginePool.restore(root, lambda i: fresh[i], age_weight=0.0)
+        restored = sorted(pool._requests)
+        pool.run_until_complete()
+        kept = all(pool._requests[u].tokens[:len(t)] == t for u, t in committed.items())
+        done = all(pool._requests[u].state.value == "done" for u in restored)
+        pool.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(restored == sorted(committed) and committed and kept and done,
+          f"phase 10 (f): restored {restored} of {sorted(committed)}, prefixes kept {kept}")
+    log(f"phase 10 (f): {len(restored)} live request(s) restored from the durable journals "
+        f"on fresh engines, every one finished with its committed prefix kept")
+
+    # (g) elastic: 2 -> 3 -> 2 replicas mid-traffic
+    grown = {}
+
+    def factory(i):
+        return fresh[i] if i < 2 else grown.setdefault(i, new_engine())
+    for e in fresh:
+        e.rebuild()
+    pool = EnginePool.build(factory, 2, age_weight=0.0)
+
+    def scale(i):
+        if i == 2:
+            grown["up"] = pool.scale_to(3)
+        if i == 8:
+            grown["reserved3"] = torch.cuda.memory_reserved()
+            grown["down"] = pool.scale_to(2)
+    greqs, _ = pool_drive(pool, first, rest, on_step=scale)
+    em = dict(pool.metrics.pool)
+    pool.close()
+    check(grown.get("up") == 1 and grown.get("down") == -1 and em["scale_ups"] == 1
+          and em["scale_downs"] == 1, f"phase 10 (g): scale up {grown.get('up')}, down "
+          f"{grown.get('down')}")
+    log(f"phase 10 (g): scale_to(3) and scale_to(2) mid-traffic, every request finished; "
+        f"memory reserved {reserved2 / 2**30:.2f} GiB at 2 replicas, "
+        f"{grown['reserved3'] / 2**30:.2f} GiB at 3")
+
+    torch.cuda.synchronize()
+    launches = pa.launches  # read just after
+    ragged = retired[0] + sum(e.ragged_steps for e in engines)
+    check(launches == cfg.num_layers * ragged and launches > 0,
+          f"phase 10: paged_decode_attention launched {launches} times in {ragged} ragged "
+          f"steps over every replica (expected {cfg.num_layers * ragged})")
+    for e in list(engines):
+        retire(e)
+    torch.cuda.empty_cache()
+    tokens = sum(len(r.tokens) for r in reqs)
+    summary = {
+        "card": card, "model": "llama-7b", "dtype": "bfloat16", "engine": POOL_ENGINE,
+        "replicas": 2, "requests": len(reqs), "new_tokens": tokens, "wall_s": wall,
+        "tokens_per_s": tokens / wall, **lat,
+        "host_ms_per_pool_step": float(np.median(step_s)) * 1e3, "pool_steps": len(step_s),
+        "placement_hits": hits, "migrations": migrations, "handoffs_kv": pm["handoffs_kv"],
+        "handoff_ms": handoff_ms, "handoff_split": split, "handoff_bytes": pm["handoff_bytes"],
+        "handoff_blocks_bitwise": probe.landed, "death_replays": replays,
+        "restored": len(restored), "memory_reserved_gib": {
+            "2": reserved2 / 2**30, "3": grown["reserved3"] / 2**30},
+        "turns": {"single": turns_single, "migration": turns_mig, "death": turns_death,
+                  "v2": turns_v2, "disagg": turns_disagg},
+        "paged_launches": launches, "ragged_steps": ragged,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    return summary, launches
 
 
 WOQ_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))  # (In, Out): wq/wk/wv/wo, w_gate/w_up, w_down
@@ -2403,6 +2955,112 @@ def train_main_path(fa, pa, dev):
     log(f"training main path: losses {[round(x, 4) for x in losses]}, step median "
         f"{med:.2f} ms, flash fwd/bwd launched {launches['fwd']}/{launches['bwd']} times "
         f"(= {cfg.num_layers} layers x {steps} steps)")
+    del engine
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def dropout_train_path(fa, dev, base):
+    """Phase c2: phase c with ``dropout=0.1`` (6 steps, the same batch and
+    settings). The masks the engine draws on the card in step 1 for layer
+    0's attention and MLP outputs are held bitwise against the port's CPU
+    draw from the same keys, and those keys against the reference's chain
+    computed on the CPU (``split(fold_in(PRNGKey(seed), 0), L)[0]``, split
+    into ``(r_drop, r_pld)``, then ``rng, r1 = split(r_drop)`` and
+    ``rng, r2 = split(rng)``). The last step is traced with
+    ``torch.profiler``: the device milliseconds of the threefry draws
+    (``prng.bernoulli``, annotated) beside the step's."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.utils import prng
+
+    model = build_model("llama-7b", num_layers=4, dropout=0.1)
+    cfg = model.config
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, model_parameters=params,
+                                                     config=dict(TRAIN_CONFIG), device=dev)
+    del params
+    B, S = TRAIN_CONFIG["train_micro_batch_size_per_gpu"], 2048
+    batch = {"input_ids": torch.randint(0, cfg.vocab_size, (B, S), dtype=torch.int32,
+                                        device=dev,
+                                        generator=torch.Generator(device=dev).manual_seed(0))}
+    real = prng.bernoulli
+    drawn = []
+
+    def annotated(key, p, shape):
+        with torch.profiler.record_function("threefry_bernoulli"):
+            keep = real(key, p, shape)
+        if len(drawn) < 2:  # step 1, layer 0: the attention output, then the MLP's
+            drawn.append((key.clone(), keep.clone()))
+        return keep
+
+    steps, losses, step_s = 6, [], []
+    prng.bernoulli = annotated
+    try:
+        torch.cuda.synchronize()
+        fa.fwd_launches = fa.bwd_launches = 0  # every count, just before
+        for i in range(steps):
+            t0 = time.perf_counter()
+            if i == steps - 1:
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    losses.append(engine.train_batch(iter([batch])))
+                    torch.cuda.synchronize()
+            else:
+                losses.append(engine.train_batch(iter([batch])))
+                torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        launches = {"fwd": fa.fwd_launches, "bwd": fa.bwd_launches}  # read just after
+    finally:
+        prng.bernoulli = real
+    losses = [float(x) for x in losses]
+    want = cfg.num_layers * steps
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"phase c2: losses {losses} not finite or not falling")
+    check(launches["fwd"] == want and launches["bwd"] == want,
+          f"phase c2: flash launches {launches}, expected {want} each")
+    # the keys: the reference's chain, on the CPU
+    k = prng.split(prng.fold_in(prng.PRNGKey(TRAIN_CONFIG["seed"]), 0), cfg.num_layers)[0]
+    r_drop = prng.split(k)[0]
+    rng, r1 = prng.split(r_drop)
+    _, r2 = prng.split(rng)
+    shape = (B, S, cfg.hidden_size)
+    t0 = time.perf_counter()
+    for (key, mask), want_key, what in zip(drawn, (r1, r2), ("attention", "MLP")):
+        check(torch.equal(key.cpu(), want_key), f"phase c2: layer 0's {what} key on the card "
+              f"{key.tolist()} is not the reference chain's {want_key.tolist()}")
+        cpu = prng.bernoulli(want_key, 1.0 - cfg.dropout, shape)
+        check(tuple(mask.shape) == shape and torch.equal(mask.cpu(), cpu),
+              f"phase c2: layer 0's {what} mask drawn on the card differs from the CPU's "
+              f"({int((mask.cpu() != cpu).sum())} of {cpu.numel()} elements)")
+    cpu_s = time.perf_counter() - t0
+    cuda = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    step_device_ms = sum(e.self_device_time_total for e in cuda) / 1e3
+    draws = [e for e in prof.events() if e.name == "threefry_bernoulli"
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    draw_ms = sum(e.device_time_total for e in draws) / 1e3 or None  # None: no kernel linked
+    check(len(draws) == 2 * cfg.num_layers,
+          f"phase c2: the trace holds {len(draws)} threefry draws, expected "
+          f"{2 * cfg.num_layers}")
+    one_ms = time_cuda(lambda: real(r1.to(dev), 1.0 - cfg.dropout, shape), warmup=2, iters=5)
+    ms = [s * 1e3 for s in step_s[1:]]
+    summary = {
+        "model": "llama-7b", "layers": cfg.num_layers, "dropout": cfg.dropout,
+        "batch": [B, S], "steps": steps, "losses": losses, "step_ms": ms,
+        "step_ms_median": float(np.median(ms)),
+        "phase_c_step_ms_median": base["step_ms_median"],
+        "traced_step_device_ms": step_device_ms, "threefry_draws_traced": len(draws),
+        "threefry_device_ms_per_step": draw_ms, "bernoulli_ms_one_draw": one_ms,
+        "masks_bitwise_cpu": {"shape": list(shape), "draws": len(drawn),
+                              "cpu_draw_s": cpu_s},
+        "launches": launches,
+    }
+    log(f"phase c2 (dropout 0.1): losses {[round(x, 4) for x in losses]}, step median "
+        f"{summary['step_ms_median']:.2f} ms (phase c {base['step_ms_median']:.2f}); threefry "
+        f"draws {draw_ms} of {step_device_ms:.2f} traced device ms a step "
+        f"({one_ms:.3f} ms a draw); step 1's layer-0 masks bitwise the CPU's at {shape}; "
+        f"flash fwd/bwd launched {launches['fwd']}/{launches['bwd']} times")
     del engine
     torch.cuda.empty_cache()
     return launches, summary
@@ -3055,6 +3713,8 @@ def main():
     log(json.dumps({"slot_summary": dict(card=smi.stdout.strip(), **slot_summary)}))
     tier_summary = tier_phase(params, dev)
     log(json.dumps({"tier_summary": dict(card=smi.stdout.strip(), **tier_summary)}))
+    pool_summary, pool_launches = pool_phase(params, pa, dev, smi.stdout.strip())
+    log(json.dumps({"pool_summary": pool_summary}))
     del params
     torch.cuda.empty_cache()
     fa.fwd_launches = fa.bwd_launches = 0  # phases 7-8 ran flash; WOQ serving must not
@@ -3086,6 +3746,8 @@ def main():
     fwd, bwd, extra = flash_timing(fa, dev)
     train_summary["flash"] = {"fwd": fwd, "bwd": bwd, **extra}
     log(json.dumps({"train_summary": train_summary}))
+    dropout_launches, dropout_summary = dropout_train_path(fa, dev, train_summary)
+    log(json.dumps({"dropout_summary": dict(card=smi.stdout.strip(), **dropout_summary)}))
 
     sparse_fe, sparse_be = sparse_kernels_vs_plain(bs, dev)
     sparse_launches, path_errs, path_stats = sparse_main_path(bs, fa, dev)
@@ -3117,15 +3779,16 @@ def main():
         dict(name="paged_decode_attention", route="cuda",
              source="deepspeed_tpu_torch/csrc/paged_attention.cu",
              replaces="deepspeed_tpu/ops/transformer/paged_attention.py:76",
-             launches=launches, **k),
-        # the training path's launches and the slot path's (phase 8); the
-        # times at the training shape, the slot shapes' on slot_summary
+             launches=launches + pool_launches, **k),
+        # the training paths' launches (phases c and c2) and the slot path's
+        # (phase 8); the times at the training shape, the slot shapes' on
+        # slot_summary
         dict(name="flash_attention_fwd", route="cuda", source=flash_src,
              replaces="deepspeed_tpu/ops/transformer/flash_attention.py:43",
-             launches=train_launches["fwd"] + slot_launches, **fwd),
+             launches=train_launches["fwd"] + dropout_launches["fwd"] + slot_launches, **fwd),
         dict(name="flash_attention_bwd", route="cuda", source=flash_src,
              replaces="deepspeed_tpu/ops/transformer/flash_attention.py:124",
-             launches=train_launches["bwd"], **bwd),
+             launches=train_launches["bwd"] + dropout_launches["bwd"], **bwd),
         # int8 on w_gate/w_up's (4096, 11008): woq_matmul at decode rows (8,
         # woq_gemv_kernel; launches of every row count), woq_matmul_prefill
         # at 256 rows (woq_mma_kernel; the tiled launches); every shape,

@@ -10,8 +10,10 @@ loop's typed ``RuntimeError`` handling can never swallow one. With the
 variable unset everything here is dormant.
 
 The functions are copies of the JAX module's, with its TransferEngine
-ledger check (``check_transfer_ledger``). Its checked ``BlockedKVCache``
-(``checked_cache_cls``) and the pool, tenancy and training checks come with
+ledger check (``check_transfer_ledger``) and the engine pool's checks
+(``check_pool_ownership``, ``check_pool_health``,
+``check_tenant_accounting``, ``check_disagg_ownership``). Its checked
+``BlockedKVCache`` (``checked_cache_cls``) and the training checks come with
 ROADMAP.md Queue 1 item 10.
 """
 
@@ -406,3 +408,234 @@ def check_recovery(journal, queued, all_requests: Dict[int, object]) -> None:
     if problems:
         raise SanitizerError("[sanitizer] recovery dropped request(s): "
                              + "; ".join(problems))
+
+
+def check_pool_ownership(replica_views, owner: Dict[int, int]) -> None:
+    """Engine-pool ownership invariant (docs/SERVING.md): every live
+    request is owned by EXACTLY one replica. ``replica_views`` is a list
+    of ``(replica_id, journal, all_requests)`` triples (non-dead replicas
+    only); ``owner`` is the pool's uid -> replica_id map. Violations this
+    catches:
+
+    - a uid journaled on two replicas at once (a double adopt — the
+      request would decode twice and its journals diverge);
+    - a journal entry whose uid the SAME replica's scheduler does not
+      know live (an orphaned entry: detach removed the request but the
+      journal handoff was lost — its stream consumer hangs);
+    - a live request no journal covers (an orphaned request: an engine
+      loss now would silently drop it — the write-ahead contract);
+    - the pool's owner map disagreeing with where the journal actually
+      lives (migration updated one side but not the other).
+
+    Duck-typed on ``journal.uids()`` / ``Request.state`` like
+    :func:`check_recovery` — no serve/resilience import."""
+    problems: List[str] = []
+    seen: Dict[int, int] = {}
+    for rid, journal, all_requests in replica_views:
+        for uid in journal.uids():
+            if uid in seen:
+                problems.append(f"uid {uid} journaled on replicas "
+                                f"{seen[uid]} AND {rid} — double adopt")
+                continue
+            seen[uid] = rid
+            req = all_requests.get(uid)
+            state = getattr(getattr(req, "state", None), "value", None)
+            if req is None or state in ("done", "cancelled", "failed"):
+                problems.append(f"uid {uid} journaled on replica {rid} "
+                                f"but not live there ({state}) — "
+                                "orphaned entry")
+            own = owner.get(uid)
+            if own is not None and own != rid:
+                problems.append(f"uid {uid}: pool owner map says replica "
+                                f"{own}, journal lives on {rid}")
+        for uid, req in all_requests.items():
+            state = getattr(getattr(req, "state", None), "value", None)
+            if (state not in ("done", "cancelled", "failed")
+                    and uid not in journal.uids()):
+                problems.append(f"uid {uid} live on replica {rid} with "
+                                "no journal entry — unreplayable")
+    if problems:
+        raise SanitizerError("[sanitizer] pool ownership violation: "
+                             + "; ".join(problems))
+
+
+def check_pool_health(replica_views, owner: Dict[int, int],
+                      now: float) -> None:
+    """Health-supervision invariants (docs/RESILIENCE.md "Health &
+    overload"). ``replica_views`` is a list of ``(replica_id, state,
+    lease_deadline, health_state, limit_inflight, journal)`` tuples for
+    EVERY replica (dead included); ``owner`` is the pool's uid ->
+    replica_id map and ``now`` the pool clock. Violations this catches:
+
+    - a SERVING replica whose heartbeat lease has already expired — the
+      supervisor must have declared it lost before the step ended, so a
+      stale lease in rotation means poll() was skipped or its verdict
+      dropped;
+    - a health-quarantined replica that still owns requests (non-empty
+      journal or owner-map entries) — the quarantine drain is supposed
+      to migrate everything before probing starts;
+    - a replica's adaptive-limit in-flight count disagreeing with the
+      owner map — an admit/release was lost and the ceiling is now
+      enforced against phantom (or invisible) load.
+
+    Duck-typed (``journal.uids()``, plain strings/ints) — no
+    serve/resilience import."""
+    problems: List[str] = []
+    owned: Dict[int, int] = {}
+    for uid, rid in owner.items():
+        owned[rid] = owned.get(rid, 0) + 1
+    for rid, state, lease, health_state, inflight, journal in replica_views:
+        if (state == "serving" and health_state in ("serving", "suspect")
+                and lease is not None and now > lease):
+            problems.append(
+                f"replica {rid} is serving with an expired heartbeat "
+                f"lease (deadline {lease:.3f} < now {now:.3f}) — lost "
+                "verdict missed")
+        if health_state == "quarantined" and getattr(journal, "uids",
+                                                     None) is not None:
+            held = list(journal.uids())
+            if held:
+                problems.append(
+                    f"health-quarantined replica {rid} still owns "
+                    f"{len(held)} journaled request(s) ({held[:4]}) — "
+                    "quarantine drain incomplete")
+            stuck = owned.get(rid, 0)
+            if stuck:
+                problems.append(
+                    f"health-quarantined replica {rid} still owns "
+                    f"{stuck} request(s) in the pool owner map")
+        if inflight is not None and state != "dead":
+            expect = owned.get(rid, 0)
+            if int(inflight) != expect:
+                problems.append(
+                    f"replica {rid} limit accounting broken: "
+                    f"{int(inflight)} in flight vs {expect} owned — "
+                    "admit/release leak")
+    if problems:
+        raise SanitizerError("[sanitizer] pool health violation: "
+                             + "; ".join(problems))
+
+
+def check_tenant_accounting(replica_engines, registry) -> None:
+    """Multi-tenant QoS invariants (docs/SERVING.md "Multi-tenant QoS"),
+    armed per ``pool.step`` when a tenancy registry is wired.
+    ``replica_engines`` is a list of ``(replica_id, engine)`` for every
+    non-dead replica; ``registry`` duck-types ``TenantRegistry``
+    (``tenants()`` → specs with ``tenant_id`` / ``cache_blocks``,
+    ``outstanding(tid)``). Violations this catches:
+
+    - a tenant's AT-REST cached blocks exceeding its quota while an
+      evictable leaf of its own still exists — ``_enforce_quota`` was
+      skipped or its eviction miscounted (pure interior/pinned overage
+      is legal: evicting it would dangle other tenants' chains);
+    - a block manager's per-tenant at-rest ledger disagreeing with a
+      recount of its block-owner map — an incremental charge/uncharge
+      hook was missed (the drift that quota decisions silently feed on);
+    - a negative outstanding-request count can never appear (sets), but a
+      tenant with NO registered spec holding outstanding slots means a
+      release outlived its registration.
+
+    Duck-typed: engines without a paged block manager contribute nothing.
+    """
+    problems: List[str] = []
+    known = {s.tenant_id for s in registry.tenants()}
+    for rid, engine in replica_engines:
+        mgr = getattr(engine, "block_mgr", None)
+        if mgr is None or not hasattr(mgr, "_block_owner"):
+            continue
+        ref = mgr._ref
+        rest: Dict[str, int] = {}
+        for b, o in mgr._block_owner.items():
+            if b not in ref:
+                rest[o] = rest.get(o, 0) + 1
+        if rest != mgr._owner_rest:
+            problems.append(
+                f"replica {rid}: per-tenant at-rest ledger "
+                f"{mgr._owner_rest} != recount {rest} — a charge/uncharge "
+                "hook was missed")
+        for owner, quota in mgr._owner_quota.items():
+            over = rest.get(owner, 0) - quota
+            if over <= 0:
+                continue
+            evictable = any(
+                mgr._block_owner.get(b) == owner
+                and not mgr._children.get(b)
+                for tier in (mgr._lru, mgr._host, mgr._nvme)
+                for b in tier)
+            if evictable:
+                problems.append(
+                    f"replica {rid}: tenant {owner!r} is {over} block(s) "
+                    f"over its cache quota ({quota}) with an evictable "
+                    "leaf of its own still resident — quota enforcement "
+                    "skipped")
+    for tid in list(getattr(registry, "_outstanding", {})):
+        if tid not in known and registry.outstanding(tid):
+            problems.append(
+                f"unregistered tenant {tid!r} holds "
+                f"{registry.outstanding(tid)} outstanding slot(s)")
+    if problems:
+        raise SanitizerError("[sanitizer] tenant accounting violation: "
+                             + "; ".join(problems))
+
+
+def check_disagg_ownership(replica_views, handoffs,
+                           deferred) -> None:
+    """Disaggregated-serving invariants (docs/SERVING.md "Disaggregated
+    serving"), armed per ``DisaggPool.step`` on top of
+    :func:`check_pool_ownership`. ``replica_views`` is a list of
+    ``(replica_id, role, journal, all_requests)`` tuples (non-dead
+    replicas only); ``handoffs`` maps uid -> the in-flight handoff's
+    exported payload dict (``None`` for a replay-degraded handoff);
+    ``deferred`` is the set of uids whose handoff the pool deliberately
+    postponed this step (no decode headroom / KV not yet at rest).
+    Violations this catches:
+
+    - a uid both journaled on a replica AND carried by an in-flight
+      handoff — two owners; whichever finishes second double-decodes;
+    - a handoff payload whose declared byte count disagrees with the
+      bytes its blocks actually hold — KV was dropped or duplicated in
+      transit (the in-memory companion of the CRC: the checksum proves
+      the bytes are intact, this proves they are conserved — the
+      TransferEngine ledger accounted exactly this many out of the
+      source);
+    - a decode-phase request resident on a prefill-only replica that the
+      pool did NOT defer — the handoff dispatcher missed it, and a
+      prefill worker is now paying the steady decode cost the role split
+      exists to remove.
+
+    Duck-typed (``journal.uids()``, ``Request.state``, payload dicts) —
+    no serve/resilience import."""
+    problems: List[str] = []
+    for rid, role, journal, all_requests in replica_views:
+        for uid in journal.uids():
+            if uid in handoffs:
+                problems.append(
+                    f"uid {uid} journaled on replica {rid} AND in an "
+                    "in-flight handoff — two owners")
+        if role == "prefill":
+            for uid, req in all_requests.items():
+                state = getattr(getattr(req, "state", None), "value", None)
+                if state == "decode" and uid not in deferred:
+                    problems.append(
+                        f"decode-phase uid {uid} resident on prefill-only "
+                        f"replica {rid} without a recorded deferral — "
+                        "handoff missed")
+    for uid, payload in handoffs.items():
+        if payload is None:
+            continue  # replay-degraded handoff carries no KV
+        declared = int(payload.get("nbytes", -1))
+        actual = sum(int(getattr(b, "nbytes", 0))
+                     for b in payload.get("blocks", ()))
+        if declared != actual:
+            problems.append(
+                f"uid {uid} handoff payload declares {declared} B but "
+                f"its blocks hold {actual} B — KV not conserved in "
+                "transit")
+    if problems:
+        raise SanitizerError("[sanitizer] disagg ownership violation: "
+                             + "; ".join(problems))
+
+
+# ---------------------------------------------------------------------------
+# training: partition/gather conservation (ZeRO state)
+# ---------------------------------------------------------------------------

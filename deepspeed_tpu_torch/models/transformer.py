@@ -16,9 +16,12 @@ the card). ``forward_paged`` and ``logits`` take weight-only-quantized
 trees (``inference.quantization.quantize_model``): every ``::q{8,6,4}``
 projection runs through ``woq_matmul`` (the WOQ kernel on the card). All for the branches the gpt2 and llama presets take: pre-LN;
 learned or RoPE positions; LayerNorm (with its biases) or RMSNorm;
-tanh-GELU or SwiGLU; tied or untied head. Configurations that need anything
-else raise ``NotImplementedError`` naming the field: at construction, or
-for the training-only fields (dropout, remat, PLD, random-LTD) in ``apply``.
+tanh-GELU or SwiGLU; tied or untied head. Training with ``dropout > 0``
+draws the JAX package's masks bit for bit (``_dropout``: threefry
+``bernoulli`` under the reference's chain of ``split`` keys). Configurations
+that need anything else raise ``NotImplementedError`` naming the field: at
+construction, or for the training-only fields (remat, PLD, random-LTD) in
+``apply``.
 """
 
 from dataclasses import dataclass
@@ -38,7 +41,6 @@ from ..utils.tree import tree_leaves
 # the ROADMAP.md items that lift each unported branch
 _MODEL_ITEM = "ROADMAP.md Queue 1 item 2, the remaining TransformerLM branches"
 _MOE_ITEM = "ROADMAP.md Queue 1 item 17, moe/"
-_DROPOUT_ITEM = "ROADMAP.md Queue 1 item 3, training dropout"
 _REMAT_ITEM = "ROADMAP.md Queue 1 item 17, activation checkpointing"
 _DATA_ITEM = "ROADMAP.md Queue 1 item 17, runtime/data_pipeline"
 _WOQ_TRAIN_ITEM = "ROADMAP.md Queue 1 item 14, training over a quantized tree"
@@ -204,6 +206,17 @@ def _rope(q, k, positions, head_dim, theta):
     return rot(q), rot(k)
 
 
+def _dropout(x, rate, key, train):
+    """``transformer.py:295-299``: keep each element with probability
+    ``1 - rate`` (``prng.bernoulli`` under ``key``, bit for bit
+    ``jax.random.bernoulli``) and scale the kept ones by ``1 / (1 - rate)``
+    in x's dtype. Autograd saves the bool mask for the backward."""
+    if rate == 0.0 or not train or key is None:
+        return x
+    keep = prng.bernoulli(key, 1.0 - rate, x.shape)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 def _project(h, blk, name: str):
     """``h @ blk[name]`` for one projection: a float leaf as ``h @ w`` in
     ``h``'s dtype; a weight-only-quantized one (``<name>::q{bits}`` with its
@@ -360,15 +373,20 @@ class TransformerLM:
             q, kk = _rope(q, kk, positions, hd, cfg.rope_theta)
         return q, kk, v
 
-    def _block_out(self, x, attn, blk):
+    def _block_out(self, x, attn, blk, rng=None, train=False):
         """The attention output projection, the residual adds and the MLP
-        (``transformer.py:631-688``), given attention's (B, S, nh, hd)."""
+        (``transformer.py:631-688``), given attention's (B, S, nh, hd). With
+        a key ``rng`` both outputs go through ``_dropout`` under the
+        reference's splits (``:636-638``, ``:679-681``)."""
         cfg = self.config
         B, S, _ = x.shape
         dt = x.dtype
         attn_out = _project(attn.reshape(B, S, cfg.num_heads * cfg.head_dim), blk, "wo")
         if "attn_bias" in blk:
             attn_out = attn_out + blk["attn_bias"].to(dt)
+        if rng is not None:
+            rng, r1 = prng.split(rng)
+            attn_out = _dropout(attn_out, cfg.dropout, r1, train)
 
         x = x + attn_out
         h2 = _norm(x, blk["ln2_scale"], blk.get("ln2_bias"), cfg.norm, cfg.norm_eps)
@@ -382,18 +400,22 @@ class TransformerLM:
         mlp_out = _project(inter, blk, "w_down")
         if "mlp_bias" in blk:
             mlp_out = mlp_out + blk["mlp_bias"].to(dt)
+        if rng is not None:
+            rng, r2 = prng.split(rng)
+            mlp_out = _dropout(mlp_out, cfg.dropout, r2, train)
         return x + mlp_out
 
-    def _block(self, x, blk, positions):
+    def _block(self, x, blk, positions, rng=None, train=False):
         """One pre-LN block on (B, S, H) without a cache, the training and
         evaluation branch (``transformer.py:619-630``): causal self-attention
-        through ``attention()``, so the flash kernels on the card."""
+        through ``attention()``, so the flash kernels on the card; dropout
+        under ``rng``."""
         cfg = self.config
         q, kk, v = self._qkv(x, blk, positions)
         attn = _attention_op(q, kk, v, causal=cfg.causal,
                              num_kv_groups=cfg.num_heads // cfg.kv_heads,
                              softcap=cfg.logit_softcap)
-        return self._block_out(x, attn, blk)
+        return self._block_out(x, attn, blk, rng, train)
 
     def _block_paged(self, x, blk, positions, kp, vp, tables):
         """One pre-LN block on (B, S, H) against one layer of the blocked
@@ -617,7 +639,6 @@ class TransformerLM:
             ("remat", cfg.remat, _REMAT_ITEM),
             ("progressive_layer_drop", cfg.progressive_layer_drop, _DATA_ITEM),
             ("random_ltd", cfg.random_ltd, _DATA_ITEM),
-            ("dropout", train and cfg.dropout > 0, _DROPOUT_ITEM),
         )
         for field_name, bad, item in unsupported:
             if bad:
@@ -625,17 +646,25 @@ class TransformerLM:
                     f"TransformerConfig.{field_name}={getattr(cfg, field_name)!r} is not "
                     f"ported to the training path of deepspeed_tpu_torch ({item})")
 
-    def _trunk(self, params, x, positions):
-        """Every block in turn (``transformer.py:834-849`` with
+    def _trunk(self, params, x, positions, rng=None, train=False):
+        """Every block in turn (``transformer.py:796-849`` with
         ``scan_layers=False``: a Python loop over the stacked leaves, each
         layer reading its slice as a view, so gradients land in the stacked
-        leaves)."""
+        leaves). Training with dropout takes the reference's keys:
+        ``split(rng, L)``, then per layer ``split`` into ``(r_drop, r_pld)``
+        (``:807-811``); ``r_pld`` goes unused, as PLD is not ported, but its
+        split keeps ``r_drop`` the reference's."""
+        cfg = self.config
         blocks = params["blocks"]
-        for i in range(self.config.num_layers):
-            x = self._block(x, {k: w[i] for k, w in blocks.items()}, positions)
+        rngs = (prng.split(rng, cfg.num_layers)
+                if rng is not None and train and cfg.dropout > 0 else None)
+        for i in range(cfg.num_layers):
+            r_drop = None if rngs is None else prng.split(rngs[i])[0]
+            x = self._block(x, {k: w[i] for k, w in blocks.items()}, positions,
+                            rng=r_drop, train=train)
         return x
 
-    def _logits_aux(self, params, input_ids, positions=None, train=False):
+    def _logits_aux(self, params, input_ids, positions=None, train=False, rng=None):
         """(B, S, V) logits and the MoE aux loss, always 0 here
         (``transformer.py:934-963``). The compute dtype is that of the first
         floating leaf, in the JAX package's sorted-key order."""
@@ -647,16 +676,18 @@ class TransformerLM:
         dtype = next((t.dtype for t in tree_leaves(params) if t.is_floating_point()),
                      torch.float32)
         x = self._embed(params, input_ids, positions, dtype)
-        x = self._trunk(params, x, positions)
+        if rng is not None:
+            rng = rng.to(x.device)
+        x = self._trunk(params, x, positions, rng, train)
         return self._head(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
     def logits(self, params, input_ids, positions=None, train=False, rng=None,
                attention_mask=None, token_type_ids=None):
-        if rng is not None or attention_mask is not None or token_type_ids is not None:
+        if attention_mask is not None or token_type_ids is not None:
             raise NotImplementedError(
-                "logits(rng / attention_mask / token_type_ids) is not ported "
+                "logits(attention_mask / token_type_ids) is not ported "
                 f"({_MODEL_ITEM})")
-        return self._logits_aux(params, input_ids, positions, train)[0]
+        return self._logits_aux(params, input_ids, positions, train, rng)[0]
 
     def apply(self, params, batch, train=True, rng=None):
         """Next-token LM loss over the batch (the engine protocol,
@@ -686,7 +717,7 @@ class TransformerLM:
             (input_ids, labels), positions = batch, None
         else:
             input_ids, labels, positions = batch, None, None
-        lg, _ = self._logits_aux(params, input_ids, positions=positions, train=train)
+        lg, _ = self._logits_aux(params, input_ids, positions=positions, train=train, rng=rng)
         if labels is None:
             if not self.config.causal:
                 raise ValueError(

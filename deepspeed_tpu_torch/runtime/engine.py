@@ -21,6 +21,9 @@ Where the JAX engine compiles programs, the port runs eagerly:
   into the lp parameters in place, so the autograd leaves persist.
 - ``train_batch`` at gradient_accumulation_steps 1 is the fused micro-step
   (``engine.py:1863``): forward, backward and step in one call.
+- Every training-mode call of the model takes the key
+  ``fold_in(PRNGKey(config.seed), micro_steps)`` (``engine.py:752``,
+  ``:870``), so dropout draws the JAX engine's masks; evaluation takes none.
 
 Runs on ``device`` (default ``"cuda"``); without CUDA it raises unless
 ``device="cpu"`` is passed. On CUDA the model's attention shape must be one
@@ -36,6 +39,7 @@ from ..accelerator import resolve_device
 from ..ops.optimizers import build_optimizer
 from ..ops.transformer.flash_attention import check_kernel_config
 from ..resilience.errors import EngineUsageError
+from ..utils import prng
 from ..utils.logging import log_dist
 from ..utils.timer import (BACKWARD_MICRO_TIMER, FORWARD_MICRO_TIMER, STEP_MICRO_TIMER,
                            NoopTimer, SynchronizedWallClockTimer, ThroughputTimer)
@@ -129,6 +133,9 @@ class DeepSpeedEngine:
         # it may share storage with the caller's fp32 tensors
         self.master_params = (tree_map(lambda p: torch.as_tensor(p).detach().to(
             device=self.device, dtype=torch.float32), params) if self._mixed else None)
+
+        # the base key of every training-mode forward (engine.py:342)
+        self._rng = prng.PRNGKey(config.seed, device=self.device)
 
         # ---- optimizer ----
         self.client_optimizer = optimizer
@@ -226,10 +233,16 @@ class DeepSpeedEngine:
                                                     rng=None)).float()
             self.timers(FORWARD_MICRO_TIMER).stop()
             return loss
-        loss = self._loss_of(self._apply_fn(self.params, batch, train=True, rng=None))
+        loss = self._loss_of(self._apply_fn(self.params, batch, train=True,
+                                            rng=self._micro_step_key()))
         self._cached = loss
         self.timers(FORWARD_MICRO_TIMER).stop()
         return loss
+
+    def _micro_step_key(self):
+        """The micro-step's key, ``fold_in(base, micro_steps)`` as the JAX
+        engine derives it on the device (``engine.py:752``)."""
+        return prng.fold_in(self._rng, self.micro_steps)
 
     def _grads_of(self, scaled):
         """Gradients of ``scaled`` w.r.t. the lp params, in their dtype; a
@@ -364,7 +377,8 @@ class DeepSpeedEngine:
         self.timers(STEP_MICRO_TIMER).start()
         batch = to_device(batch, self.device)
         lr = self.get_lr()[0]
-        loss = self._loss_of(self._apply_fn(self.params, batch, train=True, rng=None))
+        loss = self._loss_of(self._apply_fn(self.params, batch, train=True,
+                                            rng=self._micro_step_key()))
         grads = self._grads_of(loss.float() * self.scaler_state.cur_scale)
         gnorm, overflow = self._apply_update(grads, lr)
         self.micro_steps += 1

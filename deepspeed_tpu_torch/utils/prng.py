@@ -13,10 +13,16 @@ since jax 0.5):
   and 17/29/16/24, key schedule ``(k1, k2, k1 ^ k2 ^ 0x1BD11BDA)`` with the
   group counter added (jax ``prng.py`` ``_threefry2x32_lowering``);
 - ``fold_in(key, data)``: ``threefry_2x32(key, (0, data))``;
+- ``split(key, num)``: the fold-like split, key ``i`` the two output words of
+  ``threefry_2x32(key, (0, i))`` (jax ``prng.py`` ``_threefry_split_foldlike``:
+  the counters laid out as ``random_bits`` lays out a ``(num,)`` draw, the
+  words stacked, not xored);
 - ``random_bits``: the hash of the 64-bit row-major index of each element,
   split into (high, low) words, and the two output words xored;
 - ``uniform``: ``bits >> 9 | 0x3F800000`` bit-cast to float32, minus 1,
   scaled into ``[minval, maxval)`` and clamped below at ``minval``;
+- ``bernoulli`` (low mode): ``uniform(key, shape) < p``, ``p`` rounded to
+  float32 first (jax ``random.py`` ``_bernoulli``);
 - ``gumbel`` (low mode): ``-log(-log(uniform(tiny, 1)))``;
 - ``categorical``: ``argmax(gumbel + logits)`` over the last axis.
 
@@ -87,6 +93,13 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(y1, y2), dim=-1)
 
 
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split``: ``(..., num, 2)`` keys from keys ``(..., 2)``."""
+    idx = torch.arange(int(num), dtype=torch.int64, device=key.device)
+    b1, b2 = threefry_2x32(key[..., 0, None], key[..., 1, None], idx >> 32, idx & _MASK)
+    return torch.stack(torch.broadcast_tensors(b1, b2), dim=-1)
+
+
 def random_bits(key: torch.Tensor, shape: Sequence[int],
                 partitionable: bool = True) -> torch.Tensor:
     """32-bit ``jax.random.bits``: ``(..., *shape)`` int64 tensor of uint32
@@ -116,6 +129,14 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     lo = np.float32(minval)
     scale = np.float32(maxval) - lo
     return torch.clamp_min(floats * float(scale) + float(lo), float(lo))
+
+
+def bernoulli(key: torch.Tensor, p, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` for a float ``p`` (a number or
+    a tensor broadcasting against ``shape``): a bool tensor ``(..., *shape)``."""
+    p32 = torch.as_tensor(np.float32(p) if not isinstance(p, torch.Tensor) else p,
+                          device=key.device).to(torch.float32)
+    return uniform(key, shape) < p32
 
 
 def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

@@ -28,7 +28,7 @@ print(" ".join(names))
 print(bad)
 """
 
-# the training, WOQ, sparse-attention, fused-CE and serving slices' modules: each must be among
+# the training, WOQ, sparse-attention, fused-CE, serving and pool slices' modules: each must be among
 # those the probe imported
 _TRAINING_MODULES = {
     "deepspeed_tpu_torch.ops.transformer.attention",
@@ -69,6 +69,16 @@ _TRAINING_MODULES = {
     "deepspeed_tpu_torch.serve.scheduler",
     "deepspeed_tpu_torch.serve.speculation",
     "deepspeed_tpu_torch.serve.tenancy",
+    # the engine pool and its resilience modules
+    "deepspeed_tpu_torch.resilience.faults",
+    "deepspeed_tpu_torch.resilience.health",
+    "deepspeed_tpu_torch.resilience.limits",
+    "deepspeed_tpu_torch.resilience.journal_store",
+    "deepspeed_tpu_torch.serve.router",
+    "deepspeed_tpu_torch.serve.pool",
+    "deepspeed_tpu_torch.serve.disagg",
+    "deepspeed_tpu_torch.serve.elastic",
+    "deepspeed_tpu_torch.serve.trace",
 }
 
 

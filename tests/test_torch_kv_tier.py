@@ -30,9 +30,10 @@ JAX engines are reused across tests of one geometry: rebuilt before each
 use (compiling their programs is most of a run), with a fresh
 TransferEngine and zeroed ``swap_stats``, which a rebuild keeps, so that
 each run starts from a fresh engine's state.
-Not here, waiting for ROADMAP.md Queue 1 items 8 and 10: the tier
-sanitizer's planted violations (the checked cache), the pool's replica
-prefixes, the router's probe and the rolling update.
+Not here: the tier sanitizer's planted violations (the checked cache,
+waiting for ROADMAP.md Queue 1 item 10). The pool's replica prefixes, the
+router's probe, a swap-resident victim's migration and the rolling update
+are in ``tests/test_torch_disagg_elastic.py``.
 """
 
 import glob

@@ -13,7 +13,8 @@ packages streams and counters must be equal under the margin rule. The
 harness is ``tests/test_torch_fused_decode.py``'s.
 
 Not ported: the checked cache's register guard (ROADMAP.md Queue 1 item
-10) and the engine pool's two-phase step (item 8).
+10). The engine pool's two-phase step over pipelined replicas is held in
+``tests/test_torch_pool.py``.
 """
 
 import numpy as np

@@ -1,8 +1,9 @@
 """The port's threefry keys and draws (``deepspeed_tpu_torch.utils.prng``)
 against ``jax.random``, the JAX package's sampler keys.
 
-On the CPU: ``PRNGKey``, ``fold_in``, the 32-bit bits and ``uniform`` are
-bitwise jax's (partitionable threefry, this jax's default) for seeds 0, 1,
+On the CPU: ``PRNGKey``, ``fold_in``, ``split`` (num 1, 2, 3, 7), the 32-bit
+bits, ``uniform`` and ``bernoulli`` (p 0, 0.1, 0.5, 0.9 and 1, odd and 0-d
+shapes) are bitwise jax's (partitionable threefry, this jax's default) for seeds 0, 1,
 2**31 - 1 and -1, positions 0 to 4096 and shapes (1,), (7,), (512,) and
 (3, 5); Gumbel noise within rtol 1e-6 plus atol 1e-6 (the two packages'
 ``log`` may differ in the last place, and ``-log(-log u)`` passes zero, where
@@ -102,6 +103,32 @@ def test_categorical_under_margin_rule(jr):
     clear = (top2[:, 1] - top2[:, 0]) > MARGIN
     assert np.array_equal(got[clear], want[clear])
     assert (~clear).sum() < 0.01 * R
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_split_bitwise(jr, seed):
+    for pos in (0, 37):
+        key = jr.fold_in(jr.PRNGKey(seed), pos)
+        tkey = prng.fold_in(prng.PRNGKey(seed), pos)
+        for num in (1, 2, 3, 7):
+            want = _u32(jr.split(key, num))
+            assert want.shape == (num, 2)
+            assert np.array_equal(prng.split(tkey, num).numpy(), want), (pos, num)
+        # unpacking as the reference's ``rng, r1 = split(rng)``
+        a, b = prng.split(tkey)
+        ja, jb = jr.split(key)
+        assert np.array_equal(a.numpy(), _u32(ja)) and np.array_equal(b.numpy(), _u32(jb))
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1, 0.5, 0.9, 1.0])
+@pytest.mark.parametrize("shape", [(), (1,), (7,), (3, 5), (13, 17, 3)])
+def test_bernoulli_bitwise(jr, p, shape):
+    for seed in SEEDS:
+        key = jr.fold_in(jr.PRNGKey(seed), 11)
+        want = np.asarray(jr.bernoulli(key, p, shape))
+        got = prng.bernoulli(prng.fold_in(prng.PRNGKey(seed), 11), p, shape).numpy()
+        assert got.dtype == np.bool_ and got.shape == want.shape == shape
+        assert np.array_equal(got, want), seed
 
 
 def test_non_partitionable_mode_and_float_seeds_raise():

@@ -277,7 +277,7 @@ def test_checkpoints_and_unported_model_fields_raise():
     with pytest.raises(NotImplementedError, match="item 12"):
         eng.save_checkpoint("/nonexistent")
     preset, mkw = MODELS["llama"]
-    for field, value in (("dropout", 0.1), ("remat", True)):
+    for field, value in (("remat", True), ("progressive_layer_drop", True)):
         m = build_model(preset, **dict(mkw, **{field: value}))
         with pytest.raises(NotImplementedError, match=field):
             m.apply(m.init_params(torch.Generator().manual_seed(0)),
