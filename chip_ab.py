@@ -38,6 +38,22 @@ events behind a sleep kernel, the median of 25 after 5 warm-ups):
 It prints one JSON line per turn, then ``{"ab": ...}`` with each quantity's
 OLD and NEW times (the mean of each side's two turns). Nothing is checked
 against a reference here: ``chip_smoke.py`` does that.
+
+    python3 chip_ab.py --ckpt OLD NEW
+
+times the training checkpoint's host side instead, in the same four turns,
+on ``chip_smoke.py`` phase c3's engine (llama-7b width, 4 layers, bf16 with
+an fp32 master, 12.86 GB a tag): a ``save_checkpoint`` into the checkout's
+``build/ckpt_ab`` (``save_s``; its gather ``gather_first_s``, the first on
+fresh host buffers), a second save whose files are not written
+(``gather_again_s``), and a ``load_checkpoint`` of the first (``load_s``;
+the host-to-device restore ``restore_s``). The tag is deleted after the turn.
+Then the same leaves (master, m, v) without the engine, with a device
+synchronize around each: fresh pinned buffers for all of them
+(``pinned_alloc_s``), one non-blocking copy into each (``d2h_pinned_s``),
+the same copies again (``d2h_pinned_again_s``), the buffers freed and asked
+for again (``pinned_alloc_again_s``, from the allocator's cache), and a
+blocking ``.cpu()`` of each into pageable memory (``d2h_pageable_s``).
 """
 
 import inspect
@@ -118,6 +134,89 @@ def turn(root):
     print(json.dumps(out), flush=True)
 
 
+class _NoFiles:
+    """A checkpoint engine that writes nothing: a save runs its gather only."""
+
+    def makedirs(self, path, exist_ok=False):
+        pass
+
+    def create(self, tag):
+        pass
+
+    def save(self, state_dict, path):
+        pass
+
+    def commit(self, tag):
+        return True
+
+
+def ckpt_turn(root):
+    """The checkpoint's host side on phase c3's engine (see the docstring)."""
+    sys.path.insert(0, os.path.abspath(root))
+    import importlib.util
+    import shutil
+    import time
+
+    import torch
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    dev = torch.device("cuda", 0)
+    engine = cs.ckpt_engine(dev, 4, 0)
+    d = os.path.join(root, "build", "ckpt_ab")
+    shutil.rmtree(d, ignore_errors=True)
+    out = {"root": root}
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.save_checkpoint(d)
+        out["save_s"] = time.perf_counter() - t0
+        out["gather_first_s"] = engine.ckpt_stats["gather_s"]
+        writer, engine.checkpoint_engine = engine.checkpoint_engine, _NoFiles()
+        engine.save_checkpoint(d + "_none", save_latest=False)
+        out["gather_again_s"] = engine.ckpt_stats["gather_s"] - out["gather_first_s"]
+        engine.checkpoint_engine = writer
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.load_checkpoint(d)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        out["restore_s"] = engine.ckpt_stats["restore_s"]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+
+    leaves = [t for tree in (engine.master_params, engine.opt_state.m, engine.opt_state.v)
+              for t in tree_leaves(tree)]
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[key] = time.perf_counter() - t0
+        return res
+
+    def pinned():
+        return [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in leaves]
+
+    def copies(bufs):
+        for b, t in zip(bufs, leaves):
+            b.copy_(t, non_blocking=True)
+
+    bufs = timed("pinned_alloc_s", pinned)
+    timed("d2h_pinned_s", lambda: copies(bufs))
+    timed("d2h_pinned_again_s", lambda: copies(bufs))
+    del bufs
+    bufs = timed("pinned_alloc_again_s", pinned)
+    del bufs
+    timed("d2h_pageable_s", lambda: [t.cpu() for t in leaves])
+    print(json.dumps(out), flush=True)
+
+
 def paged_turn(cs, dev, out):
     """``paged_decode_attention`` at the last decode step's rows
     (``paged_decode_ms``) and at 256-row prefill chunks of one 2048-key
@@ -172,11 +271,11 @@ def woq_turn(cs, dev, out):
         torch.cuda.empty_cache()
 
 
-def main(old, new):
+def main(old, new, turn_flag="--turn"):
     old, new = os.path.abspath(old), os.path.abspath(new)  # each turn runs in its root
     runs = []
     for label, root in (("old", old), ("new", new), ("new", new), ("old", old)):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--turn", root],
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), turn_flag, root],
                               cwd=root, capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             raise SystemExit(f"turn {label} ({root}) failed:\n{proc.stderr[-4000:]}")
@@ -184,7 +283,7 @@ def main(old, new):
         print(json.dumps(dict(r, side=label)), flush=True)
         runs.append((label, r))
     ab = {}
-    for key in sorted({k for _, r in runs for k in r if k.endswith("_ms")}):
+    for key in sorted({k for _, r in runs for k in r if k.endswith(("_ms", "_s"))}):
         for side in ("old", "new"):
             vals = [r[key] for s, r in runs if s == side and key in r]
             if vals:
@@ -195,6 +294,10 @@ def main(old, new):
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--turn":
         turn(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--ckpt-turn":
+        ckpt_turn(sys.argv[2])
+    elif len(sys.argv) == 4 and sys.argv[1] == "--ckpt":
+        main(sys.argv[2], sys.argv[3], "--ckpt-turn")
     elif len(sys.argv) == 3:
         main(sys.argv[1], sys.argv[2])
     else:

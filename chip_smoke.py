@@ -226,6 +226,23 @@ c2. phase c's model, batch and settings with ``dropout=0.1``, 6 steps, the
    reference's chain; the last step traced with ``torch.profiler``: the
    device ms of the threefry draws (``prng.bernoulli`` annotated) beside
    the step's, on a ``{"dropout_summary": ...}`` line.
+c3. checkpoints, on phase c's model, batch and settings, the flash counts
+   set to 0 just before and read just after (4 layers, or 2 when the
+   checkout's disk lacks room for a tag, times the steps, + 1 x (d)'s): (a)
+   3 steps, a synchronous ``save_checkpoint`` (~12.9 GB a tag), 3 steps;
+   (a') 6 steps again from the same weights, bitwise (a)'s losses; (b) a
+   fresh engine from other weights ``load_checkpoint``: every parameter,
+   master, moment, Adam's step, the scaler, the lr state, the counters and
+   the key bitwise the saved ones, the next 3 losses bitwise (a)'s; (c) (a)
+   with ``async_save``, 3 steps timed under the write, the tag loaded and
+   checked as in (b); (d) at depth 1, ``TrainingSupervisor`` over
+   ``InjectedTrainEngine`` with a transient fault and a device loss two
+   steps after the save at step 3: the loss curve bitwise the fault-free
+   one, 1 recovery, 2 replayed steps; (e) a byte of (d)'s newest npz
+   flipped: a load from ``latest`` falls back one tag, a load of that tag
+   by name raises ``CheckpointCorruptError``. The tags go under
+   ``build/ckpt_c3`` and are deleted; times on a ``{"ckpt_summary": ...}``
+   line beside the card's name and power limit.
 
 Then block-sparse attention:
 
@@ -3648,6 +3665,277 @@ def ce_timing(fc, dev):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase c3: training checkpoints
+# ---------------------------------------------------------------------------
+#: where phase c3 writes its tags: inside the checkout, under build/ (listed
+#: in .gitignore), deleted before the phase ends
+CKPT_DIR = os.path.join(HERE, "build", "ckpt_c3")
+CKPT_SUP_LAYERS = 1  # (d) and (e): llama-7b width at depth 1 (~5.6 GB a tag)
+
+
+def ckpt_tag_bytes(layers):
+    """A tag's bytes at llama-7b width: fp32 master, Adam's m and v (12 B a
+    parameter; ~202.4M a layer, 2 x 131M for the embedding and the head)."""
+    per_layer = 4 * 4096 * 4096 + 3 * 4096 * 11008 + 2 * 4096
+    return 12 * (layers * per_layer + 2 * 32000 * 4096 + 4096)
+
+
+def ckpt_engine(dev, layers, seed, **cfg):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import build_model
+
+    model = build_model("llama-7b", num_layers=layers)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
+    return deepspeed_tpu_torch.initialize(model=model, model_parameters=params,
+                                          config=dict(TRAIN_CONFIG, **cfg), device=dev)[0]
+
+
+def ckpt_snapshot(engine):
+    """Every quantity a tag saves, cloned on the card (and the host values)."""
+    def cp(tree):
+        return {k: cp(v) if isinstance(v, dict) else v.detach().clone() for k, v in tree.items()}
+
+    return {"params": cp(engine.params), "master": cp(engine.master_params),
+            "m": cp(engine.opt_state.m), "v": cp(engine.opt_state.v),
+            "step": engine.opt_state.step.clone(), "scaler": cp(engine.scaler_state._asdict()),
+            "rng": engine._rng.clone(), "lr": engine.lr_scheduler.state_dict(),
+            "counters": [engine.global_steps, engine.global_samples, engine.skipped_steps,
+                         engine.micro_steps, engine._data_position]}
+
+
+def ckpt_mismatches(a, b, path=""):
+    """The paths where two snapshots differ, bit for bit."""
+    if isinstance(a, dict):
+        if sorted(a) != sorted(b):
+            return [f"{path} keys"]
+        return [m for k in a for m in ckpt_mismatches(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, torch.Tensor):
+        same = a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+        return [] if same else [path]
+    return [] if a == b else [path]
+
+
+def ckpt_steps(engine, batch, n, on_step=None):
+    """``n`` train_batch steps; their losses (device scalars) and wall ms."""
+    losses, ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(engine.train_batch(iter([batch])))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def ckpt_phase(fa, dev, card):
+    """Phase c3: phase c's model, batch and settings; (a) 3 steps, a
+    synchronous save, 3 steps; (a') a second run of 6 steps from the same
+    weights, bitwise (a)'s; (b) a fresh engine from other weights loads the
+    tag: its state bitwise the saved one, the next 3 losses bitwise (a)'s;
+    (c) (a) with ``async_save``, the steps under the write timed, then the
+    tag loaded into (b)'s engine, bitwise again; (d) ``TrainingSupervisor``
+    over ``InjectedTrainEngine`` at depth 1: a transient fault, a device loss
+    two steps after a save, the loss curve bitwise the fault-free one; (e) a
+    byte of the newest tag's npz flipped: ``latest`` falls back one tag, the
+    tag by name raises ``CheckpointCorruptError``."""
+    import shutil
+
+    from deepspeed_tpu_torch.resilience import (CheckpointCorruptError, FaultInjector,
+                                                FaultSpec, InjectedTrainEngine,
+                                                RecoveryPolicy, RetryPolicy,
+                                                TrainingSupervisor)
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+    free = shutil.disk_usage(CKPT_DIR).free
+    # one full-depth tag on disk at a time ((a)'s, then (c)'s), then (d)'s
+    # two at depth 1
+    need = {n: max(1.2 * ckpt_tag_bytes(n), 2.2 * ckpt_tag_bytes(CKPT_SUP_LAYERS))
+            for n in (4, 2)}
+    layers = 4 if free > need[4] else 2
+    check(free > need[layers], f"phase c3: {free / 1e9:.1f} GB free under {CKPT_DIR}, "
+          f"below the {need[layers] / 1e9:.1f} GB the phase writes at depth {layers}")
+    B, S = TRAIN_CONFIG["train_micro_batch_size_per_gpu"], 2048
+    summary = {"card": card, "layers": layers, "sup_layers": CKPT_SUP_LAYERS,
+               "disk_free_gb": free / 1e9}
+    runs = {"steps": 0, "sup_steps": 0}
+    fa.fwd_launches = fa.bwd_launches = 0  # every count, just before
+    try:
+        # (a) 3 steps, a synchronous save, 3 more
+        engine = ckpt_engine(dev, layers, 0)
+        cfg = engine.module.config
+        batch = {"input_ids": torch.randint(0, cfg.vocab_size, (B, S), dtype=torch.int32,
+                                            device=dev,
+                                            generator=torch.Generator(device=dev).manual_seed(0))}
+        first, _ = ckpt_steps(engine, batch, 3)
+        dir_a = os.path.join(CKPT_DIR, "a")
+        ck = engine.checkpoint_engine
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.save_checkpoint(dir_a)
+        save_s = time.perf_counter() - t0
+        saved = ckpt_snapshot(engine)
+        tag_bytes = ck.stats["bytes_written"]
+        summary["sync_save"] = {"s": save_s, "gather_s": engine.ckpt_stats["gather_s"],
+                                "savez_s": ck.stats["savez_s"], "crc_s": ck.stats["crc_s"],
+                                "bytes": tag_bytes,
+                                "write_gb_per_s": tag_bytes / ck.stats["savez_s"] / 1e9}
+        after, after_ms = ckpt_steps(engine, batch, 3)
+        runs["steps"] += 6
+        want = [float(x) for x in first + after]
+        del engine
+        torch.cuda.empty_cache()
+        check(all(np.isfinite(want)), f"phase c3 (a): losses {want}")
+
+        # (a') two uninterrupted runs from one state repeat bitwise
+        engine = ckpt_engine(dev, layers, 0)
+        again, plain_ms = ckpt_steps(engine, batch, 6)
+        runs["steps"] += 6
+        del engine
+        torch.cuda.empty_cache()
+        again = [float(x) for x in again]
+        check(again == want, f"phase c3 (a'): two runs of 6 steps from one state differ: "
+              f"{want} vs {again}")
+
+        # (b) a fresh engine from other weights resumes bitwise
+        engine = ckpt_engine(dev, layers, 1)
+        ck = engine.checkpoint_engine
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.load_checkpoint(dir_a)
+        torch.cuda.synchronize()
+        summary["load"] = {"s": time.perf_counter() - t0, "verify_s": ck.stats["verify_s"],
+                           "read_s": ck.stats["read_s"],
+                           "restore_s": engine.ckpt_stats["restore_s"]}
+        bad = ckpt_mismatches(ckpt_snapshot(engine), saved)
+        check(not bad, f"phase c3 (b): the loaded state differs from the saved one at {bad}")
+        resumed, _ = ckpt_steps(engine, batch, 3)
+        runs["steps"] += 3
+        resumed = [float(x) for x in resumed]
+        check(resumed == want[3:], f"phase c3 (b): resumed losses {resumed} vs {want[3:]}")
+        shutil.rmtree(dir_a)
+        del engine
+        torch.cuda.empty_cache()
+
+        # (c) the same with an async save: 3 steps run under its write
+        engine_c = ckpt_engine(dev, layers, 0, checkpoint={"async_save": True})
+        ckpt_steps(engine_c, batch, 3)
+        dir_c = os.path.join(CKPT_DIR, "c")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine_c.save_checkpoint(dir_c)
+        fg_s = time.perf_counter() - t0
+        under, under_ms = ckpt_steps(engine_c, batch, 3)
+        t0 = time.perf_counter()
+        engine_c.checkpoint_engine.wait()
+        tail_s = time.perf_counter() - t0
+        runs["steps"] += 6
+        check([float(x) for x in under] == want[3:], "phase c3 (c): the async run's steps "
+              "differ from (a)'s")
+        ack = engine_c.checkpoint_engine.stats
+        summary["async_save"] = {"foreground_s": fg_s,
+                                 "gather_s": engine_c.ckpt_stats["gather_s"],
+                                 "writer_savez_s": ack["savez_s"], "writer_crc_s": ack["crc_s"],
+                                 "wait_after_3_steps_s": tail_s}
+        engine_c.checkpoint_engine.close()
+        del engine_c
+        torch.cuda.empty_cache()
+        engine = ckpt_engine(dev, layers, 1)
+        engine.load_checkpoint(dir_c)
+        bad = ckpt_mismatches(ckpt_snapshot(engine), saved)
+        check(not bad, f"phase c3 (c): the async tag differs from the saved state at {bad}")
+        resumed_c, _ = ckpt_steps(engine, batch, 3)
+        runs["steps"] += 3
+        check([float(x) for x in resumed_c] == want[3:], "phase c3 (c): losses resumed from "
+              "the async tag differ from (a)'s")
+        summary["step_ms"] = {"no_save_median": float(np.median(plain_ms[1:])),
+                              "after_sync_save": after_ms,
+                              "under_async_write": under_ms,
+                              "under_async_write_median": float(np.median(under_ms))}
+        del engine, saved
+        shutil.rmtree(dir_c)
+        torch.cuda.empty_cache()
+
+        # (d) the supervisor at depth 1: a transient, then a device loss two
+        # steps after the save at step 3; the curve bitwise the fault-free one
+        engine = ckpt_engine(dev, CKPT_SUP_LAYERS, 0)
+        clean, _ = ckpt_steps(engine, batch, 6)
+        runs["sup_steps"] += 6
+        clean = [float(x) for x in clean]
+        del engine
+        torch.cuda.empty_cache()
+        engine = ckpt_engine(dev, CKPT_SUP_LAYERS, 0)
+        plan = [FaultSpec(site="train_batch", kind="transient", nth=2),
+                FaultSpec(site="train_batch", kind="device_lost", nth=7)]
+        injector = FaultInjector(plan, seed=0, sleep=lambda s: None)
+        dir_d = os.path.join(CKPT_DIR, "d")
+        sup = TrainingSupervisor(InjectedTrainEngine(engine, injector), lambda k: [batch],
+                                 dir_d, save_interval=3,
+                                 retry=RetryPolicy(max_attempts=3, base_s=0.0),
+                                 recovery=RecoveryPolicy(max_consecutive_rebuilds=2),
+                                 sleep=lambda s: None)
+        t0 = time.perf_counter()
+        sup.run(6)
+        sup_s = time.perf_counter() - t0
+        report = sup.report()
+        runs["sup_steps"] += report["attempts"] - report["faults_fired"]["transient"] \
+            - report["faults_fired"]["device_lost"]
+        curve = [float(x) for x in sup.loss_curve()]
+        check(curve == clean, f"phase c3 (d): supervised curve {curve} vs fault-free {clean}")
+        check((report["recoveries"], report["replayed_steps"], report["retries"],
+               report["net_steps"], report["saves"]) == (1, 2, 1, 6, 2),
+              f"phase c3 (d): report {report}")
+        summary["supervisor"] = dict(report, wall_s=sup_s)
+
+        # (e) a flipped byte in the newest tag: `latest` falls back one tag,
+        # the tag by name raises
+        with open(os.path.join(dir_d, "latest")) as f:
+            newest = f.read().strip()
+        check(newest == "global_step3", f"phase c3 (e): latest is {newest}")
+        path = os.path.join(dir_d, newest, "model_states.ckpt")
+        with open(path, "r+b") as f:
+            f.seek(os.path.getsize(path) // 2)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        engine.ckpt_corrupt_fallbacks = 0
+        t0 = time.perf_counter()
+        engine.load_checkpoint(dir_d)
+        fallback_s = time.perf_counter() - t0
+        check(engine.loaded_checkpoint_tag == "global_step0"
+              and engine.ckpt_corrupt_fallbacks == 1 and engine.global_steps == 0,
+              f"phase c3 (e): loaded {engine.loaded_checkpoint_tag} after "
+              f"{engine.ckpt_corrupt_fallbacks} fallbacks")
+        try:
+            engine.load_checkpoint(dir_d, tag=newest)
+            raised = None
+        except CheckpointCorruptError as e:
+            raised = str(e)
+        check(raised is not None and "checksum" in raised,
+              f"phase c3 (e): a load of {newest} by name did not raise: {raised}")
+        summary["corrupt_tag"] = {"fallback_load_s": fallback_s, "fallbacks": 1,
+                                  "named_load_raised": raised}
+        del engine
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    launches = {"fwd": fa.fwd_launches, "bwd": fa.bwd_launches}  # read just after
+    want_launches = layers * runs["steps"] + CKPT_SUP_LAYERS * runs["sup_steps"]
+    check(launches["fwd"] == want_launches and launches["bwd"] == want_launches,
+          f"phase c3: flash launches {launches}, expected {want_launches} each "
+          f"({layers} layers x {runs['steps']} steps + {CKPT_SUP_LAYERS} x "
+          f"{runs['sup_steps']})")
+    summary["launches"] = launches
+    summary["losses"] = want
+    log(f"phase c3 (checkpoints, {layers} layers): a {tag_bytes / 1e9:.2f} GB tag saved in "
+        f"{summary['sync_save']['s']:.2f} s and loaded in {summary['load']['s']:.2f} s; "
+        f"resumed, async-resumed and supervised curves bitwise the uninterrupted ones; "
+        f"async foreground {fg_s:.3f} s; corrupt tag fell back; flash launched "
+        f"{launches['fwd']}/{launches['bwd']} times")
+    return launches, summary
+
+
 def main():
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: this script needs an "
@@ -3748,6 +4036,8 @@ def main():
     log(json.dumps({"train_summary": train_summary}))
     dropout_launches, dropout_summary = dropout_train_path(fa, dev, train_summary)
     log(json.dumps({"dropout_summary": dict(card=smi.stdout.strip(), **dropout_summary)}))
+    ckpt_launches, ckpt_summary = ckpt_phase(fa, dev, smi.stdout.strip())
+    log(json.dumps({"ckpt_summary": ckpt_summary}))
 
     sparse_fe, sparse_be = sparse_kernels_vs_plain(bs, dev)
     sparse_launches, path_errs, path_stats = sparse_main_path(bs, fa, dev)
@@ -3780,15 +4070,17 @@ def main():
              source="deepspeed_tpu_torch/csrc/paged_attention.cu",
              replaces="deepspeed_tpu/ops/transformer/paged_attention.py:76",
              launches=launches + pool_launches, **k),
-        # the training paths' launches (phases c and c2) and the slot path's
+        # the training paths' launches (phases c, c2 and c3) and the slot path's
         # (phase 8); the times at the training shape, the slot shapes' on
         # slot_summary
         dict(name="flash_attention_fwd", route="cuda", source=flash_src,
              replaces="deepspeed_tpu/ops/transformer/flash_attention.py:43",
-             launches=train_launches["fwd"] + dropout_launches["fwd"] + slot_launches, **fwd),
+             launches=train_launches["fwd"] + dropout_launches["fwd"] + ckpt_launches["fwd"]
+             + slot_launches, **fwd),
         dict(name="flash_attention_bwd", route="cuda", source=flash_src,
              replaces="deepspeed_tpu/ops/transformer/flash_attention.py:124",
-             launches=train_launches["bwd"] + dropout_launches["bwd"], **bwd),
+             launches=train_launches["bwd"] + dropout_launches["bwd"] + ckpt_launches["bwd"],
+             **bwd),
         # int8 on w_gate/w_up's (4096, 11008): woq_matmul at decode rows (8,
         # woq_gemv_kernel; launches of every row count), woq_matmul_prefill
         # at 256 rows (woq_mma_kernel; the tiled launches); every shape,

@@ -12,9 +12,11 @@ variable unset everything here is dormant.
 The functions are copies of the JAX module's, with its TransferEngine
 ledger check (``check_transfer_ledger``) and the engine pool's checks
 (``check_pool_ownership``, ``check_pool_health``,
-``check_tenant_accounting``, ``check_disagg_ownership``). Its checked
-``BlockedKVCache`` (``checked_cache_cls``) and the training checks come with
-ROADMAP.md Queue 1 item 10.
+``check_tenant_accounting``, ``check_disagg_ownership``) and the training
+checks (``check_gather_conservation``, which ``save_checkpoint`` runs on
+every gather; ``check_shard_conservation``, which consolidation runs;
+``check_offload_split``). Its checked ``BlockedKVCache``
+(``checked_cache_cls``) comes with ROADMAP.md Queue 1 item 10.
 """
 
 import os
@@ -639,3 +641,186 @@ def check_disagg_ownership(replica_views, handoffs,
 # ---------------------------------------------------------------------------
 # training: partition/gather conservation (ZeRO state)
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# training: partition/gather conservation (checkpoint state)
+# ---------------------------------------------------------------------------
+
+def _tree_items(tree, path=""):
+    """(path, leaf) pairs of a tree of dicts, lists and tuples, dict keys in
+    sorted order (a structure compares equal whatever its insertion order,
+    as a jax treedef does)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_items(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _tree_items(v, f"{path}[{i}]")
+    else:
+        yield path, tree
+
+
+def _shares_memory(host, src) -> bool:
+    """Whether the host leaf's bytes lie inside the source tensor's storage."""
+    import numpy as np
+    import torch
+
+    if src.device.type != "cpu" or src.untyped_storage().nbytes() == 0:
+        return False
+    lo = src.untyped_storage().data_ptr()
+    hi = lo + src.untyped_storage().nbytes()
+    ptr = (host.data_ptr() if isinstance(host, torch.Tensor)
+           else host.__array_interface__["data"][0] if isinstance(host, np.ndarray)
+           else None)
+    return ptr is not None and lo <= ptr < hi
+
+
+def check_gather_conservation(src_tree, host_tree) -> None:
+    """Checkpoint-gather round trip: ``_gather_to_host`` must return a tree
+    of the same structure whose every tensor leaf is a host copy of its
+    source — a CPU tensor or numpy array of the same shape, element count
+    and dtype width, holding its own memory. A leaf still on the card, a
+    reshaped or lossy-cast one, or one that still shares the source's
+    storage (the next step's in-place update would then change the bytes
+    an async save has yet to write) raises. A copy of the JAX package's
+    check, with the snapshot condition in place of its sharded gather."""
+    import numpy as np
+    import torch
+
+    src_items = list(_tree_items(src_tree))
+    host_items = list(_tree_items(host_tree))
+    if [p for p, _ in src_items] != [p for p, _ in host_items]:
+        raise SanitizerError(
+            f"[sanitizer] gather changed tree structure: "
+            f"{[p for p, _ in src_items]} -> {[p for p, _ in host_items]}")
+    for (path, s), (_, h) in zip(src_items, host_items):
+        if not isinstance(s, torch.Tensor):
+            continue  # scalar/str passthrough leaves gather as themselves
+        if isinstance(h, torch.Tensor):
+            if h.device.type != "cpu":
+                raise SanitizerError(
+                    f"[sanitizer] gather leaf {path}: device tensor came back on "
+                    f"{h.device}, not as a host copy")
+            h_shape, h_size, h_width = tuple(h.shape), h.numel(), h.element_size()
+        elif isinstance(h, np.ndarray):
+            h_shape, h_size, h_width = tuple(h.shape), int(h.size), h.dtype.itemsize
+        else:
+            raise SanitizerError(
+                f"[sanitizer] gather leaf {path}: tensor came back as "
+                f"{type(h).__name__}, not a host array")
+        if h_shape != tuple(s.shape):
+            raise SanitizerError(
+                f"[sanitizer] gather leaf {path} shape not conserved: "
+                f"{tuple(s.shape)} -> host {h_shape} (a gather dropped or "
+                "duplicated a part)")
+        if h_size != s.numel():
+            raise SanitizerError(
+                f"[sanitizer] gather leaf {path} element count not conserved: "
+                f"{s.numel()} -> {h_size}")
+        if h_width != s.element_size():
+            raise SanitizerError(
+                f"[sanitizer] gather leaf {path} dtype width changed: {s.dtype} "
+                f"({s.element_size()} B) -> {h_width} B — a lossy cast snuck into "
+                "the checkpoint path")
+        if h_size and _shares_memory(h, s):
+            raise SanitizerError(
+                f"[sanitizer] gather leaf {path} shares memory with its source: "
+                "not a snapshot, the next in-place update would change it")
+
+
+def check_offload_split(host_idx, dev_idx, n_leaves: int) -> None:
+    """Offload twin-flow partition (zero/offload.py ``split_by_ratio``):
+    the host and device index lists must be an exact two-coloring of the
+    parameter leaves — disjoint (no leaf optimizer-stepped twice) and
+    covering (no leaf never stepped). The JAX package checks it at
+    ``_setup_offload`` and on the index lists a checkpoint carries; the
+    port's engine has no offload yet (ROADMAP.md Queue 1 item 13)."""
+    host_set, dev_set = set(host_idx), set(dev_idx)
+    if len(host_set) != len(host_idx) or len(dev_set) != len(dev_idx):
+        raise SanitizerError(
+            f"[sanitizer] offload split has duplicate indices: host "
+            f"{sorted(host_idx)}, dev {sorted(dev_idx)}")
+    overlap = host_set & dev_set
+    if overlap:
+        raise SanitizerError(
+            f"[sanitizer] offload split not disjoint: leaves "
+            f"{sorted(overlap)} appear in BOTH host and device partitions — "
+            "each would be optimizer-stepped twice per step")
+    missing = set(range(n_leaves)) - host_set - dev_set
+    extra = (host_set | dev_set) - set(range(n_leaves))
+    if missing or extra:
+        raise SanitizerError(
+            f"[sanitizer] offload split does not cover the parameter tree: "
+            f"missing leaves {sorted(missing)}, out-of-range "
+            f"{sorted(extra)} (n_leaves={n_leaves})")
+
+
+def check_shard_conservation(leaf_sizes, bounds, shard_slices=None,
+                             dtype=None) -> None:
+    """ZeRO shard partition (zero/partition.py ``PartitionPlan``): the
+    per-rank shards must PARTITION every leaf's flat element range —
+    contiguous bounds that start at 0, end at the leaf size, and never run
+    backwards (disjoint + covering), with every rank present for every leaf.
+    Optionally, ``shard_slices[r][j]`` (the concrete per-rank flat arrays —
+    e.g. the slices a sharded checkpoint carries, or the views a gather is
+    about to concatenate) are checked against the bounds: element counts and
+    dtype must be conserved, so a shard file that was truncated, duplicated,
+    or down-cast is caught before its bytes reach optimizer state. Checked at
+    partition build, checkpoint save, and consolidation (docs/ZERO.md)."""
+    import numpy as np
+
+    n_leaves = len(leaf_sizes)
+    if len(bounds) != n_leaves:
+        raise SanitizerError(
+            f"[sanitizer] shard plan covers {len(bounds)} leaves but the "
+            f"parameter tree has {n_leaves}")
+    num_shards = None
+    for j, (size, bs) in enumerate(zip(leaf_sizes, bounds)):
+        bs = list(bs)
+        if num_shards is None:
+            num_shards = len(bs) - 1
+        elif len(bs) - 1 != num_shards:
+            raise SanitizerError(
+                f"[sanitizer] shard bounds for leaf {j} describe "
+                f"{len(bs) - 1} shards, leaf 0 describes {num_shards} — "
+                "ranks would disagree on the partition")
+        if not bs or bs[0] != 0 or bs[-1] != int(size):
+            raise SanitizerError(
+                f"[sanitizer] shard bounds for leaf {j} do not cover it: "
+                f"bounds {bs} over {int(size)} elements (a dropped head or "
+                "tail shard would silently never be optimizer-stepped)")
+        for r in range(len(bs) - 1):
+            if bs[r] > bs[r + 1]:
+                raise SanitizerError(
+                    f"[sanitizer] shard bounds for leaf {j} run backwards at "
+                    f"rank {r}: {bs} — overlapping shards would double-step "
+                    "the shared elements")
+    if shard_slices is None:
+        return
+    if num_shards is None:
+        num_shards = 0
+    if len(shard_slices) != num_shards:
+        raise SanitizerError(
+            f"[sanitizer] {len(shard_slices)} shard slice sets for a "
+            f"{num_shards}-shard plan — a rank's state is missing or "
+            "duplicated")
+    for r, slices in enumerate(shard_slices):
+        if len(slices) != n_leaves:
+            raise SanitizerError(
+                f"[sanitizer] shard {r} carries {len(slices)} leaf slices, "
+                f"expected {n_leaves}")
+        for j, sl in enumerate(slices):
+            want = bounds[j][r + 1] - bounds[j][r]
+            got = int(np.size(sl))
+            if got != want:
+                raise SanitizerError(
+                    f"[sanitizer] shard {r} leaf {j} size not conserved: "
+                    f"{got} elements vs bounds [{bounds[j][r]}, "
+                    f"{bounds[j][r + 1]}) = {want}")
+            if dtype is not None and np.dtype(getattr(sl, "dtype", dtype)) \
+                    != np.dtype(dtype):
+                raise SanitizerError(
+                    f"[sanitizer] shard {r} leaf {j} dtype changed: "
+                    f"{np.dtype(sl.dtype)} vs required {np.dtype(dtype)} — "
+                    "a lossy cast snuck into the shard path")

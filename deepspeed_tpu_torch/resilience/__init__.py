@@ -2,8 +2,7 @@
 taxonomy, and the circuit breaker, retry policy, step watchdog and
 engine-loss recovery the serving scheduler composes, and the engine pool's
 seeded fault injection, health supervision, adaptive limits and durable
-journal. The training supervisor (``resilience/training.py``) comes with
-ROADMAP.md Queue 1 item 12."""
+journal, and the training supervisor (``resilience/training.py``)."""
 
 from .breaker import BreakerState, CircuitBreaker  # noqa: F401
 from .errors import (CheckpointCorruptError,  # noqa: F401
@@ -22,4 +21,5 @@ from .limits import AdaptiveLimit  # noqa: F401
 from .recovery import (JournalEntry, RecoveryPolicy,  # noqa: F401
                        RequestJournal)
 from .retry import RetryPolicy  # noqa: F401
+from .training import TrainingSupervisor  # noqa: F401
 from .watchdog import StepWatchdog  # noqa: F401

@@ -2,8 +2,8 @@
 
 A copy of ``deepspeed_tpu/resilience/faults.py`` for the port, which imports nothing
 of the JAX package; the text below is the JAX module's. ``InjectedTrainEngine``
-wraps the port's ``DeepSpeedEngine``, whose checkpoint engine it wraps only
-where one exists.
+wraps the port's ``DeepSpeedEngine`` and, in place, its checkpoint engine, so
+the ``ckpt_save`` / ``ckpt_commit`` sites fire inside ``save_checkpoint``.
 
 At TPU-fleet scale faults are the steady state; a serving loop that has only
 ever seen healthy engines is untested where it matters. ``FaultInjector``
@@ -400,8 +400,7 @@ class InjectedTrainEngine:
     def __init__(self, engine, injector: FaultInjector):
         self.inner = engine
         self.injector = injector
-        # the port's engine has no checkpoint engine until checkpoints are
-        # ported (ROADMAP.md Queue 1 item 12): wrap one where it exists
+        # an engine without a checkpoint engine (a test double) is left as is
         ckpt = getattr(engine, "checkpoint_engine", None)
         if ckpt is not None:
             engine.checkpoint_engine = _InjectedCheckpointEngine(ckpt, injector)

@@ -25,32 +25,44 @@ Where the JAX engine compiles programs, the port runs eagerly:
   ``fold_in(PRNGKey(config.seed), micro_steps)`` (``engine.py:752``,
   ``:870``), so dropout draws the JAX engine's masks; evaluation takes none.
 
+``save_checkpoint`` / ``load_checkpoint`` write and read the JAX
+package's checkpoint format (``runtime/checkpoint_engine``): a tag saved by
+either package loads in the other. A save copies every tensor into a fresh
+host buffer (pinned on the card) before it returns, so the async engine
+writes the state of the step it was called at; a load reads and verifies both files before it changes any state,
+writes the lp parameters in place and rebinds the master copy and the
+moments, as each step does.
+
 Runs on ``device`` (default ``"cuda"``); without CUDA it raises unless
 ``device="cpu"`` is passed. On CUDA the model's attention shape must be one
 the flash kernels take, checked at construction. What the port does not run
 yet raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
+import os
+import time
 from typing import Union
 
+import numpy as np
 import torch
 
 from ..accelerator import resolve_device
 from ..ops.optimizers import build_optimizer
 from ..ops.transformer.flash_attention import check_kernel_config
-from ..resilience.errors import EngineUsageError
+from ..resilience.errors import CheckpointCorruptError, EngineUsageError
 from ..utils import prng
-from ..utils.logging import log_dist
+from ..utils.logging import log_dist, logger
 from ..utils.timer import (BACKWARD_MICRO_TIMER, FORWARD_MICRO_TIMER, STEP_MICRO_TIMER,
                            NoopTimer, SynchronizedWallClockTimer, ThroughputTimer)
 from ..utils.tree import tree_leaves, tree_map, tree_unflatten
+from .checkpoint_engine.native_checkpoint_engine import NativeCheckpointEngine
 from .config import DeepSpeedConfig
 from .constants import CURRICULUM_LEARNING_LEGACY
 from .dataloader import DeepSpeedDataLoader, RepeatingLoader, to_device
-from .fp16.loss_scaler import CreateLossScaler, has_overflow
+from .fp16.loss_scaler import CreateLossScaler, LossScalerState, has_overflow
 from .lr_schedules import build_lr_scheduler
 
-_CKPT_ITEM = "ROADMAP.md Queue 1 item 12, checkpoints"
+_ZERO_ITEM = "ROADMAP.md Queue 1 item 13, ZeRO and offload"
 _FEATURE_ITEM = "ROADMAP.md Queue 1 item 17"
 _PERIPHERY_ITEM = "ROADMAP.md Queue 1 item 18, periphery"
 
@@ -62,6 +74,72 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 def _global_norm(grads) -> torch.Tensor:
     return torch.sqrt(torch.stack([torch.sum(torch.square(g.float()))
                                    for g in tree_leaves(grads)]).sum())
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    """A fresh host copy of ``t``: on the card one pinned buffer, filled by
+    one copy queued on the current stream, which the caller waits for."""
+    t = t.detach()
+    if t.device.type == "cpu":
+        return t.clone()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    return out
+
+
+def _gather_to_host(tree):
+    """A host copy of ``tree``: every tensor copied once into a buffer of
+    its own (``_host_copy``; on the card the copies are waited for together
+    at the end), every dict's keys in sorted order (the order the JAX
+    package's gather, a ``jax.tree.map``, gives the checkpoint's metadata);
+    other leaves pass. Under ``DSTPU_SANITIZE=1`` the copy is held to its
+    source (``check_gather_conservation``)."""
+    streams = set()
+
+    def copy(t):
+        if isinstance(t, dict):
+            return {k: copy(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(copy(v) for v in t)
+        if not isinstance(t, torch.Tensor):
+            return t
+        if t.is_cuda:
+            streams.add(torch.cuda.current_stream(t.device))
+        return _host_copy(t)
+
+    out = copy(tree)
+    for s in streams:
+        s.synchronize()
+    from ..analysis.sanitizer import sanitize_enabled
+
+    if sanitize_enabled():
+        from ..analysis.sanitizer import check_gather_conservation
+
+        check_gather_conservation(tree, out)
+    return out
+
+
+def _host_tensor(x) -> torch.Tensor:
+    """A leaf read from a checkpoint (a numpy array, or a CPU tensor for a
+    dtype numpy lacks) as a CPU tensor."""
+    return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+
+
+def _match(template, saved, what):
+    """``saved`` (a checkpoint's tree of host leaves) in ``template``'s
+    structure, each leaf a CPU tensor of the template leaf's shape."""
+    if isinstance(template, dict):
+        if not isinstance(saved, dict) or set(saved) != set(template):
+            raise ValueError(
+                f"checkpoint {what} does not match the engine's parameter tree: keys "
+                f"{sorted(saved) if isinstance(saved, dict) else type(saved).__name__} "
+                f"vs {sorted(template)}")
+        return {k: _match(template[k], saved[k], f"{what}/{k}") for k in template}
+    t = _host_tensor(saved)
+    if tuple(t.shape) != tuple(template.shape):
+        raise ValueError(f"checkpoint {what} has shape {tuple(t.shape)}, the engine's "
+                         f"parameter {tuple(template.shape)}")
+    return t
 
 
 def _check_supported(config: DeepSpeedConfig, model) -> None:
@@ -101,6 +179,22 @@ class DeepSpeedEngine:
         self._training = True
         self._train_iter = None
         self._last_global_norm = None
+        # batches consumed from the engine-owned training iterator: saved, so
+        # a resume continues at the same dataset position
+        self._data_position = 0
+        # durable-tag ring fallbacks taken because `latest` pointed at a
+        # checkpoint that failed integrity verification
+        self.ckpt_corrupt_fallbacks = 0
+        if config.checkpoint_config.async_save:
+            from .checkpoint_engine.async_checkpoint_engine import AsyncCheckpointEngine
+
+            self.checkpoint_engine = AsyncCheckpointEngine()
+        else:
+            self.checkpoint_engine = NativeCheckpointEngine()
+        self.loaded_checkpoint_tag = None
+        #: seconds in the save's device-to-host gather and the load's host-to-device
+        #: restore (the checkpoint engine's ``stats`` holds the file side)
+        self.ckpt_stats = {"gather_s": 0.0, "restore_s": 0.0}
 
         # ---- precision ----
         if config.fp16_enabled:
@@ -355,7 +449,19 @@ class DeepSpeedEngine:
             it = data_iter
         else:
             if self._train_iter is None:
-                self._train_iter = iter(RepeatingLoader(self.training_dataloader))
+                inner = iter(RepeatingLoader(self.training_dataloader))
+                # resume: skip to the saved dataset position (the repeating
+                # loader repeats the epoch order, so the position modulo the
+                # epoch's length is the offset in the epoch; an iterable
+                # dataset has no length and is not skipped)
+                if self._data_position:
+                    try:
+                        epoch_len = len(self.training_dataloader)
+                    except TypeError:
+                        epoch_len = 0
+                    for _ in range(self._data_position % epoch_len if epoch_len else 0):
+                        next(inner)
+                self._train_iter = self._count_batches(inner)
             it = self._train_iter
         self.tput_timer.start()
         if (self.config.gradient_accumulation_steps == 1 and self.optimizer is not None
@@ -371,6 +477,14 @@ class DeepSpeedEngine:
         self.step()
         self.tput_timer.stop(global_step=True)
         return torch.stack(losses).mean()
+
+    def _count_batches(self, inner):
+        """The engine-owned iterator: every batch pulled moves
+        ``_data_position``, which checkpoints save. The positions of a
+        ``data_iter`` the caller passes are the caller's to keep."""
+        for batch in inner:
+            self._data_position += 1
+            yield batch
 
     def _fused_micro_step(self, batch):
         """Forward, backward and step in one call (the GAS=1 path)."""
@@ -394,11 +508,239 @@ class DeepSpeedEngine:
             device=self.device, collate_fn=collate_fn, shuffle=shuffle,
             seed=self.config.seed, drop_last=self.config.dataloader_drop_last)
 
-    def save_checkpoint(self, *args, **kwargs):
-        raise _not_ported("save_checkpoint", _CKPT_ITEM)
+    # ------------------------------------------------------------------
+    # checkpoints (reference engine.py:1962-2360, stage 0)
+    # ------------------------------------------------------------------
+    def _to_device(self, tree):
+        """A tree of host leaves (tensors or numpy arrays) on the engine's
+        device, one copy a leaf."""
+        return tree_map(lambda t: _host_tensor(t).to(self.device), tree)
 
-    def load_checkpoint(self, *args, **kwargs):
-        raise _not_ported("load_checkpoint", _CKPT_ITEM)
+    def _ckpt_paths(self, save_dir, tag):
+        d = os.path.join(save_dir, str(tag))
+        return d, os.path.join(d, "model_states.ckpt"), os.path.join(d, "optim_states.ckpt")
+
+    @staticmethod
+    def _durable_tags_before(load_dir, tag):
+        """The durable-tag ring behind ``tag``: every other ``global_step<N>``
+        directory under ``load_dir`` that has a model file, newest first.
+        These are the fallback candidates when the tag ``latest`` points at
+        fails integrity verification — sorted descending so the fallback
+        loses the fewest steps."""
+        def step_of(name):
+            try:
+                return int(name[len("global_step"):])
+            except ValueError:
+                return -1
+
+        try:
+            names = os.listdir(load_dir)
+        except OSError:
+            return []
+        ring = [n for n in names
+                if n != tag and n.startswith("global_step") and step_of(n) >= 0
+                and os.path.exists(os.path.join(load_dir, n, "model_states.ckpt"))]
+        return sorted(ring, key=step_of, reverse=True)
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None, save_latest=True,
+                        exclude_frozen_parameters=False):
+        """Save the step state under ``save_dir/tag`` (default
+        ``global_step<N>``): ``model_states.ckpt`` (the fp32 master when
+        mixed, else the params; counters, the training key, the dataset
+        position, the lr schedule, ``client_state``) and
+        ``optim_states.ckpt`` (Adam's step and moments, the loss scaler),
+        then ``latest``. Every tensor is copied to the host before this
+        returns; the async engine writes the files later, and ``latest``
+        only after them."""
+        if tag is None:
+            tag = f"global_step{self.global_steps}"
+        d, model_path, optim_path = self._ckpt_paths(save_dir, tag)
+        self.checkpoint_engine.makedirs(d, exist_ok=True)
+        self.checkpoint_engine.create(tag)
+        cfg = self.config
+        model_sd = {
+            "module": self.master_params if self._mixed else self.params,
+            "dtype": str(self.compute_dtype).replace("torch.", ""),
+            "global_steps": self.global_steps,
+            "global_samples": self.global_samples,
+            "skipped_steps": self.skipped_steps,
+            # bitwise resume needs all three: the training key each
+            # micro-step folds, the micro-step counter it folds with, and
+            # the dataset position
+            "rng": self._rng.cpu().numpy().astype(np.uint32),
+            "micro_steps": self.micro_steps,
+            "data_position": self._data_position,
+            "ds_config_batch": [cfg.train_batch_size, cfg.train_micro_batch_size_per_gpu,
+                                cfg.gradient_accumulation_steps],
+            "client_state": client_state or {},
+        }
+        if self.lr_scheduler is not None:
+            model_sd["lr_scheduler"] = self.lr_scheduler.state_dict()
+        optim_sd = None
+        if self.opt_state is not None:
+            optim_sd = {"step": self.opt_state.step, "m": self.opt_state.m,
+                        "v": self.opt_state.v, "scaler": self.scaler_state._asdict()}
+        t0 = time.perf_counter()
+        model_sd = _gather_to_host(model_sd)
+        if optim_sd is not None:
+            optim_sd = _gather_to_host(optim_sd)
+        self.ckpt_stats["gather_s"] += time.perf_counter() - t0
+        self.checkpoint_engine.save(model_sd, model_path)
+        if optim_sd is not None:
+            self.checkpoint_engine.save(optim_sd, optim_path)
+
+        self.checkpoint_engine.commit(tag)
+        if save_latest:
+            def _write_latest():
+                # tmp → os.replace: a crash mid-write must never leave a
+                # truncated `latest` shadowing the previous complete pointer
+                final = os.path.join(save_dir, "latest")
+                tmp = final + ".tmp"
+                with open(tmp, "w") as f:
+                    f.write(str(tag))
+                os.replace(tmp, final)
+
+            if hasattr(self.checkpoint_engine, "enqueue_task"):
+                # async engine: the pointer write rides the FIFO queue, so
+                # `latest` moves only after every file of this tag is on disk
+                self.checkpoint_engine.enqueue_task(_write_latest)
+            else:
+                _write_latest()
+        log_dist(f"saved checkpoint {tag} to {save_dir}", ranks=[0])
+        return True
+
+    def _read_tag(self, load_dir, tag, from_latest, want_optim):
+        """Both files of the first tag that verifies (``tag``, then the ring
+        behind it when it came from ``latest``), a sharded optimizer file
+        consolidated; nothing of the engine changes here."""
+        tags = [tag] + (self._durable_tags_before(load_dir, tag) if from_latest else [])
+        last_err = None
+        for t in tags:
+            d, model_path, optim_path = self._ckpt_paths(load_dir, t)
+            try:
+                m_sd = self.checkpoint_engine.load(model_path)
+                o_sd = (self.checkpoint_engine.load(optim_path)
+                        if want_optim and os.path.exists(optim_path) else None)
+                if o_sd is not None and "zero_sharded" in o_sd:
+                    # a JAX stage>=2 save: full moments from the per-rank
+                    # files, inside the ring loop, so a torn shard falls back
+                    # like any other corrupt file
+                    from .checkpoint_engine.consolidate import (consolidate_sharded_optim,
+                                                                consolidated_as_trees)
+
+                    o_sd = consolidated_as_trees(
+                        consolidate_sharded_optim(self.checkpoint_engine, d, o_sd), self.params)
+            except CheckpointCorruptError as e:
+                e.tag = e.tag or t
+                last_err = e
+                if from_latest:
+                    # one fallback hop per corrupt tag skipped over
+                    self.ckpt_corrupt_fallbacks += 1
+                    logger.warning(
+                        f"checkpoint tag '{t}' failed integrity verification "
+                        f"({e}); falling back to the previous durable tag")
+                    continue
+                raise
+            return t, model_path, m_sd, o_sd
+        raise CheckpointCorruptError(
+            f"no loadable checkpoint under {load_dir}: 'latest' tag and "
+            f"every earlier durable tag failed verification "
+            f"(last: {last_err})", tag=tag) from last_err
+
+    def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
+                        load_optimizer_states=True, load_lr_scheduler_states=True,
+                        load_module_only=False):
+        """Restore a tag saved by either package (``latest`` when ``tag`` is
+        None, falling back through the durable-tag ring past a corrupt one;
+        a named tag that fails verification raises). Returns
+        ``(model_path, client_state)``, or ``(None, {})`` when there is no
+        ``latest``."""
+        if hasattr(self.checkpoint_engine, "wait"):
+            # async engine: every queued file and `latest` must be on disk;
+            # an earlier unrelated save's error is logged, not raised
+            self.checkpoint_engine.wait(raise_errors=False)
+        if self.config.load_universal_checkpoint and os.path.exists(
+                os.path.join(load_dir, "universal_meta.pkl")):
+            from ..checkpoint.universal import load_universal_into_engine
+
+            load_universal_into_engine(self, load_dir)
+            self.loaded_checkpoint_tag = "universal"
+            return load_dir, {}
+        from_latest = tag is None
+        if tag is None:
+            latest = os.path.join(load_dir, "latest")
+            if not os.path.isfile(latest):
+                logger.warning(f"no 'latest' file at {load_dir}; nothing loaded")
+                return None, {}
+            with open(latest) as f:
+                tag = f.read().strip()
+        want_optim = load_optimizer_states and not load_module_only
+        tag, model_path, model_sd, optim_sd = self._read_tag(load_dir, tag, from_latest,
+                                                             want_optim)
+        if optim_sd is not None and "offload_host" in optim_sd:
+            raise _not_ported("loading an optimizer-offload checkpoint (offload_host)",
+                              _ZERO_ITEM)
+        module = _match(self.params, model_sd["module"], "module")
+        m = v = None
+        if optim_sd is not None and self.opt_state is not None:
+            m, v = (None if optim_sd[k] is None else _match(self.params, optim_sd[k], k)
+                    for k in ("m", "v"))
+
+        t0 = time.perf_counter()
+        self._restore_params(module)
+        self.global_steps = int(model_sd.get("global_steps", 0))
+        self.global_samples = int(model_sd.get("global_samples", 0))
+        self.skipped_steps = int(model_sd.get("skipped_steps", 0))
+        # a checkpoint without "micro_steps" was taken at a GAS boundary
+        self.micro_steps = int(model_sd.get(
+            "micro_steps", self.global_steps * self.config.gradient_accumulation_steps))
+        self._data_position = int(model_sd.get("data_position", 0))
+        saved_rng = model_sd.get("rng")
+        if saved_rng is not None:
+            self._rng = torch.from_numpy(np.asarray(saved_rng).astype(np.int64)).to(self.device)
+        # in-flight micro-step state means nothing across a restore: the
+        # resumed run re-pulls its batches
+        self._cached = None
+        self._acc_grads = None
+        self._train_iter = None
+        if load_lr_scheduler_states and self.lr_scheduler is not None \
+                and "lr_scheduler" in model_sd:
+            self.lr_scheduler.load_state_dict(model_sd["lr_scheduler"])
+        if optim_sd is not None and self.opt_state is not None:
+            self.opt_state = type(self.opt_state)(
+                step=torch.tensor(int(np.asarray(optim_sd["step"])), dtype=torch.int32,
+                                  device=self.device),
+                m=None if m is None else self._to_device(m),
+                v=None if v is None else self._to_device(v))
+            self._restore_scaler(optim_sd.get("scaler"))
+        self.ckpt_stats["restore_s"] += time.perf_counter() - t0
+        self.loaded_checkpoint_tag = tag
+        log_dist(f"loaded checkpoint {tag} from {load_dir}", ranks=[0])
+        return model_path, model_sd.get("client_state", {})
+
+    def _restore_params(self, module):
+        """Write a tree of host fp32 leaves (the params' structure) into the
+        engine: the lp parameters in place (the autograd leaves persist),
+        the master copy rebound, as a step rebinds it."""
+        dev = self._to_device(tree_map(lambda t: t.float(), module))
+        with torch.no_grad():
+            for p, n in zip(tree_leaves(self.params), tree_leaves(dev)):
+                p.copy_(n)
+        if self._mixed:
+            self.master_params = dev
+
+    def _restore_scaler(self, sc):
+        if sc is None:
+            return
+        dev = self.device
+        self.scaler_state = LossScalerState(
+            cur_scale=torch.tensor(float(np.asarray(sc["cur_scale"])), dtype=torch.float32,
+                                   device=dev),
+            cur_hysteresis=torch.tensor(int(np.asarray(sc["cur_hysteresis"])),
+                                        dtype=torch.int32, device=dev),
+            last_overflow_iter=torch.tensor(int(np.asarray(sc["last_overflow_iter"])),
+                                            dtype=torch.int32, device=dev),
+            iter_=torch.tensor(int(np.asarray(sc["iter_"])), dtype=torch.int32, device=dev))
 
     # ------------------------------------------------------------------
     # introspection

@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from ..utils.tree import tree_leaves, tree_unflatten
+from .checkpoint_engine.native_checkpoint_engine import _atomic_json_dump, _file_crc32
 
 #: hard cap on outstanding device-to-host bytes (the JAX package's)
 MAX_INFLIGHT_BYTES = 32 * 1024 * 1024
@@ -136,30 +137,6 @@ def blocks_crc32(arrays) -> int:
     for a in arrays:
         crc = zlib.crc32(_raw_bytes(a), crc)
     return crc & 0xFFFFFFFF
-
-
-# the two protocol helpers of the JAX checkpoint layer
-# (``runtime/checkpoint_engine/native_checkpoint_engine.py:26-43``), kept
-# here as the port's own copies
-
-def _file_crc32(path, chunk=1 << 20):
-    crc = 0
-    with open(path, "rb") as f:
-        while True:
-            buf = f.read(chunk)
-            if not buf:
-                break
-            crc = zlib.crc32(buf, crc)
-    return crc & 0xFFFFFFFF
-
-
-def _atomic_json_dump(obj, path):
-    tmp = path + ".tmp"
-    with open(tmp, "w") as f:
-        json.dump(obj, f)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
 
 
 # ---------------------------------------------------------------------------

@@ -74,13 +74,20 @@ def test_dropout_bitwise_the_reference(rate, shape):
                            train) is t
 
 
+_PARAMS = []
+
+
 def _models(**kw):
+    """The JAX and port models and the JAX ``init_params(PRNGKey(0))`` as
+    numpy (dropout adds no parameter: drawn once for the module)."""
     import jax
 
     from deepspeed_tpu.models import build_model as jax_build_model
 
     jm, tm = jax_build_model(PRESET, **MODEL, **kw), build_model(PRESET, **MODEL, **kw)
-    return jm, tm, jax.tree.map(np.asarray, jm.init_params(jax.random.PRNGKey(0)))
+    if not _PARAMS:
+        _PARAMS.append(jax.tree.map(np.asarray, jm.init_params(jax.random.PRNGKey(0))))
+    return jm, tm, _PARAMS[0]
 
 
 def test_apply_with_a_key_matches_jax_loss_and_gradients():
@@ -116,8 +123,8 @@ def test_apply_with_a_key_matches_jax_loss_and_gradients():
         ev = tm.apply(params_from_jax(params), {"input_ids": torch.from_numpy(
             batch["input_ids"])}, train=False, rng=_words(key))
     assert torch.equal(ev, plain.detach())
-    np.testing.assert_allclose(ev.item(), float(jm.apply(params, batch, train=False,
-                                                         rng=key)), atol=2e-5)
+    eval_loss = jax.jit(lambda p: jm.apply(p, batch, train=False, rng=key))
+    np.testing.assert_allclose(ev.item(), float(eval_loss(params)), atol=2e-5)
 
 
 def test_three_train_batch_steps_match_jax():

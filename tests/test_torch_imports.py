@@ -28,8 +28,8 @@ print(" ".join(names))
 print(bad)
 """
 
-# the training, WOQ, sparse-attention, fused-CE, serving and pool slices' modules: each must be among
-# those the probe imported
+# the training, WOQ, sparse-attention, fused-CE, serving, pool and checkpoint slices' modules:
+# each must be among those the probe imported
 _TRAINING_MODULES = {
     "deepspeed_tpu_torch.ops.transformer.attention",
     "deepspeed_tpu_torch.ops.transformer.flash_attention",
@@ -79,6 +79,15 @@ _TRAINING_MODULES = {
     "deepspeed_tpu_torch.serve.disagg",
     "deepspeed_tpu_torch.serve.elastic",
     "deepspeed_tpu_torch.serve.trace",
+    # checkpoints and training resilience
+    "deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine",
+    "deepspeed_tpu_torch.runtime.checkpoint_engine.native_checkpoint_engine",
+    "deepspeed_tpu_torch.runtime.checkpoint_engine.async_checkpoint_engine",
+    "deepspeed_tpu_torch.runtime.checkpoint_engine.consolidate",
+    "deepspeed_tpu_torch.resilience.training",
+    "deepspeed_tpu_torch.checkpoint",
+    "deepspeed_tpu_torch.checkpoint.universal",
+    "deepspeed_tpu_torch.utils.zero_to_fp32",
 }
 
 
