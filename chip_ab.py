@@ -54,6 +54,14 @@ synchronize around each: fresh pinned buffers for all of them
 the same copies again (``d2h_pinned_again_s``), the buffers freed and asked
 for again (``pinned_alloc_again_s``, from the allocator's cache), and a
 blocking ``.cpu()`` of each into pageable memory (``d2h_pageable_s``).
+
+    python3 chip_ab.py --train OLD NEW
+
+times ``chip_smoke.py`` phase c's training step in the same four turns:
+llama-7b width at 4 layers, its ``TRAIN_CONFIG`` (ZeRO stage 0, bf16, an
+fp32 master and the optimizer on the card), 6 ``train_batch`` steps on one
+batch, each between two device synchronizes; ``train_step_ms`` is the
+median of steps 2-6. The four turns' losses must be equal bit for bit.
 """
 
 import inspect
@@ -66,6 +74,40 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # the rows of chip_smoke.py phase 5: the main path's last decode step
 # (6 live requests, 2 padding rows), as its log line prints them
 DECODE_LENS = (69, 332, 1032, 2132, 668, 664, 1, 1)
+
+
+def train_turn(root):
+    sys.path.insert(0, os.path.abspath(root))
+    import importlib.util
+    import time
+
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import build_model
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    dev = torch.device("cuda", 0)
+    model = build_model("llama-7b", num_layers=4)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    engine = deepspeed_tpu_torch.initialize(model=model, model_parameters=params,
+                                            config=dict(cs.TRAIN_CONFIG), device=dev)[0]
+    del params
+    batch = {"input_ids": torch.randint(0, model.config.vocab_size, (2, 2048), dtype=torch.int32,
+                                        device=dev,
+                                        generator=torch.Generator(device=dev).manual_seed(0))}
+    ms, losses = [], []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(iter([batch]))))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    print(json.dumps({"root": root, "train_step_ms": float(np.median(ms[1:])),
+                      "steps_ms": ms, "losses": losses}), flush=True)
 
 
 def turn(root):
@@ -285,10 +327,14 @@ def main(old, new, turn_flag="--turn"):
     ab = {}
     for key in sorted({k for _, r in runs for k in r if k.endswith(("_ms", "_s"))}):
         for side in ("old", "new"):
-            vals = [r[key] for s, r in runs if s == side and key in r]
+            vals = [r[key] for s, r in runs
+                    if s == side and isinstance(r.get(key), (int, float))]
             if vals:
                 ab.setdefault(key, {})[side] = sum(vals) / len(vals)
     print(json.dumps({"ab": ab}), flush=True)
+    if turn_flag == "--train-turn" and len({tuple(r["losses"]) for _, r in runs}) != 1:
+        raise SystemExit("the turns' training losses differ: "
+                         + json.dumps([r["losses"] for _, r in runs]))
 
 
 if __name__ == "__main__":
@@ -298,6 +344,10 @@ if __name__ == "__main__":
         ckpt_turn(sys.argv[2])
     elif len(sys.argv) == 4 and sys.argv[1] == "--ckpt":
         main(sys.argv[2], sys.argv[3], "--ckpt-turn")
+    elif len(sys.argv) == 3 and sys.argv[1] == "--train-turn":
+        train_turn(sys.argv[2])
+    elif len(sys.argv) == 4 and sys.argv[1] == "--train":
+        main(sys.argv[2], sys.argv[3], "--train-turn")
     elif len(sys.argv) == 3:
         main(sys.argv[1], sys.argv[2])
     else:

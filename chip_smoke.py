@@ -243,6 +243,24 @@ c3. checkpoints, on phase c's model, batch and settings, the flash counts
    by name raises ``CheckpointCorruptError``. The tags go under
    ``build/ckpt_c3`` and are deleted; times on a ``{"ckpt_summary": ...}``
    line beside the card's name and power limit.
+z.  ZeRO-Offload (the host libraries ``csrc/cpu_adam.cpp`` and ``csrc/aio.cpp``
+    built with g++ first): (z4) ``DeepSpeedCPUAdam`` on a 64 M-element
+    buffer against its plain PyTorch version at rtol 1e-6, and its GB/s;
+    (z2) at llama-7b width and 2 layers, 4 steps each: flat cpu offload at
+    stage 0, the sharded tier at stage 2 and stage 3 with a window that
+    releases and prefetches, and the ``nvme`` (AIO) tier, their losses and
+    fp32 parameters bitwise equal, the AIO handle's O_DIRECT stats printed;
+    ``ratio`` 0.5 in fp32 trains within 1e-4 of the device engine; (z3) at 1
+    layer, a sharded engine's tags, the newest torn: a fresh engine falls
+    back to the first and resumes bitwise, then takes a flat-offload
+    engine's tag and resumes that bitwise; (z1) llama-7b at full depth under
+    ZeRO-2 with ``offload_optimizer: cpu``, phase c's settings, 4
+    ``train_batch`` steps, the flash counts set to 0 just before and read
+    just after (32 x 4 each way): losses finite and falling, the card
+    holding no more than the lp weights + 2 GiB after set-up and under 80 GB
+    at peak, the TransferEngine's ledger settled at every step boundary; the
+    split of a step, host and device memory on a ``{"zero_summary": ...}``
+    line.
 
 Then block-sparse attention:
 
@@ -3936,6 +3954,511 @@ def ckpt_phase(fa, dev, card):
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# phase z: ZeRO-Offload
+# ---------------------------------------------------------------------------
+
+#: phase z's depth for (z1): llama-7b's every layer
+Z_LAYERS = 32
+#: where phase z writes its tags and NVMe files: under build/ (listed in .gitignore)
+Z_DIR = os.path.join(HERE, "build", "zero_z")
+Z_CPU = {"stage": 2, "offload_optimizer": {"device": "cpu"}}
+#: (z2)'s stage-3 window: every leaf above 64 elements released after a
+#: step, 400 MiB (two 2-layer projection leaves) prefetched back
+Z3_KNOBS = {"stage3_max_live_parameters": 1, "stage3_param_persistence_threshold": 64,
+            "stage3_prefetch_bucket_size": 400 << 20}
+#: elements of each flat range of a leaf that (z1) holds to the plain Adam
+Z_WINDOW = 1 << 20
+
+
+def zero_windows(n):
+    """The flat ranges of a leaf of ``n`` elements that (z1) checks: its
+    first and last ``Z_WINDOW`` elements, and ``Z_WINDOW`` around every
+    multiple of 2^29 elements (2^31 bytes of fp32 master, and every other
+    such mark of the bf16 weight), each also a gradient-chunk boundary."""
+    w = Z_WINDOW
+    out = {(0, min(w, n)), (max(0, n - w), n)}
+    for mark in range(1 << 29, n, 1 << 29):
+        out.add((mark - w // 2, min(n, mark + w // 2)))
+    return sorted(out)
+
+
+class StepRecorder:
+    """The CPU Adam behind a proxy that keeps the step count and keywords
+    (lr, grad scale, clip coefficient) of its last ``step_flat``."""
+
+    def __init__(self, opt):
+        self.opt, self.last = opt, None
+
+    def step_flat(self, p, g, m, v, step, **kw):
+        self.last = (step, kw)
+        return self.opt.step_flat(p, g, m, v, step, **kw)
+
+
+def zero_update_probe(engine, acc):
+    """Before an offloaded step: every host leaf's ``zero_windows`` of the
+    fp32 master, the moments and the gradient the tier will read, as CPU
+    copies. ``zero_update_check`` holds the step's result to them."""
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+
+    mgr = engine._offload_mgr
+    tier, grads = mgr["host"], list(tree_leaves(acc))
+    probe = []
+    for j, i in enumerate(mgr["host_idx"]):
+        p = tier.master[j].reshape(-1)
+        m, v, _ = tier._moments(j)
+        g = grads[i].detach().reshape(-1)
+        for a, b in zero_windows(p.size):
+            probe.append((j, i, a, b, torch.from_numpy(p[a:b].copy()),
+                          g[a:b].float().cpu(), torch.from_numpy(m[a:b].copy()),
+                          torch.from_numpy(v[a:b].copy())))
+    return probe
+
+
+def zero_update_check(engine, probe, label):
+    """After the step: each probed range of the host master and moments
+    within 1e-6 of the range's largest element of ``adam_step_plain`` on the
+    probed inputs (the library may contract to FMAs), and the device weight
+    bitwise the master's bf16 cast (the upload landed where it belongs).
+    Returns the step's lr and the largest relative error."""
+    from deepspeed_tpu_torch.ops.adam.cpu_adam import adam_step_plain
+    from deepspeed_tpu_torch.runtime.zero.offload import lp_cast
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+
+    mgr = engine._offload_mgr
+    tier, opt = mgr["host"], mgr["cpu_opt"].opt
+    step, kw = mgr["cpu_opt"].last
+    params = list(tree_leaves(engine.params))
+    worst = 0.0
+    for j, i, a, b, p, g, m, v in probe:
+        before = p.clone()
+        adam_step_plain(p, g, m, v, step, kw["lr"], betas=opt.betas, eps=opt.eps,
+                        weight_decay=opt.weight_decay, adamw=opt.adamw_mode,
+                        bias_correction=opt.bias_correction, grad_scale=kw["grad_scale"],
+                        clip_coef=kw["clip_coef"])
+        tm, tv, _ = tier._moments(j)
+        master = torch.from_numpy(tier.master[j].reshape(-1)[a:b].copy())
+        for name, got, want in (("master", master, p), ("m", torch.from_numpy(tm[a:b].copy()), m),
+                                ("v", torch.from_numpy(tv[a:b].copy()), v)):
+            err = float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+            worst = max(worst, err)
+            check(err <= 1e-6, f"{label}: leaf {i} [{a}, {b}) {name} is {err:.3g} from the "
+                  f"plain Adam (1e-6 of the range's largest element)")
+        if kw["lr"] > 0:
+            check(not torch.equal(master, before),
+                  f"{label}: leaf {i} [{a}, {b}) did not move at lr {kw['lr']}")
+        dev = params[i].detach().reshape(-1)[a:b].cpu()
+        check(torch.equal(dev.view(torch.int16), lp_cast(master, dev.dtype).view(torch.int16)),
+              f"{label}: leaf {i} [{a}, {b}) on the card is not the master's "
+              f"{dev.dtype} cast")
+    return kw["lr"], worst
+
+
+def host_memory():
+    """This process's resident bytes and the machine's available bytes."""
+    out = {}
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                out["rss_bytes"] = int(line.split()[1]) * 1024
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith(("MemTotal:", "MemAvailable:")):
+                out[line.split(":")[0].lower() + "_bytes"] = int(line.split()[1]) * 1024
+    return out
+
+
+def release_host_pinned():
+    """Give back the pinned host pages torch's allocator keeps cached (the
+    checkpoint phases' gathers leave ~13 GB): phase z's master and moments
+    take 81 GB of host RAM."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    fn = getattr(torch._C, "_host_emptyCache", None)
+    if fn is not None:
+        fn()
+
+
+def zero_engine(dev, layers, zero, seed=0, **cfg):
+    """A llama-7b-width engine at ``layers`` under the ``zero`` block; the
+    caller's fp32 weights leave the card once the engine has its copies."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import build_model
+
+    model = build_model("llama-7b", num_layers=layers)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
+    cfg = dict(TRAIN_CONFIG, zero_optimization=zero, steps_per_print=0, **cfg)
+    engine = deepspeed_tpu_torch.initialize(model=model, model_parameters=params, config=cfg,
+                                            device=dev)[0]
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return engine, model.config
+
+
+def zero_batch(cfg, dev, seed=0, rows=None):
+    rows = rows or TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
+    return {"input_ids": torch.randint(0, cfg.vocab_size, (rows, 2048), dtype=torch.int32,
+                                       device=dev,
+                                       generator=torch.Generator(device=dev).manual_seed(seed))}
+
+
+def zero_fp32(engine):
+    """The engine's fp32 master leaves (host copies), in tree order."""
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+
+    return list(tree_leaves(engine.get_fp32_params()))
+
+
+def zero_steps(engine, batch, n):
+    out = []
+    for _ in range(n):
+        out.append(float(engine.train_batch(iter([batch]))))
+    return out
+
+
+def zero_full_depth(fa, pa, dev, card):
+    """(z1) llama-7b at ``Z_LAYERS`` layers, phase c's settings under ZeRO-2
+    with the optimizer offloaded to host RAM, 4 ``train_batch`` steps."""
+    from deepspeed_tpu_torch.analysis.sanitizer import check_transfer_ledger
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+
+    release_host_pinned()
+    host0 = host_memory()
+    t0 = time.perf_counter()
+    engine, cfg = zero_engine(dev, Z_LAYERS, Z_CPU)
+    setup_s = time.perf_counter() - t0
+    lp_bytes = sum(p.numel() * p.element_size() for p in tree_leaves(engine.params))
+    n_params = sum(p.numel() for p in tree_leaves(engine.params))
+    after_setup = torch.cuda.memory_allocated()
+    check(engine.master_params is None and engine.opt_state is None,
+          "z1: the offloaded engine holds a master or optimizer state on the card")
+    check(after_setup < lp_bytes + 2 * 2**30,
+          f"z1: {after_setup / 2**30:.2f} GiB on the card after set-up, the lp weights "
+          f"{lp_bytes / 2**30:.2f} GiB: a master or moment lives on the card")
+    B = TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
+    batch = zero_batch(cfg, dev)
+    tier = engine._offload_mgr["host"]
+    marks, probe_s, updates = [], [], []
+    step_offload = engine._step_offload
+    engine._offload_mgr["cpu_opt"] = StepRecorder(engine._offload_mgr["cpu_opt"])
+
+    def marked(acc, lr):
+        # the forward and backward end where the offloaded step starts; the
+        # update is then held to the plain Adam on probed ranges of every
+        # leaf (the probe's time is taken out of the step's)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        probe = zero_update_probe(engine, acc)
+        t0 = time.perf_counter()
+        out = step_offload(acc, lr)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        updates.append(zero_update_check(engine, probe, f"z1 step {len(marks)}"))
+        probe_s.append(t0 - marks[-1] + time.perf_counter() - t1)
+        return out
+
+    engine._step_offload = marked
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, splits = [], [], []
+    fa.fwd_launches = fa.bwd_launches = pa.launches = 0  # every count, just before
+    for _ in range(4):
+        before = dict(tier.stats, **engine.offload_stats)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(iter([batch]))))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter() - probe_s[-1]
+        step_s.append(t1 - t0)
+        check_transfer_ledger(engine._transfer)  # settled at every step boundary
+        led = engine._transfer.ledger()
+        check(led["inflight"] == {"d2h": 0, "h2d": 0}
+              and led["submitted"] == {d: led["completed"][d] + led["cancelled"][d]
+                                       for d in ("d2h", "h2d")},
+              f"z1: the transfer ledger is open at a step boundary: {led}")
+        now = dict(tier.stats, **engine.offload_stats)
+        split = {k: now[k] - before[k] for k in now}
+        split["fwd_bwd_s"] = marks[-1] - t0
+        split["step_s"] = t1 - t0
+        splits.append(split)
+    launches = {"fwd": fa.fwd_launches, "bwd": fa.bwd_launches, "paged": pa.launches}
+    engine._step_offload = step_offload
+    peak = torch.cuda.max_memory_allocated()
+    host1 = host_memory()
+    check(all(np.isfinite(losses)), f"z1: non-finite losses {losses}")
+    # every later loss below the first; the curve need not fall at every
+    # step (the same batch at the full lr can overshoot at 32 layers): that
+    # each step's update is Adam's is what zero_update_check holds
+    check(max(losses[1:]) < losses[0], f"z1: the loss did not fall: {losses}")
+    want = cfg.num_layers * 4
+    check(launches["fwd"] == want and launches["bwd"] == want and launches["paged"] == 0,
+          f"z1: launches {launches}; expected {want} forward and {want} backward flash "
+          f"launches ({cfg.num_layers} layers x 4 steps)")
+    check(peak < 80e9, f"z1: peak device memory {peak / 1e9:.2f} GB")
+    ms = [s * 1e3 for s in step_s[1:]]
+    med = float(np.median(ms))
+    mid = splits[1 + int(np.argsort(ms)[len(ms) // 2])]
+    free = subprocess.run(["free", "-b"], capture_output=True, text=True).stdout
+    summary = {
+        "card": card, "model": "llama-7b", "layers": cfg.num_layers,
+        "reduced": "none" if cfg.num_layers == 32 else f"depth 32 -> {cfg.num_layers}",
+        "params": n_params, "dtype": "bfloat16 lp on the card; fp32 master + Adam in host RAM",
+        "zero_optimization": Z_CPU, "batch": [B, 2048], "steps": 4, "losses": losses,
+        "setup_s": setup_s, "step_ms": [s * 1e3 for s in step_s], "step_ms_median": med,
+        "tokens_per_s": B * 2048 / (med / 1e3), "split_of_median_step": mid,
+        "update_check": {"windows": sum(len(zero_windows(l.size)) for l in tier.master),
+                         "window_elements": Z_WINDOW, "lr_and_max_rel_err": updates,
+                         "probe_s": probe_s},
+        "device_bytes_after_setup": after_setup, "lp_bytes": lp_bytes,
+        "max_memory_allocated_bytes": peak, "host_before": host0, "host_after": host1,
+        "zero_metrics": engine.zero_metrics(), "transfer": engine.transfer_metrics(),
+        "launches": launches, "nproc": os.cpu_count(), "free": free.strip().splitlines(),
+    }
+    log(f"z1 (ZeRO-2 + cpu offload, llama-7b {cfg.num_layers} layers, {n_params} params): "
+        f"losses {[round(x, 4) for x in losses]}, updates vs the plain Adam {updates}, "
+        f"step median {med:.1f} ms "
+        f"(fwd+bwd {mid['fwd_bwd_s']:.3f} s, Adam {mid['adam_s']:.3f} s), "
+        f"peak {peak / 2**30:.1f} GiB, host RSS {host1['rss_bytes'] / 2**30:.1f} GiB")
+    del engine
+    release_host_pinned()
+    return launches, summary
+
+
+def zero_twins(fa, dev):
+    """(z2) at llama-7b width and 2 layers: flat cpu offload at stage 0, the
+    sharded tier at stage 2 and at stage 3 with a tight window give bitwise
+    the same losses and fp32 parameters over 4 steps; ``nvme`` (AIO) gives
+    ``cpu``'s bits, and the AIO library's O_DIRECT path round-trips the
+    largest [m; v] file's bytes; ``ratio`` 0.5 trains and stays within 1e-4
+    of the device engine (fp32 for that pair, so that the comparison sees
+    the update, not bf16 rounding of the weights)."""
+    import gc
+    import shutil
+
+    out = {}
+    launches = {"fwd": 0, "bwd": 0}
+    ref_losses, ref_params = None, None
+    nvme_dir = os.path.join(Z_DIR, "nvme_z2")
+    runs = (("stage0_cpu", {"stage": 0, "offload_optimizer": {"device": "cpu"}}),
+            ("stage2_cpu", dict(Z_CPU)),
+            ("stage3_cpu", dict(Z_CPU, stage=3, **Z3_KNOBS)),
+            ("stage0_nvme", {"stage": 0, "offload_optimizer": {"device": "nvme",
+                                                              "nvme_path": nvme_dir}}))
+    for name, zero in runs:
+        engine, cfg = zero_engine(dev, 2, zero)
+        batch = zero_batch(cfg, dev)
+        f0, b0 = fa.fwd_launches, fa.bwd_launches
+        t0 = time.perf_counter()
+        losses = zero_steps(engine, batch, 4)
+        wall = time.perf_counter() - t0
+        launches["fwd"] += fa.fwd_launches - f0
+        launches["bwd"] += fa.bwd_launches - b0
+        params = zero_fp32(engine)
+        rec = {"losses": losses, "wall_s": wall, "zero_metrics": engine.zero_metrics()}
+        if name == "stage0_nvme":
+            rec["nvme_files"] = len(os.listdir(nvme_dir))
+            rec["o_direct"] = zero_direct_io(nvme_dir, max(  # the largest [m; v] file
+                os.path.getsize(os.path.join(nvme_dir, f)) for f in os.listdir(nvme_dir)))
+        if ref_losses is None:
+            ref_losses, ref_params = losses, params
+        else:
+            check(losses == ref_losses, f"z2: {name} losses {losses} vs stage 0 {ref_losses}")
+            bad = [i for i, (a, b) in enumerate(zip(params, ref_params)) if not torch.equal(a, b)]
+            check(not bad, f"z2: {name} fp32 parameters differ from stage 0 at leaves {bad}")
+        if name == "stage3_cpu":
+            m = rec["zero_metrics"]
+            check(m["gathers"] > m["reduce_scatters"] and m["prefetch_hits"] > 0,
+                  f"z2: the stage-3 window neither released nor prefetched: {m}")
+        out[name] = rec
+        del engine, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(nvme_dir, ignore_errors=True)
+    fp32 = {"bf16": {"enabled": False}}
+    pair = {}
+    for name, zero in (("device_stage0", {"stage": 0}),
+                       ("ratio_0.5", dict(Z_CPU, offload_optimizer={"device": "cpu",
+                                                                    "ratio": 0.5}))):
+        engine, cfg = zero_engine(dev, 2, zero, **fp32)
+        f0, b0 = fa.fwd_launches, fa.bwd_launches
+        pair[name] = zero_steps(engine, zero_batch(cfg, dev), 4)
+        launches["fwd"] += fa.fwd_launches - f0
+        launches["bwd"] += fa.bwd_launches - b0
+        if name == "ratio_0.5":
+            mgr = engine._offload_mgr
+            check(mgr["host_idx"] and mgr["dev_idx"], "z2: ratio 0.5 split nothing")
+            pair["split"] = [len(mgr["host_idx"]), len(mgr["dev_idx"])]
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = np.asarray(pair["ratio_0.5"]), np.asarray(pair["device_stage0"])
+    check(np.all(np.isfinite(a)) and a[-1] < a[0], f"z2: ratio 0.5 did not train: {a}")
+    check(np.allclose(a, b, rtol=1e-4, atol=1e-4),
+          f"z2: ratio 0.5 losses {a.tolist()} vs the device engine {b.tolist()} (1e-4)")
+    out["fp32_pair"] = pair
+    log(f"z2 (llama-7b width, 2 layers): flat stage 0, sharded stage 2 and stage 3 "
+        f"(gathers {out['stage3_cpu']['zero_metrics']['gathers']}, prefetch hits "
+        f"{out['stage3_cpu']['zero_metrics']['prefetch_hits']}) and nvme bitwise over 4 steps; "
+        f"O_DIRECT round trip {out['stage0_nvme']['o_direct']}; ratio 0.5 within 1e-4 of the "
+        f"device engine")
+    return launches, out
+
+
+def zero_direct_io(directory, nbytes):
+    """The AIO library's O_DIRECT path (the nvme tier opens its files
+    without it): ``nbytes`` of random words written and read back through
+    ``AsyncIOHandle(use_direct=True)`` in ``directory``, bitwise, with every
+    open counted as direct or as the filesystem's refusal."""
+    from deepspeed_tpu_torch.ops.aio.py_aio import AsyncIOHandle
+
+    n = nbytes // 4
+    src = np.random.default_rng(0).integers(0, 2**32, n, dtype=np.uint32)
+    back = np.zeros_like(src)
+    path = os.path.join(directory, "o_direct.bin")
+    h = AsyncIOHandle(num_threads=4, use_direct=True)
+    try:
+        t0 = time.perf_counter()
+        check(h.wait(h.pwrite(path, src)) == 0, "z2: the O_DIRECT write failed")
+        t1 = time.perf_counter()
+        check(h.wait(h.pread(path, back)) == 0, "z2: the O_DIRECT read failed")
+        t2 = time.perf_counter()
+        stats = h.stats()
+    finally:
+        h.close()
+        os.remove(path)
+    check(np.array_equal(src, back), "z2: the O_DIRECT round trip changed the bytes")
+    check(stats["direct_opens"] + stats["fallback_opens"] > 0,
+          f"z2: the O_DIRECT handle counted no open: {stats}")
+    return dict(stats, bytes=int(src.nbytes), write_gb_per_s=src.nbytes / (t1 - t0) / 1e9,
+                read_gb_per_s=src.nbytes / (t2 - t1) / 1e9)
+
+
+def zero_checkpoints(fa, dev):
+    """(z3) at llama-7b width, 1 layer (a ~5.6 GB tag): (a) a sharded
+    engine: 2 steps, save, 2 steps, save; the newest tag's shard file torn;
+    (b) a fresh sharded engine loads ``latest``: it falls back to the first
+    tag and its next 2 losses are bitwise (a)'s; (c) a flat-offload engine:
+    2 steps, save, 2 steps; (b)'s engine loads that tag by name and its next
+    2 losses are bitwise (c)'s."""
+    import gc
+    import shutil
+
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.consolidate import shard_path
+
+    out = {}
+    d_sharded, d_flat = os.path.join(Z_DIR, "ckpt_sharded"), os.path.join(Z_DIR, "ckpt_flat")
+    shutil.rmtree(Z_DIR, ignore_errors=True)
+    f0, b0 = fa.fwd_launches, fa.bwd_launches
+    try:
+        a, cfg = zero_engine(dev, 1, Z_CPU)
+        batch = zero_batch(cfg, dev)
+        first = zero_steps(a, batch, 2)
+        t0 = time.perf_counter()
+        a.save_checkpoint(d_sharded)
+        out["save_s"] = time.perf_counter() - t0
+        rest = zero_steps(a, batch, 2)
+        a.save_checkpoint(d_sharded)
+        del a
+        gc.collect()
+        first_tag = os.path.join(d_sharded, "global_step2")
+        out["tag_bytes"] = sum(os.path.getsize(os.path.join(first_tag, f))
+                               for f in os.listdir(first_tag))
+        torn = shard_path(os.path.join(d_sharded, "global_step4"), 0)
+        with open(torn, "r+b") as f:
+            f.truncate(os.path.getsize(torn) // 2)
+        b, _ = zero_engine(dev, 1, Z_CPU, seed=5)
+        t0 = time.perf_counter()
+        b.load_checkpoint(d_sharded)
+        out["load_s"] = time.perf_counter() - t0
+        check(b.global_steps == 2 and b.ckpt_corrupt_fallbacks == 1,
+              f"z3: a load past a torn shard reached step {b.global_steps} with "
+              f"{b.ckpt_corrupt_fallbacks} fallbacks")
+        resumed = zero_steps(b, batch, 2)
+        check(resumed == rest, f"z3 (b): resumed {resumed} vs uninterrupted {rest}")
+        c, _ = zero_engine(dev, 1, {"stage": 0, "offload_optimizer": {"device": "cpu"}})
+        check(zero_steps(c, batch, 2) == first, "z3 (c): the flat engine's first steps "
+              "differ from the sharded engine's")
+        c.save_checkpoint(d_flat, tag="flat")
+        flat_rest = zero_steps(c, batch, 2)
+        del c
+        gc.collect()
+        b.load_checkpoint(d_flat, tag="flat")
+        into_sharded = zero_steps(b, batch, 2)
+        check(into_sharded == flat_rest,
+              f"z3 (c): the flat tag resumed in a sharded engine: {into_sharded} vs {flat_rest}")
+        out.update(first=first, rest=rest, resumed=resumed, flat_rest=flat_rest,
+                   fallbacks=b.ckpt_corrupt_fallbacks, gather_s=b.ckpt_stats)
+        del b
+    finally:
+        shutil.rmtree(Z_DIR, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = {"fwd": fa.fwd_launches - f0, "bwd": fa.bwd_launches - b0}
+    log(f"z3 (checkpoints, 1 layer): a {out['tag_bytes'] / 1e9:.2f} GB sharded tag saved in "
+        f"{out['save_s']:.1f} s, loaded past a torn shard in {out['load_s']:.1f} s; resumed "
+        f"curves bitwise")
+    return launches, out
+
+
+def zero_cpu_adam():
+    """(z4) ``DeepSpeedCPUAdam`` on the card's host against its plain PyTorch
+    version on a 64 M-element buffer, 3 steps, within 1e-6 of each buffer's
+    largest element (not bitwise: ``-march=native`` may contract to FMAs);
+    then timed: GB/s over the 28 bytes an element moves (p, m, v read and
+    written, g read)."""
+    from deepspeed_tpu_torch.ops.adam.cpu_adam import DeepSpeedCPUAdam, adam_step_plain
+
+    n = 64 << 20
+    g = torch.Generator().manual_seed(0)
+    p = torch.randn(n, generator=g)
+    grad = torch.randn(n, generator=g)
+    m, v = torch.zeros(n), torch.zeros(n)
+    ref = [p.clone(), grad.clone(), m.clone(), v.clone()]
+    opt = DeepSpeedCPUAdam(lr=3e-4, weight_decay=0.1)
+    for step in (1, 2, 3):
+        opt.step_flat(p, grad, m, v, step, grad_scale=0.5, clip_coef=0.8)
+        adam_step_plain(*ref, step, 3e-4, weight_decay=0.1, grad_scale=0.5, clip_coef=0.8)
+    # each buffer's largest difference against its largest element
+    err = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in ((p, ref[0]), (m, ref[2]), (v, ref[3])))
+    check(err <= 1e-6, f"z4: the CPU Adam is {err:.3g} from its plain version (1e-6 of "
+          f"each buffer's largest element)")
+    times = []
+    for step in range(4, 9):
+        t0 = time.perf_counter()
+        opt.step_flat(p, grad, m, v, step)
+        times.append(time.perf_counter() - t0)
+    t_plain = time.perf_counter()
+    adam_step_plain(*ref, 4, 3e-4, weight_decay=0.1)
+    t_plain = time.perf_counter() - t_plain
+    s = float(np.median(times))
+    out = {"elements": n, "max_rel_err": err, "ms": s * 1e3, "gb_per_s": 28 * n / s / 1e9,
+           "plain_ms": t_plain * 1e3, "threads": torch.get_num_threads()}
+    log(f"z4: CPU Adam over {n} elements {s * 1e3:.1f} ms ({out['gb_per_s']:.1f} GB/s), "
+        f"the plain version {t_plain * 1e3:.1f} ms; max rel err {err:.3g}")
+    return out
+
+
+def zero_phase(fa, pa, dev, card):
+    """Phase z: (z4) first (it needs nothing of the card), then (z2), (z3) and
+    (z1). Returns the flash launches of the whole phase and its summary."""
+    from deepspeed_tpu_torch.ops.op_builder import AsyncIOBuilder, CPUAdamBuilder
+
+    t0 = time.perf_counter()
+    for b in (CPUAdamBuilder, AsyncIOBuilder):
+        b().build()
+    build_s = time.perf_counter() - t0
+    summary = {"card": card, "host_libraries_built_s": build_s, "cpu_adam": zero_cpu_adam()}
+    l2, summary["twins"] = zero_twins(fa, dev)
+    l3, summary["checkpoints"] = zero_checkpoints(fa, dev)
+    l1, summary["full_depth"] = zero_full_depth(fa, pa, dev, card)
+    launches = {k: l1[k] + l2[k] + l3[k] for k in ("fwd", "bwd")}
+    return launches, summary
+
+
 def main():
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: this script needs an "
@@ -3966,8 +4489,8 @@ def main():
                          capture_output=True, text=True, timeout=60, check=True)
     log(smi.stdout.strip())
     t0 = time.perf_counter()
-    build_all()  # one nvcc per source, all started together
-    log(f"set-up: CUDA kernels built in {time.perf_counter() - t0:.1f} s "
+    build_all()  # one nvcc (or g++) per source, all started together
+    log(f"set-up: CUDA kernels and host libraries built in {time.perf_counter() - t0:.1f} s "
         f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
 
     kernels_vs_plain(pa, dev)
@@ -4038,6 +4561,8 @@ def main():
     log(json.dumps({"dropout_summary": dict(card=smi.stdout.strip(), **dropout_summary)}))
     ckpt_launches, ckpt_summary = ckpt_phase(fa, dev, smi.stdout.strip())
     log(json.dumps({"ckpt_summary": ckpt_summary}))
+    zero_launches, zero_summary = zero_phase(fa, pa, dev, smi.stdout.strip())
+    log(json.dumps({"zero_summary": zero_summary}))
 
     sparse_fe, sparse_be = sparse_kernels_vs_plain(bs, dev)
     sparse_launches, path_errs, path_stats = sparse_main_path(bs, fa, dev)
@@ -4070,17 +4595,17 @@ def main():
              source="deepspeed_tpu_torch/csrc/paged_attention.cu",
              replaces="deepspeed_tpu/ops/transformer/paged_attention.py:76",
              launches=launches + pool_launches, **k),
-        # the training paths' launches (phases c, c2 and c3) and the slot path's
+        # the training paths' launches (phases c, c2, c3 and z) and the slot path's
         # (phase 8); the times at the training shape, the slot shapes' on
         # slot_summary
         dict(name="flash_attention_fwd", route="cuda", source=flash_src,
              replaces="deepspeed_tpu/ops/transformer/flash_attention.py:43",
              launches=train_launches["fwd"] + dropout_launches["fwd"] + ckpt_launches["fwd"]
-             + slot_launches, **fwd),
+             + zero_launches["fwd"] + slot_launches, **fwd),
         dict(name="flash_attention_bwd", route="cuda", source=flash_src,
              replaces="deepspeed_tpu/ops/transformer/flash_attention.py:124",
-             launches=train_launches["bwd"] + dropout_launches["bwd"] + ckpt_launches["bwd"],
-             **bwd),
+             launches=train_launches["bwd"] + dropout_launches["bwd"] + ckpt_launches["bwd"]
+             + zero_launches["bwd"], **bwd),
         # int8 on w_gate/w_up's (4096, 11008): woq_matmul at decode rows (8,
         # woq_gemv_kernel; launches of every row count), woq_matmul_prefill
         # at 256 rows (woq_mma_kernel; the tiled launches); every shape,

@@ -10,15 +10,18 @@ Ported so far: the paged serving step (``inference.v2.InferenceEngineV2``
 with ``paged=True`` over ``models.TransformerLM.forward_paged``) and its
 ``paged_decode_attention`` CUDA kernel; the training step (``initialize`` ->
 ``runtime.engine.DeepSpeedEngine`` ``train_batch`` / ``forward`` /
-``backward`` / ``step`` over ``TransformerLM.apply``) at ZeRO stage 0 on
-one card, and its flash-attention forward and backward CUDA kernels; and
-weight-only-quantized serving (``inference.quantization.quantize_model``
-into the paged engine) with its ``woq_matmul`` CUDA kernel.
+``backward`` / ``step`` over ``TransformerLM.apply``) on one card, at ZeRO
+stages 0-3 with the optimizer state on the card or offloaded to host RAM or
+NVMe (``zero_optimization.offload_optimizer``: the C++ CPU Adam, the sharded
+host tier, stage-3 residency), and its flash-attention forward and backward
+CUDA kernels; and weight-only-quantized serving
+(``inference.quantization.quantize_model`` into the paged engine) with its
+``woq_matmul`` CUDA kernel.
 """
 
 __version__ = "0.1.0"
 
-_ZERO_ITEM = "ROADMAP.md Queue 1 item 13, ZeRO and multi-card"
+_ZERO_ITEM = "ROADMAP.md Queue 1 item 13b, multi-rank ZeRO"
 _MODEL_ITEM = "ROADMAP.md Queue 1 item 17, runtime/pipe"
 
 

@@ -733,9 +733,9 @@ def check_offload_split(host_idx, dev_idx, n_leaves: int) -> None:
     """Offload twin-flow partition (zero/offload.py ``split_by_ratio``):
     the host and device index lists must be an exact two-coloring of the
     parameter leaves — disjoint (no leaf optimizer-stepped twice) and
-    covering (no leaf never stepped). The JAX package checks it at
-    ``_setup_offload`` and on the index lists a checkpoint carries; the
-    port's engine has no offload yet (ROADMAP.md Queue 1 item 13)."""
+    covering (no leaf never stepped). Checked, as the JAX package checks it,
+    at the engine's ``_setup_offload`` and on the index lists a checkpoint
+    carries."""
     host_set, dev_set = set(host_idx), set(dev_idx)
     if len(host_set) != len(host_idx) or len(dev_set) != len(dev_idx):
         raise SanitizerError(

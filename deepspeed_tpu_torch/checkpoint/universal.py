@@ -107,7 +107,8 @@ def ds_to_universal(checkpoint_dir: str, output_dir: str, tag: Optional[str] = N
 def load_universal_into_engine(engine, universal_dir: str):
     """Elastic reload into the port's engine (reference
     ``load_universal_checkpoint`` engine flag, ``engine.py:822``): the lp
-    parameters written in place, the master copy and the moments rebound."""
+    parameters written in place, the master copy and the moments rebound;
+    under optimizer offload the host tier's master and moments written."""
     with open(os.path.join(universal_dir, "universal_meta.pkl"), "rb") as f:
         meta = pickle.load(f)
     zdir = os.path.join(universal_dir, UNIVERSAL_DIRNAME)
@@ -140,8 +141,27 @@ def load_universal_into_engine(engine, universal_dir: str):
     opt_step = meta.get("optimizer_step")
     if opt_step is None:  # may legitimately be 0 — no falsy-or
         opt_step = meta["step"]
+    if getattr(engine, "_z3_residency", False):
+        engine._z3_reset()
     engine._restore_params(tree_unflatten(engine.params, host_w))
-    if engine.opt_state is not None and have_moments:
+    mgr = getattr(engine, "_offload_mgr", None)
+    if mgr is not None:
+        # the host fp32 master always from the fp32 files (flat tier and
+        # sharded tier alike: the tier's rank views alias full buffers), the
+        # moments when the directory has them; the device subset likewise
+        host = mgr["host"]
+        for j, i in enumerate(mgr["host_idx"]):
+            host.master[j][...] = host_w[i].numpy()
+        if have_moments:
+            engine._load_host_tier({
+                "step": int(opt_step), "master": [host_w[i] for i in mgr["host_idx"]],
+                "m": [host_m[i].numpy() for i in mgr["host_idx"]],
+                "v": [host_v[i].numpy() for i in mgr["host_idx"]]})
+        if mgr["dev"] is not None:
+            for k, src in (("master", host_w), ("m", host_m), ("v", host_v)):
+                if k == "master" or have_moments:
+                    mgr["dev"][k] = [src[i].to(engine.device) for i in mgr["dev_idx"]]
+    elif engine.opt_state is not None and have_moments:
         engine.opt_state = type(engine.opt_state)(
             step=torch.tensor(int(opt_step), dtype=torch.int32, device=engine.device),
             m=engine._to_device(tree_unflatten(engine.params, host_m)),

@@ -1,13 +1,21 @@
-"""Builder for the port's CUDA kernels (counterpart of ``deepspeed_tpu/ops/op_builder.py``).
+"""Builders for the port's native libraries (counterpart of ``deepspeed_tpu/ops/op_builder.py``).
 
-Each kernel source under ``deepspeed_tpu_torch/csrc/`` has a plain C entry
-point. ``CUDAOpBuilder`` compiles it with ``nvcc`` for Hopper (``sm_90a``)
-into a shared library, at first use, and loads it with ``ctypes``. No
-PyTorch header is compiled, so a build takes seconds, not minutes. The
-library lands in ``build/kernels/`` at the root of the checkout (listed in
+Each source under ``deepspeed_tpu_torch/csrc/`` has a plain C entry point
+and is compiled at first use into a shared library that ``ctypes`` loads:
+
+- ``CUDAOpBuilder``: a kernel source, with ``nvcc`` for Hopper (``sm_90a``).
+  No PyTorch header is compiled, so a build takes seconds, not minutes.
+- ``HostOpBuilder``: a host library of ZeRO-Offload (the CPU Adam, the
+  async I/O), with ``g++`` and the JAX builder's flags (``-O3 -march=native
+  -fopenmp``, ``op_builder.py:35-36``).
+
+A library lands in ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``), under a name that carries the hash of the source, the
-headers of ``csrc/`` it may include and the flags: an edited source or
-header builds anew, an unchanged one is loaded as it is.
+headers of ``csrc/`` it may include and the flags (for a host library also
+the CPU's model and flags, since ``-march=native`` targets the machine that
+builds): an edited source or header builds anew, an unchanged one is loaded
+as it is. Each build writes a file of its own and renames it into place, so
+processes building the same library at once never load a torn file.
 """
 
 import ctypes
@@ -125,11 +133,102 @@ ALL_BUILDERS = (PagedAttentionBuilder, FlashAttentionBuilder, WoqGemmBuilder,
                 BlockSparseAttentionBuilder, FusedCEBuilder)
 
 
+def _cpu_identity() -> bytes:
+    """The CPU's model name and feature flags (``/proc/cpuinfo``): a library
+    built with ``-march=native`` on one machine is not loaded on another."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            lines = f.read().splitlines()
+    except OSError:
+        return b""
+    keep = [ln for ln in lines if ln.startswith((b"model name", b"flags"))]
+    return b"\n".join(dict.fromkeys(keep))
+
+
+class HostOpBuilder:
+    """Compile-on-first-use builder for one host C++ source with a C
+    interface. A missing compiler raises: the engine has no Python stand-in
+    for a host library."""
+
+    NAME = "base"
+    SOURCE = ""  # path under deepspeed_tpu_torch/
+    _locks: Dict[str, threading.Lock] = {}
+    _locks_guard = threading.Lock()
+
+    def cxx_flags(self) -> List[str]:
+        return ["-O3", "-std=c++17", "-fPIC", "-shared", "-march=native", "-fopenmp"]
+
+    def libraries_args(self) -> List[str]:
+        return []
+
+    def source_path(self) -> str:
+        return os.path.join(_PKG_ROOT, self.SOURCE)
+
+    def lib_path(self) -> str:
+        h = hashlib.sha256(" ".join(self.cxx_flags() + self.libraries_args()).encode())
+        h.update(_cpu_identity())
+        with open(self.source_path(), "rb") as f:
+            h.update(f.read())
+        return os.path.join(_BUILD_DIR, f"lib{self.NAME}-{h.hexdigest()[:16]}.so")
+
+    def build(self, verbose: bool = False) -> str:
+        """Path of the built library, compiling it first if needed."""
+        with HostOpBuilder._locks_guard:
+            lock = HostOpBuilder._locks.setdefault(self.NAME, threading.Lock())
+        with lock:
+            out = self.lib_path()
+            if os.path.exists(out):
+                return out
+            cxx = shutil.which("g++")
+            if cxx is None:
+                raise RuntimeError(f"g++ not found: the host library {self.NAME} is built "
+                                   "from source at first use")
+            os.makedirs(_BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+            cmd = ([cxx] + self.cxx_flags() + [self.source_path(), "-o", tmp]
+                   + self.libraries_args())
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"g++ failed for {self.SOURCE} "
+                                   f"(exit {proc.returncode}):\n{proc.stderr}")
+            os.replace(tmp, out)
+            msg = f"built {os.path.basename(out)} in {time.perf_counter() - t0:.1f} s"
+            logger.info(msg + (f"\n{proc.stderr}" if verbose else ""))
+            return out
+
+    def load(self, verbose: bool = False) -> ctypes.CDLL:
+        return ctypes.CDLL(self.build(verbose=verbose))
+
+
+class CPUAdamBuilder(HostOpBuilder):
+    """The host Adam of ZeRO-Offload (``csrc/cpu_adam.cpp``, a copy of the
+    repository's ``csrc/adam/cpu_adam.cpp``)."""
+
+    NAME = "cpu_adam"
+    SOURCE = os.path.join("csrc", "cpu_adam.cpp")
+
+
+class AsyncIOBuilder(HostOpBuilder):
+    """The threaded async I/O of the NVMe tier (``csrc/aio.cpp``, a copy of
+    the repository's ``csrc/aio/aio.cpp``)."""
+
+    NAME = "aio"
+    SOURCE = os.path.join("csrc", "aio.cpp")
+
+    def libraries_args(self) -> List[str]:
+        return ["-lpthread"]
+
+
+HOST_BUILDERS = (CPUAdamBuilder, AsyncIOBuilder)
+
+
 def build_all(verbose: bool = False) -> List[str]:
-    """Build every kernel source, one ``nvcc`` process per source, all
-    started together; returns the libraries' paths."""
+    """Build every kernel source and host library, one compiler process per
+    source, all started together; returns the libraries' paths."""
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(len(ALL_BUILDERS)) as pool:
-        return list(pool.map(lambda b: b().build(verbose=verbose), ALL_BUILDERS))
+    builders = ALL_BUILDERS + HOST_BUILDERS
+    with ThreadPoolExecutor(len(builders)) as pool:
+        return list(pool.map(lambda b: b().build(verbose=verbose), builders))
 

@@ -6,8 +6,8 @@ manifest-last protocol as every other checkpoint file, next to a small
 ``optim_states.ckpt`` that carries only the partition plan + step + scaler.
 Consolidation is the exact inverse of the save-time slicing: concatenate
 each leaf's per-rank flat slices in rank order and reshape to the recorded
-leaf shape, bytewise lossless. The port reads these files; writing them
-comes with ZeRO (ROADMAP.md Queue 1 item 13).
+leaf shape, bytewise lossless. The port's engine writes the same files at
+stage >= 2 and reads either package's.
 
 Every failure raises :class:`CheckpointCorruptError` so the engine's
 durable-tag ring treats a torn shard exactly like any other corrupt file:

@@ -2,11 +2,13 @@
 
 A copy of the JAX package's host-only ``DeepSpeedConfig`` (``config.py:163``):
 the same JSON keys, the same blocks, the same batch-size triangle, resolved
-at world size 1 (one card, one process). What the port's training engine
-does not run yet raises ``NotImplementedError`` naming its ROADMAP.md item
-instead of being accepted and ignored: ZeRO stage > 0, optimizer or
-parameter offload, the ``mesh`` and ``pipeline`` blocks, the 1-bit
-optimizers and ZeRO++ quantized collectives (item 13).
+at world size 1 (one card, one process). ZeRO stages 0-3 are accepted, with
+``offload_optimizer`` to ``cpu`` or ``nvme`` (and ``ratio``). What the port's
+training engine does not run yet raises ``NotImplementedError`` naming its
+ROADMAP.md item instead of being accepted and ignored: the ``mesh`` block,
+world size > 1, the 1-bit optimizers and ZeRO++ quantized collectives
+(item 13b, multi-rank ZeRO), ``offload_param`` (item 17, the layer-streamed
+engine) and the ``pipeline`` block.
 """
 
 import json
@@ -19,7 +21,8 @@ from . import constants as C
 from .config_utils import DeepSpeedConfigModel, dict_raise_error_on_duplicate_keys
 from .zero.config import zero_config_from_dict
 
-ZERO_ITEM = "ROADMAP.md Queue 1 item 13, ZeRO and multi-card"
+ZERO_ITEM = "ROADMAP.md Queue 1 item 13b, multi-rank ZeRO"
+STREAMED_ITEM = "ROADMAP.md Queue 1 item 17, the layer-streamed StreamedZeroEngine"
 
 ADAM_OPTIMIZER = "adam"
 ADAMW_OPTIMIZER = "adamw"
@@ -130,8 +133,8 @@ def _resolve_config_dict(config) -> Dict[str, Any]:
     raise ValueError(f"Expected a dict or path to a JSON file, got {type(config)}")
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to deepspeed_tpu_torch ({ZERO_ITEM})")
+def _not_ported(what: str, item: str = ZERO_ITEM) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to deepspeed_tpu_torch ({item})")
 
 
 class DeepSpeedConfig:
@@ -167,15 +170,12 @@ class DeepSpeedConfig:
         # --- zero ---
         self.zero_config = zero_config_from_dict(pd.get(C.ZERO_OPTIMIZATION, {}))
         zc = self.zero_config
-        if zc.stage > 0:
-            raise _not_ported(f"ZeRO stage {zc.stage}")
-        for name in ("offload_optimizer", "offload_param"):
-            off = getattr(zc, name)
-            if off is not None and off.device != "none":
-                raise _not_ported(f"zero_optimization.{name} to {off.device}")
+        if zc.offload_param is not None and zc.offload_param.device != "none":
+            raise _not_ported(f"zero_optimization.offload_param to {zc.offload_param.device}",
+                              STREAMED_ITEM)
         if zc.zero_quantized_gradients or zc.zero_quantized_weights:
             raise _not_ported("ZeRO++ quantized weights/gradients (qwZ/qgZ)")
-        self.zero_enabled = False
+        self.zero_enabled = zc.stage > 0
         self.zero_allow_untested_optimizer = pd.get(
             C.ZERO_ALLOW_UNTESTED_OPTIMIZER, C.ZERO_ALLOW_UNTESTED_OPTIMIZER_DEFAULT)
         self.zero_force_ds_cpu_optimizer = pd.get(

@@ -1,9 +1,27 @@
-"""The training engine at ZeRO stage 0 on one device (counterpart of ``deepspeed_tpu/runtime/engine.py``).
+"""The training engine on one device (counterpart of ``deepspeed_tpu/runtime/engine.py``).
 
 ``DeepSpeedEngine`` holds the model's parameters (fp32, or bf16/fp16 lp
 parameters with an fp32 master copy), the optimizer and its state, the loss
 scaler, the lr scheduler and the data loader, and runs the reference
 surface: ``forward`` / ``backward`` / ``step``, ``train_batch``, ``eval``.
+
+ZeRO on one card. Stages 1-3 with the optimizer state on the device are
+the stage-0 arithmetic, as in the JAX package at a ZeRO degree of 1; a
+stage >= 2 engine saves its moments in the sharded format. With
+``offload_optimizer`` (``cpu`` or ``nvme``) the engine never builds the fp32
+master or the optimizer state on the device: they live in host RAM (the
+moments optionally on NVMe) and the C++ CPU Adam steps them
+(``_step_offload``, ``engine.py:1207-1293``): the gradient norm on the device,
+the clip coefficient on the host, each leaf's gradient streamed to the host
+in the compute dtype while the previous chunk is stepped, each updated chunk
+cast on the host into one of two pinned staging buffers and uploaded into
+the lp parameter in place, the upload running while the next chunk is
+stepped; ``ratio`` < 1
+keeps the smallest leaves on the device, stepped by ``FusedAdam``. At stage
+>= 2 with ``cpu`` and ratio 1 the host tier is the sharded one
+(``ZeroShardedTier``) and stage 3 adds parameter residency
+(``_z3_release_and_prefetch``, ``_ensure_zero3_params``). Every offload
+byte rides one TransferEngine ledger.
 
 Where the JAX engine compiles programs, the port runs eagerly:
 
@@ -47,7 +65,7 @@ import numpy as np
 import torch
 
 from ..accelerator import resolve_device
-from ..ops.optimizers import build_optimizer
+from ..ops.optimizers import OptState, build_optimizer
 from ..ops.transformer.flash_attention import check_kernel_config
 from ..resilience.errors import CheckpointCorruptError, EngineUsageError
 from ..utils import prng
@@ -55,6 +73,7 @@ from ..utils.logging import log_dist, logger
 from ..utils.timer import (BACKWARD_MICRO_TIMER, FORWARD_MICRO_TIMER, STEP_MICRO_TIMER,
                            NoopTimer, SynchronizedWallClockTimer, ThroughputTimer)
 from ..utils.tree import tree_leaves, tree_map, tree_unflatten
+from .zero.offload import host_f32, lp_cast
 from .checkpoint_engine.native_checkpoint_engine import NativeCheckpointEngine
 from .config import DeepSpeedConfig
 from .constants import CURRICULUM_LEARNING_LEGACY
@@ -62,7 +81,6 @@ from .dataloader import DeepSpeedDataLoader, RepeatingLoader, to_device
 from .fp16.loss_scaler import CreateLossScaler, LossScalerState, has_overflow
 from .lr_schedules import build_lr_scheduler
 
-_ZERO_ITEM = "ROADMAP.md Queue 1 item 13, ZeRO and offload"
 _FEATURE_ITEM = "ROADMAP.md Queue 1 item 17"
 _PERIPHERY_ITEM = "ROADMAP.md Queue 1 item 18, periphery"
 
@@ -140,6 +158,36 @@ def _match(template, saved, what):
         raise ValueError(f"checkpoint {what} has shape {tuple(t.shape)}, the engine's "
                          f"parameter {tuple(template.shape)}")
     return t
+
+
+def _offload_as_full_lists(optim_sd, saved_h, saved_d, n):
+    """Per-leaf (master, m, v) flat fp32 lists of an ``offload_host`` file
+    under its saved split (``saved_h`` None: every leaf on the host)."""
+    oh = optim_sd["offload_host"]
+    saved_h = list(range(n)) if saved_h is None else list(saved_h)
+    gmaster, gm, gv = [None] * n, [None] * n, [None] * n
+
+    def f32(a):
+        return np.asarray(_host_tensor(a).float().contiguous(), np.float32).reshape(-1)
+
+    for j, i in enumerate(saved_h):
+        gmaster[i] = f32(oh["master"][j])
+        if "mv" in oh:  # the nvme tier's state: [m; v] stacked
+            gm[i], gv[i] = f32(np.asarray(oh["mv"][j])[0]), f32(np.asarray(oh["mv"][j])[1])
+        else:
+            gm[i], gv[i] = f32(oh["m"][j]), f32(oh["v"][j])
+    od = optim_sd.get("offload_dev")
+    for j, i in enumerate(saved_d or []):
+        gmaster[i], gm[i], gv[i] = f32(od["master"][j]), f32(od["m"][j]), f32(od["v"][j])
+    return gmaster, gm, gv
+
+
+def _offload_as_full(optim_sd, n):
+    """An ``offload_host`` file as full-leaf moments (for a device engine)."""
+    _, gm, gv = _offload_as_full_lists(optim_sd, optim_sd.get("host_idx"),
+                                       optim_sd.get("dev_idx"), n)
+    return {"step": int(optim_sd["offload_host"]["step"]), "scaler": optim_sd.get("scaler"),
+            "m": gm, "v": gv}
 
 
 def _check_supported(config: DeepSpeedConfig, model) -> None:
@@ -222,11 +270,23 @@ class DeepSpeedEngine:
             out = t.to(device=self.device, dtype=self.compute_dtype)
             return (out.clone() if out is t else out).requires_grad_()
 
+        # ---- ZeRO (engine.py:454-474) ----
+        zc = config.zero_config
+        self.zero_stage = int(zc.stage)
+        off = zc.offload_optimizer
+        self._offload_enabled = bool(off is not None and off.device in ("cpu", "nvme"))
+        # the sharded host tier: stage >= 2 with the whole optimizer state in
+        # host RAM; partial (ratio < 1) or NVMe offload takes the flat tier
+        self._zero_sharded_planned = bool(self.zero_stage >= 2 and off is not None
+                                          and off.device == "cpu" and off.ratio == 1.0)
+
         self.params = tree_map(lp, params)
         # the master copy is rebound (never written in place) each step, so
-        # it may share storage with the caller's fp32 tensors
+        # it may share storage with the caller's fp32 tensors; under offload
+        # it lives on the host (_setup_offload)
         self.master_params = (tree_map(lambda p: torch.as_tensor(p).detach().to(
-            device=self.device, dtype=torch.float32), params) if self._mixed else None)
+            device=self.device, dtype=torch.float32), params)
+            if self._mixed and not self._offload_enabled else None)
 
         # the base key of every training-mode forward (engine.py:342)
         self._rng = prng.PRNGKey(config.seed, device=self.device)
@@ -239,8 +299,25 @@ class DeepSpeedEngine:
             self.optimizer = build_optimizer(config.optimizer_name, config.optimizer_params)
         else:
             self.optimizer = None
-        self.opt_state = (self.optimizer.init(self._update_target())
-                          if self.optimizer is not None else None)
+        self._offload_mgr = None
+        self._transfer = None  # the offload tiers' TransferEngine
+        self._zero_tier = None  # the sharded host tier (stage >= 2, cpu, ratio 1)
+        self._z3_residency = False
+        self._z3_released = {}  # leaf -> its host compute-dtype cast
+        self._z3_prefetched = set()
+        # the leaves' writeback order of the first completed step: the order
+        # a forward consumes them, for stage-3 release and prefetch
+        self._z3_schedule = []
+        #: seconds in the offloaded step's parts, summed over steps (h2d_s:
+        #: submitting the uploads; h2d_wait_s: waiting for them to finish)
+        self.offload_stats = {"norm_s": 0.0, "lp_cast_s": 0.0, "h2d_s": 0.0,
+                              "h2d_wait_s": 0.0, "device_subset_s": 0.0}
+        if self.optimizer is not None and self._offload_enabled:
+            self.opt_state = None
+            self._setup_offload(off, params)
+        else:
+            self.opt_state = (self.optimizer.init(self._update_target())
+                              if self.optimizer is not None else None)
 
         # ---- loss scaling ----
         self.loss_scaler = CreateLossScaler(config.fp16_config, config.fp16_enabled)
@@ -265,7 +342,8 @@ class DeepSpeedEngine:
             self.training_dataloader = self.deepspeed_io(training_data, collate_fn=collate_fn)
 
         log_dist(
-            f"DeepSpeedEngine: zero_stage=0 dtype={self.compute_dtype} device={self.device} "
+            f"DeepSpeedEngine: zero_stage={self.zero_stage} dtype={self.compute_dtype} "
+            f"device={self.device} offload={off.device if self._offload_enabled else 'none'} "
             f"batch=({config.train_batch_size},{config.train_micro_batch_size_per_gpu},"
             f"{config.gradient_accumulation_steps})",
             ranks=[0],
@@ -320,6 +398,8 @@ class DeepSpeedEngine:
                 f"forward() got unexpected kwargs {sorted(kwargs)}: pass model inputs "
                 "inside `batch` (the apply_fn receives it whole)")
         self.timers(FORWARD_MICRO_TIMER).start()
+        if self._z3_residency:
+            self._ensure_zero3_params()
         batch = to_device(batch, self.device)
         if not self._training:
             with torch.no_grad():
@@ -383,7 +463,10 @@ class DeepSpeedEngine:
 
     @torch.no_grad()
     def _apply_update(self, acc_grads, lr):
-        """``step_fn`` (``engine.py:831-848``). Returns (gnorm, overflow)."""
+        """``step_fn`` (``engine.py:831-848``), or the offloaded step. Returns
+        (gnorm, overflow)."""
+        if self._offload_mgr is not None:
+            return self._step_offload(acc_grads, lr)
         cfg = self.config
         inv = 1.0 / self.scaler_state.cur_scale
         grads = tree_map(lambda g: g.float() * inv, acc_grads)
@@ -420,10 +503,16 @@ class DeepSpeedEngine:
                      f"{float(self.scaler_state.cur_scale)}", ranks=[0])
         elif self.lr_scheduler is not None:
             self.lr_scheduler.step()
+        if self._z3_residency and not bool(overflow):
+            self._z3_release_and_prefetch()
         every = self.config.steps_per_print
         if every and self.global_steps % every == 0:
-            log_dist(f"step={self.global_steps} lr={self.get_lr()} "
-                     f"grad_norm={float(gnorm):.4f} skipped={self.skipped_steps}", ranks=[0])
+            # the offloaded step skips the norm when clipping is off
+            gn = float("nan") if gnorm is None else float(gnorm)
+            zero = self.zero_metrics()
+            log_dist(f"step={self.global_steps} lr={self.get_lr()} grad_norm={gn:.4f} "
+                     f"skipped={self.skipped_steps}" + (f" zero={zero}" if zero else ""),
+                     ranks=[0])
 
     def step(self):
         """Optimizer step at gradient-accumulation boundaries (no-op otherwise)."""
@@ -489,6 +578,8 @@ class DeepSpeedEngine:
     def _fused_micro_step(self, batch):
         """Forward, backward and step in one call (the GAS=1 path)."""
         self.timers(STEP_MICRO_TIMER).start()
+        if self._z3_residency:
+            self._ensure_zero3_params()
         batch = to_device(batch, self.device)
         lr = self.get_lr()[0]
         loss = self._loss_of(self._apply_fn(self.params, batch, train=True,
@@ -499,6 +590,275 @@ class DeepSpeedEngine:
         self._after_step(gnorm, overflow)
         self.timers(STEP_MICRO_TIMER).stop()
         return loss.detach()
+
+    # ------------------------------------------------------------------
+    # ZeRO-Offload / Offload++ / ZeRO-Infinity (engine.py:1119-1418)
+    # ------------------------------------------------------------------
+    def _setup_offload(self, off, fp32_params):
+        """The host tier (flat, or sharded at stage >= 2 with cpu and ratio
+        1), the device subset of a twin-flow split, the CPU Adam and the
+        TransferEngine. The host master is copied from the caller's fp32
+        tree, not from the lp parameters."""
+        from ..analysis.sanitizer import sanitize_enabled
+        from ..ops.adam.cpu_adam import DeepSpeedCPUAdam
+        from ..ops.optimizers import FusedAdam
+        from .transfer_engine import TransferEngine
+        from .zero.offload import OffloadedAdamState, split_by_ratio
+
+        if not isinstance(self.optimizer, FusedAdam):
+            raise ValueError("offload_optimizer requires an Adam-family optimizer "
+                             "(reference forces DeepSpeedCPUAdam)")
+        leaves = list(tree_leaves(fp32_params))
+        host_idx, dev_idx = split_by_ratio(leaves, off.ratio)
+        if sanitize_enabled():
+            from ..analysis.sanitizer import check_offload_split
+
+            check_offload_split(host_idx, dev_idx, len(leaves))
+        opt = self.optimizer
+        cpu_opt = DeepSpeedCPUAdam(lr=opt.lr, betas=opt.betas, eps=opt.eps,
+                                   weight_decay=opt.weight_decay,
+                                   bias_correction=opt.bias_correction,
+                                   adamw_mode=opt.adam_w_mode)
+        zc = self.config.zero_config
+        # nvme_path on the sharded (cpu) tier puts its moments on NVMe; the
+        # device="nvme" tier reads and writes its own files through AIO
+        nvme_dir = off.nvme_path if (self._zero_sharded_planned and off.nvme_path) else None
+        self._transfer = TransferEngine(overlap=bool(zc.transfer_overlap), nvme_dir=nvme_dir,
+                                        device=self.device)
+        dev_state = None
+        host_leaves = [leaves[i] for i in host_idx]
+        if self._zero_sharded_planned:
+            from .zero.partition import PartitionPlan
+            from .zero.sharded import ZeroShardedTier
+
+            plan = PartitionPlan(host_leaves, self.config.dp_world_size,
+                                 sanitize=sanitize_enabled())
+            host_state = ZeroShardedTier(host_leaves, plan, stage=self.zero_stage,
+                                         nvme_store=self._transfer.nvme if nvme_dir else None)
+            self._zero_tier = host_state
+            self._z3_residency = self.zero_stage >= 3
+        else:
+            host_state = OffloadedAdamState(host_leaves, device=off.device,
+                                            nvme_path=off.nvme_path)
+            if dev_idx:
+                master = [torch.from_numpy(host_f32(leaves[i])).to(self.device) for i in dev_idx]
+                dev_state = {"master": master,
+                             "m": [torch.zeros_like(t) for t in master],
+                             "v": [torch.zeros_like(t) for t in master]}
+        host_state.transfer = self._transfer
+        self._offload_mgr = {"host_idx": host_idx, "dev_idx": dev_idx, "host": host_state,
+                             "dev": dev_state, "cpu_opt": cpu_opt}
+        log_dist(f"ZeRO-Offload: {len(host_idx)} leaves -> {off.device} (ratio={off.ratio}), "
+                 f"{len(dev_idx)} stay on the device"
+                 + (f"; stage-{self.zero_stage} sharded tier" if self._zero_tier else ""),
+                 ranks=[0])
+
+    @torch.no_grad()
+    def _step_offload(self, acc_grads, lr):
+        """The optimizer step with offloaded states (``engine.py:1207``).
+        Returns (gnorm, overflow); gnorm is None when clipping is off."""
+        mgr = self._offload_mgr
+        cfg = self.config
+        st = self.offload_stats
+        grads_flat = list(tree_leaves(acc_grads))
+        t0 = time.perf_counter()
+        inv_scale = 1.0 / float(self.scaler_state.cur_scale)
+        # overflow covers every gradient, host and device leaves, and is
+        # decided before any update runs
+        overflow = bool(has_overflow(acc_grads)) if cfg.fp16_enabled else False
+        gnorm = None
+        clip_coef = 1.0
+        if cfg.gradient_clipping > 0:
+            # the norm of the scaled gradients on the device, unscaled on the host
+            gnorm = float(_global_norm(acc_grads)) * inv_scale
+            clip_coef = min(1.0, cfg.gradient_clipping / (gnorm + 1e-6))
+        st["norm_s"] += time.perf_counter() - t0
+        if overflow:
+            mgr["host"].step_count += 1  # Adam's step parity with skipped steps
+            self.scaler_state = self.loss_scaler.update(
+                self.scaler_state, torch.ones((), dtype=torch.bool, device=self.device))
+            return gnorm, True
+
+        params_flat = list(tree_leaves(self.params))
+        # the device subset first, so it runs on the card under the host work
+        if mgr["dev"] is not None:
+            t0 = time.perf_counter()
+            d = mgr["dev"]
+            keys = [f"{j:06d}" for j in range(len(mgr["dev_idx"]))]
+            inv = torch.tensor(inv_scale, dtype=torch.float32, device=self.device)
+            coef = torch.tensor(clip_coef, dtype=torch.float32, device=self.device)
+            grads = {k: grads_flat[i].float() * inv * coef
+                     for k, i in zip(keys, mgr["dev_idx"])}
+            state = OptState(
+                step=torch.tensor(mgr["host"].step_count, dtype=torch.int32, device=self.device),
+                m=dict(zip(keys, d["m"])), v=dict(zip(keys, d["v"])))
+            new_master, new_state = self.optimizer.update(
+                grads, state, dict(zip(keys, d["master"])), lr)
+            d["master"] = [new_master[k] for k in keys]
+            d["m"] = [new_state.m[k] for k in keys]
+            d["v"] = [new_state.v[k] for k in keys]
+            for t, i in zip(d["master"], mgr["dev_idx"]):
+                params_flat[i].copy_(t)  # cast into the lp parameter in place
+            st["device_subset_s"] += time.perf_counter() - t0
+
+        host_idx = mgr["host_idx"]
+        te = self._transfer
+        tier = self._zero_tier
+        sched = self._z3_schedule
+        record = tier is not None and len(sched) < len(host_idx)
+        if record:
+            del sched[:]  # re-record from scratch if an earlier step aborted
+        lp_dtype = self.compute_dtype
+        itemsize = torch.empty((), dtype=lp_dtype).element_size()
+        # the updated chunks go up in the compute dtype through two pinned
+        # staging buffers in turn: the host casts a chunk into one while the
+        # other's upload runs, and the tier steps the next chunk under both;
+        # a buffer is refilled only once its last upload has settled
+        ring = []       # [staging buffer, its open upload or None]
+        uploads = []    # every open upload, in submit order
+
+        def on_chunk(j, lo, hi, p_chunk):
+            src = torch.from_numpy(p_chunk)  # fp32: the master is the source
+            if lp_dtype != torch.float32:
+                k = len(uploads) % 2
+                if len(ring) <= k:
+                    ring.append([te.acquire_staging((mgr["host"].chunk_elements,), lp_dtype),
+                                 None])
+                buf, last = ring[k]
+                t0 = time.perf_counter()
+                if last is not None:
+                    te.drain_before([last])  # the buffer's last upload has read it
+                t1 = time.perf_counter()
+                src = lp_cast(src, lp_dtype, out=buf[:hi - lo])
+                st["h2d_wait_s"] += t1 - t0
+                st["lp_cast_s"] += time.perf_counter() - t1
+            t0 = time.perf_counter()
+            uploads.append(te.submit_h2d(
+                src, out=params_flat[host_idx[j]].detach().view(-1)[lo:hi], settle=False))
+            st["h2d_s"] += time.perf_counter() - t0
+            if ring:
+                ring[k][1] = uploads[-1]
+
+        def on_leaf(j, master):
+            if tier is not None:  # the updated leaf's all-gather
+                tier.counters["gathers"] += 1
+                tier.counters["offload_bytes_out"] += master.size * itemsize
+            if record:
+                sched.append(j)
+
+        try:
+            mgr["host"].adam_step(mgr["cpu_opt"], [grads_flat[i] for i in host_idx], lr,
+                                  grad_scale=inv_scale, clip_coef=clip_coef,
+                                  on_leaf=on_leaf, on_chunk=on_chunk)
+        finally:
+            t0 = time.perf_counter()
+            te.drain_before(uploads)
+            st["h2d_wait_s"] += time.perf_counter() - t0
+            for slot in ring:
+                te.release_staging(slot[0])
+        if cfg.fp16_enabled:
+            self.scaler_state = self.loss_scaler.update(
+                self.scaler_state, torch.zeros((), dtype=torch.bool, device=self.device))
+        from ..analysis.sanitizer import sanitize_enabled
+
+        if sanitize_enabled():
+            # the step boundary: every gradient chunk drained, every upload
+            # settled, nothing in flight
+            from ..analysis.sanitizer import check_transfer_ledger
+
+            check_transfer_ledger(te)
+        return gnorm, False
+
+    # ------------------------------------------------------------------
+    # ZeRO-3 parameter residency (engine.py:1334-1418)
+    # ------------------------------------------------------------------
+    def _z3_upload(self, j, lp):
+        """Bring released leaf ``j`` back to the device from its host cast."""
+        p = list(tree_leaves(self.params))[j].detach()
+        p.untyped_storage().resize_(p.numel() * p.element_size())
+        self._transfer.submit_h2d(lp, out=p)
+        tier = self._zero_tier
+        tier.counters["gathers"] += 1
+        tier.counters["offload_bytes_out"] += lp.numel() * lp.element_size()
+
+    def _z3_release_and_prefetch(self):
+        """After the step's writeback: release non-persistent lp leaves (their
+        device memory freed, their host compute-dtype cast kept) until the
+        live count fits ``max_live_parameters``, the leaf needed last first;
+        then re-upload up to ``prefetch_bucket_size`` bytes, the leaf needed
+        first first. The cast is the writeback's, so a round trip is
+        byte-exact. Until a step has recorded the schedule, the largest
+        leaves go first."""
+        tier = self._zero_tier
+        zc = self.config.zero_config
+        sizes = tier.plan.leaf_sizes
+        released = self._z3_released
+        sched = self._z3_schedule if len(self._z3_schedule) == len(sizes) else None
+        live = sum(sizes) - sum(sizes[j] for j in released)
+        if live > zc.max_live_parameters:
+            params_flat = list(tree_leaves(self.params))
+            order = (list(reversed(sched)) if sched is not None
+                     else sorted(range(len(sizes)), key=lambda j: -sizes[j]))
+            for j in order:
+                if live <= zc.max_live_parameters:
+                    break
+                if j in released or sizes[j] <= zc.param_persistence_threshold:
+                    continue
+                released[j] = lp_cast(torch.from_numpy(tier.master[j]), self.compute_dtype)
+                params_flat[j].detach().untyped_storage().resize_(0)  # the device memory goes
+                live -= sizes[j]
+        if not released:
+            return
+        budget = int(zc.prefetch_bucket_size)
+        order = [j for j in sched if j in released] if sched is not None else sorted(released)
+        for j in order:
+            lp = released[j]
+            nbytes = lp.numel() * lp.element_size()
+            if nbytes > budget:
+                break
+            budget -= nbytes
+            self._z3_upload(j, lp)
+            del released[j]
+            self._z3_prefetched.add(j)
+
+    def _ensure_zero3_params(self):
+        """Before a forward: upload every leaf the window released and the
+        prefetch did not restore; a restored one counts as a prefetch hit."""
+        tier = self._zero_tier
+        released = self._z3_released
+        pre = self._z3_prefetched
+        if pre:
+            tier.counters["prefetch_hits"] += sum(1 for j in pre if j not in released)
+            pre.clear()
+        for j in sorted(released):
+            self._z3_upload(j, released.pop(j))
+
+    def _z3_reset(self):
+        """Every released leaf's device memory back (its bytes about to be
+        overwritten by a load), the window empty."""
+        params_flat = list(tree_leaves(self.params))
+        for j in self._z3_released:
+            p = params_flat[j].detach()
+            p.untyped_storage().resize_(p.numel() * p.element_size())
+        self._z3_released.clear()
+        self._z3_prefetched.clear()
+
+    def zero_metrics(self):
+        """``train/zero/*`` counter snapshot (empty without a sharded tier)."""
+        tier = self._zero_tier
+        if tier is None:
+            return {}
+        out = dict(tier.counters)
+        out["shard_bytes"] = tier.shard_bytes(0)
+        return out
+
+    def transfer_metrics(self):
+        """The offload TransferEngine's ledger (empty without offload)."""
+        te = self._transfer
+        if te is None:
+            return {}
+        return {f"{d}_{k}": v for k, dd in te.ledger().items()
+                if isinstance(dd, dict) for d, v in dd.items()}
 
     def deepspeed_io(self, dataset, batch_size=None, collate_fn=None, shuffle=True):
         """Build the data loader (reference ``engine.py:1697 deepspeed_io``)."""
@@ -542,24 +902,77 @@ class DeepSpeedEngine:
                 and os.path.exists(os.path.join(load_dir, n, "model_states.ckpt"))]
         return sorted(ring, key=step_of, reverse=True)
 
+    def _save_sharded_optim(self, tag_dir, optim_path, plan, m_leaves, v_leaves, step):
+        """The stage >= 2 optimizer save (``engine.py:1990``):
+        ``optim_states.ckpt`` holds the partition plan, the step and the
+        scaler, and the moments go one file a rank
+        (``optim_states.shard<r>.ckpt``), each under the manifest-last
+        protocol. The fp32 master is the module tree's. The slices are
+        copies: the async engine writes them later."""
+        from .checkpoint_engine.consolidate import shard_path
+
+        optim_sd = {"zero_sharded": plan.describe(), "step": int(step),
+                    "scaler": _gather_to_host(self.scaler_state._asdict())}
+        m_flat = [np.asarray(m, np.float32).reshape(-1) for m in m_leaves]
+        v_flat = [np.asarray(v, np.float32).reshape(-1) for v in v_leaves]
+        shard_sds = []
+        for r in range(plan.num_shards):
+            sl = plan.slices(r)
+            shard_sds.append({
+                "rank": r, "num_shards": plan.num_shards,
+                "m": [np.array(m_flat[j][lo:hi], copy=True) for j, (lo, hi) in enumerate(sl)],
+                "v": [np.array(v_flat[j][lo:hi], copy=True) for j, (lo, hi) in enumerate(sl)],
+            })
+        from ..analysis.sanitizer import sanitize_enabled
+
+        if sanitize_enabled():
+            from ..analysis.sanitizer import check_shard_conservation
+
+            check_shard_conservation(plan.leaf_sizes, plan.bounds,
+                                     [sd["m"] for sd in shard_sds], dtype=np.float32)
+        self.checkpoint_engine.save(optim_sd, optim_path)
+        for r, sd in enumerate(shard_sds):
+            self.checkpoint_engine.save(sd, shard_path(tag_dir, r))
+
+    def _offload_master_tree(self, copy=False):
+        """The full fp32 master tree from the host tier (numpy leaves) and
+        the device subset (tensors); ``copy`` snapshots the host leaves."""
+        mgr = self._offload_mgr
+        flat = [None] * (len(mgr["host_idx"]) + len(mgr["dev_idx"]))
+        for j, i in enumerate(mgr["host_idx"]):
+            m = mgr["host"].master[j]
+            flat[i] = np.array(m, copy=True) if copy else m
+        if mgr["dev"] is not None:
+            for j, i in enumerate(mgr["dev_idx"]):
+                flat[i] = mgr["dev"]["master"][j]
+        return tree_unflatten(self.params, flat)
+
     def save_checkpoint(self, save_dir, tag=None, client_state=None, save_latest=True,
                         exclude_frozen_parameters=False):
         """Save the step state under ``save_dir/tag`` (default
         ``global_step<N>``): ``model_states.ckpt`` (the fp32 master when
-        mixed, else the params; counters, the training key, the dataset
-        position, the lr schedule, ``client_state``) and
-        ``optim_states.ckpt`` (Adam's step and moments, the loss scaler),
-        then ``latest``. Every tensor is copied to the host before this
-        returns; the async engine writes the files later, and ``latest``
-        only after them."""
+        mixed or offloaded, else the params; counters, the training key, the
+        dataset position, the lr schedule, ``client_state``) and the
+        optimizer: ``optim_states.ckpt`` (Adam's step and moments, the loss
+        scaler), at stage >= 2 with one moment file a rank beside it, under
+        offload the host tier's state (``offload_host``, ``offload_dev``,
+        the split); then ``latest``. Every tensor is copied to the host
+        before this returns (and under offload with the async engine every
+        host leaf too); the async engine writes the files later, and
+        ``latest`` only after them."""
         if tag is None:
             tag = f"global_step{self.global_steps}"
         d, model_path, optim_path = self._ckpt_paths(save_dir, tag)
         self.checkpoint_engine.makedirs(d, exist_ok=True)
         self.checkpoint_engine.create(tag)
         cfg = self.config
+        snapshot = hasattr(self.checkpoint_engine, "enqueue_task")
+        if self._offload_mgr is not None:
+            module_state = self._offload_master_tree(copy=snapshot)
+        else:
+            module_state = self.master_params if self._mixed else self.params
         model_sd = {
-            "module": self.master_params if self._mixed else self.params,
+            "module": module_state,
             "dtype": str(self.compute_dtype).replace("torch.", ""),
             "global_steps": self.global_steps,
             "global_samples": self.global_samples,
@@ -576,8 +989,30 @@ class DeepSpeedEngine:
         }
         if self.lr_scheduler is not None:
             model_sd["lr_scheduler"] = self.lr_scheduler.state_dict()
-        optim_sd = None
-        if self.opt_state is not None:
+        optim_sd = sharded = None
+        mgr = self._offload_mgr
+        if self._zero_tier is not None:
+            tier = self._zero_tier
+            sharded = (tier.plan, *tier.full_moments(), tier.step_count)
+        elif mgr is not None:
+            optim_sd = {
+                "offload_host": mgr["host"].state_dict(),
+                "offload_dev": None if mgr["dev"] is None else {
+                    k: mgr["dev"][k] for k in ("master", "m", "v")},
+                # the split at save time: a load under another ratio reshards
+                "host_idx": list(mgr["host_idx"]), "dev_idx": list(mgr["dev_idx"]),
+                "scaler": self.scaler_state._asdict()}
+        elif self.opt_state is not None and self.zero_stage >= 2 \
+                and self.opt_state.m is not None:
+            # device-resident stage >= 2 moments are saved per shard too
+            from .zero.partition import PartitionPlan
+
+            mv = _gather_to_host({"m": self.opt_state.m, "v": self.opt_state.v})
+            m_leaves = [t.numpy() for t in tree_leaves(mv["m"])]
+            v_leaves = [t.numpy() for t in tree_leaves(mv["v"])]
+            sharded = (PartitionPlan(m_leaves, cfg.dp_world_size), m_leaves, v_leaves,
+                       int(self.opt_state.step))
+        elif self.opt_state is not None:
             optim_sd = {"step": self.opt_state.step, "m": self.opt_state.m,
                         "v": self.opt_state.v, "scaler": self.scaler_state._asdict()}
         t0 = time.perf_counter()
@@ -588,6 +1023,8 @@ class DeepSpeedEngine:
         self.checkpoint_engine.save(model_sd, model_path)
         if optim_sd is not None:
             self.checkpoint_engine.save(optim_sd, optim_path)
+        if sharded is not None:
+            self._save_sharded_optim(d, optim_path, *sharded)
 
         self.checkpoint_engine.commit(tag)
         if save_latest:
@@ -622,14 +1059,12 @@ class DeepSpeedEngine:
                 o_sd = (self.checkpoint_engine.load(optim_path)
                         if want_optim and os.path.exists(optim_path) else None)
                 if o_sd is not None and "zero_sharded" in o_sd:
-                    # a JAX stage>=2 save: full moments from the per-rank
-                    # files, inside the ring loop, so a torn shard falls back
-                    # like any other corrupt file
-                    from .checkpoint_engine.consolidate import (consolidate_sharded_optim,
-                                                                consolidated_as_trees)
+                    # a stage>=2 save of either package: full moments from
+                    # the per-rank files, inside the ring loop, so a torn
+                    # shard falls back like any other corrupt file
+                    from .checkpoint_engine.consolidate import consolidate_sharded_optim
 
-                    o_sd = consolidated_as_trees(
-                        consolidate_sharded_optim(self.checkpoint_engine, d, o_sd), self.params)
+                    o_sd = consolidate_sharded_optim(self.checkpoint_engine, d, o_sd)
             except CheckpointCorruptError as e:
                 e.tag = e.tag or t
                 last_err = e
@@ -677,16 +1112,40 @@ class DeepSpeedEngine:
         want_optim = load_optimizer_states and not load_module_only
         tag, model_path, model_sd, optim_sd = self._read_tag(load_dir, tag, from_latest,
                                                              want_optim)
-        if optim_sd is not None and "offload_host" in optim_sd:
-            raise _not_ported("loading an optimizer-offload checkpoint (offload_host)",
-                              _ZERO_ITEM)
         module = _match(self.params, model_sd["module"], "module")
+        # the optimizer file in the form this engine restores (engine.py:2270-2290):
+        # a consolidated sharded save, a device save into an offloaded
+        # engine, an offloaded save into a device engine
+        if optim_sd is not None and optim_sd.get("_consolidated"):
+            optim_sd = self._adapt_consolidated_optim(optim_sd, module)
+        elif optim_sd is not None and self._offload_mgr is not None \
+                and "offload_host" not in optim_sd:
+            optim_sd = None if optim_sd.get("m") is None else self._adapt_consolidated_optim({
+                "step": int(np.asarray(optim_sd["step"])), "scaler": optim_sd.get("scaler"),
+                "m": list(tree_leaves(optim_sd["m"])), "v": list(tree_leaves(optim_sd["v"]))},
+                module)
+        elif optim_sd is not None and self._offload_mgr is None and "offload_host" in optim_sd:
+            optim_sd = self._adapt_consolidated_optim(
+                _offload_as_full(optim_sd, len(list(tree_leaves(self.params)))), module)
         m = v = None
         if optim_sd is not None and self.opt_state is not None:
             m, v = (None if optim_sd[k] is None else _match(self.params, optim_sd[k], k)
                     for k in ("m", "v"))
+        if optim_sd is not None and self._offload_mgr is not None:
+            saved_h = optim_sd.get("host_idx")
+            saved_d = optim_sd.get("dev_idx") or []
+            from ..analysis.sanitizer import sanitize_enabled
+
+            if saved_h is not None and sanitize_enabled():
+                from ..analysis.sanitizer import check_offload_split
+
+                # overlapping or gappy index lists would double- or
+                # un-restore optimizer leaves
+                check_offload_split(saved_h, saved_d, len(list(tree_leaves(self.params))))
 
         t0 = time.perf_counter()
+        if self._z3_residency:
+            self._z3_reset()  # every leaf on the device again, the window empty
         self._restore_params(module)
         self.global_steps = int(model_sd.get("global_steps", 0))
         self.global_samples = int(model_sd.get("global_samples", 0))
@@ -706,7 +1165,10 @@ class DeepSpeedEngine:
         if load_lr_scheduler_states and self.lr_scheduler is not None \
                 and "lr_scheduler" in model_sd:
             self.lr_scheduler.load_state_dict(model_sd["lr_scheduler"])
-        if optim_sd is not None and self.opt_state is not None:
+        if optim_sd is not None and self._offload_mgr is not None:
+            self._restore_offload(optim_sd, module)
+            self._restore_scaler(optim_sd.get("scaler"))
+        elif optim_sd is not None and self.opt_state is not None:
             self.opt_state = type(self.opt_state)(
                 step=torch.tensor(int(np.asarray(optim_sd["step"])), dtype=torch.int32,
                                   device=self.device),
@@ -721,13 +1183,112 @@ class DeepSpeedEngine:
     def _restore_params(self, module):
         """Write a tree of host fp32 leaves (the params' structure) into the
         engine: the lp parameters in place (the autograd leaves persist),
-        the master copy rebound, as a step rebinds it."""
+        the master copy rebound, as a step rebinds it. Under offload the lp
+        parameters take the host cast the step's writeback uploads, and the
+        master copies are the module weights too, whether or not the
+        optimizer file is loaded."""
+        mgr = self._offload_mgr
+        if mgr is not None:
+            flat = [_host_tensor(t).float().contiguous() for t in tree_leaves(module)]
+            with torch.no_grad():
+                for p, t in zip(tree_leaves(self.params), flat):
+                    p.copy_(lp_cast(t, self.compute_dtype))
+            for j, i in enumerate(mgr["host_idx"]):
+                mgr["host"].master[j][...] = flat[i].numpy()
+            if mgr["dev"] is not None:
+                mgr["dev"]["master"] = [flat[i].to(self.device) for i in mgr["dev_idx"]]
+            return
         dev = self._to_device(tree_map(lambda t: t.float(), module))
         with torch.no_grad():
             for p, n in zip(tree_leaves(self.params), tree_leaves(dev)):
                 p.copy_(n)
         if self._mixed:
             self.master_params = dev
+
+    def _adapt_consolidated_optim(self, optim_sd, module):
+        """Full-leaf moments (a consolidated sharded save, or a device save's
+        leaves) in the restore format of this engine (``engine.py:2371``):
+        the flat-offload format under offload, trees otherwise. The fp32
+        master comes from the module tree."""
+        step, sc = int(optim_sd["step"]), optim_sd.get("scaler")
+        m_list, v_list = optim_sd["m"], optim_sd["v"]
+        n = len(list(tree_leaves(self.params)))
+        if len(m_list) != n:
+            raise ValueError(f"checkpoint holds {len(m_list)} moment leaves, the parameter "
+                             f"tree {n}")
+        def flat32(a):
+            return np.asarray(_host_tensor(a).float().contiguous(), np.float32)
+
+        if self._offload_mgr is not None:
+            return {"offload_host": {"step": step,
+                                     "master": [flat32(t) for t in tree_leaves(module)],
+                                     "m": [flat32(m).reshape(-1) for m in m_list],
+                                     "v": [flat32(v).reshape(-1) for v in v_list]},
+                    # the full-range split: the restore reshards into this
+                    # engine's own split
+                    "offload_dev": None, "host_idx": list(range(n)), "dev_idx": [],
+                    "scaler": sc}
+        shapes = [tuple(p.shape) for p in tree_leaves(self.params)]
+        return {"step": step, "scaler": sc,
+                **{k: tree_unflatten(self.params, [flat32(a).reshape(s)
+                                                   for a, s in zip(lst, shapes)])
+                   for k, lst in (("m", m_list), ("v", v_list))}}
+
+    def _restore_offload(self, optim_sd, module):
+        """The offload tiers from an ``offload_host`` file (``engine.py:2291-2340``):
+        the same split restores as saved, another split reshards; the master
+        copies are then the module weights."""
+        mgr = self._offload_mgr
+        saved_h = optim_sd.get("host_idx")
+        saved_d = optim_sd.get("dev_idx") or []
+        same_split = saved_h is None or (list(saved_h) == list(mgr["host_idx"])
+                                         and list(saved_d) == list(mgr["dev_idx"]))
+        if same_split:
+            self._load_host_tier(optim_sd["offload_host"])
+            od = optim_sd.get("offload_dev")
+            if mgr["dev"] is not None and od:
+                for k in ("master", "m", "v"):
+                    mgr["dev"][k] = [_host_tensor(a).float().to(self.device) for a in od[k]]
+        else:
+            self._reshard_offload_load(optim_sd, saved_h, saved_d)
+        # the module weights are the master copies (the file's own agree)
+        flat = [_host_tensor(t) for t in tree_leaves(module)]
+        for j, i in enumerate(mgr["host_idx"]):
+            mgr["host"].master[j][...] = flat[i].float().numpy()
+        if mgr["dev"] is not None:
+            mgr["dev"]["master"] = [flat[i].float().to(self.device) for i in mgr["dev_idx"]]
+
+    def _load_host_tier(self, host_sd):
+        """``host_sd`` (the flat format: ``master``, ``m``/``v`` or ``mv``,
+        ``step``) into the host tier, whichever format the tier keeps."""
+        host = self._offload_mgr["host"]
+        if "mv" in host_sd and getattr(host, "_aio", None) is None:
+            host_sd = {"step": host_sd["step"], "master": host_sd["master"],
+                       "m": [np.asarray(b)[0] for b in host_sd["mv"]],
+                       "v": [np.asarray(b)[1] for b in host_sd["mv"]]}
+        elif "mv" not in host_sd and getattr(host, "_aio", None) is not None:
+            host_sd = {"step": host_sd["step"], "master": host_sd["master"],
+                       "mv": [np.stack([np.asarray(m, np.float32).reshape(-1),
+                                        np.asarray(v, np.float32).reshape(-1)])
+                              for m, v in zip(host_sd["m"], host_sd["v"])]}
+        host.load_state_dict(host_sd)
+
+    def _reshard_offload_load(self, optim_sd, saved_h, saved_d):
+        """Offloaded state saved under another ratio split
+        (``engine.py:2409``): the global per-leaf (master, m, v) from the
+        saved host and device parts, redistributed into this engine's split."""
+        mgr = self._offload_mgr
+        n = len(mgr["host_idx"]) + len(mgr["dev_idx"])
+        gmaster, gm, gv = _offload_as_full_lists(optim_sd, saved_h, saved_d, n)
+        self._load_host_tier({"step": int(optim_sd["offload_host"]["step"]),
+                              "master": [gmaster[i] for i in mgr["host_idx"]],
+                              "m": [gm[i] for i in mgr["host_idx"]],
+                              "v": [gv[i] for i in mgr["host_idx"]]})
+        if mgr["dev"] is not None:
+            shapes = [tuple(t.shape) for t in mgr["dev"]["master"]]
+            for k, g in (("master", gmaster), ("m", gm), ("v", gv)):
+                mgr["dev"][k] = [torch.from_numpy(np.asarray(g[i], np.float32).reshape(s)).to(
+                    self.device) for i, s in zip(mgr["dev_idx"], shapes)]
 
     def _restore_scaler(self, sc):
         if sc is None:
@@ -749,13 +1310,16 @@ class DeepSpeedEngine:
         return self._last_global_norm
 
     def zero_optimization(self) -> bool:
-        return False
+        return self.zero_stage > 0
 
     def zero_optimization_stage(self) -> int:
-        return 0
+        return self.zero_stage
 
     def get_fp32_params(self):
         """Full-precision view of the module weights, as CPU fp32 tensors."""
+        if self._offload_mgr is not None:
+            return tree_map(lambda p: _host_tensor(p).detach().float().cpu().clone(),
+                            self._offload_master_tree())
         src = self.master_params if self._mixed else self.params
         return tree_map(lambda p: p.detach().float().cpu(), src)
 

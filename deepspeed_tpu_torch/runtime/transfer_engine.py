@@ -1,8 +1,9 @@
 """Host-device TransferEngine (counterpart of ``deepspeed_tpu/runtime/transfer_engine.py``).
 
-The one owner of the serving engine's host<->device byte movement: KV
-demotion to the host tier and promotion back, swap preemption, the
-cross-engine handoff, and the tooling transfers of ``utils/transfer.py``.
+The one owner of the engines' host<->device byte movement: KV demotion to
+the host tier and promotion back, swap preemption, the cross-engine
+handoff, the training engine's optimizer offload (gradients down, updated
+parameters up) and the tooling transfers of ``utils/transfer.py``.
 It keeps the JAX engine's contract call for call:
 
 - a bounded pool of reusable host staging buffers (``acquire_staging`` /
@@ -11,7 +12,8 @@ It keeps the JAX engine's contract call for call:
   for the bytes only at the next dispatch boundary, where ``drain_before``
   settles exactly the payloads that boundary depends on;
 - ``submit_h2d`` ships one host buffer and settles at submit: the source
-  may be rewritten once it returns;
+  may be rewritten once it returns; with ``settle=False`` the ticket stays
+  open until drained, and the source must keep its bytes until then;
 - per-direction bandwidth EMAs (``s_per_byte``), read by the scheduler's
   swap-vs-recompute cost model;
 - the byte ledger, per direction submitted == completed + cancelled + in
@@ -34,7 +36,10 @@ and waits for that copy before it returns, so a staging buffer that the
 caller refills chunk by chunk is never rewritten under a copy in flight
 (a non-blocking copy, unlike ``jax.device_put``, does not snapshot host
 memory); the compute stream waits on the copy's event before it reads the
-result. On the CPU the payload is a clone taken at submit, and with
+result. ``submit_h2d(..., settle=False)`` returns with the copy in flight
+and leaves that wait to ``drain_before``: a caller that rotates two staging
+buffers drains a buffer's last ticket before it refills it, so the host
+fills one buffer while the other's copy runs. On the CPU the payload is a clone taken at submit, and with
 ``overlap`` the ticket stays open until drained, as the JAX engine's
 tickets do on its CPU: the ledger, the in-flight cap, cancellation and the
 staging pool behave as the JAX engine's for the same calls.
@@ -64,7 +69,7 @@ MAX_INFLIGHT_BYTES = 32 * 1024 * 1024
 STAGING_POOL_DEPTH = 2
 
 # the ROADMAP.md item that lifts ``put_tree``'s sharding argument
-_ZERO_ITEM = "ROADMAP.md Queue 1 item 13, ZeRO and runtime/comm"
+_ZERO_ITEM = "ROADMAP.md Queue 1 item 13b, multi-rank ZeRO and runtime/comm"
 
 
 class TransferCorruptError(Exception):
@@ -161,7 +166,8 @@ class TransferTicket:
         #: staging-pool key this ticket pins (None when no pool buffer rides)
         self.buffer_key = None
         # in flight: the CPU clone, or on the card (device clone, pinned
-        # host tensor, the copy's event)
+        # host tensor, the copy's event); an unsettled upload (host source,
+        # device destination, the copy's event)
         self._raw = raw
         self._result = None
 
@@ -486,10 +492,16 @@ class TransferEngine:
     # ------------------------------------------------------------------
     # H2D: one copy, settled at submit
     # ------------------------------------------------------------------
-    def submit_h2d(self, host_arr, sharding=None) -> TransferTicket:
+    def submit_h2d(self, host_arr, sharding=None, out: Optional[torch.Tensor] = None,
+                   settle: bool = True) -> TransferTicket:
         """Ship one host buffer (a tensor or numpy array) to the engine's
-        device. The ticket settles at submit and the source may be rewritten
-        once this returns (class docstring)."""
+        device, into a new tensor or into ``out`` (a device tensor of its
+        shape and dtype, e.g. a slice of a parameter, written after the
+        current stream's work on it). The ticket settles at submit and the
+        source may be rewritten once this returns; with ``settle=False`` on
+        the card it stays open, and the source must not change until
+        ``drain_before`` has settled it (class docstring). The compute
+        stream waits for the copy either way."""
         if sharding is not None:
             raise NotImplementedError(
                 f"TransferEngine.submit_h2d(sharding=...) is not ported ({_ZERO_ITEM})")
@@ -506,14 +518,26 @@ class TransferEngine:
             # allocated and written on the side stream, so that the copy
             # waits for no compute work; the compute stream waits for it
             cur, side = torch.cuda.current_stream(dev), self._stream("h2d", dev)
+            fresh = out is None
+            if not fresh:
+                side.wait_stream(cur)  # the destination's earlier readers first
             with torch.cuda.stream(side):
-                out = torch.empty(src.shape, dtype=src.dtype, device=dev)
+                if fresh:
+                    out = torch.empty(src.shape, dtype=src.dtype, device=dev)
                 out.copy_(src, non_blocking=src.is_pinned())
                 done = torch.cuda.Event()
                 done.record(side)
-            done.synchronize()  # the source is read: the caller may refill it
             cur.wait_event(done)
-            out.record_stream(cur)
+            if fresh:
+                out.record_stream(cur)
+            if not settle:  # in flight until drained (the source with it)
+                t._raw = (src, out, done)
+                self.inflight_bytes["h2d"] += nb
+                self._open[tid] = t
+                return t
+            done.synchronize()  # the source is read: the caller may refill it
+        elif out is not None:
+            out.copy_(src)
         else:
             out = src.clone()
         self._note("h2d", nb, time.perf_counter() - t0)
@@ -529,17 +553,18 @@ class TransferEngine:
         t0 = time.perf_counter()
         raw = t._raw
         if isinstance(raw, tuple):  # on the card: wait for the copy's event
-            _, host, done = raw
+            _, dst, done = raw
             done.synchronize()
-            t._result = host
+            t._result = dst
         else:
             t._result = raw
-        self._note("d2h", t.nbytes, time.perf_counter() - t0)
+        d = t.direction
+        self._note(d, t.nbytes, time.perf_counter() - t0)
         t._raw = None
         t.open = False
         self._open.pop(t.tid, None)
-        self.inflight_bytes["d2h"] -= t.nbytes
-        self.completed_bytes["d2h"] += t.nbytes
+        self.inflight_bytes[d] -= t.nbytes
+        self.completed_bytes[d] += t.nbytes
         if t.buffer_key is not None:
             self.release_staging_by_key(t.buffer_key, t.tid)
 
@@ -580,6 +605,8 @@ class TransferEngine:
         is recorded on its stream)."""
         if not t.open:
             return
+        if t.direction == "h2d" and isinstance(t._raw, tuple):
+            t._raw[2].synchronize()  # the copy still reads its host source
         self._open.pop(t.tid, None)
         self.inflight_bytes[t.direction] -= t.nbytes
         self.cancelled_bytes[t.direction] += t.nbytes

@@ -285,19 +285,29 @@ def test_16_bit_leaves_cross_bitwise(tmp_path):
 
 
 def test_offload_checkpoint_raises_naming_the_item(jax_runs, tmp_path):
-    """An optimizer file of an offloaded JAX run (``offload_host``) raises
-    before any state changes, naming ROADMAP item 13."""
+    """An optimizer file in the offload format (``offload_host``: the host
+    tier's master and flat moments, the ratio split) loads into the port's
+    device engine as the same run's device-format file does: every
+    quantity bitwise (``engine.py:2371``'s normalisation, run in reverse).
+    ZeRO offload is ported; nothing here raises any more."""
     run = jax_runs("plain")
     d = str(tmp_path / "off")
     shutil.copytree(run.dir, d)
-    NativeCheckpointEngine().save({"offload_host": {"step": 2}, "offload_dev": None,
-                                   "host_idx": [0], "dev_idx": [], "scaler": None},
-                                  os.path.join(d, TAG, "optim_states.ckpt"))
+    optim_path = os.path.join(d, TAG, "optim_states.ckpt")
+    sd = NativeCheckpointEngine().load(optim_path)
+    model = NativeCheckpointEngine().load(os.path.join(d, TAG, "model_states.ckpt"))
+    flat = lambda t: [np.asarray(x, np.float32).reshape(-1) for _, x in _leaves(t)]  # noqa: E731
+    master = [np.asarray(x, np.float32) for _, x in _leaves(model["module"])]
+    NativeCheckpointEngine().save({
+        "offload_host": {"master": master, "m": flat(sd["m"]), "v": flat(sd["v"]),
+                         "step": int(np.asarray(sd["step"]))},
+        "offload_dev": None, "host_idx": list(range(len(master))), "dev_idx": [],
+        "scaler": sd["scaler"]}, optim_path)
     eng = _port_engine("plain", run.init)
-    before = _port_state(eng)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        eng.load_checkpoint(d)
-    _assert_states_equal(_port_state(eng), before, "engine changed before the raise")
+    eng.load_checkpoint(d)
+    ref = _port_engine("plain", run.init)
+    ref.load_checkpoint(run.dir)
+    _assert_states_equal(_port_state(eng), _port_state(ref), "offload_host vs device file")
 
 
 def _universal_files(d):

@@ -27,6 +27,7 @@ import torch
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models import build_model, params_from_jax, params_to_numpy
 from deepspeed_tpu_torch.ops.transformer import attention as tatt
+from deepspeed_tpu_torch.utils.tree import tree_leaves
 
 MODELS = {
     "llama": ("llama-tiny", dict(vocab_size=512, hidden_size=256, num_layers=2, num_heads=4,
@@ -266,11 +267,26 @@ def test_bf16_engine_keeps_fp32_master_and_trains():
         eng.master_params["wte"].to(torch.bfloat16).float().numpy())
 
 
+@pytest.mark.parametrize("zero", [{"stage": 1}, {"offload_optimizer": {"device": "cpu"}}])
+def test_zero_stage_and_offload_configs_train(zero):
+    """ZeRO stage 1 and optimizer offload are ported (ROADMAP item 13's
+    single-card part): they train, as the stage-0 engine does, to within
+    1e-5 over three steps (the offloaded step is the host Adam's)."""
+    b = _batches(512, 1, seed=6)[0]
+    eng = _port_engine("gpt2", _config(zero_optimization=zero))
+    ref = _port_engine("gpt2", _config())
+    got = [float(eng.train_batch(iter([b]))) for _ in range(3)]
+    want = [float(ref.train_batch(iter([b]))) for _ in range(3)]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert got[-1] < got[0]
+    assert eng.zero_optimization_stage() == zero.get("stage", 0)
+
+
 @pytest.mark.parametrize("key,value,match", [
-    ("zero_optimization", {"stage": 1}, "item 13"),
-    ("zero_optimization", {"offload_optimizer": {"device": "cpu"}}, "item 13"),
-    ("mesh", {"data": 1}, "item 13"),
-    ("optimizer", {"type": "OneBitAdam", "params": {}}, "item 13"),
+    ("zero_optimization", {"offload_param": {"device": "cpu"}}, "item 17"),
+    ("zero_optimization", {"zero_quantized_weights": True}, "item 13b"),
+    ("mesh", {"data": 1}, "item 13b"),
+    ("optimizer", {"type": "OneBitAdam", "params": {}}, "item 13b"),
     ("steps_per_execution", 2, "item 17"),
     ("progressive_layer_drop", {"enabled": True}, "item 17"),
     ("compression_training", {"weight_quantization": {}}, "item 17"),
@@ -281,19 +297,25 @@ def test_unported_config_raises_naming_the_item(key, value, match):
 
 
 def test_checkpoints_and_unported_model_fields_raise(tmp_path):
-    """Checkpoints are ported: a save loads back, but an optimizer-offload
-    checkpoint (``offload_host``, ZeRO's) raises naming item 13; so do the
-    unported model fields, naming themselves."""
-    from deepspeed_tpu_torch.runtime.checkpoint_engine.native_checkpoint_engine import (
-        NativeCheckpointEngine)
-
+    """Checkpoints are ported: a save loads back, and an optimizer-offload
+    checkpoint (``offload_host``, ZeRO's) loads into the device engine with
+    the offloaded engine's parameters and moments; the unported model
+    fields raise, naming themselves."""
     eng = _port_engine("llama", _config())
     eng.save_checkpoint(str(tmp_path))
     assert eng.load_checkpoint(str(tmp_path))[0].endswith("global_step0/model_states.ckpt")
-    NativeCheckpointEngine().save({"offload_host": {"step": 0}, "scaler": None},
-                                  str(tmp_path / "global_step0" / "optim_states.ckpt"))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        eng.load_checkpoint(str(tmp_path))
+    off = _port_engine("llama", _config(zero_optimization={
+        "stage": 1, "offload_optimizer": {"device": "cpu"}}))
+    b = _batches(512, 1, seed=6)[0]
+    off.train_batch(iter([b]))
+    off.save_checkpoint(str(tmp_path / "off"))
+    assert eng.load_checkpoint(str(tmp_path / "off"))[0].endswith("global_step1/model_states.ckpt")
+    host = off._offload_mgr["host"]
+    assert int(eng.opt_state.step) == host.step_count == 1
+    for p, want in zip(tree_leaves(eng.get_fp32_params()), host.master):
+        np.testing.assert_array_equal(p.numpy(), want)
+    for m, want in zip(tree_leaves(eng.opt_state.m), host.m):
+        np.testing.assert_array_equal(m.numpy().reshape(-1), want)
     preset, mkw = MODELS["llama"]
     for field, value in (("remat", True), ("progressive_layer_drop", True)):
         m = build_model(preset, **dict(mkw, **{field: value}))
