@@ -226,10 +226,10 @@ c2. phase c's model, batch and settings with ``dropout=0.1``, 6 steps, the
    reference's chain; the last step traced with ``torch.profiler``: the
    device ms of the threefry draws (``prng.bernoulli`` annotated) beside
    the step's, on a ``{"dropout_summary": ...}`` line.
-c3. checkpoints, on phase c's model, batch and settings, the flash counts
-   set to 0 just before and read just after (4 layers, or 2 when the
-   checkout's disk lacks room for a tag, times the steps, + 1 x (d)'s): (a)
-   3 steps, a synchronous ``save_checkpoint`` (~12.9 GB a tag), 3 steps;
+c3. checkpoints, on phase c's model at 2 of its 4 layers (the time limit),
+   batch and settings, the flash counts set to 0 just before and read just
+   after (2 layers times the steps, + 1 x (d)'s): (a)
+   3 steps, a synchronous ``save_checkpoint`` (~8.0 GB a tag), 3 steps;
    (a') 6 steps again from the same weights, bitwise (a)'s losses; (b) a
    fresh engine from other weights ``load_checkpoint``: every parameter,
    master, moment, Adam's step, the scaler, the lr state, the counters and
@@ -261,6 +261,40 @@ z.  ZeRO-Offload (the host libraries ``csrc/cpu_adam.cpp`` and ``csrc/aio.cpp``
     at peak, the TransferEngine's ledger settled at every step boundary; the
     split of a step, host and device memory on a ``{"zero_summary": ...}``
     line.
+r.  activation checkpointing, after c2, on phase c's model and batch: 2 steps
+    (``forward`` / ``backward`` / ``step``, then ``train_batch``) without
+    remat and under each of the seven ``remat_policy`` values, each from the
+    same weights: losses and step 1's gradients bitwise those without remat;
+    the flash counts set to 0 just before each step 1 and read after its
+    backward: 2 x 4 forward launches under ``full``, ``dots_plain`` and
+    ``dots_batch`` (the recompute runs the kernel again), 4 under the others
+    (they keep its residuals), 4 backward; the peak memory over the forward
+    and backward above the engine's in the order ``full`` < ``dots_lean`` <
+    ``dots`` < ``dots_ln`` < ``dots_elem`` < none, ``dots_plain`` < ``dots``;
+    ``full`` with ``dropout=0.1`` bitwise c2's first 2 losses, its second
+    step traced (the threefry draws' device ms, forward and recompute); one
+    llama-7b block through ``checkpointing.checkpoint`` with
+    ``cpu_checkpointing``: its peak below the plain block's, its gradients
+    bitwise. A ``{"remat_summary": ...}`` line.
+p.  the parameter tier, after z: (p2) at llama-7b width, 2 layers, fp32, a
+    constant lr, 2 steps: the streamed engine (stage 3, ``offload_param:
+    cpu``) within rtol 1e-4 of the resident engine with ``offload_optimizer:
+    cpu`` from the same weights, the ``nvme`` tier bitwise ``cpu`` (losses
+    and masters, the stem's file and one a layer), GAS 2 within 2e-4 of the
+    resident engine at GAS 2; (p1) llama-7b at all 32 layers streamed from
+    host RAM, phase c's settings, 4 steps (the last traced with
+    ``torch.profiler``), after checking that 85 GB of host RAM are free (the
+    machine's, and under its cgroup's limit): no master, moment or weight on
+    the card after set-up, at most 2 parameter groups live, each step's
+    update held to the plain Adam on ranges of the stem's and three layers'
+    leaves, the card's peak below the bf16 weight set and gradient (the
+    gradient stays on the card until the Adam's pass streams it down), 2 x
+    32 x 4 forward and 32 x 4 backward flash launches (the counts
+    set to 0 just before and read just after); the lr 0, 0, 3e-4, 3e-4 (the
+    streamed engine reads the warm-up before it steps it, as the JAX one
+    does), so losses 1-3 are bitwise equal and the 4th below them. A
+    ``{"stream_summary": ...}`` line: the step, its host split and the
+    traced step's device split, card peak, host RSS, tokens/s.
 
 Then block-sparse attention:
 
@@ -3690,6 +3724,9 @@ def ce_timing(fc, dev):
 #: in .gitignore), deleted before the phase ends
 CKPT_DIR = os.path.join(HERE, "build", "ckpt_c3")
 CKPT_SUP_LAYERS = 1  # (d) and (e): llama-7b width at depth 1 (~5.6 GB a tag)
+#: (a)-(c)'s depth: 2 of phase c's 4 layers (an 8.0 GB tag), so that the
+#: script stays within its time limit beside phases r and p
+CKPT_LAYERS = 2
 
 
 def ckpt_tag_bytes(layers):
@@ -3769,11 +3806,10 @@ def ckpt_phase(fa, dev, card):
     free = shutil.disk_usage(CKPT_DIR).free
     # one full-depth tag on disk at a time ((a)'s, then (c)'s), then (d)'s
     # two at depth 1
-    need = {n: max(1.2 * ckpt_tag_bytes(n), 2.2 * ckpt_tag_bytes(CKPT_SUP_LAYERS))
-            for n in (4, 2)}
-    layers = 4 if free > need[4] else 2
-    check(free > need[layers], f"phase c3: {free / 1e9:.1f} GB free under {CKPT_DIR}, "
-          f"below the {need[layers] / 1e9:.1f} GB the phase writes at depth {layers}")
+    layers = CKPT_LAYERS
+    need = max(1.2 * ckpt_tag_bytes(layers), 2.2 * ckpt_tag_bytes(CKPT_SUP_LAYERS))
+    check(free > need, f"phase c3: {free / 1e9:.1f} GB free under {CKPT_DIR}, "
+          f"below the {need / 1e9:.1f} GB the phase writes at depth {layers}")
     B, S = TRAIN_CONFIG["train_micro_batch_size_per_gpu"], 2048
     summary = {"card": card, "layers": layers, "sup_layers": CKPT_SUP_LAYERS,
                "disk_free_gb": free / 1e9}
@@ -3995,16 +4031,13 @@ class StepRecorder:
         return self.opt.step_flat(p, g, m, v, step, **kw)
 
 
-def zero_update_probe(engine, acc):
-    """Before an offloaded step: every host leaf's ``zero_windows`` of the
-    fp32 master, the moments and the gradient the tier will read, as CPU
-    copies. ``zero_update_check`` holds the step's result to them."""
-    from deepspeed_tpu_torch.utils.tree import tree_leaves
-
-    mgr = engine._offload_mgr
-    tier, grads = mgr["host"], list(tree_leaves(acc))
+def zero_update_probe(tier, grads, pairs):
+    """Before an offloaded step: the ``zero_windows`` of each probed host
+    leaf's fp32 master, the moments and the gradient the tier will read, as
+    CPU copies (``pairs``: (j, i), host leaf j of ``tier`` stepped by
+    ``grads[i]``). ``zero_update_check`` holds the step's result to them."""
     probe = []
-    for j, i in enumerate(mgr["host_idx"]):
+    for j, i in pairs:
         p = tier.master[j].reshape(-1)
         m, v, _ = tier._moments(j)
         g = grads[i].detach().reshape(-1)
@@ -4015,20 +4048,18 @@ def zero_update_probe(engine, acc):
     return probe
 
 
-def zero_update_check(engine, probe, label):
+def zero_update_check(tier, recorder, probe, label, params=None):
     """After the step: each probed range of the host master and moments
     within 1e-6 of the range's largest element of ``adam_step_plain`` on the
-    probed inputs (the library may contract to FMAs), and the device weight
-    bitwise the master's bf16 cast (the upload landed where it belongs).
-    Returns the step's lr and the largest relative error."""
+    probed inputs (the library may contract to FMAs), and, given the
+    device weights ``params``, each bitwise the master's bf16 cast (the
+    upload landed where it belongs). ``recorder``: the ``StepRecorder`` the
+    step ran through. Returns the step's lr and the largest relative error."""
     from deepspeed_tpu_torch.ops.adam.cpu_adam import adam_step_plain
     from deepspeed_tpu_torch.runtime.zero.offload import lp_cast
-    from deepspeed_tpu_torch.utils.tree import tree_leaves
 
-    mgr = engine._offload_mgr
-    tier, opt = mgr["host"], mgr["cpu_opt"].opt
-    step, kw = mgr["cpu_opt"].last
-    params = list(tree_leaves(engine.params))
+    opt = recorder.opt
+    step, kw = recorder.last
     worst = 0.0
     for j, i, a, b, p, g, m, v in probe:
         before = p.clone()
@@ -4047,6 +4078,8 @@ def zero_update_check(engine, probe, label):
         if kw["lr"] > 0:
             check(not torch.equal(master, before),
                   f"{label}: leaf {i} [{a}, {b}) did not move at lr {kw['lr']}")
+        if params is None:
+            continue
         dev = params[i].detach().reshape(-1)[a:b].cpu()
         check(torch.equal(dev.view(torch.int16), lp_cast(master, dev.dtype).view(torch.int16)),
               f"{label}: leaf {i} [{a}, {b}) on the card is not the master's "
@@ -4055,7 +4088,9 @@ def zero_update_check(engine, probe, label):
 
 
 def host_memory():
-    """This process's resident bytes and the machine's available bytes."""
+    """This process's resident bytes, the machine's available bytes and,
+    where the process runs in a memory-limited cgroup (v2), its limit and
+    the anonymous bytes counted against it (page cache can be reclaimed)."""
     out = {}
     with open("/proc/self/status") as f:
         for line in f:
@@ -4065,13 +4100,32 @@ def host_memory():
         for line in f:
             if line.startswith(("MemTotal:", "MemAvailable:")):
                 out[line.split(":")[0].lower() + "_bytes"] = int(line.split()[1]) * 1024
+    try:
+        with open("/sys/fs/cgroup/memory.max") as f:
+            limit = f.read().strip()
+        with open("/sys/fs/cgroup/memory.stat") as f:
+            anon = next(int(line.split()[1]) for line in f if line.startswith("anon "))
+        if limit != "max":
+            out["cgroup_max_bytes"], out["cgroup_anon_bytes"] = int(limit), anon
+    except (OSError, StopIteration, ValueError):
+        pass
     return out
+
+
+def host_free(mem):
+    """The bytes a phase can still take: the machine's available memory,
+    or less under a cgroup's limit."""
+    free = mem.get("memavailable_bytes", 0)
+    if "cgroup_max_bytes" in mem:
+        free = min(free, mem["cgroup_max_bytes"] - mem["cgroup_anon_bytes"])
+    return free
 
 
 def release_host_pinned():
     """Give back the pinned host pages torch's allocator keeps cached (the
-    checkpoint phases' gathers leave ~13 GB): phase z's master and moments
-    take 81 GB of host RAM."""
+    checkpoint phases' gathers leave ~13 GB) and the C heap's free pages:
+    phase z's master and moments take 81 GB of host RAM, phase p's 95 GB."""
+    import ctypes
     import gc
 
     gc.collect()
@@ -4080,6 +4134,10 @@ def release_host_pinned():
     fn = getattr(torch._C, "_host_emptyCache", None)
     if fn is not None:
         fn()
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except (OSError, AttributeError):  # not glibc: nothing to trim
+        pass
 
 
 def zero_engine(dev, layers, zero, seed=0, **cfg):
@@ -4152,12 +4210,16 @@ def zero_full_depth(fa, pa, dev, card):
         # leaf (the probe's time is taken out of the step's)
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
-        probe = zero_update_probe(engine, acc)
+        mgr = engine._offload_mgr
+        probe = zero_update_probe(mgr["host"], list(tree_leaves(acc)),
+                                  enumerate(mgr["host_idx"]))
         t0 = time.perf_counter()
         out = step_offload(acc, lr)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        updates.append(zero_update_check(engine, probe, f"z1 step {len(marks)}"))
+        updates.append(zero_update_check(mgr["host"], mgr["cpu_opt"], probe,
+                                         f"z1 step {len(marks)}",
+                                         list(tree_leaves(engine.params))))
         probe_s.append(t0 - marks[-1] + time.perf_counter() - t1)
         return out
 
@@ -4185,7 +4247,7 @@ def zero_full_depth(fa, pa, dev, card):
         split["step_s"] = t1 - t0
         splits.append(split)
     launches = {"fwd": fa.fwd_launches, "bwd": fa.bwd_launches, "paged": pa.launches}
-    engine._step_offload = step_offload
+    del engine._step_offload  # the engine's own method again
     peak = torch.cuda.max_memory_allocated()
     host1 = host_memory()
     check(all(np.isfinite(losses)), f"z1: non-finite losses {losses}")
@@ -4222,7 +4284,7 @@ def zero_full_depth(fa, pa, dev, card):
         f"step median {med:.1f} ms "
         f"(fwd+bwd {mid['fwd_bwd_s']:.3f} s, Adam {mid['adam_s']:.3f} s), "
         f"peak {peak / 2**30:.1f} GiB, host RSS {host1['rss_bytes'] / 2**30:.1f} GiB")
-    del engine
+    del engine, tier, step_offload, marked  # the host state goes now, not at the next gc
     release_host_pinned()
     return launches, summary
 
@@ -4459,6 +4521,496 @@ def zero_phase(fa, pa, dev, card):
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# phase r: activation checkpointing
+# ---------------------------------------------------------------------------
+#: the remat policies in phase r's order, and those whose backward runs the
+#: flash forward again (they keep no flash residual)
+REMAT_POLICIES = ("full", "dots_lean", "dots_plain", "dots_batch", "dots", "dots_ln",
+                  "dots_elem")
+REMAT_REFLASH = ("full", "dots_plain", "dots_batch")
+
+
+def remat_engine(dev, **model_kw):
+    """Phase c's engine (llama-7b width, 4 layers, seed 0, TRAIN_CONFIG)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import build_model
+
+    model = build_model("llama-7b", num_layers=4, **model_kw)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    engine = deepspeed_tpu_torch.initialize(model=model, model_parameters=params,
+                                            config=dict(TRAIN_CONFIG), device=dev)[0]
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return engine, model.config
+
+
+def remat_run(fa, dev, batch, policy, ref_grads=None, dropout=0.0, trace=False):
+    """Two steps of phase c's engine under ``policy`` (None: no remat): step
+    1 as ``forward`` / ``backward`` / ``step``, its peak memory and flash
+    launches over the forward and backward, its gradients bitwise
+    ``ref_grads``; step 2 as ``train_batch``, timed (traced with
+    ``trace``: the threefry draws' device ms)."""
+    from deepspeed_tpu_torch.utils import prng
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+
+    kw = dict(remat=True, remat_policy=policy) if policy else {}
+    engine, cfg = remat_engine(dev, dropout=dropout, **kw)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fa.fwd_launches = fa.bwd_launches = 0  # every count, just before
+    t0 = time.perf_counter()
+    loss = engine(batch)
+    engine.backward(loss)
+    torch.cuda.synchronize()
+    fwd_bwd_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    step1 = {"fwd": fa.fwd_launches, "bwd": fa.bwd_launches}
+    grads = list(tree_leaves(engine._acc_grads))
+    if ref_grads is not None:
+        bad = [i for i, (a, b) in enumerate(zip(grads, ref_grads)) if not torch.equal(a, b)]
+        check(not bad, f"r ({policy}): step-1 gradients differ from those without remat at "
+              f"leaves {bad}")
+    engine.step()
+    real = prng.bernoulli
+    draws = []
+
+    def annotated(key, p, shape):
+        with torch.profiler.record_function("threefry_bernoulli"):
+            return real(key, p, shape)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if trace:
+        prng.bernoulli = annotated
+        try:
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                loss2 = engine.train_batch(iter([batch]))
+                torch.cuda.synchronize()
+        finally:
+            prng.bernoulli = real
+        draws = [e for e in prof.events() if e.name == "threefry_bernoulli"
+                 and e.device_type == torch.autograd.DeviceType.CPU]
+    else:
+        loss2 = engine.train_batch(iter([batch]))
+    torch.cuda.synchronize()
+    step2_ms = (time.perf_counter() - t0) * 1e3
+    out = {"losses": [float(loss.detach()), float(loss2)], "fwd_bwd_ms": fwd_bwd_ms,
+           "step_ms": step2_ms, "max_memory_allocated_bytes": peak,
+           "activation_peak_bytes": peak - base,
+           "launches": {"fwd": fa.fwd_launches, "bwd": fa.bwd_launches}, "step1": step1}
+    if trace:
+        out["threefry_draws_traced"] = len(draws)
+        out["threefry_device_ms_per_step"] = sum(e.device_time_total for e in draws) / 1e3
+    L = cfg.num_layers
+    want = 2 * L if policy in REMAT_REFLASH else L
+    check(step1 == {"fwd": want, "bwd": L},
+          f"r ({policy}): flash launches over a forward and backward {step1}, expected "
+          f"{want} forward and {L} backward")
+    del engine
+    torch.cuda.empty_cache()
+    return out, (grads if ref_grads is None else None)
+
+
+def remat_cpu_checkpointing(dev):
+    """``checkpointing.checkpoint`` with ``cpu_checkpointing`` on one
+    llama-7b block (bf16, 2 x 2048 tokens) against the block without it:
+    the card's peak over the forward and backward falls, the gradients are
+    bitwise."""
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing as ck
+
+    model = build_model("llama-7b", num_layers=1)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16)
+    blk = {k: w[0].requires_grad_() for k, w in params["blocks"].items()}
+    del params
+    x = torch.randn((2, 2048, 4096), dtype=torch.bfloat16, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2)).requires_grad_()
+    pos = torch.arange(2048, dtype=torch.int32, device=dev).expand(2, 2048)
+    leaves = [x] + [blk[k] for k in sorted(blk)]
+    out = {}
+    for name, on in (("plain", False), ("cpu_checkpointing", True)):
+        ck.configure(checkpoint_in_cpu=on)
+        try:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            fn = model._block if not on else (lambda *a: ck.checkpoint(model._block, *a))
+            y = fn(x, blk, pos, None, True)
+            grads = torch.autograd.grad(y.float().square().mean(), leaves)
+            torch.cuda.synchronize()
+            out[name] = {"peak_bytes": torch.cuda.max_memory_allocated() - base,
+                         "ms": (time.perf_counter() - t0) * 1e3, "grads": grads}
+            del y
+        finally:
+            ck.configure(checkpoint_in_cpu=False)
+    bad = [i for i, (a, b) in enumerate(zip(out["plain"]["grads"],
+                                            out["cpu_checkpointing"]["grads"]))
+           if not torch.equal(a, b)]
+    check(not bad, f"r: cpu_checkpointing's gradients differ at leaves {bad}")
+    check(out["cpu_checkpointing"]["peak_bytes"] < out["plain"]["peak_bytes"],
+          f"r: cpu_checkpointing's peak {out['cpu_checkpointing']['peak_bytes']} B is not "
+          f"below the plain block's {out['plain']['peak_bytes']} B")
+    for v in out.values():
+        del v["grads"]
+    del blk, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_phase(fa, dev, card, base, dropout_base):
+    """Phase r: phase c's model and batch, 2 steps under no remat and under
+    each policy; ``full`` with dropout 0.1 against phase c2's run; one block
+    under ``cpu_checkpointing``. Returns the flash launches and the summary."""
+    from deepspeed_tpu_torch.models import build_model
+
+    vocab = build_model("llama-7b", num_layers=4).config.vocab_size
+    cfg_batch = {"input_ids": torch.randint(  # phase c's batch
+        0, vocab, (TRAIN_CONFIG["train_micro_batch_size_per_gpu"], 2048), dtype=torch.int32,
+        device=dev, generator=torch.Generator(device=dev).manual_seed(0))}
+    launches = {"fwd": 0, "bwd": 0}
+    runs = {}
+    ref, ref_grads = remat_run(fa, dev, cfg_batch, None)
+    runs["none"] = ref
+    for policy in REMAT_POLICIES:
+        runs[policy], _ = remat_run(fa, dev, cfg_batch, policy, ref_grads=ref_grads)
+        check(runs[policy]["losses"] == ref["losses"],
+              f"r ({policy}): losses {runs[policy]['losses']} vs {ref['losses']} without remat")
+    del ref_grads
+    torch.cuda.empty_cache()
+    drop, _ = remat_run(fa, dev, cfg_batch, "full", dropout=0.1, trace=True)
+    check(drop["losses"] == dropout_base["losses"][:2],
+          f"r: full remat with dropout {drop['losses']} vs phase c2's "
+          f"{dropout_base['losses'][:2]}")
+    for r in list(runs.values()) + [drop]:
+        for k in launches:
+            launches[k] += r["launches"][k]
+    peak = {p: r["activation_peak_bytes"] for p, r in runs.items()}
+    order = ("full", "dots_lean", "dots", "dots_ln", "dots_elem", "none")
+    check(all(peak[a] < peak[b] for a, b in zip(order, order[1:]))
+          and peak["dots_plain"] < peak["dots"],
+          f"r: peak activation memory out of the policies' order: {peak}")
+    cpu_ck = remat_cpu_checkpointing(dev)
+    summary = {
+        "card": card, "model": "llama-7b", "layers": 4, "reduced": "depth 32 -> 4 (phase c)",
+        "batch": [TRAIN_CONFIG["train_micro_batch_size_per_gpu"], 2048],
+        "phase_c_step_ms_median": base["step_ms_median"], "runs": runs,
+        "dropout_full": dict(drop, phase_c2_threefry_device_ms_per_step=dropout_base[
+            "threefry_device_ms_per_step"], phase_c2_draws_traced=dropout_base[
+            "threefry_draws_traced"]),
+        "cpu_checkpointing_block": cpu_ck, "launches": launches,
+    }
+    log("phase r (remat, llama-7b width, 4 layers): every policy's losses and step-1 "
+        "gradients bitwise those without remat; peak activation GiB "
+        + ", ".join(f"{p} {peak[p] / 2**30:.2f}" for p in ("none",) + REMAT_POLICIES)
+        + "; step ms " + ", ".join(f"{p} {runs[p]['step_ms']:.1f}" for p in runs)
+        + f"; full + dropout bitwise c2, threefry {drop['threefry_device_ms_per_step']} "
+        f"device ms a step ({drop['threefry_draws_traced']} draws); cpu_checkpointing "
+        f"block peak {cpu_ck['cpu_checkpointing']['peak_bytes'] / 2**30:.2f} GiB vs "
+        f"{cpu_ck['plain']['peak_bytes'] / 2**30:.2f}")
+    return launches, summary
+
+
+# ---------------------------------------------------------------------------
+# phase p: parameter streaming (ZeRO-Infinity's parameter tier)
+# ---------------------------------------------------------------------------
+#: (p1)'s depth: llama-7b's every layer
+P_LAYERS = 32
+#: where phase p writes its NVMe files: under build/ (listed in .gitignore)
+P_DIR = os.path.join(HERE, "build", "stream_p")
+#: host bytes (p1) needs free: 27 GB of fp32 master, 54 GB of moments, the
+#: update probe's copies (~1 GB) and the gradient chunks in flight
+P_HOST_BYTES = 85e9
+
+
+def stream_engine(dev, layers, offload_param, weights=None, **cfg):
+    """A llama-7b-width streamed engine (stage 3, ``offload_param``), phase
+    c's settings; with ``weights`` (a CPU tree) its own draw is replaced by a
+    copy of them, so that twins start from one draw."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.utils.tree import tree_map
+
+    model = build_model("llama-7b", num_layers=layers)
+    if weights is not None:
+        model.init_params = lambda *a, **k: tree_map(lambda t: t.clone(), weights)
+    cfg = dict(TRAIN_CONFIG, steps_per_print=0, zero_optimization={
+        "stage": 3, "offload_param": offload_param}, **cfg)
+    return deepspeed_tpu_torch.initialize(model=model, config=cfg, device=dev)[0], model.config
+
+
+def stream_twins(fa, dev):
+    """(p2) at llama-7b width, 2 layers, fp32, 2 steps: the streamed ``cpu``
+    engine against the resident engine (stage 0, ``offload_optimizer: cpu``)
+    from the same weights, losses within rtol 1e-4 (``test_param_swap.py:80``);
+    ``nvme`` bitwise ``cpu``, losses and masters; GAS 2 against the resident
+    engine at GAS 2 within rtol 2e-4."""
+    import gc
+    import shutil
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import build_model
+
+    # fp32, and a constant lr: the streamed engine takes its lr from the
+    # scheduler's get_lr() before the step (a warm-up starts at 0 there, the
+    # JAX streamed engine's order), the resident engine from get_last_lr()
+    fp32 = {"bf16": {"enabled": False}, "scheduler": None}
+    model = build_model("llama-7b", num_layers=2)
+    weights = model.init_params(torch.Generator().manual_seed(0))
+    bs = [zero_batch(model.config, dev, seed=s) for s in range(4)]
+    f0, b0 = fa.fwd_launches, fa.bwd_launches
+    out = {}
+
+    def resident(**cfg):
+        zero = {"stage": 0, "offload_optimizer": {"device": "cpu"}}
+        return deepspeed_tpu_torch.initialize(
+            model=build_model("llama-7b", num_layers=2), model_parameters=weights,
+            config=dict(TRAIN_CONFIG, steps_per_print=0, zero_optimization=zero, **cfg),
+            device=dev)[0]
+
+    try:
+        runs = {}
+        for name, off in (("cpu", {"device": "cpu"}),
+                          ("nvme", {"device": "nvme", "nvme_path": P_DIR})):
+            eng, _ = stream_engine(dev, 2, off, weights, **fp32)
+            t0 = time.perf_counter()
+            losses = zero_steps(eng, bs[0], 2)
+            runs[name] = {"losses": losses, "wall_s": time.perf_counter() - t0,
+                          "max_live_groups": eng.store.max_live_groups,
+                          "masters": [m.copy() for m in eng.adam_state.master]}
+            if name == "nvme":
+                runs[name]["files"] = sorted(f for f in os.listdir(P_DIR)
+                                             if f.startswith("param_group"))
+            check(eng.store.max_live_groups <= 2,
+                  f"p2 ({name}): {eng.store.max_live_groups} groups live at once")
+            eng.close()
+            del eng
+            gc.collect()
+        check(runs["nvme"]["losses"] == runs["cpu"]["losses"],
+              f"p2: nvme losses {runs['nvme']['losses']} vs cpu {runs['cpu']['losses']}")
+        bad = [i for i, (a, b) in enumerate(zip(runs["nvme"]["masters"], runs["cpu"]["masters"]))
+               if not np.array_equal(a, b)]
+        check(not bad, f"p2: nvme masters differ from cpu at leaves {bad}")
+        check(runs["nvme"]["files"] == [f"param_group_{i}.bin" for i in range(3)],
+              f"p2: nvme files {runs['nvme']['files']}")
+        for r in runs.values():
+            del r["masters"]
+        eng = resident(**fp32)
+        ref = zero_steps(eng, bs[0], 2)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        a, b = np.asarray(runs["cpu"]["losses"]), np.asarray(ref)
+        check(np.all(np.isfinite(a)) and np.allclose(a, b, rtol=1e-4, atol=1e-4),
+              f"p2: streamed losses {a.tolist()} vs the resident engine's {b.tolist()} (1e-4)")
+        gas = dict(fp32, gradient_accumulation_steps=2)
+        eng, _ = stream_engine(dev, 2, {"device": "cpu"}, weights, **gas)
+        it = iter(bs)
+        got = [float(eng.train_batch(it)) for _ in range(2)]
+        eng.close()
+        del eng
+        eng = resident(**gas)
+        it = iter(bs)
+        want = [float(eng.train_batch(it)) for _ in range(2)]
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(np.allclose(got, want, rtol=2e-4, atol=2e-4),
+              f"p2: GAS 2 streamed {got} vs resident {want} (2e-4)")
+        out = {"streamed": runs, "resident": ref, "gas2": {"streamed": got, "resident": want}}
+    finally:
+        shutil.rmtree(P_DIR, ignore_errors=True)
+    launches = {"fwd": fa.fwd_launches - f0, "bwd": fa.bwd_launches - b0}
+    log(f"p2 (llama-7b width, 2 layers, fp32): streamed cpu within 1e-4 of the resident "
+        f"engine, nvme bitwise cpu ({runs['nvme']['files']}), GAS 2 within 2e-4")
+    return launches, out
+
+
+#: (p1)'s probed groups: the stem, the first, middle and last layers
+def stream_probe_pairs(engine):
+    L = engine.L
+    groups = {0, 1, 1 + L // 2, L}
+    pairs, j = [], 0
+    for gi, g in enumerate(engine._groups):
+        for _ in g:
+            if gi in groups:
+                pairs.append((j, j))
+            j += 1
+    return pairs
+
+
+def stream_device_split(prof, wall_s):
+    """Device ms of a traced step by kind, from ``torch.profiler``'s kernels,
+    and the share of the step's wall time the compute kernels fill."""
+    kinds = {"flash": 0.0, "gemm": 0.0, "memcpy_h2d": 0.0, "memcpy_d2h": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name, ms = e.key.lower(), e.self_device_time_total / 1e3
+        if "htod" in name:
+            kinds["memcpy_h2d"] += ms
+        elif "dtoh" in name:
+            kinds["memcpy_d2h"] += ms
+        elif "attn_" in name:
+            kinds["flash"] += ms
+        elif any(t in name for t in ("gemm", "xmma", "cutlass", "sm90_", "cublas", "nvjet")):
+            kinds["gemm"] += ms
+        else:
+            kinds["other"] += ms
+    marks = {}
+    for e in prof.events():
+        if e.name in ("param_get", "grad_d2h") and e.device_type == torch.autograd.DeviceType.CPU:
+            marks[e.name] = marks.get(e.name, 0.0) + e.device_time_total / 1e3
+    compute = kinds["flash"] + kinds["gemm"] + kinds["other"]
+    return dict(kinds, param_cast_ms=marks.get("param_get", 0.0),
+                grad_snapshot_ms=marks.get("grad_d2h", 0.0),
+                compute_busy_share=compute / (wall_s * 1e3))
+
+
+def stream_full_depth(fa, pa, dev, card):
+    """(p1) llama-7b at ``P_LAYERS`` layers, its parameters streamed from
+    host RAM (stage 3, ``offload_param: cpu``), phase c's settings, 4
+    ``train_batch`` steps, the last traced. The JAX streamed engine reads
+    the warm-up's lr before it steps the scheduler: 0, 0, 3e-4, 3e-4, so
+    steps 1-3 see the same weights (their losses bitwise equal) and step 4
+    the first update's."""
+    from deepspeed_tpu_torch.analysis.sanitizer import check_transfer_ledger
+
+    release_host_pinned()
+    host0 = host_memory()
+    check(host_free(host0) >= P_HOST_BYTES,
+          f"p1 needs {P_HOST_BYTES / 1e9:.0f} GB of host RAM free, the process can take "
+          f"{host_free(host0) / 1e9:.1f} GB ({host0})")
+    before_setup = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engine, cfg = stream_engine(dev, P_LAYERS, {"device": "cpu"})
+    setup_s = time.perf_counter() - t0
+    n_params = sum(m.size for m in engine.adam_state.master)
+    after_setup = torch.cuda.memory_allocated() - before_setup
+    check(after_setup < 2**30,
+          f"p1: the set-up left {after_setup / 2**30:.2f} GiB on the card: a master, a "
+          f"moment or the weights live there")
+    host1 = host_memory()
+    batch = zero_batch(cfg, dev)
+    B = batch["input_ids"].shape[0]
+    engine.cpu_opt = StepRecorder(engine.cpu_opt)
+    tier, real_step = engine.adam_state, engine.adam_state.adam_step
+    updates, probe_s = [], []
+
+    def probed(opt, grads, lr, **kw):
+        t0 = time.perf_counter()
+        probe = zero_update_probe(tier, grads, stream_probe_pairs(engine))
+        t1 = time.perf_counter()
+        out = real_step(opt, grads, lr, **kw)
+        t2 = time.perf_counter()
+        updates.append(zero_update_check(tier, engine.cpu_opt, probe,
+                                         f"p1 step {len(updates) + 1}"))
+        probe_s.append(t1 - t0 + time.perf_counter() - t2)
+        return out
+
+    tier.adam_step = probed
+    store, te = engine.store, engine._transfer
+    real_get, real_d2h = store.get, te.submit_d2h
+
+    def get(gi):
+        with torch.profiler.record_function("param_get"):
+            return real_get(gi)
+
+    def d2h(arr):
+        with torch.profiler.record_function("grad_d2h"):
+            return real_d2h(arr)
+
+    store.get, te.submit_d2h = get, d2h
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, splits, lrs = [], [], [], []
+    steps = 4
+    fa.fwd_launches = fa.bwd_launches = pa.launches = 0  # every count, just before
+    for i in range(steps):
+        before = dict(engine.stats, **{f"store_{k}": v for k, v in store.stats.items()},
+                      **{f"tier_{k}": v for k, v in tier.stats.items()})
+        lrs.append(engine.get_lr()[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == steps - 1:
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                losses.append(float(engine.train_batch(iter([batch]))))
+                torch.cuda.synchronize()
+        else:
+            losses.append(float(engine.train_batch(iter([batch]))))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0 - probe_s[-1])
+        check_transfer_ledger(te)
+        now = dict(engine.stats, **{f"store_{k}": v for k, v in store.stats.items()},
+                   **{f"tier_{k}": v for k, v in tier.stats.items()})
+        splits.append({k: now[k] - before[k] for k in now
+                       if k not in ("init_s", "register_s")})
+    launches = {"fwd": fa.fwd_launches, "bwd": fa.bwd_launches, "paged": pa.launches}
+    del tier.adam_step, store.get, te.submit_d2h  # the engine's own methods again
+    peak = torch.cuda.max_memory_allocated()
+    host2 = host_memory()
+    device_split = stream_device_split(prof, step_s[-1] + probe_s[-1])
+    L = cfg.num_layers
+    check(all(np.isfinite(losses)), f"p1: non-finite losses {losses}")
+    check(lrs == [0.0, 0.0, 3e-4, 3e-4], f"p1: lr sequence {lrs}")
+    check(losses[0] == losses[1] == losses[2] and losses[3] < losses[0],
+          f"p1: losses {losses}: steps 1-3 at the same weights, step 4 below them")
+    check(engine.store.max_live_groups <= 2,
+          f"p1: {engine.store.max_live_groups} parameter groups live on the card at once")
+    check(launches == {"fwd": 2 * L * steps, "bwd": L * steps, "paged": 0},
+          f"p1: launches {launches}; expected {2 * L * steps} forward (the forward and the "
+          f"recompute) and {L * steps} backward flash launches")
+    check(peak < 4 * n_params, f"p1: the card peaked at {peak / 2**30:.2f} GiB, the bf16 "
+          f"weight set and gradient {4 * n_params / 2**30:.2f} GiB: the weights were on it")
+    med = float(np.median([s * 1e3 for s in step_s[1:]]))
+    free = subprocess.run(["free", "-b"], capture_output=True, text=True).stdout
+    summary = {
+        "card": card, "model": "llama-7b", "layers": L,
+        "reduced": "none" if L == 32 else f"depth 32 -> {L}", "params": n_params,
+        "dtype": "bfloat16 compute; fp32 master + Adam in host RAM",
+        "zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}},
+        "batch": [B, 2048], "steps": steps, "losses": losses, "lrs": lrs,
+        "setup_s": setup_s, "setup_split_s": {k: engine.stats.get(k) for k in (
+            "init_s", "register_s")},
+        "step_ms": [s * 1e3 for s in step_s], "step_ms_median": med,
+        "tokens_per_s": B * 2048 / (med / 1e3), "host_split": splits,
+        "device_split_traced_step": device_split, "update_check": {
+            "windows": sum(len(zero_windows(tier.master[j].size))
+                           for j, _ in stream_probe_pairs(engine)),
+            "lr_and_max_rel_err": updates, "probe_s": probe_s},
+        "max_live_groups": engine.store.max_live_groups,
+        "device_bytes_after_setup": after_setup, "max_memory_allocated_bytes": peak,
+        "host_registered_bytes": engine._pinned.nbytes if engine._pinned else 0,
+        "host_before": host0,
+        "host_after_setup": host1, "host_after": host2, "launches": launches,
+        "transfer": {d: te.ledger()["completed"][d] for d in ("h2d", "d2h")},
+        "free": free.strip().splitlines(),
+    }
+    log(f"p1 (streamed, llama-7b {L} layers, {n_params} params): losses "
+        f"{[round(x, 4) for x in losses]}, updates vs the plain Adam {updates}, step median "
+        f"{med:.1f} ms, peak {peak / 2**30:.2f} GiB, set-up {setup_s:.1f} s, host RSS "
+        f"{host2['rss_bytes'] / 2**30:.1f} GiB, live groups {engine.store.max_live_groups}")
+    engine.close()
+    del engine, tier, store, te, real_step, real_get, real_d2h, probed, get, d2h
+    release_host_pinned()
+    return launches, summary
+
+
+def stream_phase(fa, pa, dev, card):
+    """Phase p: (p2) first, then (p1). Returns the flash launches and the
+    summary."""
+    release_host_pinned()  # z1's host state, whatever the collector left
+    l2, twins = stream_twins(fa, dev)
+    l1, full = stream_full_depth(fa, pa, dev, card)
+    return {k: l1[k] + l2[k] for k in ("fwd", "bwd")}, {"card": card, "twins": twins,
+                                                        "full_depth": full}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: this script needs an "
@@ -4559,10 +5111,15 @@ def main():
     log(json.dumps({"train_summary": train_summary}))
     dropout_launches, dropout_summary = dropout_train_path(fa, dev, train_summary)
     log(json.dumps({"dropout_summary": dict(card=smi.stdout.strip(), **dropout_summary)}))
+    remat_launches, remat_summary = remat_phase(fa, dev, smi.stdout.strip(), train_summary,
+                                                dropout_summary)
+    log(json.dumps({"remat_summary": remat_summary}))
     ckpt_launches, ckpt_summary = ckpt_phase(fa, dev, smi.stdout.strip())
     log(json.dumps({"ckpt_summary": ckpt_summary}))
     zero_launches, zero_summary = zero_phase(fa, pa, dev, smi.stdout.strip())
     log(json.dumps({"zero_summary": zero_summary}))
+    stream_launches, stream_summary = stream_phase(fa, pa, dev, smi.stdout.strip())
+    log(json.dumps({"stream_summary": stream_summary}))
 
     sparse_fe, sparse_be = sparse_kernels_vs_plain(bs, dev)
     sparse_launches, path_errs, path_stats = sparse_main_path(bs, fa, dev)
@@ -4595,17 +5152,18 @@ def main():
              source="deepspeed_tpu_torch/csrc/paged_attention.cu",
              replaces="deepspeed_tpu/ops/transformer/paged_attention.py:76",
              launches=launches + pool_launches, **k),
-        # the training paths' launches (phases c, c2, c3 and z) and the slot path's
-        # (phase 8); the times at the training shape, the slot shapes' on
+        # the training paths' launches (phases c, c2, r, c3, z and p) and the slot
+        # path's (phase 8); the times at the training shape, the slot shapes' on
         # slot_summary
         dict(name="flash_attention_fwd", route="cuda", source=flash_src,
              replaces="deepspeed_tpu/ops/transformer/flash_attention.py:43",
-             launches=train_launches["fwd"] + dropout_launches["fwd"] + ckpt_launches["fwd"]
-             + zero_launches["fwd"] + slot_launches, **fwd),
+             launches=train_launches["fwd"] + dropout_launches["fwd"] + remat_launches["fwd"]
+             + ckpt_launches["fwd"] + zero_launches["fwd"] + stream_launches["fwd"]
+             + slot_launches, **fwd),
         dict(name="flash_attention_bwd", route="cuda", source=flash_src,
              replaces="deepspeed_tpu/ops/transformer/flash_attention.py:124",
-             launches=train_launches["bwd"] + dropout_launches["bwd"] + ckpt_launches["bwd"]
-             + zero_launches["bwd"], **bwd),
+             launches=train_launches["bwd"] + dropout_launches["bwd"] + remat_launches["bwd"]
+             + ckpt_launches["bwd"] + zero_launches["bwd"] + stream_launches["bwd"], **bwd),
         # int8 on w_gate/w_up's (4096, 11008): woq_matmul at decode rows (8,
         # woq_gemv_kernel; launches of every row count), woq_matmul_prefill
         # at 256 rows (woq_mma_kernel; the tiled launches); every shape,

@@ -13,8 +13,11 @@ with ``paged=True`` over ``models.TransformerLM.forward_paged``) and its
 ``backward`` / ``step`` over ``TransformerLM.apply``) on one card, at ZeRO
 stages 0-3 with the optimizer state on the card or offloaded to host RAM or
 NVMe (``zero_optimization.offload_optimizer``: the C++ CPU Adam, the sharded
-host tier, stage-3 residency), and its flash-attention forward and backward
-CUDA kernels; and weight-only-quantized serving
+host tier, stage-3 residency) or with the parameters streamed a layer at a
+time from host RAM or NVMe (``offload_param``, ``runtime.swap_tensor``), with
+activation checkpointing under the seven remat policies
+(``TransformerConfig.remat``, ``checkpointing``), and its flash-attention
+forward and backward CUDA kernels; and weight-only-quantized serving
 (``inference.quantization.quantize_model`` into the paged engine) with its
 ``woq_matmul`` CUDA kernel.
 """
@@ -29,8 +32,12 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, distributed_port: int = 29500,
                mpu=None, dist_init_required: bool = None, collate_fn=None, config=None,
                mesh_config=None, config_params=None, device="cuda"):
-    """Build a training engine (``deepspeed_tpu/__init__.py:47``, the
-    ``DeepSpeedEngine`` branch).
+    """Build a training engine (``deepspeed_tpu/__init__.py:47``): the
+    ``DeepSpeedEngine``, or with ``zero_optimization.offload_param`` to
+    ``cpu`` or ``nvme`` at stage 3 the layer-streamed
+    ``runtime.swap_tensor.StreamedZeroEngine``, which draws its own weights
+    (seed 0) and refuses ``optimizer``, ``training_data``, ``collate_fn`` and
+    ``model_parameters``, as the JAX package's does.
 
     Returns the 4-tuple ``(engine, optimizer, training_dataloader,
     lr_scheduler)``. ``model`` is a (params, apply_fn) pair or an object
@@ -60,6 +67,29 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         raise NotImplementedError(
             f"pipeline models are not ported to deepspeed_tpu_torch ({_MODEL_ITEM})")
     ds_config = DeepSpeedConfig(config, mesh_shape=mesh_config)
+    # stage-3 offload_param gets the layer-streamed ZeRO-Infinity engine
+    # (deepspeed_tpu/__init__.py:122-145)
+    zc = ds_config.zero_config
+    off_p = zc.offload_param
+    if off_p is not None and off_p.device in ("cpu", "nvme"):
+        if zc.stage < 3:
+            raise ValueError(
+                "zero_optimization.offload_param requires stage 3 "
+                "(parity with reference offload_param)")
+        unsupported = {"optimizer": optimizer, "training_data": training_data,
+                       "collate_fn": collate_fn,
+                       "model_parameters": model_parameters}
+        given = [k for k, v in unsupported.items() if v is not None]
+        if given:
+            raise ValueError(
+                f"offload_param (layer-streamed) engine does not support the "
+                f"{given} argument(s): the optimizer is the host CPUAdam from "
+                "the config's optimizer block, and data is passed to "
+                "train_batch(data_iter) directly")
+        from .runtime.swap_tensor import StreamedZeroEngine
+
+        engine = StreamedZeroEngine(model, ds_config, lr_scheduler=lr_scheduler, device=device)
+        return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
     engine = DeepSpeedEngine(model=model, config=ds_config, optimizer=optimizer,
                              lr_scheduler=lr_scheduler, training_data=training_data,
                              collate_fn=collate_fn, model_params=model_parameters,

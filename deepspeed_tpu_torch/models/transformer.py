@@ -20,8 +20,9 @@ tanh-GELU or SwiGLU; tied or untied head. Training with ``dropout > 0``
 draws the JAX package's masks bit for bit (``_dropout``: threefry
 ``bernoulli`` under the reference's chain of ``split`` keys). Configurations
 that need anything else raise ``NotImplementedError`` naming the field: at
-construction, or for the training-only fields (remat, PLD, random-LTD) in
-``apply``.
+construction, or for the training-only fields (PLD, random-LTD) in
+``apply``. ``remat`` reruns each block in the backward under the JAX
+package's seven ``remat_policy`` values (:meth:`TransformerLM._ckpt`).
 """
 
 from dataclasses import dataclass
@@ -35,13 +36,13 @@ from ..accelerator import resolve_device
 from ..ops.quantizer.woq_gemm import woq_matmul
 from ..ops.transformer.attention import attention as _attention_op
 from ..ops.transformer.paged_attention import paged_decode_attention
+from ..runtime.activation_checkpointing import policies as _remat
 from ..utils import prng
 from ..utils.tree import tree_leaves
 
 # the ROADMAP.md items that lift each unported branch
 _MODEL_ITEM = "ROADMAP.md Queue 1 item 2, the remaining TransformerLM branches"
 _MOE_ITEM = "ROADMAP.md Queue 1 item 17, moe/"
-_REMAT_ITEM = "ROADMAP.md Queue 1 item 17, activation checkpointing"
 _DATA_ITEM = "ROADMAP.md Queue 1 item 17, runtime/data_pipeline"
 _WOQ_TRAIN_ITEM = "ROADMAP.md Queue 1 item 14, training over a quantized tree"
 _WOQ_BITS = (8, 6, 4)
@@ -270,28 +271,32 @@ class TransformerLM:
         self.config = config
 
     # ------------------------------------------------------------------
-    def init_params(self, generator: torch.Generator,
-                    dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    def init_params(self, generator: torch.Generator, dtype: Optional[torch.dtype] = None,
+                    device: Optional[Union[str, torch.device]] = None) -> Dict[str, Any]:
         """Random parameters with the JAX package's leaf names and shapes
         (``transformer.py:312-402``), drawn from ``generator`` on its device
-        in ``dtype`` (default ``config.param_dtype``). The values differ from
-        the JAX package's for the same seed: tests convert the JAX
+        in ``dtype`` (default ``config.param_dtype``). ``device``, when
+        given, is where the leaves land: each is drawn on the generator's
+        device and moved there before the next is drawn (the same values;
+        the generator's device holds one leaf at a time). The values differ
+        from the JAX package's for the same seed: tests convert the JAX
         parameters with ``models.weights.params_from_jax`` instead."""
         cfg = self.config
         H, L, V, I = cfg.hidden_size, cfg.num_layers, cfg.vocab_size, cfg.mlp_dim
         nh, kvh, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
         dt = dtype or cfg.param_dtype
         dev = generator.device
+        out = dev if device is None else torch.device(device)
         resid_std = 0.02 / (2 * L) ** 0.5  # depth-scaled residual projections
 
         def normal(shape, std=0.02):
-            return torch.randn(shape, generator=generator, device=dev, dtype=dt).mul_(std)
+            return torch.randn(shape, generator=generator, device=dev, dtype=dt).mul_(std).to(out)
 
         def ones(shape):
-            return torch.ones(shape, device=dev, dtype=dt)
+            return torch.ones(shape, device=out, dtype=dt)
 
         def zeros(shape):
-            return torch.zeros(shape, device=dev, dtype=dt)
+            return torch.zeros(shape, device=out, dtype=dt)
 
         blocks: Dict[str, torch.Tensor] = {
             "ln1_scale": ones((L, H)),
@@ -359,13 +364,17 @@ class TransformerLM:
         w = params["wte"].T if cfg.tie_embeddings else params["lm_head"]
         return x @ w.to(x.dtype)
 
-    def _qkv(self, x, blk, positions):
+    def _qkv(self, x, blk, positions, named=False):
         """The pre-LN block's input norm and q/k/v projections, with RoPE
-        (``transformer.py:528-548``): (B, S, nh, hd) q, (B, S, kvh, hd) k/v."""
+        (``transformer.py:528-548``): (B, S, nh, hd) q, (B, S, kvh, hd) k/v.
+        ``named``: the norm's output goes through ``checkpoint_name`` as
+        ``ln_out``, for a remat policy to keep."""
         cfg = self.config
         nh, kvh, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
         B, S, _ = x.shape
         h = _norm(x, blk["ln1_scale"], blk.get("ln1_bias"), cfg.norm, cfg.norm_eps)
+        if named:
+            h = _remat.checkpoint_name(h, "ln_out")
         q = _project(h, blk, "wq").reshape(B, S, nh, hd)
         kk = _project(h, blk, "wk").reshape(B, S, kvh, hd)
         v = _project(h, blk, "wv").reshape(B, S, kvh, hd)
@@ -373,11 +382,13 @@ class TransformerLM:
             q, kk = _rope(q, kk, positions, hd, cfg.rope_theta)
         return q, kk, v
 
-    def _block_out(self, x, attn, blk, rng=None, train=False):
+    def _block_out(self, x, attn, blk, rng=None, train=False, named=False):
         """The attention output projection, the residual adds and the MLP
         (``transformer.py:631-688``), given attention's (B, S, nh, hd). With
         a key ``rng`` both outputs go through ``_dropout`` under the
-        reference's splits (``:636-638``, ``:679-681``)."""
+        reference's splits (``:636-638``, ``:679-681``). ``named``: the
+        second norm's output and the MLP's activation go through
+        ``checkpoint_name`` as ``ln_out`` and ``mlp_act`` (``:650, 674``)."""
         cfg = self.config
         B, S, _ = x.shape
         dt = x.dtype
@@ -390,6 +401,8 @@ class TransformerLM:
 
         x = x + attn_out
         h2 = _norm(x, blk["ln2_scale"], blk.get("ln2_bias"), cfg.norm, cfg.norm_eps)
+        if named:
+            h2 = _remat.checkpoint_name(h2, "ln_out")
         if cfg.activation == "swiglu":
             inter = F.silu(_project(h2, blk, "w_gate")) * _project(h2, blk, "w_up")
         else:  # tanh-approximated GELU, as jax.nn.gelu's default
@@ -397,6 +410,8 @@ class TransformerLM:
             if "mlp_up_bias" in blk:
                 up = up + blk["mlp_up_bias"].to(dt)
             inter = F.gelu(up, approximate="tanh")
+        if named:
+            inter = _remat.checkpoint_name(inter, "mlp_act")
         mlp_out = _project(inter, blk, "w_down")
         if "mlp_bias" in blk:
             mlp_out = mlp_out + blk["mlp_bias"].to(dt)
@@ -409,13 +424,14 @@ class TransformerLM:
         """One pre-LN block on (B, S, H) without a cache, the training and
         evaluation branch (``transformer.py:619-630``): causal self-attention
         through ``attention()``, so the flash kernels on the card; dropout
-        under ``rng``."""
+        under ``rng``. Under ``remat`` the block names its norms' outputs and
+        the MLP's activation, as the JAX block does."""
         cfg = self.config
-        q, kk, v = self._qkv(x, blk, positions)
+        q, kk, v = self._qkv(x, blk, positions, named=cfg.remat)
         attn = _attention_op(q, kk, v, causal=cfg.causal,
                              num_kv_groups=cfg.num_heads // cfg.kv_heads,
                              softcap=cfg.logit_softcap)
-        return self._block_out(x, attn, blk, rng, train)
+        return self._block_out(x, attn, blk, rng, train, named=cfg.remat)
 
     def _block_paged(self, x, blk, positions, kp, vp, tables):
         """One pre-LN block on (B, S, H) against one layer of the blocked
@@ -636,7 +652,6 @@ class TransformerLM:
     def _check_trainable(self, train: bool) -> None:
         cfg = self.config
         unsupported = (
-            ("remat", cfg.remat, _REMAT_ITEM),
             ("progressive_layer_drop", cfg.progressive_layer_drop, _DATA_ITEM),
             ("random_ltd", cfg.random_ltd, _DATA_ITEM),
         )
@@ -646,22 +661,72 @@ class TransformerLM:
                     f"TransformerConfig.{field_name}={getattr(cfg, field_name)!r} is not "
                     f"ported to the training path of deepspeed_tpu_torch ({item})")
 
+    def _lean_policy(self):
+        """``transformer.py:733-752``: dots with no batch dimension kept,
+        except those whose weight's last dimension is at least 2H (the MLP's
+        up and gate projections: the bulk of the activations, one cheap
+        matmul to recompute), plus the flash residuals."""
+        H = self.config.hidden_size
+        flash = _remat.save_only_these_names(*_remat.FLASH_NAMES)
+
+        def policy(op, args):
+            if _remat.dots_with_no_batch_dims_saveable(op, args):
+                return args[1].shape[-1] < 2 * H
+            return flash(op, args)
+
+        return policy
+
+    def _ckpt(self, fn):
+        """``fn`` rematerialised under ``remat_policy`` (``transformer.py:754-795``).
+        What each policy keeps: ``dots`` the weight-side projections (dots
+        with no batch dimension) and the flash residuals, so the backward
+        recomputes no matmul and no attention forward; ``dots_ln`` also the
+        two norms' outputs; ``dots_elem`` also the MLP's activation;
+        ``dots_plain`` the projections alone; ``dots_batch`` every dot;
+        ``dots_lean`` see :meth:`_lean_policy`; ``full`` nothing but the
+        block's inputs."""
+        P = _remat
+        policy = {
+            "dots": P.save_from_both_policies(
+                P.dots_with_no_batch_dims_saveable,
+                P.save_only_these_names("attn_out", "attn_lse")),
+            "dots_ln": P.save_from_both_policies(
+                P.dots_with_no_batch_dims_saveable,
+                P.save_only_these_names("attn_out", "attn_lse", "ln_out")),
+            "dots_elem": P.save_from_both_policies(
+                P.dots_with_no_batch_dims_saveable,
+                P.save_only_these_names("attn_out", "attn_lse", "ln_out", "mlp_act")),
+            "dots_plain": P.dots_with_no_batch_dims_saveable,
+            "dots_batch": P.dots_saveable,
+            "dots_lean": self._lean_policy(),
+            "full": None,
+        }
+        name = self.config.remat_policy
+        if name not in policy:
+            raise ValueError(
+                f"unknown remat_policy {name!r} (known: {sorted(policy)})")
+        return P.remat(fn, policy[name])
+
     def _trunk(self, params, x, positions, rng=None, train=False):
         """Every block in turn (``transformer.py:796-849`` with
         ``scan_layers=False``: a Python loop over the stacked leaves, each
         layer reading its slice as a view, so gradients land in the stacked
-        leaves). Training with dropout takes the reference's keys:
+        leaves), each under :meth:`_ckpt` with ``remat`` while autograd
+        records. Training with dropout takes the reference's keys:
         ``split(rng, L)``, then per layer ``split`` into ``(r_drop, r_pld)``
         (``:807-811``); ``r_pld`` goes unused, as PLD is not ported, but its
-        split keeps ``r_drop`` the reference's."""
+        split keeps ``r_drop`` the reference's. A recompute redraws the same
+        masks from the same keys."""
         cfg = self.config
         blocks = params["blocks"]
         rngs = (prng.split(rng, cfg.num_layers)
                 if rng is not None and train and cfg.dropout > 0 else None)
+        block = self._block
+        if cfg.remat and torch.is_grad_enabled():
+            block = self._ckpt(self._block)
         for i in range(cfg.num_layers):
             r_drop = None if rngs is None else prng.split(rngs[i])[0]
-            x = self._block(x, {k: w[i] for k, w in blocks.items()}, positions,
-                            rng=r_drop, train=train)
+            x = block(x, {k: w[i] for k, w in blocks.items()}, positions, r_drop, train)
         return x
 
     def _logits_aux(self, params, input_ids, positions=None, train=False, rng=None):

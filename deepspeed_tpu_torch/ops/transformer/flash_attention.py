@@ -6,6 +6,10 @@ through ``_FlashAttention`` (the port's ``jax.custom_vjp``). Its forward
 keeps q, k, v, out and lse for the backward (``ctx.save_for_backward``), so
 the backward never re-runs the forward: the port's form of the JAX
 residuals named ``"attn_out"`` / ``"attn_lse"`` (``flash_attention.py:234-244``).
+The forward runs as the dispatcher operation ``dstt::flash_attention_fwd``,
+so that under activation checkpointing a remat policy can keep those two
+outputs and the recompute does not launch the kernel again
+(``runtime/activation_checkpointing/policies.py``).
 
 Two wrappers launch the hand-written Hopper kernels
 (``deepspeed_tpu_torch/csrc/flash_attention.cu``) for CUDA tensors:
@@ -36,7 +40,7 @@ does not train).
 """
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -280,11 +284,21 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
     return dq, dk, dv
 
 
+@torch.library.custom_op("dstt::flash_attention_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                  num_kv_groups: int, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_fwd` as a dispatcher operation, so that a remat
+    policy sees it and can keep its outputs (``attn_out``, ``attn_lse``;
+    ``runtime/activation_checkpointing/policies.py``): a kept output is
+    not recomputed, so the kernel does not run again in the backward."""
+    return flash_attention_fwd(q, k, v, causal=causal, num_kv_groups=num_kv_groups,
+                               scale=scale)
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, num_kv_groups, scale):
-        out, lse = flash_attention_fwd(q, k, v, causal=causal, num_kv_groups=num_kv_groups,
-                                       scale=scale)
+        out, lse = _flash_fwd_op(q, k, v, causal, num_kv_groups, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.opts = dict(causal=causal, num_kv_groups=num_kv_groups, scale=scale)
         return out

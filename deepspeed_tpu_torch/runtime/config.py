@@ -3,12 +3,13 @@
 A copy of the JAX package's host-only ``DeepSpeedConfig`` (``config.py:163``):
 the same JSON keys, the same blocks, the same batch-size triangle, resolved
 at world size 1 (one card, one process). ZeRO stages 0-3 are accepted, with
-``offload_optimizer`` to ``cpu`` or ``nvme`` (and ``ratio``). What the port's
+``offload_optimizer`` to ``cpu`` or ``nvme`` (and ``ratio``), and
+``offload_param`` to ``cpu`` or ``nvme`` at stage 3 (``initialize`` then
+builds the layer-streamed ``StreamedZeroEngine``). What the port's
 training engine does not run yet raises ``NotImplementedError`` naming its
 ROADMAP.md item instead of being accepted and ignored: the ``mesh`` block,
 world size > 1, the 1-bit optimizers and ZeRO++ quantized collectives
-(item 13b, multi-rank ZeRO), ``offload_param`` (item 17, the layer-streamed
-engine) and the ``pipeline`` block.
+(item 13b, multi-rank ZeRO) and the ``pipeline`` block.
 """
 
 import json
@@ -22,7 +23,6 @@ from .config_utils import DeepSpeedConfigModel, dict_raise_error_on_duplicate_ke
 from .zero.config import zero_config_from_dict
 
 ZERO_ITEM = "ROADMAP.md Queue 1 item 13b, multi-rank ZeRO"
-STREAMED_ITEM = "ROADMAP.md Queue 1 item 17, the layer-streamed StreamedZeroEngine"
 
 ADAM_OPTIMIZER = "adam"
 ADAMW_OPTIMIZER = "adamw"
@@ -170,9 +170,6 @@ class DeepSpeedConfig:
         # --- zero ---
         self.zero_config = zero_config_from_dict(pd.get(C.ZERO_OPTIMIZATION, {}))
         zc = self.zero_config
-        if zc.offload_param is not None and zc.offload_param.device != "none":
-            raise _not_ported(f"zero_optimization.offload_param to {zc.offload_param.device}",
-                              STREAMED_ITEM)
         if zc.zero_quantized_gradients or zc.zero_quantized_weights:
             raise _not_ported("ZeRO++ quantized weights/gradients (qwZ/qgZ)")
         self.zero_enabled = zc.stage > 0

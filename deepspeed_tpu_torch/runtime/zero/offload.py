@@ -72,9 +72,20 @@ class OffloadedAdamState:
     """Host/NVMe-resident fp32 master + moments for a subset of leaves."""
 
     def __init__(self, leaves: List, device: str = "cpu", nvme_path: Optional[str] = None,
-                 aio_threads: int = 4):
+                 aio_threads: int = 4, copy: bool = True):
+        """``copy=False`` adopts ``leaves`` (C-contiguous, writable fp32
+        numpy arrays) as the master instead of copying them: the
+        parameter-streaming engine's groups and this state then share one
+        fp32 copy of the model."""
         self.device = device
-        self.master = [host_f32(l) for l in leaves]
+        if copy:
+            self.master = [host_f32(l) for l in leaves]
+        else:
+            for l in leaves:
+                if not (isinstance(l, np.ndarray) and l.dtype == np.float32
+                        and l.flags["C_CONTIGUOUS"] and l.flags["WRITEABLE"]):
+                    raise ValueError("copy=False takes C-contiguous, writable fp32 arrays")
+            self.master = list(leaves)
         self.step_count = 0
         #: the TransferEngine every gradient byte rides; the engine wires its
         #: own, standalone callers fall back to the process-wide default

@@ -88,6 +88,14 @@ _TRAINING_MODULES = {
     "deepspeed_tpu_torch.checkpoint",
     "deepspeed_tpu_torch.checkpoint.universal",
     "deepspeed_tpu_torch.utils.zero_to_fp32",
+    # activation checkpointing and the layer-streamed parameter tier
+    "deepspeed_tpu_torch.checkpointing",
+    "deepspeed_tpu_torch.runtime.activation_checkpointing",
+    "deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing",
+    "deepspeed_tpu_torch.runtime.activation_checkpointing.policies",
+    "deepspeed_tpu_torch.runtime.swap_tensor",
+    "deepspeed_tpu_torch.runtime.swap_tensor.param_swapper",
+    "deepspeed_tpu_torch.runtime.swap_tensor.streamed",
 }
 
 
@@ -157,6 +165,11 @@ def test_initialize_raises_without_cuda_unless_asked_for_cpu(no_cuda):
     assert engine.device.type == "cpu" and loader is None and sched is None
     assert opt is engine.optimizer
     assert engine.params["wte"].device.type == "cpu"
+    streamed = dict(config, zero_optimization={"stage": 3, "offload_param": {"device": "cpu"}})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        deepspeed_tpu_torch.initialize(model=model, config=streamed)
+    engine = deepspeed_tpu_torch.initialize(model=model, config=streamed, device="cpu")[0]
+    assert engine.device.type == "cpu" and engine.store.device == "cpu"
 
 
 def test_accelerator_defaults_to_cuda():

@@ -283,7 +283,10 @@ def test_zero_stage_and_offload_configs_train(zero):
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("zero_optimization", {"offload_param": {"device": "cpu"}}, "item 17"),
+    # ported since (the layer-streamed engine): the case keeps its name, and
+    # holds the JAX package's ValueError below stage 3 and the engine at 3
+    pytest.param("zero_optimization", {"stage": 1, "offload_param": {"device": "cpu"}},
+                 "requires stage 3", id="zero_optimization-value0-item 17"),
     ("zero_optimization", {"zero_quantized_weights": True}, "item 13b"),
     ("mesh", {"data": 1}, "item 13b"),
     ("optimizer", {"type": "OneBitAdam", "params": {}}, "item 13b"),
@@ -292,6 +295,18 @@ def test_zero_stage_and_offload_configs_train(zero):
     ("compression_training", {"weight_quantization": {}}, "item 17"),
 ])
 def test_unported_config_raises_naming_the_item(key, value, match):
+    if isinstance(value, dict) and "offload_param" in value:
+        from deepspeed_tpu_torch.runtime.swap_tensor import StreamedZeroEngine
+
+        with pytest.raises(ValueError, match=match):
+            _port_engine("llama", _config(**{key: value}))
+        preset, mkw = MODELS["llama"]
+        eng = deepspeed_tpu_torch.initialize(model=build_model(preset, **mkw), device="cpu",
+                                             config=_config(**{key: dict(value, stage=3)}))[0]
+        assert isinstance(eng, StreamedZeroEngine)
+        loss = float(eng.train_batch(iter(_batches(512, 1, seed=6))))
+        assert np.isfinite(loss) and eng.store.max_live_groups <= 2
+        return
     with pytest.raises(NotImplementedError, match=match):
         _port_engine("llama", _config(**{key: value}))
 
@@ -299,8 +314,9 @@ def test_unported_config_raises_naming_the_item(key, value, match):
 def test_checkpoints_and_unported_model_fields_raise(tmp_path):
     """Checkpoints are ported: a save loads back, and an optimizer-offload
     checkpoint (``offload_host``, ZeRO's) loads into the device engine with
-    the offloaded engine's parameters and moments; the unported model
-    fields raise, naming themselves."""
+    the offloaded engine's parameters and moments; ``remat``, ported since,
+    takes the step without it bitwise; the unported model fields (PLD)
+    raise, naming themselves."""
     eng = _port_engine("llama", _config())
     eng.save_checkpoint(str(tmp_path))
     assert eng.load_checkpoint(str(tmp_path))[0].endswith("global_step0/model_states.ckpt")
@@ -317,8 +333,19 @@ def test_checkpoints_and_unported_model_fields_raise(tmp_path):
     for m, want in zip(tree_leaves(eng.opt_state.m), host.m):
         np.testing.assert_array_equal(m.numpy().reshape(-1), want)
     preset, mkw = MODELS["llama"]
-    for field, value in (("remat", True), ("progressive_layer_drop", True)):
-        m = build_model(preset, **dict(mkw, **{field: value}))
-        with pytest.raises(NotImplementedError, match=field):
-            m.apply(m.init_params(torch.Generator().manual_seed(0)),
-                    torch.zeros((1, 8), dtype=torch.int32))
+    ids = torch.from_numpy(_batches(512, 1, seed=6)[0]["input_ids"][:2])
+    # remat is ported since: a remat step gives the step without it, bitwise
+    losses = []
+    for kw in ({}, {"remat": True}):
+        m = build_model(preset, **mkw, **kw)
+        params = m.init_params(torch.Generator().manual_seed(0))
+        for leaf in tree_leaves(params):
+            leaf.requires_grad_()
+        loss = m.apply(params, ids)
+        losses.append((loss, torch.autograd.grad(loss, list(tree_leaves(params)))))
+    assert torch.equal(losses[0][0], losses[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(losses[0][1], losses[1][1]))
+    m = build_model(preset, **dict(mkw, progressive_layer_drop=True))
+    with pytest.raises(NotImplementedError, match="progressive_layer_drop"):
+        m.apply(m.init_params(torch.Generator().manual_seed(0)),
+                torch.zeros((1, 8), dtype=torch.int32))

@@ -371,3 +371,33 @@ def test_fp16_overflow_keeps_adam_step_parity():
     assert eng.skipped_steps == 1 and eng.loss_scale() == scale / 2
     assert eng._offload_mgr["host"].step_count == 1
     assert_leaves_equal(fp32_leaves(eng), before)
+
+
+def test_module_only_load_writes_the_offloaded_master(tmp_path):
+    """``load_checkpoint(..., load_optimizer_states=False)`` into a cpu-offload
+    engine: the host fp32 master becomes the tag's module weights, bitwise,
+    and the next step is the device engine's after the same sequence (2
+    steps, save, 1 step, the module-only load, 1 step; the moments and
+    Adam's step count stay the engine's own). The JAX engine keeps the
+    master it had and steps that over the loaded weights (ROADMAP.md
+    Queue 3)."""
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.native_checkpoint_engine import (
+        NativeCheckpointEngine)
+
+    out = {}
+    for name, cfg in (("offload", config(0, {"device": "cpu"})), ("device", config(0))):
+        eng = port_engine(cfg)
+        train(eng, 2)
+        eng.save_checkpoint(str(tmp_path / name), tag="t")
+        train(eng, 1, start=2)
+        eng.load_checkpoint(str(tmp_path / name), tag="t", load_optimizer_states=False)
+        module = NativeCheckpointEngine().load(
+            os.path.join(tmp_path / name, "t", "model_states.ckpt"))["module"]
+        want = [np.asarray(torch.as_tensor(x).float()) for x in tree_leaves(module)]
+        assert_leaves_equal(fp32_leaves(eng), want)
+        if name == "offload":
+            assert_leaves_equal(eng._offload_mgr["host"].master, want)
+            assert eng._offload_mgr["host"].step_count == 3
+        out[name] = (train(eng, 1, start=3), fp32_leaves(eng))
+    np.testing.assert_allclose(out["offload"][0], out["device"][0], rtol=1e-5)
+    assert_leaves_close(out["offload"][1], out["device"][1])
