@@ -70,6 +70,22 @@ in order; any failure exits non-zero and prints no result:
    ``{"serve_summary": ...}`` line gives the card, requests, tokens, wall
    seconds, TTFT/TPOT p50/p90, preemptions, prefix hits, paged launches and
    host ms a scheduler step with the engine's share.
+g. the guards, on phase 6's engine and traffic: (g1) the DSTPU linter over
+   the checkout's ``deepspeed_tpu_torch/`` with its baseline, and the
+   program manifest's dry check: no unsuppressed finding, no stale entry;
+   (g2) ``DSTPU_SANITIZE=1`` and ``DSTPU_AUDIT=1``, ``engine.rebuild()``:
+   the block manager is a ``CheckedBlockedKVCache``; phase 6's traffic
+   twice more, checked and audited (the first run's steps eager and
+   fingerprinted, then captured; the second's replayed): the same ragged
+   steps and bitwise the same streams as phase 6, ``assert_trace_bounds``
+   holds, every program that ran is fingerprinted and none holds a host
+   sync; each digest is printed with whether it equals the CPU pin (the
+   device differs, so it need not); (g3) a double free planted on the
+   checked cache raises ``SanitizerError``; (g4) both variables unset and a
+   rebuild: the engine is back on a plain ``BlockedKVCache``. A
+   ``{"guard_summary": ...}`` line gives the card, the lint's findings,
+   baseline size and seconds, the digests, the host ms a checked scheduler
+   step beside phase 6's, and the phase's seconds.
 7. the rest of the serving surface, on phase 4's weights (shared, not
    copied) in a new engine at ``decode_horizon=4``, made after phase 4's
    pool is freed: (a) phase 4's traffic eager (``engine.capture = False``),
@@ -1058,20 +1074,29 @@ def serve_traffic(engine, prompts, arrival, vip_prompt, **sched_kw):
              "schedule": timer.schedule})
 
 
-def serve_phase(engine, pa, dev):
-    """Phase 6 on phase 4's engine: (a) every request finishes and the
-    scheduler drains; (b) a second run of the same traffic gives bitwise the
-    same streams, the preempted sampled request's included; (d) the stop
-    sequence ends its stream, the biased token is produced, and fan-out
-    child 0 equals the n=1 stream. Returns the serve_summary fields."""
-    from deepspeed_tpu_torch.serve import ContinuousBatchScheduler, RequestState, SamplingParams
-
-    cfg = engine.cfg
+def phase6_inputs(cfg):
+    """Phase 6's prompts (phase 4's), its 640-token arrival and its
+    priority-1000 prompt."""
     rng = np.random.default_rng(0)  # phase 4's prompts and arrival
     prompts = {u: rng.integers(0, cfg.vocab_size, n).tolist()
                for u, n in zip((1, 2, 3, 4), (37, 300, 1000, 2100))}
     arrival = rng.integers(0, cfg.vocab_size, 640).tolist()
     vip_prompt = np.random.default_rng(6).integers(0, cfg.vocab_size, 100).tolist()
+    return prompts, arrival, vip_prompt
+
+
+def serve_phase(engine, pa, dev):
+    """Phase 6 on phase 4's engine: (a) every request finishes and the
+    scheduler drains; (b) a second run of the same traffic gives bitwise the
+    same streams, the preempted sampled request's included; (d) the stop
+    sequence ends its stream, the biased token is produced, and fan-out
+    child 0 equals the n=1 stream. Returns the serve_summary fields and the
+    reference phase g holds its replay to (schedule, streams, preemptions,
+    the host ms a step of the last replay)."""
+    from deepspeed_tpu_torch.serve import ContinuousBatchScheduler, RequestState, SamplingParams
+
+    cfg = engine.cfg
+    prompts, arrival, vip_prompt = phase6_inputs(cfg)
 
     steps0 = engine.ragged_steps
     pa.launches = 0  # the kernel's count, just before the first run
@@ -1118,6 +1143,9 @@ def serve_phase(engine, pa, dev):
               f"further replay {k + 1} preempted a different number of times")
     check(engine.captured_graphs == graphs,
           f"the further replays captured {engine.captured_graphs - graphs} new graphs")
+    reference = {"schedule": sch, "streams": [r.tokens for r in reqs],
+                 "preemptions": m.preemptions,
+                 "host_ms_per_step_mean": float(np.mean(timing_k["step_s"]) * 1e3)}
 
     # (d) stop, bias and fan-out semantics
     stop, biased = reqs[-2], reqs[-1]
@@ -1164,7 +1192,111 @@ def serve_phase(engine, pa, dev):
         f"in {timing['wall_s']:.3f} s, {m.preemptions} preemption(s), paged_decode_attention "
         f"launched {launches} times (= {cfg.num_layers} layers x {ragged} steps); the replay "
         f"run and three further replays bitwise equal; stop, bias and fan-out ok")
-    return summary
+    return summary, reference
+
+
+# ---------------------------------------------------------------------------
+# phase g: the guards (linter, checked KV cache, step-program audit)
+# ---------------------------------------------------------------------------
+def guard_phase(engine, reference, card):
+    """Phase g on phase 6's engine (module docstring). Returns the
+    guard_summary fields."""
+    from deepspeed_tpu_torch.analysis import (apply_baseline, assert_trace_bounds,
+                                              check_manifest, checked_cache_cls,
+                                              default_baseline_path, lint_paths,
+                                              load_baseline, program_audit)
+    from deepspeed_tpu_torch.analysis.sanitizer import SanitizerError
+    from deepspeed_tpu_torch.inference.v2.ragged_manager import BlockedKVCache
+
+    t_phase = time.perf_counter()
+    # (g1) the linter over the checkout's package, and the manifest's dry check
+    pkg = os.path.join(HERE, "deepspeed_tpu_torch")
+    t0 = time.perf_counter()
+    findings = lint_paths([pkg])
+    baseline = load_baseline(default_baseline_path())
+    unsuppressed, stale = apply_baseline(findings, baseline)
+    lint_s = time.perf_counter() - t0
+    check(not unsuppressed, "unsuppressed lint findings:\n"
+          + "\n".join(f.render() for f in unsuppressed))
+    check(not stale, f"stale baseline entries: {sorted(stale)}")
+    problems = check_manifest([pkg])
+    check(not problems, f"the program manifest drifted: {problems}")
+    log(f"g1 lint: {len(findings)} finding(s), all {len(baseline)} baseline entries used, "
+        f"0 unsuppressed, in {lint_s:.3f} s; the program manifest consistent ({card})")
+
+    # (g2) checked and audited: phase 6's traffic, bitwise phase 6's
+    prompts, arrival, vip_prompt = phase6_inputs(engine.cfg)
+    os.environ["DSTPU_SANITIZE"] = "1"
+    os.environ["DSTPU_AUDIT"] = "1"
+    registry = program_audit.GLOBAL_REGISTRY
+    registry.observed.clear()
+    engine.rebuild()  # armed: the cache is rebuilt checked, the graphs dropped
+    check(isinstance(engine.block_mgr, checked_cache_cls()),
+          f"armed, the engine rebuilt a {type(engine.block_mgr).__name__}")
+    host_ms = []
+    for run in ("fingerprinted", "replayed"):
+        reqs, sched, timing = serve_traffic(engine, prompts, arrival, vip_prompt)
+        check(timing["schedule"] == reference["schedule"],
+              f"g2 {run} run: the schedule differs from phase 6's")
+        for r, want in zip(reqs, reference["streams"]):
+            check(r.tokens == want, f"g2 {run} run, uid {r.uid}: the stream differs from "
+                  f"phase 6's ({want[:8]}... vs {r.tokens[:8]}...)")
+        check(sched.metrics.preemptions == reference["preemptions"],
+              f"g2 {run} run preempted a different number of times")
+        check(isinstance(engine.block_mgr, checked_cache_cls()),
+              f"g2 {run} run: the serving rebuild left a {type(engine.block_mgr).__name__}")
+        host_ms.append(float(np.mean(timing["step_s"]) * 1e3))
+    bounds = assert_trace_bounds(engine)
+    ran = {p.reg.name: p for p in (engine._ragged_fn, engine._fused_fn, engine._verify_fn,
+                                   engine._decode_fn, engine._cow_fn, engine._tier_gather_fn,
+                                   engine._tier_scatter_fn, engine._bias_set_fn)
+           if p.trace_count}
+    check("engine_v2.ragged" in ran, "the ragged program was not audited")
+    pinned = registry.manifest()["programs"]
+    digests = {}
+    for name in sorted(ran):
+        fps = registry.observed.get(name, {})
+        check(fps, f"program {name} ran armed but was not fingerprinted")
+        for digest, fp in fps.items():
+            check(not fp["syncs"], f"program {name} holds host syncs {fp['syncs']}")
+            cpu_pin = {v["digest"] for v in pinned.get(name, {}).get("variants", ())}
+            digests.setdefault(name, []).append(
+                {"digest": digest, "ops": len(fp["ops"]), "kernels": fp["kernels"],
+                 "equals_cpu_pin": digest in cpu_pin})
+    log(f"g2 checked + audited replay of phase 6: schedule and streams bitwise phase 6's "
+        f"twice; trace bounds {bounds}; fingerprints {json.dumps(digests)}; host ms a "
+        f"scheduler step {host_ms[1]:.2f} checked (replayed) vs {reference['host_ms_per_step_mean']:.2f} "
+        f"in phase 6's last replay ({card})")
+
+    # (g3) the check can fail: a planted double free on the checked cache
+    engine.put([990], [prompts[1]], greedy=True)
+    d = engine.state.seqs[990]
+    stale_blocks = list(d.blocks)
+    engine.flush(990)
+    d.blocks = stale_blocks
+    try:
+        engine.block_mgr.free(d)
+        caught = None
+    except SanitizerError as e:
+        caught = str(e)
+    check(caught is not None and "double free" in caught,
+          f"the planted double free was not caught ({caught})")
+    log(f"g3 planted double free caught: {caught}")
+
+    # (g4) disarmed: a rebuild gives the plain cache back
+    del os.environ["DSTPU_SANITIZE"], os.environ["DSTPU_AUDIT"]
+    engine.rebuild()
+    check(type(engine.block_mgr) is BlockedKVCache,
+          f"disarmed, the engine rebuilt a {type(engine.block_mgr).__name__}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"g4 disarmed: plain BlockedKVCache again; phase g took {phase_s:.1f} s")
+    return {"card": card, "lint_findings": len(findings), "lint_unsuppressed": 0,
+            "baseline_entries": len(baseline), "lint_s": lint_s,
+            "checked_cache": True, "replay_bitwise_runs": 2,
+            "trace_bounds": [list(b) for b in bounds], "programs": digests,
+            "host_ms_per_step_checked": host_ms[1], "host_ms_per_step_first_run": host_ms[0],
+            "host_ms_per_step_phase6": reference["host_ms_per_step_mean"],
+            "planted_double_free_caught": True, "phase_s": phase_s}
 
 
 def small_scheduler_vs_cpu(dev, engine_kw=None, sched_kw=None, prompts=None, greedy=False,
@@ -5060,7 +5192,9 @@ def main():
     log(json.dumps({"summary": summary}))
     del real_pool
     sampling = sampling_on_card(dev)
-    serve_summary = serve_phase(engine, pa, dev)
+    serve_summary, serve_reference = serve_phase(engine, pa, dev)
+    guard_summary = guard_phase(engine, serve_reference, smi.stdout.strip())
+    log(json.dumps({"guard_summary": guard_summary}))
     small_excluded = small_scheduler_vs_cpu(dev)[0]
     params = engine.params  # phase 7 serves the same weights
     engine.kv = None  # phase 4's pool leaves the card before phase 7's is made

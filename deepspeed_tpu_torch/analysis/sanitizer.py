@@ -1,26 +1,34 @@
-"""Runtime sanitizer, the checks the serving scheduler and requests call
-(counterpart of ``deepspeed_tpu/analysis/sanitizer.py``).
+"""Runtime sanitizer, "checked mode" for the serving stack (counterpart of
+``deepspeed_tpu/analysis/sanitizer.py``).
 
 ``DSTPU_SANITIZE=1`` (the same variable as the JAX package) arms checked
-mode: every ``Request.state`` assignment is validated against the legal
-lifecycle graph (:func:`check_transition`), and the scheduler runs the
-between-steps and drain checks below. Violations raise
-:class:`SanitizerError`, an ``AssertionError`` subclass, so the serving
-loop's typed ``RuntimeError`` handling can never swallow one. With the
-variable unset everything here is dormant.
+mode:
 
-The functions are copies of the JAX module's, with its TransferEngine
-ledger check (``check_transfer_ledger``) and the engine pool's checks
-(``check_pool_ownership``, ``check_pool_health``,
-``check_tenant_accounting``, ``check_disagg_ownership``) and the training
-checks (``check_gather_conservation``, which ``save_checkpoint`` runs on
-every gather; ``check_shard_conservation``, which consolidation runs;
-``check_offload_split``). Its checked ``BlockedKVCache``
-(``checked_cache_cls``) comes with ROADMAP.md Queue 1 item 10.
+- :func:`checked_cache_cls` — a ``BlockedKVCache`` subclass that re-verifies
+  refcount conservation, COW exclusivity, use-after-free / double-free,
+  rollback exactness, registration during speculation, the full-prompt
+  lookup cap and prefix-index/pool consistency after **every** allocator
+  operation. The engine builds it instead of the plain cache when checked
+  mode is armed, at construction and at ``rebuild()``.
+- :func:`check_transition` validates every ``Request.state`` assignment
+  against the legal lifecycle graph.
+- the scheduler's between-steps and drain checks below, the TransferEngine
+  ledger check (``check_transfer_ledger``), the engine pool's checks
+  (``check_pool_ownership``, ``check_pool_health``,
+  ``check_tenant_accounting``, ``check_disagg_ownership``) and the training
+  checks (``check_gather_conservation``, which ``save_checkpoint`` runs on
+  every gather; ``check_shard_conservation``, which consolidation runs;
+  ``check_offload_split``).
+
+Violations raise :class:`SanitizerError`, an ``AssertionError`` subclass,
+so the serving loop's typed ``RuntimeError`` handling can never swallow
+one; the messages are the JAX package's. With the variable unset
+everything here is dormant. The module imports nothing heavy at import
+time: the cache subclass is built on first request.
 """
 
 import os
-from typing import Dict, FrozenSet, List, Optional
+from typing import Callable, Dict, FrozenSet, Iterable, List, Optional
 
 _ENV = "DSTPU_SANITIZE"
 
@@ -74,6 +82,173 @@ def check_transition(uid: object, old, new) -> None:
             f"[sanitizer] illegal request state transition uid={uid}: "
             f"{old} -> {new} (legal from {old}: "
             f"{sorted(legal) or 'none — terminal state'})")
+
+
+# ---------------------------------------------------------------------------
+# checked KV cache
+# ---------------------------------------------------------------------------
+
+_checked_cls = None
+
+
+def checked_cache_cls():
+    """The :class:`CheckedBlockedKVCache` class, built on first use (lazy
+    so importing this module never pulls in the inference stack)."""
+    global _checked_cls
+    if _checked_cls is not None:
+        return _checked_cls
+
+    from ..inference.v2.ragged_manager import BlockedKVCache
+
+    class CheckedBlockedKVCache(BlockedKVCache):
+        """Drop-in ``BlockedKVCache`` that re-verifies the allocator's
+        invariants after every operation.
+
+        ``descs`` is a zero-arg callable yielding every live
+        :class:`SequenceDescriptor` (the engine passes its state table);
+        without it the wrapper falls back to the descriptors it has seen,
+        which is enough for standalone allocator tests. Checks are
+        O(live blocks) pure-host work per op — negligible next to the
+        compiled dispatch each op brackets, but still debug-mode-only."""
+
+        def __init__(self, *args,
+                     descs: Optional[Callable[[], Iterable]] = None, **kw):
+            super().__init__(*args, **kw)
+            self._descs_provider = descs
+            self._seen: Dict[int, object] = {}
+
+        # -- plumbing ----------------------------------------------------
+        def _descs(self) -> List:
+            if self._descs_provider is not None:
+                return list(self._descs_provider())
+            return list(self._seen.values())
+
+        def _track(self, desc) -> None:
+            self._seen[desc.uid] = desc
+
+        def verify(self, op: str = "verify") -> None:
+            """All invariants, loudly: base ``check_invariants`` (pool
+            partitioning, index/meta/children consistency, refcount
+            conservation against live descriptors) plus explicit
+            use-after-free scans for better diagnostics."""
+            descs = self._descs()
+            free = set(self._free)
+            for d in descs:
+                for b in d.blocks:
+                    if b in free:
+                        raise SanitizerError(
+                            f"[sanitizer] use-after-free after {op}: uid "
+                            f"{d.uid} still maps block {b}, which is on "
+                            "the free list")
+                    if self.refcount(b) < 1:
+                        raise SanitizerError(
+                            f"[sanitizer] use-after-free after {op}: uid "
+                            f"{d.uid} maps block {b} with refcount 0")
+            try:
+                self.check_invariants(descs)
+            except AssertionError as e:
+                if isinstance(e, SanitizerError):
+                    raise
+                raise SanitizerError(
+                    f"[sanitizer] KV-cache invariant broken after {op}: "
+                    f"{e}") from e
+
+        # -- checked operations ------------------------------------------
+        def ensure(self, desc, n_tokens):
+            self._track(desc)
+            super().ensure(desc, n_tokens)
+            self.verify(f"ensure(uid={desc.uid}, n={n_tokens})")
+
+        def lookup(self, desc, tokens):
+            self._track(desc)
+            skipped = super().lookup(desc, tokens)
+            if skipped > len(tokens) - 1:
+                raise SanitizerError(
+                    f"[sanitizer] prefix lookup for uid {desc.uid} skipped "
+                    f"{skipped} of {len(tokens)} tokens — at least the "
+                    "final prompt token must run to produce logits")
+            self.verify(f"lookup(uid={desc.uid})")
+            return skipped
+
+        def copy_on_write(self, desc, j):
+            self._track(desc)
+            src_before = desc.blocks[j]
+            refs_before = self.refcount(src_before)
+            src, dst = super().copy_on_write(desc, j)
+            # COW exclusivity: the writer must own the replacement block
+            # alone, and exactly one reference must come off the source
+            if self.refcount(dst) != 1:
+                raise SanitizerError(
+                    f"[sanitizer] COW exclusivity: dst block {dst} has "
+                    f"refcount {self.refcount(dst)} != 1 after "
+                    f"copy_on_write(uid={desc.uid}, j={j})")
+            if desc.blocks[j] != dst or src != src_before:
+                raise SanitizerError(
+                    f"[sanitizer] COW repoint: uid {desc.uid} slot {j} "
+                    f"maps {desc.blocks[j]}, expected dst {dst} "
+                    f"(src {src} vs {src_before})")
+            if self.refcount(src) != refs_before - 1:
+                raise SanitizerError(
+                    f"[sanitizer] COW released {refs_before - self.refcount(src)} "
+                    f"references on src block {src}, expected exactly 1")
+            self.verify(f"copy_on_write(uid={desc.uid}, j={j})")
+            return src, dst
+
+        def register(self, desc, limit=None):
+            self._track(desc)
+            # speculation-aware rollback accounting (docs/SERVING.md): a
+            # fused/verify dispatch marks its K advanced positions as
+            # uncommitted; registering them in the content index before
+            # rollback commits the step would let the prefix cache serve
+            # unverified draft tokens to other requests. A bounded
+            # registration (pipelined dispatch: ``limit`` at the committed
+            # boundary) is allowed while a provisional tail is in flight —
+            # but only when the bound truly excludes every such position.
+            if getattr(desc, "uncommitted", 0):
+                if limit is None or limit > desc.seen_tokens - desc.uncommitted:
+                    raise SanitizerError(
+                        f"[sanitizer] register during speculation: uid "
+                        f"{desc.uid} has {desc.uncommitted} uncommitted "
+                        "token(s) from the last fused/verify/pipelined "
+                        "dispatch — the prefix index may only cover "
+                        "positions below the committed boundary")
+            super().register(desc, limit=limit)
+            self.verify(f"register(uid={desc.uid})")
+
+        def rollback(self, desc, n_tokens):
+            self._track(desc)
+            before = len(desc.blocks)
+            keep = min(before, self.blocks_needed(n_tokens))
+            freed = super().rollback(desc, n_tokens)
+            # rollback exactness: exactly the over-allocated tail comes
+            # back, one reference per block, never more, never fewer
+            if freed != before - keep or len(desc.blocks) != keep:
+                raise SanitizerError(
+                    f"[sanitizer] rollback exactness: uid {desc.uid} freed "
+                    f"{freed} blocks to keep {len(desc.blocks)}, expected "
+                    f"to free {before - keep} and keep {keep}")
+            self.verify(f"rollback(uid={desc.uid}, n={n_tokens})")
+            return freed
+
+        def free(self, desc):
+            # double-free scan BEFORE mutating: a stale descriptor (a
+            # scheduler race re-freeing flushed blocks) must be caught
+            # here, not corrupt refcounts of whoever owns the block now
+            for b in desc.blocks:
+                if self.refcount(b) < 1:
+                    raise SanitizerError(
+                        f"[sanitizer] double free: uid {desc.uid} frees "
+                        f"block {b} which has no outstanding reference")
+            super().free(desc)
+            self._seen.pop(desc.uid, None)
+            self.verify(f"free(uid={desc.uid})")
+
+        def flush_cache(self):
+            super().flush_cache()
+            self.verify("flush_cache")
+
+    _checked_cls = CheckedBlockedKVCache
+    return _checked_cls
 
 
 def check_prefill_ownership(engine, live: Dict[int, object]) -> None:

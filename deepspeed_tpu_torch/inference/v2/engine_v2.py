@@ -50,7 +50,13 @@ graphs, to be captured again at each key's next step. On the CPU, or with
 engine's graphs share one memory pool (``torch.cuda.graph_pool_handle``):
 they run one at a time on one stream and every step's output is read
 before the next step runs, so the up to 32 slot prefill graphs at
-llama-7b's size do not each keep a pool of their own.
+llama-7b's size do not each keep a pool of their own. Each program's body
+is a module function wrapped by ``analysis.program_audit.audited_program``
+under the JAX manifest's name (``engine_v2.ragged`` and the rest), which
+under ``DSTPU_AUDIT`` fingerprints a key's eager step and bounds its
+signatures; a graph captured unaudited is captured again once the audit is
+armed. ``DSTPU_SANITIZE=1`` builds the allocator checked
+(``CheckedBlockedKVCache``), here and at every ``rebuild``.
 
 **KV tiers and swap** (paged mode, with the prefix cache;
 ``engine_v2.py:447-807``). ``host_tier_blocks > 0`` turns pool eviction into
@@ -74,7 +80,9 @@ import numpy as np
 import torch
 
 from ...accelerator import resolve_device
-from ...analysis.sanitizer import check_transfer_ledger, sanitize_enabled
+from ...analysis.program_audit import audit_mode, audited_program
+from ...analysis.sanitizer import (check_transfer_ledger, checked_cache_cls,
+                                   sanitize_enabled)
 from ...models.transformer import row_keys, sample_or_argmax
 from ...ops import launch_counters
 from ...ops.quantizer.woq import group_of
@@ -121,6 +129,59 @@ def _host_keys(out: np.ndarray, seeds, positions) -> None:
                         ).numpy().astype(np.uint32).view(np.int32)
 
 
+# ---------------------------------------------------------------------------
+# the step programs' bodies: module functions of explicit tensors, wrapped
+# per engine by ``audited_program`` (``analysis/program_audit.py``) at the
+# registration sites of the JAX engine's ``audited_jit`` programs
+# ---------------------------------------------------------------------------
+
+def _ragged_step(model, params, kv, bias_pool, ids, tables, starts, logit_rows, slots,
+                 seeds, top_ks, temps, top_ps, keys, *, greedy: bool, sampled: bool):
+    lg = model.forward_paged(params, ids, kv, tables, starts, logit_rows=logit_rows)
+    if not greedy:
+        return lg.float()
+    return sample_or_argmax(lg, seeds, None, temps, top_ks, top_ps,
+                            bias=bias_pool[slots], keys=keys, sampled=sampled)
+
+
+def _multi_step(model, params, kv, bias_pool, lead, tables, starts, slots, seeds,
+                top_ks, temps, top_ps, keys, width: Tuple[int, ...], *, sampled: bool):
+    multi = model.decode_paged_multi if width else model.verify_paged_multi
+    return multi(params, kv, lead, tables, starts, *width,
+                 sampling=(seeds, temps, top_ks, top_ps, bias_pool[slots]),
+                 keys=keys, sampled=sampled)
+
+
+def _slot_prefill_step(model, params, kv, ids, starts, slots, n_valid):
+    return model.forward_with_cache(params, ids, kv, starts, kv_rows=slots,
+                                    n_valid=n_valid).float()
+
+
+def _slot_decode_step(model, params, kv, toks, poss, active, *, greedy: bool):
+    lg = model.forward_with_cache(params, toks[:, None], kv, poss, active=active)
+    return torch.argmax(lg, dim=-1).to(torch.int32) if greedy else lg.float()
+
+
+def _cow_step(kv, src: int, dst: int) -> None:
+    for pool in kv:  # (L, kvh, NB, BS, hd); block axis = 2
+        pool[:, :, dst].copy_(pool[:, :, src])
+
+
+def _gather_step(kv, block: int) -> torch.Tensor:
+    k, v = kv
+    return torch.stack((k[:, :, block], v[:, :, block]))
+
+
+def _scatter_step(kv, batch, row: int, dst: int) -> None:
+    k, v = kv
+    k[:, :, dst].copy_(batch[row, 0])
+    v[:, :, dst].copy_(batch[row, 1])
+
+
+def _bias_set_step(bias_pool, slot: int, row) -> None:
+    bias_pool[slot].copy_(row)
+
+
 class DecodeDispatchHandle:
     """One in-flight decode round (``engine_v2.py:51``):
     :meth:`InferenceEngineV2.decode_dispatch` returns this instead of host
@@ -144,8 +205,8 @@ class DecodeDispatchHandle:
         """Wait for the round's tokens and return ``{uid: int token}``."""
         if self._out is None:
             if self._event is not None:
-                self._event.synchronize()
-            toks = self._host.numpy()
+                self._event.synchronize()  # dstpu-lint: ignore[DSTPU001] the round's one wait
+            toks = self._host.numpy()  # dstpu-lint: ignore[DSTPU001] a view of the filled host buffer
             self._out = {uid: int(toks[i]) for i, uid in enumerate(self.uids)}
             self._host = self._event = None
         if self._eng is not None:
@@ -183,14 +244,15 @@ class _StepProgram:
             off += n
         self.views, self.args = tuple(views), tuple(args)
         self._copied = torch.cuda.Event() if cuda else None
-        #: variant -> (graph, its output, the launches its capture counted)
+        #: variant -> (graph, its output, the launches its capture counted,
+        #: whether the program audit was armed at the capture)
         self.graphs: Dict[Tuple, Tuple] = {}
         self.captures = 0  # graphs captured, including those dropped since
 
     def stage(self) -> Tuple[np.ndarray, ...]:
         """The host fields, zeroed, once the last copy has read them."""
         if self._copied is not None:
-            self._copied.synchronize()
+            self._copied.synchronize()  # dstpu-lint: ignore[DSTPU001] the last copy has read the buffer
         self.host.zero_()
         return self.views
 
@@ -209,8 +271,14 @@ class _StepProgram:
         if not capture:
             return step()
         entry = self.graphs.get(variant)
+        if entry is not None and not entry[3] and audit_mode():
+            # the armed audit fingerprints a program's eager calls, which a
+            # replay does not make: a graph captured unaudited is captured
+            # again, once no replay of it is in flight
+            torch.cuda.synchronize()  # dstpu-lint: ignore[DSTPU001] armed audit only
+            entry = None
         if entry is not None:
-            graph, out, counts = entry
+            graph, out, counts, _ = entry
             graph.replay()
             launch_counters.add(counts)  # a replay runs no Python
             return out
@@ -229,7 +297,7 @@ class _StepProgram:
         # a counter registered meanwhile started from 0
         counts = [a - (before[i] if i < len(before) else 0) for i, a in enumerate(after)]
         launch_counters.add([-n for n in counts])  # the capture launched nothing
-        self.graphs[variant] = (graph, static, counts)
+        self.graphs[variant] = (graph, static, counts, bool(audit_mode()))
         self.captures += 1
         return out
 
@@ -294,6 +362,9 @@ class InferenceEngineV2:
         # max_seqs-row shape instead
         self.token_budget = token_budget or max(max_seqs, min(prefill_chunk, 256))
         self.decode_horizon = decode_horizon
+        #: 1 .. decode_horizon: the positions past a row's start that a
+        #: sampled fused or verify step keys
+        self._horizon_steps = np.arange(1, decode_horizon + 1, dtype=np.int32)
         self.capture = bool(capture)
         if params is None:
             params = model.init_params(
@@ -318,6 +389,20 @@ class InferenceEngineV2:
         self._scratch: Dict[Tuple, _StepProgram] = {}
         # (program, rows, greedy) keys built: the JAX engine's trace keys
         self._keys: set = set()
+        # the step programs under their manifest names (``engine_v2.py:347-
+        # 880``); the slot prefill's, one a bucket, are made at first use
+        self._ragged_fn = audited_program("engine_v2.ragged", _ragged_step, max_traces=4,
+                                          variants=("sampled",))
+        self._fused_fn = audited_program("engine_v2.fused", _multi_step, max_traces=1,
+                                         variants=("sampled",))
+        self._verify_fn = audited_program("engine_v2.verify", _multi_step, max_traces=1,
+                                          variants=("sampled",))
+        self._decode_fn = audited_program("engine_v2.decode", _slot_decode_step, max_traces=2)
+        self._prefill_fns: Dict[int, object] = {}
+        self._cow_fn = audited_program("engine_v2.cow", _cow_step)
+        self._tier_gather_fn = audited_program("engine_v2.tier_gather", _gather_step)
+        self._tier_scatter_fn = audited_program("engine_v2.tier_scatter", _scatter_step)
+        self._bias_set_fn = audited_program("engine_v2.bias_set", _bias_set_step)
         self._side_stream = None
         self._graph_pool = None  # one memory pool for every graph (module docstring)
         self._dispatch_host: Optional[torch.Tensor] = None
@@ -349,9 +434,7 @@ class InferenceEngineV2:
             max_blocks_per_seq = -(-self.max_seq_len // block_size)
             if num_blocks is None:
                 num_blocks = 1 + max_seqs * max_blocks_per_seq  # = slot capacity
-            self.block_mgr = BlockedKVCache(num_blocks, block_size, max_blocks_per_seq,
-                                            prefix_cache=self.prefix_cache,
-                                            host_tier_blocks=self.host_tier_blocks)
+            self.block_mgr = self._new_block_mgr(num_blocks, block_size, max_blocks_per_seq)
             self.block_mgr.demote_fn = _weak_method(self, "_demote_block")
             self._bind_nvme_tier()
             self.kv = model.init_kv_pool(num_blocks, block_size, dtype=dtype,
@@ -390,6 +473,20 @@ class InferenceEngineV2:
             log_dist(f"InferenceEngineV2: slots={max_seqs} ctx={self.max_seq_len} "
                      f"chunk={prefill_chunk} device={self.device}", ranks=[0])
 
+    def _new_block_mgr(self, num_blocks: int, block_size: int,
+                       max_blocks_per_seq: int) -> BlockedKVCache:
+        """The paged pool's allocator (``engine_v2.py:215-228``): in checked
+        mode (``DSTPU_SANITIZE=1``) the sanitizing cache, which re-verifies
+        its invariants against the live descriptors after every operation;
+        it reads them through a weak reference, so the engine stays free of
+        reference cycles."""
+        kw = dict(prefix_cache=self.prefix_cache, host_tier_blocks=self.host_tier_blocks)
+        if not sanitize_enabled():
+            return BlockedKVCache(num_blocks, block_size, max_blocks_per_seq, **kw)
+        ref = weakref.ref(self)
+        return checked_cache_cls()(num_blocks, block_size, max_blocks_per_seq,
+                                   descs=lambda: ref().state.seqs.values(), **kw)
+
     def _cast_params(self, tree):
         """Every leaf to the engine's device; float leaves to its dtype,
         except weight-only-quantized leaves, which keep their storage dtype
@@ -423,8 +520,7 @@ class InferenceEngineV2:
         """Copy-on-write: duplicate pool block ``src`` into ``dst`` in every
         layer and KV head, in place (the JAX ``_get_cow`` program), eagerly
         on the engine's stream, in order with the steps' replays."""
-        for pool in self.kv:  # (L, kvh, NB, BS, hd); block axis = 2
-            pool[:, :, dst].copy_(pool[:, :, src])
+        self._cow_fn(self.kv, src, dst)
 
     def _cow_span(self, d, n: int) -> None:
         """Detach a private copy of every block shared with another
@@ -491,12 +587,9 @@ class InferenceEngineV2:
             prog.args
 
         def step():
-            lg = self.model.forward_paged(self.params, ids, self.kv, tables, starts,
-                                          logit_rows=logit_rows)
-            if not greedy:
-                return lg.float()
-            return sample_or_argmax(lg, seeds, None, temps_d, top_ks, top_ps,
-                                    bias=self._bias_pool[slots], keys=keys_d, sampled=sampled)
+            return self._ragged_fn(self.model, self.params, self.kv, self._bias_pool, ids,
+                                   tables, starts, logit_rows, slots, seeds, top_ks, temps_d,
+                                   top_ps, keys_d, greedy=greedy, sampled=sampled)
 
         return prog.run((greedy, sampled), step, self._capturing(), self._side, self._pool)
 
@@ -523,10 +616,13 @@ class InferenceEngineV2:
         self._keys.add(("prefill", S, n))
         self.slot_steps += 1
         ids_d, starts_d, slots_d, nval_d = prog.args
+        fn = self._prefill_fns.get(S)
+        if fn is None:
+            fn = self._prefill_fns[S] = audited_program("engine_v2.prefill", _slot_prefill_step,
+                                                        max_traces=32)
 
         def step():
-            return self.model.forward_with_cache(self.params, ids_d, self.kv, starts_d,
-                                                 kv_rows=slots_d, n_valid=nval_d).float()
+            return fn(self.model, self.params, self.kv, ids_d, starts_d, slots_d, nval_d)
 
         return prog.run((), step, self._capturing(), self._side, self._pool).cpu().numpy()
 
@@ -551,9 +647,8 @@ class InferenceEngineV2:
         toks_d, poss_d, active_d = prog.args
 
         def step():
-            lg = self.model.forward_with_cache(self.params, toks_d[:, None], self.kv, poss_d,
-                                               active=active_d)
-            return torch.argmax(lg, dim=-1).to(torch.int32) if greedy else lg.float()
+            return self._decode_fn(self.model, self.params, self.kv, toks_d, poss_d, active_d,
+                                   greedy=greedy)
 
         lg = prog.run((), step, self._capturing(), self._side, self._pool).cpu().numpy()
         return {uid: (int(lg[slot]) if greedy else lg[slot]) for slot, uid in by_slot.items()}
@@ -700,8 +795,7 @@ class InferenceEngineV2:
         """Pool block ``block`` as one fresh (2, L, kvh, BS, hd) tensor, K
         stacked on V (the JAX ``_get_tier_gather`` program), on the engine's
         stream in order with its steps."""
-        k, v = self.kv  # (L, kvh, NB, BS, hd); block axis = 2
-        return torch.stack((k[:, :, block], v[:, :, block]))
+        return self._tier_gather_fn(self.kv, block)
 
     def _tier_buf_shape(self) -> Tuple[int, ...]:
         """The staging batch of promotions and swap-ins: (max_blocks_per_seq,
@@ -759,7 +853,6 @@ class InferenceEngineV2:
         buf = te.acquire_staging(self._tier_buf_shape(), self.kv[0].dtype)
         try:
             cap = buf.shape[0]
-            k, v = self.kv
             for base in range(0, len(dsts), cap):
                 chunk = range(base, min(base + cap, len(dsts)))
                 vals = te.drain_before([payloads[j] for j in chunk])
@@ -767,8 +860,7 @@ class InferenceEngineV2:
                     buf[i].copy_(host_tensor(val))
                 batch = te.submit_h2d(buf).value
                 for i, j in enumerate(chunk):
-                    k[:, :, dsts[j]].copy_(batch[i, 0])
-                    v[:, :, dsts[j]].copy_(batch[i, 1])
+                    self._tier_scatter_fn(self.kv, batch, i, dsts[j])
         finally:
             te.release_staging(buf)
 
@@ -1081,7 +1173,7 @@ class InferenceEngineV2:
         row = self._bias_rows.get(d.uid)
         if row is None or self._bias_slots.get(d.uid) == d.slot:
             return
-        self._bias_pool[d.slot].copy_(torch.from_numpy(row))
+        self._bias_set_fn(self._bias_pool, d.slot, torch.from_numpy(row))
         self._bias_slots[d.uid] = d.slot
 
     def _drop_bias(self, uid: int) -> None:
@@ -1209,10 +1301,8 @@ class InferenceEngineV2:
                      f"({self.max_seqs} slots), step programs retained", ranks=[0])
             return
         old = self.block_mgr
-        self.block_mgr = BlockedKVCache(old.num_blocks, old.block_size,
-                                        old.max_blocks_per_seq,
-                                        prefix_cache=self.prefix_cache,
-                                        host_tier_blocks=self.host_tier_blocks)
+        self.block_mgr = self._new_block_mgr(old.num_blocks, old.block_size,
+                                             old.max_blocks_per_seq)
         if self.nvme_tier_blocks:
             for hid in list(old._nvme):
                 self._drop_block(hid)
@@ -1221,6 +1311,14 @@ class InferenceEngineV2:
         log_dist(f"InferenceEngineV2.rebuild #{self.rebuilds}: block pool cleared "
                  f"({old.num_blocks}x{old.block_size}, prefix cache cold), step "
                  "programs retained", ranks=[0])
+
+    def _drop_graphs(self) -> None:
+        """Drop every captured graph: each key's next step runs eagerly and
+        is captured again."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # no replay of a graph dropped here runs on
+        for prog in self._scratch.values():
+            prog.graphs.clear()
 
     def prefill_backlog(self) -> int:
         """Pending (registered but undispatched) tokens across all resident
@@ -1351,7 +1449,7 @@ class InferenceEngineV2:
         if sampled:
             # the keys of positions starts+1 .. starts+K, derived on the host
             # and copied with the other inputs: (K, B) fused, (B, K) verify
-            steps = np.arange(1, K + 1, dtype=np.int32)
+            steps = self._horizon_steps
             if name == "fused":
                 pos, rows = starts[None, :] + steps[:, None], seeds[None, :]
             else:
@@ -1359,14 +1457,12 @@ class InferenceEngineV2:
             _host_keys(keys, np.broadcast_to(rows, pos.shape), pos)
         self._keys.add((name, len(starts), K))
         a = prog.args
-        multi = (self.model.decode_paged_multi if name == "fused"
-                 else self.model.verify_paged_multi)
-        width = (K,) if name == "fused" else ()
+        fn, width = (self._fused_fn, (K,)) if name == "fused" else (self._verify_fn, ())
 
         def step():
-            sampling = (a[4], a[6], a[5], a[7], self._bias_pool[a[3]])
-            return multi(self.params, self.kv, a[0], a[1], a[2], *width, sampling=sampling,
-                         keys=a[8], sampled=sampled)
+            # staged: lead, tables, starts, slots, seeds, top-ks, temps, top-ps, keys
+            return fn(self.model, self.params, self.kv, self._bias_pool, a[0], a[1], a[2],
+                      a[3], a[4], a[5], a[6], a[7], a[8], width, sampled=sampled)
 
         return prog.run((True, sampled), step, self._capturing(), self._side,
                         self._pool).cpu().numpy()
@@ -1617,10 +1713,7 @@ class InferenceEngineV2:
                 "was computed under the old weights)")
         self._match_params(self.params, params, "")
         new = self._cast_params(params)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)  # no replay of a graph dropped here runs on
-        for prog in self._scratch.values():
-            prog.graphs.clear()
+        self._drop_graphs()
         self.params = new
         self.weights_version = version
         if self.paged:

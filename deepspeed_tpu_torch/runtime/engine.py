@@ -65,6 +65,7 @@ import numpy as np
 import torch
 
 from ..accelerator import resolve_device
+from ..analysis.program_audit import audited_program
 from ..ops.optimizers import OptState, build_optimizer
 from ..ops.transformer.flash_attention import check_kernel_config
 from ..resilience.errors import CheckpointCorruptError, EngineUsageError
@@ -211,6 +212,12 @@ def _check_supported(config: DeepSpeedConfig, model) -> None:
             raise _not_ported(what, item)
 
 
+def _train_forward(apply_fn, params, batch, rng):
+    """The training micro-step's forward, the first half of the audited
+    ``engine.fwd_bwd`` program (its backward is the second)."""
+    return apply_fn(params, batch, train=True, rng=rng)
+
+
 class DeepSpeedEngine:
     def __init__(self, model, config: DeepSpeedConfig, optimizer=None, lr_scheduler=None,
                  training_data=None, collate_fn=None, model_params=None,
@@ -290,6 +297,9 @@ class DeepSpeedEngine:
 
         # the base key of every training-mode forward (engine.py:342)
         self._rng = prng.PRNGKey(config.seed, device=self.device)
+        # the training step's forward and backward under their manifest name
+        # (``engine.py:775``): ``begin`` runs the forward, ``end`` the backward
+        self._fwd_bwd = audited_program("engine.fwd_bwd", _train_forward, max_traces=4)
 
         # ---- optimizer ----
         self.client_optimizer = optimizer
@@ -322,6 +332,9 @@ class DeepSpeedEngine:
         # ---- loss scaling ----
         self.loss_scaler = CreateLossScaler(config.fp16_config, config.fp16_enabled)
         self.scaler_state = self.loss_scaler.init_state(self.device)
+        # the step's overflow flags, made once (never written in place)
+        self._no_overflow = torch.zeros((), dtype=torch.bool, device=self.device)
+        self._overflow = torch.ones((), dtype=torch.bool, device=self.device)
 
         # ---- lr scheduler ----
         self.client_lr_scheduler = lr_scheduler
@@ -407,8 +420,8 @@ class DeepSpeedEngine:
                                                     rng=None)).float()
             self.timers(FORWARD_MICRO_TIMER).stop()
             return loss
-        loss = self._loss_of(self._apply_fn(self.params, batch, train=True,
-                                            rng=self._micro_step_key()))
+        loss = self._loss_of(self._fwd_bwd.begin(self._apply_fn, self.params, batch,
+                                                 self._micro_step_key()))
         self._cached = loss
         self.timers(FORWARD_MICRO_TIMER).stop()
         return loss
@@ -434,7 +447,9 @@ class DeepSpeedEngine:
             raise EngineUsageError("backward() called without a preceding forward()")
         self.timers(BACKWARD_MICRO_TIMER).start()
         gas = self.config.gradient_accumulation_steps
-        grads = self._grads_of(self._cached.float() * self.scaler_state.cur_scale / gas)
+        cached = self._cached
+        grads = self._fwd_bwd.end(
+            lambda: self._grads_of(cached.float() * self.scaler_state.cur_scale / gas))
         self._cached = None
         if gas == 1:
             self._acc_grads = grads
@@ -470,8 +485,7 @@ class DeepSpeedEngine:
         cfg = self.config
         inv = 1.0 / self.scaler_state.cur_scale
         grads = tree_map(lambda g: g.float() * inv, acc_grads)
-        overflow = (has_overflow(grads) if cfg.fp16_enabled
-                    else torch.zeros((), dtype=torch.bool, device=self.device))
+        overflow = has_overflow(grads) if cfg.fp16_enabled else self._no_overflow
         gnorm = _global_norm(grads)
         if cfg.gradient_clipping > 0:
             coef = torch.clamp(cfg.gradient_clipping / (gnorm + 1e-6), max=1.0)
@@ -582,9 +596,10 @@ class DeepSpeedEngine:
             self._ensure_zero3_params()
         batch = to_device(batch, self.device)
         lr = self.get_lr()[0]
-        loss = self._loss_of(self._apply_fn(self.params, batch, train=True,
-                                            rng=self._micro_step_key()))
-        grads = self._grads_of(loss.float() * self.scaler_state.cur_scale)
+        loss = self._loss_of(self._fwd_bwd.begin(self._apply_fn, self.params, batch,
+                                                 self._micro_step_key()))
+        grads = self._fwd_bwd.end(
+            lambda: self._grads_of(loss.float() * self.scaler_state.cur_scale))
         gnorm, overflow = self._apply_update(grads, lr)
         self.micro_steps += 1
         self._after_step(gnorm, overflow)
@@ -675,8 +690,7 @@ class DeepSpeedEngine:
         st["norm_s"] += time.perf_counter() - t0
         if overflow:
             mgr["host"].step_count += 1  # Adam's step parity with skipped steps
-            self.scaler_state = self.loss_scaler.update(
-                self.scaler_state, torch.ones((), dtype=torch.bool, device=self.device))
+            self.scaler_state = self.loss_scaler.update(self.scaler_state, self._overflow)
             return gnorm, True
 
         params_flat = list(tree_leaves(self.params))
@@ -709,7 +723,7 @@ class DeepSpeedEngine:
         if record:
             del sched[:]  # re-record from scratch if an earlier step aborted
         lp_dtype = self.compute_dtype
-        itemsize = torch.empty((), dtype=lp_dtype).element_size()
+        itemsize = lp_dtype.itemsize
         # the updated chunks go up in the compute dtype through two pinned
         # staging buffers in turn: the host casts a chunk into one while the
         # other's upload runs, and the tier steps the next chunk under both;
@@ -757,8 +771,7 @@ class DeepSpeedEngine:
             for slot in ring:
                 te.release_staging(slot[0])
         if cfg.fp16_enabled:
-            self.scaler_state = self.loss_scaler.update(
-                self.scaler_state, torch.zeros((), dtype=torch.bool, device=self.device))
+            self.scaler_state = self.loss_scaler.update(self.scaler_state, self._no_overflow)
         from ..analysis.sanitizer import sanitize_enabled
 
         if sanitize_enabled():

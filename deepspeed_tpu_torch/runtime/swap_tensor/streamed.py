@@ -275,10 +275,11 @@ class StreamedZeroEngine:
         t0 = time.perf_counter()
         if gas > 1:
             inv = 1.0 / gas
-            sq = torch.zeros((), dtype=torch.float32, device=self.device)
+            sq = None  # summed in fp32 from the first term on
             for a in acc:
                 a.mul_(inv)
-                sq = sq + a.square().sum()
+                term = a.square().sum().float()
+                sq = term if sq is None else sq + term
             grads = acc
         clip = self.config.gradient_clipping
         clip_coef = 1.0

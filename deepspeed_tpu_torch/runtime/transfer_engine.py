@@ -482,8 +482,10 @@ class TransferEngine:
             self._open[tid] = t
         else:
             t0 = time.perf_counter()
-            t._result = (arr.detach().to("cpu", copy=True) if isinstance(arr, torch.Tensor)
-                         else host_tensor(np.array(arr)))
+            # the synchronous twin: the copy is the settle
+            t._result = (arr.detach().to("cpu", copy=True)  # dstpu-lint: ignore[DSTPU001]
+                         if isinstance(arr, torch.Tensor)
+                         else host_tensor(np.array(arr)))  # dstpu-lint: ignore[DSTPU002]
             self._note("d2h", nb, time.perf_counter() - t0)
             t.open = False
             self.completed_bytes["d2h"] += nb
@@ -523,7 +525,7 @@ class TransferEngine:
                 side.wait_stream(cur)  # the destination's earlier readers first
             with torch.cuda.stream(side):
                 if fresh:
-                    out = torch.empty(src.shape, dtype=src.dtype, device=dev)
+                    out = torch.empty(src.shape, dtype=src.dtype, device=dev)  # dstpu-lint: ignore[DSTPU002]
                 out.copy_(src, non_blocking=src.is_pinned())
                 done = torch.cuda.Event()
                 done.record(side)
@@ -535,7 +537,7 @@ class TransferEngine:
                 self.inflight_bytes["h2d"] += nb
                 self._open[tid] = t
                 return t
-            done.synchronize()  # the source is read: the caller may refill it
+            done.synchronize()  # dstpu-lint: ignore[DSTPU001] the source is read: the caller may refill it
         elif out is not None:
             out.copy_(src)
         else:
@@ -554,7 +556,7 @@ class TransferEngine:
         raw = t._raw
         if isinstance(raw, tuple):  # on the card: wait for the copy's event
             _, dst, done = raw
-            done.synchronize()
+            done.synchronize()  # dstpu-lint: ignore[DSTPU001]
             t._result = dst
         else:
             t._result = raw
@@ -606,7 +608,7 @@ class TransferEngine:
         if not t.open:
             return
         if t.direction == "h2d" and isinstance(t._raw, tuple):
-            t._raw[2].synchronize()  # the copy still reads its host source
+            t._raw[2].synchronize()  # dstpu-lint: ignore[DSTPU001] the copy still reads its host source
         self._open.pop(t.tid, None)
         self.inflight_bytes[t.direction] -= t.nbytes
         self.cancelled_bytes[t.direction] += t.nbytes
@@ -638,7 +640,8 @@ class TransferEngine:
             if isinstance(leaf, torch.Tensor) and leaf.device == self.device:
                 out.append(leaf)
                 continue
-            arr = host_tensor(leaf if isinstance(leaf, torch.Tensor) else np.asarray(leaf))
+            arr = host_tensor(leaf if isinstance(leaf, torch.Tensor)
+                              else np.asarray(leaf))  # dstpu-lint: ignore[DSTPU001] a host leaf
             nb = _nbytes(arr)
             if nb > limit and arr.dim() >= 1 and arr.shape[0] > 1:
                 rows = max(1, int(arr.shape[0] * limit / nb))

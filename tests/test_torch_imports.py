@@ -96,6 +96,14 @@ _TRAINING_MODULES = {
     "deepspeed_tpu_torch.runtime.swap_tensor",
     "deepspeed_tpu_torch.runtime.swap_tensor.param_swapper",
     "deepspeed_tpu_torch.runtime.swap_tensor.streamed",
+    # the guards: the linter, its baseline and cache, the program audit
+    "deepspeed_tpu_torch.analysis",
+    "deepspeed_tpu_torch.analysis.__main__",
+    "deepspeed_tpu_torch.analysis.baseline",
+    "deepspeed_tpu_torch.analysis.cache",
+    "deepspeed_tpu_torch.analysis.lint",
+    "deepspeed_tpu_torch.analysis.program_audit",
+    "deepspeed_tpu_torch.analysis.rules",
 }
 
 
@@ -131,6 +139,33 @@ def test_no_source_imports_jax_even_inside_a_function():
             bad += [f"{os.path.relpath(path, _REPO)}:{node.lineno} {m}" for m in mods
                     if m.split(".")[0] in ("jax", "jaxlib", "deepspeed_tpu")]
     assert len(files) > 40 and bad == []
+
+
+_GUARDS_PROBE = """
+import sys
+import torch
+from deepspeed_tpu_torch.analysis import (armed, audited_program, check_manifest,
+                                          lint_paths, ProgramRegistry)
+import deepspeed_tpu_torch
+pkg = deepspeed_tpu_torch.__path__[0]
+assert lint_paths([pkg]) is not None and check_manifest([pkg]) == []
+reg = ProgramRegistry("/nonexistent/programs.json")
+reg._pin = lambda *a: None
+with armed("write", reg):
+    prog = audited_program("probe.step", lambda x: (x * 2).sum())
+    prog(torch.ones(4))
+assert reg.observed["probe.step"]
+print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "deepspeed_tpu")))
+"""
+
+
+def test_the_guards_in_use_import_neither_jax_nor_the_jax_package():
+    # the JAX package's program audit imports jax when it fingerprints; the
+    # port's linter, manifest check and armed audit must not
+    proc = subprocess.run([sys.executable, "-c", _GUARDS_PROBE], cwd=_REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
 
 
 @pytest.fixture

@@ -30,14 +30,19 @@ JAX engines are reused across tests of one geometry: rebuilt before each
 use (compiling their programs is most of a run), with a fresh
 TransferEngine and zeroed ``swap_stats``, which a rebuild keeps, so that
 each run starts from a fresh engine's state.
-Not here: the tier sanitizer's planted violations (the checked cache,
-waiting for ROADMAP.md Queue 1 item 10). The pool's replica prefixes, the
+- the tier sanitizer (``check_tier_conservation``): each planted violation
+  of ``TestTierConservationSanitizer`` raises in both packages with the same
+  message, and, armed (the module runs in checked mode), a planted leak
+  surfaces from the port's scheduler step.
+
+The pool's replica prefixes, the
 router's probe, a swap-resident victim's migration and the rolling update
 are in ``tests/test_torch_disagg_elastic.py``.
 """
 
 import glob
 import os
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -53,6 +58,10 @@ from deepspeed_tpu.models import build_model as jax_build_model
 from deepspeed_tpu.resilience import RetryPolicy as JaxRetryPolicy
 from deepspeed_tpu.runtime.transfer_engine import TransferCorruptError as JaxCorruptError
 from deepspeed_tpu.runtime.transfer_engine import TransferEngine as JaxTransferEngine
+import deepspeed_tpu.analysis.sanitizer as jsan
+import deepspeed_tpu.inference.v2.ragged_manager as jrm
+import deepspeed_tpu_torch.analysis.sanitizer as tsan
+import deepspeed_tpu_torch.inference.v2.ragged_manager as trm
 from deepspeed_tpu_torch.analysis.sanitizer import check_transfer_ledger
 from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
 from deepspeed_tpu_torch.models import build_model, params_from_jax
@@ -60,6 +69,7 @@ from deepspeed_tpu_torch.resilience.retry import RetryPolicy
 from deepspeed_tpu_torch.runtime.transfer_engine import TransferCorruptError
 from tests.test_torch_fused_decode import Injector
 from tests.test_torch_scheduler import Clock, assert_same
+from tests.torch_checked import checked_mode  # noqa: F401  (autouse: checked mode)
 
 MODEL = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4, num_kv_heads=2,
              intermediate_size=128, max_seq_len=128)
@@ -434,3 +444,101 @@ def test_handoff_crosses_packages(models, src):
     assert got == want
     swaps = b.swap_stats
     assert swaps["swap_import"] == swaps["swap_in"] == 1 and swaps["orphan_drops"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the tier sanitizer: planted violations, both packages
+# ---------------------------------------------------------------------------
+
+SAN = {"jax": (jsan, jrm), "torch": (tsan, trm)}
+
+
+def _stub_engine(mgr, seqs=None, swaps=None):
+    return SimpleNamespace(block_mgr=mgr, state=SimpleNamespace(seqs=seqs or {}),
+                           _swaps=swaps or {})
+
+
+def _tiered_mgr(rm):
+    mgr = rm.BlockedKVCache(9, block_size=4, max_blocks_per_seq=8, prefix_cache=True,
+                            host_tier_blocks=8)
+    a = rm.SequenceDescriptor(uid=1, slot=0)
+    skipped = mgr.lookup(a, [1, 1, 1, 1, 2, 2, 2, 2])
+    a.history.extend([1, 1, 1, 1, 2, 2, 2, 2][skipped:])
+    mgr.ensure(a, 8)
+    a.seen_tokens = 8
+    mgr.register(a)
+    mgr.free(a)
+    b = rm.SequenceDescriptor(uid=2, slot=1)
+    mgr.ensure(b, 7 * 4)  # one demotion
+    assert mgr.host_blocks == 1
+    return mgr, b
+
+
+def _plant_dangling(mgr, b):
+    del mgr._host[next(iter(mgr._host))]
+    return _stub_engine(mgr)
+
+
+def _plant_leak(mgr, b):
+    del mgr._ref[b.blocks[-1]]
+    return _stub_engine(mgr)
+
+
+def _plant_overlap(mgr, b):
+    mgr._free.append(b.blocks[0])
+    return _stub_engine(mgr)
+
+
+def _plant_resident_swap(mgr, b):
+    return _stub_engine(mgr, seqs={5: object()}, swaps={5: ([], [], 0)})
+
+
+def _plant_payload_count(mgr, b):
+    return _stub_engine(mgr, swaps={7: ([None], list(range(24)), 24)})
+
+
+def _plant_unpinned_promotion(mgr, b):
+    mgr._pending_promotions.append((None, next(iter(mgr._lru))))
+    return _stub_engine(mgr)
+
+
+TIER_PLANTS = {"clean": (lambda mgr, b: _stub_engine(mgr), None),
+               "dangling_demoted_index": (_plant_dangling, "no tier residence"),
+               "device_pool_leak": (_plant_leak, "not conserved"),
+               "free_and_referenced": (_plant_overlap, "free AND referenced"),
+               "resident_uid_with_swap": (_plant_resident_swap, "engine-resident"),
+               "swap_payload_count": (_plant_payload_count, "payload"),
+               "unpinned_pending_promotion": (_plant_unpinned_promotion, "promotion")}
+
+
+@pytest.mark.parametrize("name", sorted(TIER_PLANTS))
+def test_tier_conservation_plants_raise_as_in_jax(name):
+    plant, match = TIER_PLANTS[name]
+    msgs = {}
+    for kind, (san, rm) in SAN.items():
+        eng = plant(*_tiered_mgr(rm))
+        try:
+            san.check_tier_conservation(eng)
+            msgs[kind] = None
+        except san.SanitizerError as e:
+            msgs[kind] = str(e)
+    if match is None:
+        assert msgs == {"jax": None, "torch": None}
+    else:
+        assert msgs["torch"] is not None and match in msgs["torch"]
+        assert msgs["torch"] == msgs["jax"]
+
+
+def test_tier_check_armed_in_scheduler_step(models):
+    """Checked mode (armed for this module) runs the tier check every
+    scheduler step: a planted leak surfaces as a SanitizerError out of
+    ``step()``, over the checked cache."""
+    eng = engine("torch", models, num_blocks=17, host_tier_blocks=8)
+    assert isinstance(eng.block_mgr, tsan.checked_cache_cls())
+    sched = ts.ContinuousBatchScheduler(eng, sleep=lambda s: None)
+    sched.submit([1, 2, 3, 4, 5], max_new_tokens=3, uid=900)
+    sched.step()
+    eng.block_mgr._free.pop()
+    with pytest.raises(tsan.SanitizerError, match="tier conservation"):
+        sched.step()
+

@@ -29,6 +29,7 @@ from tests.test_torch_fused_decode import (PKG, engine, models,  # noqa: F401
                                            one_torch_thread, prompts, reusable_engine, run_sched, singles,
                                            tokens)
 from tests.test_torch_scheduler import Clock, assert_same
+from tests.torch_checked import checked_mode  # noqa: F401  (autouse: checked mode)
 
 
 def twin(models, prompts_, **kw):

@@ -40,6 +40,7 @@ from deepspeed_tpu.runtime.transfer_engine import TransferEngine as JaxTransferE
 from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
 from deepspeed_tpu_torch.models import build_model, params_from_jax
 from tests.test_torch_scheduler import Clock, assert_same
+from tests.torch_checked import checked_mode  # noqa: F401  (autouse: checked mode)
 
 MODEL = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4, num_kv_heads=2,
              intermediate_size=128, max_seq_len=128)

@@ -33,6 +33,7 @@ from deepspeed_tpu.resilience.journal_store import _unframe
 from tests.test_torch_pool import (KINDS, Side, both, make_pool, models,  # noqa: F401
                                    observe, one_torch_thread, reference, streams, workload)
 from tests.test_torch_scheduler import Clock
+from tests.torch_checked import checked_mode  # noqa: F401  (autouse: checked mode)
 
 PKGS = {"jax": (jres, js), "torch": (tres, ts)}
 

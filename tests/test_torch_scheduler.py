@@ -42,6 +42,7 @@ from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
 from deepspeed_tpu_torch.models import build_model, params_from_jax
 from deepspeed_tpu_torch.utils import prng
 from tests.test_torch_prng import MARGIN, masked_rows
+from tests.torch_checked import checked_mode  # noqa: F401  (autouse: checked mode)
 
 V = 128
 MODEL = dict(vocab_size=V, hidden_size=64, num_layers=2, num_heads=4, num_kv_heads=2,

@@ -7,14 +7,12 @@ validation and the ``rollback`` contract, and ``ContinuousBatchScheduler``
 with a proposer against the plain scheduler (greedy and sampled, a stop
 token inside an accepted draft, preemption churn, faults on the
 ``verify_multi`` site, acceptance collapse, chunked prefill), plus the
-sanitizer's uncommitted-speculation check. The harness is
-``tests/test_torch_fused_decode.py``'s. Streams, block state and counters
-must be equal across packages under the margin rule; inside the port,
-speculative streams must equal plain ones bitwise (fp32 on the CPU).
-
-Not ported: the JAX suite's checked-cache case (a register during an
-uncommitted verify refused by ``checked_cache_cls``), which comes with the
-checked block manager (ROADMAP.md Queue 1 item 10).
+sanitizer's speculation checks: the checked cache refusing a register
+during an uncommitted verify, and an uncommitted verify across a step
+boundary. The harness is ``tests/test_torch_fused_decode.py``'s. Streams,
+block state and counters must be equal across packages under the margin
+rule; inside the port, speculative streams must equal plain ones bitwise
+(fp32 on the CPU).
 """
 
 import numpy as np
@@ -28,6 +26,7 @@ from tests.test_torch_scheduler import Clock
 from tests.test_torch_fused_decode import (KINDS, PKG, both, engine, models,  # noqa: F401
                                            one_torch_thread, prompts, reusable_engine, run_sched, seq_view,
                                            singles, tokens)
+from tests.torch_checked import checked_mode  # noqa: F401  (autouse: checked mode)
 
 LOOKUP = {"proposer": lambda kind: PKG[kind][0].PromptLookupProposer()}
 
@@ -372,6 +371,20 @@ def test_draft_model_target_as_draft_accepts_every_draft(models):
     assert tokens(run) == _plain(models)["greedy"][:2]
     spec = run[2].metrics.spec
     assert spec["steps"] > 0 and spec["acceptance_rate"] == 1.0
+
+
+def test_register_during_speculation_is_caught(models, monkeypatch):
+    """Registering a descriptor while its verify dispatch is uncommitted
+    would let the prefix index cover unverified drafts: the checked cache
+    refuses, and takes the registration once the rollback commits."""
+    monkeypatch.setenv("DSTPU_SANITIZE", "1")
+    eng = engine("torch", models, decode_horizon=4)
+    t0 = int(eng.put([1], [prompts(1)[0]], greedy=True)[1])
+    eng.verify_multi({1: t0}, {1: [3, 4, 5]})
+    with pytest.raises(SanitizerError, match="uncommitted"):
+        eng.block_mgr.register(eng.state.seqs[1])
+    eng.rollback(1, 3)  # the legal path commits first
+    eng.block_mgr.register(eng.state.seqs[1])
 
 
 def test_uncommitted_across_step_boundary_is_caught(models, monkeypatch):

@@ -40,6 +40,7 @@ from deepspeed_tpu_torch.resilience import (CheckpointCorruptError, FaultInjecto
                                             TrainingSupervisor, TransientEngineError)
 from deepspeed_tpu_torch.runtime.checkpoint_engine.native_checkpoint_engine import (
     NativeCheckpointEngine)
+from tests.torch_checked import checked_mode  # noqa: F401  (autouse: checked mode)
 
 ROWS, SEQ, V, STEPS = 8, 16, 128, 5
 MKW = dict(hidden_size=32, num_layers=1, num_heads=2, vocab_size=V, max_seq_len=SEQ)

@@ -28,6 +28,7 @@ import deepspeed_tpu_torch.runtime.transfer_engine as tte
 from deepspeed_tpu.analysis.sanitizer import SanitizerError as JaxSanitizerError
 from deepspeed_tpu_torch.analysis.sanitizer import SanitizerError, check_transfer_ledger
 from deepspeed_tpu_torch.utils import transfer as ttransfer
+from tests.torch_checked import checked_mode  # noqa: F401  (autouse: checked mode)
 
 
 def arrays(n=256, seed=0):

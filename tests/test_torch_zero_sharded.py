@@ -36,6 +36,7 @@ from deepspeed_tpu_torch.utils.tree import tree_leaves
 from tests.test_torch_zero_offload import (assert_leaves_equal, config,  # noqa: F401
                                            fp32_leaves, jax_model_and_params, make_runs,
                                            one_thread, port_engine, port_vs_jax, train)
+from tests.torch_checked import checked_mode  # noqa: F401  (autouse: checked mode)
 
 KNOBS = {"stage3_max_live_parameters": 1, "stage3_param_persistence_threshold": 64,
          "stage3_prefetch_bucket_size": 1 << 16}
