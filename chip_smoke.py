@@ -311,6 +311,26 @@ p.  the parameter tier, after z: (p2) at llama-7b width, 2 layers, fp32, a
     does), so losses 1-3 are bitwise equal and the 4th below them. A
     ``{"stream_summary": ...}`` line: the step, its host split and the
     traced step's device split, card peak, host RSS, tokens/s.
+m.  ZeRO across ranks, after p (``multirank_phase``): one process trains
+    llama-7b width at 2 layers on a global batch of 2 rows of 2048 (bf16,
+    3 steps), then 2 spawned rank processes share the card over gloo
+    (``file://`` rendezvous under ``build/``; ``nccl`` needs a card a rank)
+    with the same global batch, a row each: every collective of the
+    facade taken by gloo on CUDA tensors as they are; stages 0-3 bitwise
+    each other (losses and a fingerprint of the fp32 master), the ranks'
+    lp weights equal after every step, each step's loss within 3e-4 of the
+    one process's; optimizer-state bytes halving from stage 1, parameter bytes
+    at stage 3, ``max_memory_allocated`` falling stage by stage; ZeRO++
+    (qwZ + qgZ at stage 3) trains with at most half of stage 3's
+    collective bytes; ``OnebitAdam`` (``freeze_step`` 2, 5 steps) lowers
+    the loss at every compressed step, its sign bytes at most 1/16 of
+    stage 0's; each rank's flash launches 2 layers x the run's steps (the
+    counts set to 0 just before each run and read just after). A
+    ``{"multirank_summary": ...}`` line: per-rank memory, step ms (two
+    processes time-sharing one card: not a data-parallel rate) and bytes
+    by collective record. ``torchrun --standalone --nproc_per_node 4
+    chip_smoke.py --zero-nccl`` (not part of this run) trains llama-7b at
+    32 layers under ZeRO-2 and ZeRO-3 over nccl on four cards.
 
 Then block-sparse attention:
 
@@ -372,6 +392,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -3188,9 +3209,9 @@ def dropout_train_path(fa, dev, base):
     real = prng.bernoulli
     drawn = []
 
-    def annotated(key, p, shape):
+    def annotated(key, p, shape, **kw):
         with torch.profiler.record_function("threefry_bernoulli"):
-            keep = real(key, p, shape)
+            keep = real(key, p, shape, **kw)
         if len(drawn) < 2:  # step 1, layer 0: the attention output, then the MLP's
             drawn.append((key.clone(), keep.clone()))
         return keep
@@ -4708,9 +4729,9 @@ def remat_run(fa, dev, batch, policy, ref_grads=None, dropout=0.0, trace=False):
     real = prng.bernoulli
     draws = []
 
-    def annotated(key, p, shape):
+    def annotated(key, p, shape, **kw):
         with torch.profiler.record_function("threefry_bernoulli"):
-            return real(key, p, shape)
+            return real(key, p, shape, **kw)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5143,6 +5164,432 @@ def stream_phase(fa, pa, dev, card):
                                                         "full_depth": full}
 
 
+M_LAYERS = 2          # phase m: llama-7b width at 2 layers on each of 2 ranks
+M_STEPS = 3
+M_TIMEOUT = 600       # seconds a rank may take for the whole phase
+M_CONFIG = {
+    "train_batch_size": 2,  # the global batch: one row a rank at 2 ranks, two at 1
+    "gradient_accumulation_steps": 1,
+    "bf16": {"enabled": True},
+    "gradient_clipping": 1.0,
+    "optimizer": {"type": "AdamW", "params": {"lr": 3e-4, "weight_decay": 0.1}},
+    "steps_per_print": 0,
+    "seed": 0,
+}
+# 1-bit Adam: Adam for M_ONEBIT_FREEZE steps, then compressed. Its lr is a
+# tenth of the others': at 3e-4 the repeated batch is learnt in one step
+# (loss ~11 to ~0.05), leaving no curve for the compressed steps to follow;
+# at 3e-5 the loss falls over every step. A freeze after one step leaves a
+# variance from one gradient, under which the first compressed step undid
+# the training (11.18, 0.048, 11.13 on the card); after two it does not.
+M_ONEBIT_FREEZE = 2
+M_ONEBIT_STEPS = 5
+# (name, zero_optimization, optimizer, steps): stages 0-3, ZeRO++ at stage 3,
+# 1-bit Adam
+M_RUNS = (
+    ("stage0", {"stage": 0}, None, M_STEPS),
+    ("stage1", {"stage": 1}, None, M_STEPS),
+    ("stage2", {"stage": 2}, None, M_STEPS),
+    ("stage3", {"stage": 3}, None, M_STEPS),
+    ("zeropp", {"stage": 3, "zero_quantized_weights": True,
+                "zero_quantized_gradients": True}, None, M_STEPS),
+    ("onebit", {"stage": 1}, {"type": "OnebitAdam", "params": {
+        "lr": 3e-5, "freeze_step": M_ONEBIT_FREEZE}}, M_ONEBIT_STEPS),
+)
+# each step's loss against the one-process run's on the same global batch,
+# absolute: bf16, the ranks' GEMMs run half the rows and the gradients sum
+# in another order. Measured on an H100 80GB HBM3 at 700 W: 1e-6, 6.4e-5 and
+# 9.4e-5 over the 3 steps (the loss falls from ~11 to ~2e-3); the bound is
+# about three times the largest
+M_LOSS_ATOL = 3e-4
+
+
+def m_batch(vocab, rows, seq=2048, seed=0):
+    return {"input_ids": np.random.default_rng(seed).integers(
+        0, vocab, (rows, seq)).astype(np.int32)}
+
+
+def m_engine(dev, zero, optimizer=None, layers=M_LAYERS, model_kw=None, rows=2):
+    """A llama-7b-width engine drawing its own weights (the device's
+    generator, seed 0: the same weights in every process), ``rows`` the
+    global batch. ``model_kw`` narrows the model for a rehearsal on the CPU."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import build_model
+
+    cfg = dict(M_CONFIG, zero_optimization=zero, train_batch_size=rows)
+    if optimizer is not None:
+        cfg["optimizer"] = optimizer
+    model = build_model("llama-7b", num_layers=layers, **(model_kw or {}))
+    return deepspeed_tpu_torch.initialize(model=model, config=cfg, device=dev)[0]
+
+
+def m_sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def m_fingerprint(engine, leaves, layouts):
+    """A position-weighted sum (mod 2**64) of every element's bits of the
+    whole model's ``leaves`` (this rank's chunks under ``layouts``, summed
+    over the ranks; a whole leaf counted once): equal trees give equal
+    values whatever their sharding, and a flipped bit changes it."""
+    from deepspeed_tpu_torch import comm as dist
+
+    dpz = engine._dpz
+    total = torch.zeros((), dtype=torch.int64, device=leaves[0].device)
+    for j, (t, lay) in enumerate(zip(leaves, layouts)):
+        if not lay.sharded and dpz.row_index != 0:
+            continue
+        n = int(np.prod(dpz.shapes[j]))
+        idx = lay.take(torch.arange(n, dtype=torch.int64, device=t.device).reshape(dpz.shapes[j]))
+        bits = t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32)
+        w = ((idx + (j << 40)) * 2654435761 + 97) & 0x7FFFFFFF
+        total += (bits.to(torch.int64) * w).sum()
+        del idx, w
+    return int(dist.all_reduce(total, group=None, log_name="fingerprint"))
+
+
+def m_lp_local(engine, chunk=1 << 22):
+    """This rank's lp parameters' bits, position-weighted (no collective):
+    replicas hold equal values. A chunk at a time, so the check adds no
+    more than a few chunks to the card's memory."""
+    total = 0
+    for j, p in enumerate(tree_leaves_of(engine.params)):
+        bits = p.detach().reshape(-1).view(torch.int16)
+        for lo in range(0, bits.numel(), chunk):
+            b = bits[lo:lo + chunk].to(torch.int64)
+            w = (torch.arange(lo, lo + b.numel(), device=b.device) * 40503 + j) & 0xFFFF
+            total += int((b * w).sum())
+    return total
+
+
+def tree_leaves_of(tree):
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+
+    return list(tree_leaves(tree))
+
+
+def m_nbytes(tree):
+    return sum(t.numel() * t.element_size() for t in tree_leaves_of(tree))
+
+
+def m_run(engine, batch, fa, steps=M_STEPS):
+    """``steps`` train_batch calls: the losses, the time of the step before
+    the last (host clock to a device synchronise; the last one runs with the
+    comms logger on, which synchronises at every collective), the comms
+    logger's bytes by record over the last step, the peak memory of the
+    steps and the flash launches."""
+    from deepspeed_tpu_torch import comm as dist
+
+    dev = engine.device
+    m_sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    fa.fwd_launches = fa.bwd_launches = 0
+    losses, ms, replicas = [], [], []
+    for i in range(steps):
+        last = i == steps - 1
+        if last:
+            dist.comms_logger.comms_dict.clear()
+            dist.configure(enabled=True, prof_all=True, verbose=False)
+        m_sync(dev)
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(iter([batch]))))
+        m_sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if last:
+            dist.configure(enabled=False)
+        if engine.zero_stage <= 2 and engine._dpz is not None:
+            replicas.append(m_lp_local(engine))
+    opt = engine.opt_state
+    wire = {name: sum(size * rec[0] for size, rec in recs.items())
+            for name, recs in dist.comms_logger.comms_dict.items()}
+    return {"losses": losses, "step_ms": ms[-2] if len(ms) > 1 else ms[0],
+            "peak_bytes": torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0,
+            "param_bytes": m_nbytes(engine.params),
+            "opt_bytes": m_nbytes(engine.master_params) + m_nbytes(opt.m) + m_nbytes(opt.v),
+            "fwd_launches": fa.fwd_launches, "bwd_launches": fa.bwd_launches,
+            "wire": wire, "replicas": replicas}
+
+
+M_GLOO_OPS = ("all_reduce", "broadcast", "barrier", "all_gather_into_tensor",
+              "reduce_scatter_tensor", "all_to_all_single")
+
+
+def m_gloo_native(dev, rank, world):
+    """Each collective the facade uses, called on CUDA tensors through
+    ``torch.distributed`` as they are (no staging), checked against its
+    expected values: what the facade relies on when ranks share a card."""
+    import torch.distributed as tdist
+
+    out = {}
+    x = torch.arange(8, dtype=torch.float32, device=dev) + 10 * rank
+    exp_sum = sum(torch.arange(8, dtype=torch.float32) + 10 * r for r in range(world))
+    for name in M_GLOO_OPS:
+        try:
+            if name == "all_reduce":
+                y = x.clone()
+                tdist.all_reduce(y)
+                ok = torch.equal(y.cpu(), exp_sum)
+            elif name == "broadcast":
+                y = x.clone()
+                tdist.broadcast(y, 0)
+                ok = torch.equal(y.cpu(), torch.arange(8, dtype=torch.float32))
+            elif name == "barrier":
+                tdist.barrier()
+                ok = True
+            elif name == "all_gather_into_tensor":
+                y = torch.empty(8 * world, device=dev)
+                tdist.all_gather_into_tensor(y, x)
+                ok = torch.equal(y.cpu(), torch.cat([torch.arange(8.0) + 10 * r
+                                                     for r in range(world)]))
+            elif name == "reduce_scatter_tensor":
+                y = torch.empty(8 // world, device=dev)
+                tdist.reduce_scatter_tensor(y, x)
+                k = 8 // world
+                ok = torch.equal(y.cpu(), exp_sum[k * rank:k * rank + k])
+            else:
+                y = torch.empty(8, device=dev)
+                tdist.all_to_all_single(y, x)
+                k = 8 // world
+                ok = torch.equal(y.cpu(), torch.cat([torch.arange(8.0)[k * rank:k * rank + k]
+                                                     + 10 * r for r in range(world)]))
+            m_sync(dev)
+            out[name] = "ok" if ok else "wrong values"
+        except Exception as e:  # a refused op is recorded and fails the phase
+            out[name] = f"{type(e).__name__}: {str(e)[:200]}"
+    return out
+
+
+def m_rank(rank, world, init, outq, layers, device="cuda", model_kw=None):
+    """One rank of phase m (a spawned process; ranks share card 0 over gloo)."""
+    try:
+        sys.path.insert(0, HERE)
+        dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(0)
+        else:
+            torch.set_num_threads(1)
+        from deepspeed_tpu_torch import comm
+        from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+        comm.init_distributed("gloo", init_method=f"file://{init}", rank=rank,
+                              world_size=world, verbose=False)
+        res = {"gloo_native": m_gloo_native(dev, rank, world), "runs": {}}
+        batch = m_batch((model_kw or {}).get("vocab_size", 32000), 2)
+        for name, zero, opt, steps in M_RUNS:
+            engine = m_engine(dev, zero, opt, layers, model_kw)
+            m_empty(dev)
+            run = m_run(engine, batch, fa, steps)
+            run["master_fp"] = m_fingerprint(engine, tree_leaves_of(engine.master_params),
+                                             engine._dpz.opt)
+            run["onebit_errors"] = engine._ef_errors is not None
+            res["runs"][name] = run
+            del engine
+            gc.collect()  # an engine in a reference cycle lives until the collector runs
+            m_empty(dev)
+            comm.barrier()
+        outq.put((rank, True, res))
+        torch.distributed.destroy_process_group()
+    except BaseException:  # the parent fails the phase with this traceback
+        import traceback
+
+        outq.put((rank, False, traceback.format_exc()))
+
+
+def m_empty(dev):
+    m_sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def multirank_phase(fa, dev, card, model_kw=None):
+    """(m) ZeRO across ranks on one card: 2 rank processes share it over
+    gloo (CUDA tensors; ``nccl`` needs a card a rank), llama-7b width at
+    ``M_LAYERS`` layers, seq 2048, one row a rank, bf16, ``M_STEPS`` steps a
+    configuration (1-bit Adam ``M_ONEBIT_STEPS``). Checks: every collective gloo takes natively on CUDA
+    tensors; stages 0-3 bitwise each other (losses and the fp32 master's
+    fingerprint); the ranks' lp parameters bitwise equal after every step
+    (stages 0-2, where they are replicas); each step's loss within
+    ``M_LOSS_ATOL`` of one process's on the same global batch; the
+    per-rank optimizer-state and parameter bytes and the peak memory falling
+    by stage as partition.py's table says; ZeRO++ (qwZ + qgZ) at stage 3
+    trains, its collective bytes at most half of stage 3's; 1-bit Adam
+    lowers the loss at every compressed step past its freeze step; each
+    rank's flash launches layers x steps.
+    The step times are two processes time-sharing one card over gloo: not a
+    data-parallel rate."""
+    import multiprocessing as mp
+
+    # the one-process reference on the same global batch (2 rows)
+    t0 = time.perf_counter()
+    engine = m_engine(dev, {"stage": 0}, model_kw=model_kw)
+    ref = m_run(engine, m_batch((model_kw or {}).get("vocab_size", 32000), 2), fa)
+    del engine
+    gc.collect()
+    m_empty(dev)
+    check(ref["fwd_launches"] == ref["bwd_launches"] == M_LAYERS * M_STEPS,
+          f"m: one process launched flash {ref['fwd_launches']}/{ref['bwd_launches']}")
+    world = 2
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    init = os.path.join(HERE, "build", f"m-rendezvous-{os.getpid()}")
+    if os.path.exists(init):
+        os.remove(init)
+    ctx = mp.get_context("spawn")
+    outq = ctx.Queue()
+    procs = [ctx.Process(target=m_rank, args=(r, world, init, outq, M_LAYERS, dev.type,
+                                              model_kw), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in range(world):
+            rank, ok, res = outq.get(timeout=M_TIMEOUT)
+            check(ok, f"m: rank {rank} failed:\n{res}")
+            results[rank] = res
+    except Exception as e:
+        raise SmokeFailure(f"m: the ranks did not finish: {e}") from e
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+        if os.path.exists(init):
+            os.remove(init)
+    check(not any(p.is_alive() for p in procs), "m: a rank process is still running")
+    r0, r1 = results[0], results[1]
+    for r in (r0, r1):
+        bad = {k: v for k, v in r["gloo_native"].items() if v != "ok"}
+        check(not bad, f"m: gloo refused or got wrong collectives on CUDA tensors: {bad}")
+    runs0, runs1 = r0["runs"], r1["runs"]
+    for name, _, _, steps in M_RUNS:
+        a, b = runs0[name], runs1[name]
+        check(a["losses"] == b["losses"], f"m: {name}: the ranks' losses differ")
+        check(a["master_fp"] == b["master_fp"], f"m: {name}: the ranks' fingerprints differ")
+        check(a["replicas"] == b["replicas"],
+              f"m: {name}: the ranks' parameters differ after a step")
+        for r in (a, b):
+            check(r["fwd_launches"] == r["bwd_launches"] == M_LAYERS * steps,
+                  f"m: {name}: flash launched {r['fwd_launches']}/{r['bwd_launches']}, "
+                  f"not {M_LAYERS * steps}")
+        check(all(np.isfinite(a["losses"])), f"m: {name}: non-finite loss {a['losses']}")
+    base = runs0["stage0"]
+    for s in ("stage1", "stage2", "stage3"):
+        check(runs0[s]["losses"] == base["losses"] and runs0[s]["master_fp"] == base["master_fp"],
+              f"m: {s} is not bitwise stage 0: {runs0[s]['losses']} vs {base['losses']}")
+    gaps = [abs(a - b) for a, b in zip(base["losses"], ref["losses"])]
+    check(max(gaps) <= M_LOSS_ATOL, f"m: 2-rank losses {base['losses']} vs one process "
+          f"{ref['losses']}: {gaps} apart, a step more than {M_LOSS_ATOL}")
+    stages = [runs0[f"stage{s}"] for s in range(4)]
+    opt = [r["opt_bytes"] for r in stages]
+    par = [r["param_bytes"] for r in stages]
+    peak = [r["peak_bytes"] for r in stages]
+    check(opt[0] > opt[1] == opt[2] == opt[3], f"m: optimizer-state bytes by stage {opt}")
+    check(par[0] == par[1] == par[2] > par[3], f"m: parameter bytes by stage {par}")
+    check(peak[0] > peak[1] > peak[2] > peak[3], f"m: peak memory by stage {peak}")
+    zpp, z3 = runs0["zeropp"], runs0["stage3"]
+    check(zpp["losses"][-1] < zpp["losses"][0], f"m: ZeRO++ did not train: {zpp['losses']}")
+    wz, w3 = sum(zpp["wire"].values()), sum(z3["wire"].values())
+    check(wz <= 0.5 * w3, f"m: ZeRO++ moved {wz} bytes, stage 3 {w3}: more than half")
+    # past the freeze every compressed step lowers the loss, from the loss at
+    # the freeze (after M_ONEBIT_FREEZE Adam steps) down
+    ob = runs0["onebit"]
+    after = ob["losses"][M_ONEBIT_FREEZE:]
+    check(ob["onebit_errors"] and all(np.isfinite(ob["losses"])) and len(after) > 1
+          and all(b < a for a, b in zip(after, after[1:])),
+          f"m: 1-bit Adam did not train past its freeze step {M_ONEBIT_FREEZE}: "
+          f"{ob['losses']}")
+    # the compressed step's wire: a bit a gradient element, not stage 0's
+    # fp32 reduce-scatter and gather (32 bits each way)
+    full = runs0["stage0"]["wire"]["grad_reduce_scatter"] + runs0["stage0"]["wire"]["grad_gather"]
+    check(0 < ob["wire"].get("onebit_signs", 0) <= full / 16,
+          f"m: 1-bit Adam's compressed step moved {ob['wire']} against stage 0's {full}")
+    summary = {
+        "card": card, "ranks": world, "backend": "gloo", "layers": M_LAYERS, "seq": 2048,
+        "rows_per_rank": 1, "steps": {name: steps for name, _, _, steps in M_RUNS},
+        "onebit_freeze_step": M_ONEBIT_FREEZE, "gloo_native_on_cuda": r0["gloo_native"],
+        "one_process_losses": ref["losses"], "one_process_step_ms": ref["step_ms"],
+        "loss_gap_vs_one_process": gaps,
+        "note": "two processes time-share one card over gloo: step_ms is not a "
+                "data-parallel rate",
+        "runs": {name: {k: [runs0[name][k], runs1[name][k]] if k in (
+            "peak_bytes", "param_bytes", "opt_bytes", "step_ms") else runs0[name][k]
+            for k in ("losses", "step_ms", "peak_bytes", "param_bytes", "opt_bytes",
+                      "wire", "fwd_launches", "bwd_launches")} for name, _, _, _ in M_RUNS},
+        "phase_s": time.perf_counter() - t0,
+    }
+    launches = {"fwd": ref["fwd_launches"] + sum(runs0[n]["fwd_launches"] + runs1[n]["fwd_launches"]
+                                                 for n, _, _, _ in M_RUNS),
+                "bwd": ref["bwd_launches"] + sum(runs0[n]["bwd_launches"] + runs1[n]["bwd_launches"]
+                                                 for n, _, _, _ in M_RUNS)}
+    return launches, summary
+
+
+NCCL_LAYERS = 32  # the four-card run: llama-7b at full depth
+
+
+def zero_nccl_main():
+    """ZeRO-2 and ZeRO-3 over ``nccl``, one card a rank, llama-7b at
+    ``NCCL_LAYERS`` layers, seq 2048, one row a rank, bf16, ``M_STEPS``
+    steps each: run by ``torchrun --standalone --nproc_per_node 4
+    chip_smoke.py --zero-nccl`` (not by the one-card smoke run). Rank 0
+    prints a ``{"zero_nccl": ...}`` line: step ms (the second step, host
+    clock to a device synchronise), tokens/s, the model-FLOPs share of the
+    cards' bf16 peak, each rank's peak memory and the bytes of each
+    collective record."""
+    sys.path.insert(0, HERE)
+    local = int(os.environ["LOCAL_RANK"])
+    torch.cuda.set_device(local)
+    dev = torch.device("cuda", local)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.ops.op_builder import FlashAttentionBuilder
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    FlashAttentionBuilder().build()
+    comm.init_distributed()  # nccl, from the environment torchrun sets
+    rank, world = comm.get_rank(), comm.get_world_size()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+                          "-i", str(local)], capture_output=True, text=True, timeout=60,
+                         check=True).stdout.strip()
+    batch = m_batch(32000, world)
+    runs = {}
+    for name, zero in (("stage2", {"stage": 2}), ("stage3", {"stage": 3})):
+        t0 = time.perf_counter()
+        engine = m_engine(dev, zero, layers=NCCL_LAYERS, rows=world)
+        shapes, cfg = engine._dpz.shapes, engine.module.config
+        m_empty(dev)
+        run = m_run(engine, batch, fa)
+        run.pop("replicas")
+        check(run["fwd_launches"] == run["bwd_launches"] == NCCL_LAYERS * M_STEPS,
+              f"nccl {name}: flash launched {run['fwd_launches']}/{run['bwd_launches']}")
+        check(all(np.isfinite(run["losses"])), f"nccl {name}: losses {run['losses']}")
+        del engine
+        gc.collect()
+        m_empty(dev)
+        peaks = comm.inprog_all_gather(torch.tensor([run["peak_bytes"]], device=dev))
+        run["peak_bytes"] = peaks.tolist()
+        n_params = sum(int(np.prod(s)) for s in shapes)
+        embed = cfg.vocab_size * cfg.hidden_size
+        # 6 flops a parameter a token (forward and backward) over the matmul
+        # weights (the embedding lookup is none), plus causal attention's
+        # 6 L S H a token
+        flops_tok = 6 * (n_params - embed) + 6 * NCCL_LAYERS * 2048 * cfg.hidden_size
+        tok_s = world * 2048 / (run["step_ms"] / 1e3)
+        run.update(tokens_per_s=tok_s, model_flops_per_token=flops_tok,
+                   mfu=tok_s * flops_tok / (world * PEAK_FLOPS[torch.bfloat16]),
+                   build_and_run_s=time.perf_counter() - t0)
+        runs[name] = run
+    if rank == 0:
+        out = {"zero_nccl": {"card": smi, "ranks": world, "backend": "nccl",
+                             "layers": NCCL_LAYERS, "seq": 2048, "rows_per_rank": 1,
+                             "steps": M_STEPS, "runs": runs}}
+        log(json.dumps(out))
+    torch.distributed.destroy_process_group()
+
+
 def main():
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: this script needs an "
@@ -5254,6 +5701,8 @@ def main():
     log(json.dumps({"zero_summary": zero_summary}))
     stream_launches, stream_summary = stream_phase(fa, pa, dev, smi.stdout.strip())
     log(json.dumps({"stream_summary": stream_summary}))
+    m_launches, m_summary = multirank_phase(fa, dev, smi.stdout.strip())
+    log(json.dumps({"multirank_summary": m_summary}))
 
     sparse_fe, sparse_be = sparse_kernels_vs_plain(bs, dev)
     sparse_launches, path_errs, path_stats = sparse_main_path(bs, fa, dev)
@@ -5293,11 +5742,12 @@ def main():
              replaces="deepspeed_tpu/ops/transformer/flash_attention.py:43",
              launches=train_launches["fwd"] + dropout_launches["fwd"] + remat_launches["fwd"]
              + ckpt_launches["fwd"] + zero_launches["fwd"] + stream_launches["fwd"]
-             + slot_launches, **fwd),
+             + m_launches["fwd"] + slot_launches, **fwd),
         dict(name="flash_attention_bwd", route="cuda", source=flash_src,
              replaces="deepspeed_tpu/ops/transformer/flash_attention.py:124",
              launches=train_launches["bwd"] + dropout_launches["bwd"] + remat_launches["bwd"]
-             + ckpt_launches["bwd"] + zero_launches["bwd"] + stream_launches["bwd"], **bwd),
+             + ckpt_launches["bwd"] + zero_launches["bwd"] + stream_launches["bwd"]
+             + m_launches["bwd"], **bwd),
         # int8 on w_gate/w_up's (4096, 11008): woq_matmul at decode rows (8,
         # woq_gemv_kernel; launches of every row count), woq_matmul_prefill
         # at 256 rows (woq_mma_kernel; the tiled launches); every shape,
@@ -5335,7 +5785,7 @@ def main():
 
 if __name__ == "__main__":
     try:
-        main()
+        zero_nccl_main() if "--zero-nccl" in sys.argv[1:] else main()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         sys.exit(1)

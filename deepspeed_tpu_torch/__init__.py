@@ -10,7 +10,10 @@ Ported so far: the paged serving step (``inference.v2.InferenceEngineV2``
 with ``paged=True`` over ``models.TransformerLM.forward_paged``) and its
 ``paged_decode_attention`` CUDA kernel; the training step (``initialize`` ->
 ``runtime.engine.DeepSpeedEngine`` ``train_batch`` / ``forward`` /
-``backward`` / ``step`` over ``TransformerLM.apply``) on one card, at ZeRO
+``backward`` / ``step`` over ``TransformerLM.apply``) on one card or
+data-parallel over ``torch.distributed`` ranks (``comm``: one process a
+rank; stages 1-3 shard across the ranks, with ZeRO++ qwZ / qgZ / hpZ and the
+1-bit optimizers' compressed all-reduce), at ZeRO
 stages 0-3 with the optimizer state on the card or offloaded to host RAM or
 NVMe (``zero_optimization.offload_optimizer``: the C++ CPU Adam, the sharded
 host tier, stage-3 residency) or with the parameters streamed a layer at a
@@ -24,7 +27,7 @@ forward and backward CUDA kernels; and weight-only-quantized serving
 
 __version__ = "0.1.0"
 
-_ZERO_ITEM = "ROADMAP.md Queue 1 item 13b, multi-rank ZeRO"
+_TP_ITEM = "ROADMAP.md Queue 1 item 13c, tensor parallelism"
 _MODEL_ITEM = "ROADMAP.md Queue 1 item 17, runtime/pipe"
 
 
@@ -45,7 +48,18 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``model_parameters`` are its parameters as a nested dict of tensors (e.g.
     from ``models.params_from_jax``). ``device`` as for every entry point of
     the port: the card unless ``"cpu"`` is asked for.
+
+    Data parallelism: when a process group is up (``comm.init_distributed``,
+    which takes the backend by name) or ``WORLD_SIZE`` is above 1 (then the
+    group is joined here over ``nccl``, one card a rank), the engine shards
+    over the ranks per the ``mesh`` block (``data``, ``hpz``) and
+    ``zero_hpz_partition_size``; each rank passes the global batch.
     """
+    import os
+
+    import torch.distributed as torch_dist
+
+    from . import comm
     from .runtime.config import DeepSpeedConfig
     from .runtime.engine import DeepSpeedEngine
     from .utils.logging import log_dist
@@ -62,14 +76,42 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                          "file, or a config= dict/path argument")
     if mpu is not None:
         raise NotImplementedError(
-            f"initialize(mpu=...) is not ported to deepspeed_tpu_torch ({_ZERO_ITEM})")
+            f"initialize(mpu=...) is not ported to deepspeed_tpu_torch ({_TP_ITEM})")
     if type(model).__name__ in ("PipelinedLM", "PipelineModule"):
         raise NotImplementedError(
             f"pipeline models are not ported to deepspeed_tpu_torch ({_MODEL_ITEM})")
-    ds_config = DeepSpeedConfig(config, mesh_shape=mesh_config)
+    if not torch_dist.is_initialized() and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        comm.init_distributed()
+    world = torch_dist.get_world_size() if torch_dist.is_initialized() else 1
+    ds_config = DeepSpeedConfig(config, mesh_shape=mesh_config, world_size=world)
+    # ZeRO++ hpZ / MiCS secondary partition becomes the `hpz` axis
+    # (deepspeed_tpu/__init__.py:91-116)
+    zc = ds_config.zero_config
+    mics = zc.mics_shard_size if zc.mics_shard_size and zc.mics_shard_size > 0 else 1
+    if zc.zero_hpz_partition_size > 1 and mics > 1 and zc.zero_hpz_partition_size != mics:
+        raise ValueError(f"zero_hpz_partition_size={zc.zero_hpz_partition_size} conflicts "
+                         f"with mics_shard_size={mics}")
+    hpz = max(zc.zero_hpz_partition_size, mics)
+    if hpz > 1 and zc.stage < 3:
+        log_dist(f"zero_hpz_partition_size/mics_shard_size={hpz} only applies at ZeRO "
+                 f"stage 3 (got stage {zc.stage}); ignoring (parity with reference)",
+                 ranks=[0])
+        hpz = 1
+    mc = ds_config.mesh_config
+    if hpz > 1 and mc.hpz != 1 and mc.hpz != hpz:
+        raise ValueError(f"mesh.hpz={mc.hpz} conflicts with zero_hpz_partition_size/"
+                         f"mics_shard_size={hpz}")
+    if hpz > 1 and mc.hpz == 1:
+        if mc.data:
+            if mc.data % hpz:
+                raise ValueError(f"zero_hpz_partition_size/mics_shard_size {hpz} does not "
+                                 f"divide mesh.data {mc.data}")
+            mc.data //= hpz
+        mc.hpz = hpz
+    comm.init_distributed(mesh_config=mc)
+    comm.configure(config=ds_config)
     # stage-3 offload_param gets the layer-streamed ZeRO-Infinity engine
     # (deepspeed_tpu/__init__.py:122-145)
-    zc = ds_config.zero_config
     off_p = zc.offload_param
     if off_p is not None and off_p.device in ("cpu", "nvme"):
         if zc.stage < 3:
@@ -86,6 +128,10 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                 f"{given} argument(s): the optimizer is the host CPUAdam from "
                 "the config's optimizer block, and data is passed to "
                 "train_batch(data_iter) directly")
+        if ds_config.dp_world_size > 1:
+            raise NotImplementedError(
+                "the layer-streamed engine (offload_param) across ranks is not ported to "
+                f"deepspeed_tpu_torch ({_TP_ITEM})")
         from .runtime.swap_tensor import StreamedZeroEngine
 
         engine = StreamedZeroEngine(model, ds_config, lr_scheduler=lr_scheduler, device=device)

@@ -26,7 +26,7 @@ package's seven ``remat_policy`` values (:meth:`TransformerLM._ckpt`).
 """
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -207,14 +207,21 @@ def _rope(q, k, positions, head_dim, theta):
     return rot(q), rot(k)
 
 
-def _dropout(x, rate, key, train):
+def _dropout(x, rate, key, train, rows=None):
     """``transformer.py:295-299``: keep each element with probability
     ``1 - rate`` (``prng.bernoulli`` under ``key``, bit for bit
     ``jax.random.bernoulli``) and scale the kept ones by ``1 / (1 - rate)``
-    in x's dtype. Autograd saves the bool mask for the backward."""
+    in x's dtype. Autograd saves the bool mask for the backward. ``rows``
+    ``(first, total)``: x is rows ``[first, first + len(x))`` of a batch of
+    ``total`` rows (a data-parallel rank's), and the mask is those rows of
+    the whole batch's draw."""
     if rate == 0.0 or not train or key is None:
         return x
-    keep = prng.bernoulli(key, 1.0 - rate, x.shape)
+    if rows is None:
+        keep = prng.bernoulli(key, 1.0 - rate, x.shape)
+    else:
+        keep = prng.bernoulli(key, 1.0 - rate, x.shape,
+                              offset=rows[0] * (x.numel() // x.shape[0]))
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -326,6 +333,13 @@ class TransformerLM:
             params["lm_head"] = normal((H, V))
         return params
 
+    @staticmethod
+    def stacked_leaves(params) -> List[bool]:
+        """Which leaves of ``params`` (``tree_leaves`` order) are stacked by
+        layer, ``(L, ...)``: those under ``blocks``. The engine's data-parallel
+        collectives run such a leaf a layer at a time."""
+        return [k == "blocks" for k in sorted(params) for _ in tree_leaves(params[k])]
+
     # ------------------------------------------------------------------
     def init_kv_pool(self, num_blocks: int, block_size: int,
                      dtype: torch.dtype = torch.bfloat16,
@@ -382,7 +396,7 @@ class TransformerLM:
             q, kk = _rope(q, kk, positions, hd, cfg.rope_theta)
         return q, kk, v
 
-    def _block_out(self, x, attn, blk, rng=None, train=False, named=False):
+    def _block_out(self, x, attn, blk, rng=None, train=False, named=False, rows=None):
         """The attention output projection, the residual adds and the MLP
         (``transformer.py:631-688``), given attention's (B, S, nh, hd). With
         a key ``rng`` both outputs go through ``_dropout`` under the
@@ -397,7 +411,7 @@ class TransformerLM:
             attn_out = attn_out + blk["attn_bias"].to(dt)
         if rng is not None:
             rng, r1 = prng.split(rng)
-            attn_out = _dropout(attn_out, cfg.dropout, r1, train)
+            attn_out = _dropout(attn_out, cfg.dropout, r1, train, rows)
 
         x = x + attn_out
         h2 = _norm(x, blk["ln2_scale"], blk.get("ln2_bias"), cfg.norm, cfg.norm_eps)
@@ -417,10 +431,10 @@ class TransformerLM:
             mlp_out = mlp_out + blk["mlp_bias"].to(dt)
         if rng is not None:
             rng, r2 = prng.split(rng)
-            mlp_out = _dropout(mlp_out, cfg.dropout, r2, train)
+            mlp_out = _dropout(mlp_out, cfg.dropout, r2, train, rows)
         return x + mlp_out
 
-    def _block(self, x, blk, positions, rng=None, train=False):
+    def _block(self, x, blk, positions, rng=None, train=False, rows=None):
         """One pre-LN block on (B, S, H) without a cache, the training and
         evaluation branch (``transformer.py:619-630``): causal self-attention
         through ``attention()``, so the flash kernels on the card; dropout
@@ -431,7 +445,7 @@ class TransformerLM:
         attn = _attention_op(q, kk, v, causal=cfg.causal,
                              num_kv_groups=cfg.num_heads // cfg.kv_heads,
                              softcap=cfg.logit_softcap)
-        return self._block_out(x, attn, blk, rng, train, named=cfg.remat)
+        return self._block_out(x, attn, blk, rng, train, named=cfg.remat, rows=rows)
 
     def _block_paged(self, x, blk, positions, kp, vp, tables):
         """One pre-LN block on (B, S, H) against one layer of the blocked
@@ -707,7 +721,7 @@ class TransformerLM:
                 f"unknown remat_policy {name!r} (known: {sorted(policy)})")
         return P.remat(fn, policy[name])
 
-    def _trunk(self, params, x, positions, rng=None, train=False):
+    def _trunk(self, params, x, positions, rng=None, train=False, rows=None):
         """Every block in turn (``transformer.py:796-849`` with
         ``scan_layers=False``: a Python loop over the stacked leaves, each
         layer reading its slice as a view, so gradients land in the stacked
@@ -716,7 +730,7 @@ class TransformerLM:
         ``split(rng, L)``, then per layer ``split`` into ``(r_drop, r_pld)``
         (``:807-811``); ``r_pld`` goes unused, as PLD is not ported, but its
         split keeps ``r_drop`` the reference's. A recompute redraws the same
-        masks from the same keys."""
+        masks from the same keys. ``rows`` as for ``apply``."""
         cfg = self.config
         blocks = params["blocks"]
         rngs = (prng.split(rng, cfg.num_layers)
@@ -726,10 +740,11 @@ class TransformerLM:
             block = self._ckpt(self._block)
         for i in range(cfg.num_layers):
             r_drop = None if rngs is None else prng.split(rngs[i])[0]
-            x = block(x, {k: w[i] for k, w in blocks.items()}, positions, r_drop, train)
+            x = block(x, {k: w[i] for k, w in blocks.items()}, positions, r_drop, train, rows)
         return x
 
-    def _logits_aux(self, params, input_ids, positions=None, train=False, rng=None):
+    def _logits_aux(self, params, input_ids, positions=None, train=False, rng=None,
+                    rows=None):
         """(B, S, V) logits and the MoE aux loss, always 0 here
         (``transformer.py:934-963``). The compute dtype is that of the first
         floating leaf, in the JAX package's sorted-key order."""
@@ -743,7 +758,7 @@ class TransformerLM:
         x = self._embed(params, input_ids, positions, dtype)
         if rng is not None:
             rng = rng.to(x.device)
-        x = self._trunk(params, x, positions, rng, train)
+        x = self._trunk(params, x, positions, rng, train, rows)
         return self._head(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
     def logits(self, params, input_ids, positions=None, train=False, rng=None,
@@ -754,7 +769,7 @@ class TransformerLM:
                 f"({_MODEL_ITEM})")
         return self._logits_aux(params, input_ids, positions, train, rng)[0]
 
-    def apply(self, params, batch, train=True, rng=None):
+    def apply(self, params, batch, train=True, rng=None, rows=None):
         """Next-token LM loss over the batch (the engine protocol,
         ``transformer.py:971-1021``).
 
@@ -764,7 +779,10 @@ class TransformerLM:
         logits; the loss is the mean of ``logsumexp - gold`` over the
         labelled tokens. Over a weight-only-quantized tree the loss is
         computed for ``train=False`` (each projection through ``_project``)
-        and refused for ``train=True``.
+        and refused for ``train=True``. ``rows`` ``(first, total)``: the
+        batch is rows ``[first, first + B)`` of a global batch of ``total``
+        (a data-parallel rank's share), and dropout draws those rows of the
+        global batch's masks.
         """
         if train and any("::" in k for k in params.get("blocks", {})):
             raise NotImplementedError(
@@ -782,7 +800,8 @@ class TransformerLM:
             (input_ids, labels), positions = batch, None
         else:
             input_ids, labels, positions = batch, None, None
-        lg, _ = self._logits_aux(params, input_ids, positions=positions, train=train, rng=rng)
+        lg, _ = self._logits_aux(params, input_ids, positions=positions, train=train, rng=rng,
+                                 rows=rows)
         if labels is None:
             if not self.config.causal:
                 raise ValueError(

@@ -12,8 +12,9 @@ update is plain per-leaf PyTorch arithmetic in the order of
 ``optimizers.py:87-117``: in the JAX package it is XLA-fused elementwise
 code, not a Pallas kernel. ``step`` is a 0-d int32 tensor and the bias
 corrections are fp32 tensors on the params' device, as in JAX, so a step
-never syncs the host. Ported: ``FusedAdam`` (Adam and AdamW); the other
-optimizers raise (ROADMAP.md Queue 1 item 17).
+never syncs the host. Ported: ``FusedAdam`` (Adam and AdamW) and the 1-bit
+family on it (``ops/adam/onebit_adam.py``); the other optimizers raise
+(ROADMAP.md Queue 1 item 17).
 """
 
 from typing import NamedTuple, Optional
@@ -132,6 +133,12 @@ def build_optimizer(name: str, params_dict: Optional[dict] = None) -> Optimizer:
     params.pop("torch_adam", None)  # reference-only knob
     for k in ("cuda_aware", "comm_backend_name"):
         params.pop(k, None)  # reference comm knobs
+    if name in ("onebitadam", "zerooneadam", "onebitlamb"):
+        from .adam.onebit_adam import OnebitAdam, OnebitLamb, ZeroOneAdam
+
+        cls = {"onebitadam": OnebitAdam, "zerooneadam": ZeroOneAdam,
+               "onebitlamb": OnebitLamb}[name]
+        return cls(**params)
     if name not in OPTIMIZER_CLASSES:
         raise NotImplementedError(
             f"optimizer type '{name}' is not ported to deepspeed_tpu_torch ({_OPT_ITEM}); "

@@ -17,8 +17,9 @@ RNG tracker onto named functional keys. Here:
   and ``fork`` give the JAX tracker's keys bit for bit, and a recompute that
   forks the same stream replays the same masks.
 
-The port has no topology (a mesh raises, ROADMAP.md Queue 1 item 13b), so
-``model_parallel_cuda_manual_seed`` seeds model-parallel rank 0's stream.
+The port runs no model axis (a ``model`` axis raises, ROADMAP.md Queue 1
+item 13c), so ``model_parallel_cuda_manual_seed`` seeds model-parallel rank
+0's stream.
 """
 
 from typing import Any, Callable, Dict

@@ -2,14 +2,16 @@
 
 A copy of the JAX package's host-only ``DeepSpeedConfig`` (``config.py:163``):
 the same JSON keys, the same blocks, the same batch-size triangle, resolved
-at world size 1 (one card, one process). ZeRO stages 0-3 are accepted, with
-``offload_optimizer`` to ``cpu`` or ``nvme`` (and ``ratio``), and
-``offload_param`` to ``cpu`` or ``nvme`` at stage 3 (``initialize`` then
-builds the layer-streamed ``StreamedZeroEngine``). What the port's
-training engine does not run yet raises ``NotImplementedError`` naming its
-ROADMAP.md item instead of being accepted and ignored: the ``mesh`` block,
-world size > 1, the 1-bit optimizers and ZeRO++ quantized collectives
-(item 13b, multi-rank ZeRO) and the ``pipeline`` block.
+at the world size of the process group (``train_batch_size = micro x GAS x
+dp``). ZeRO stages 0-3 are accepted, with ``offload_optimizer`` to ``cpu``
+or ``nvme`` (and ``ratio``), ``offload_param`` to ``cpu`` or ``nvme`` at
+stage 3 (``initialize`` then builds the layer-streamed
+``StreamedZeroEngine``), the ZeRO++ knobs (``zero_quantized_weights``,
+``zero_quantized_gradients``, ``zero_hpz_partition_size``) and the 1-bit
+optimizers. The ``mesh`` block takes ``data`` and ``hpz``; a ``model``,
+``seq``, ``pipe`` or ``expert`` axis larger than 1 raises
+``NotImplementedError`` naming its ROADMAP.md item, and so does the
+``pipeline`` block.
 """
 
 import json
@@ -17,12 +19,13 @@ import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
+from ..comm.topology import check_ported_axes
 from ..utils.logging import logger
 from . import constants as C
 from .config_utils import DeepSpeedConfigModel, dict_raise_error_on_duplicate_keys
 from .zero.config import zero_config_from_dict
 
-ZERO_ITEM = "ROADMAP.md Queue 1 item 13b, multi-rank ZeRO"
+PIPE_ITEM = "ROADMAP.md Queue 1 item 17, runtime/pipe"
 
 ADAM_OPTIMIZER = "adam"
 ADAMW_OPTIMIZER = "adamw"
@@ -43,6 +46,24 @@ DEEPSPEED_OPTIMIZERS = [
     SGD_OPTIMIZER, ADAGRAD_OPTIMIZER, ONEBIT_ADAM_OPTIMIZER, ZERO_ONE_ADAM_OPTIMIZER,
     ONEBIT_LAMB_OPTIMIZER, MUADAM_OPTIMIZER, MUADAMW_OPTIMIZER, MUSGD_OPTIMIZER,
 ]
+
+
+@dataclass
+class MeshConfig(DeepSpeedConfigModel):
+    """The ``mesh`` block: axis sizes over the ranks (``config.py:62``);
+    ``data`` 0 fills with the ranks left over."""
+
+    data: int = 0
+    model: int = 1
+    pipe: int = 1
+    seq: int = 1
+    expert: int = 1
+    hpz: int = 1  # ZeRO++ hpZ secondary partition, carved out of data
+
+    def _validate(self):
+        for name in ("model", "pipe", "seq", "expert", "hpz"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"mesh.{name} must be >= 1")
 
 
 @dataclass
@@ -133,7 +154,7 @@ def _resolve_config_dict(config) -> Dict[str, Any]:
     raise ValueError(f"Expected a dict or path to a JSON file, got {type(config)}")
 
 
-def _not_ported(what: str, item: str = ZERO_ITEM) -> NotImplementedError:
+def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to deepspeed_tpu_torch ({item})")
 
 
@@ -144,13 +165,14 @@ class DeepSpeedConfig:
                  world_size: int = 1):
         self._param_dict = _resolve_config_dict(config)
         pd = self._param_dict
-        if world_size != 1:
-            raise _not_ported(f"world size {world_size} (one card only)")
         self.world_size = world_size
-        if mesh_shape is not None or pd.get(C.MESH):
-            raise _not_ported("the 'mesh' block (data/model/pipe/seq/expert axes)")
+        # explicit mesh_shape argument (programmatic) overrides the config block
+        self.mesh_config = MeshConfig.from_dict(
+            mesh_shape if mesh_shape is not None else pd.get(C.MESH, {}))
+        m = self.mesh_config
+        check_ported_axes(model=m.model, pipe=m.pipe, seq=m.seq, expert=m.expert)
         if pd.get(C.PIPELINE):
-            raise _not_ported("the 'pipeline' block")
+            raise _not_ported("the 'pipeline' block", PIPE_ITEM)
 
         # --- precision ---
         self.fp16_config = FP16Config.from_dict(pd.get(C.FP16, {}))
@@ -169,10 +191,7 @@ class DeepSpeedConfig:
 
         # --- zero ---
         self.zero_config = zero_config_from_dict(pd.get(C.ZERO_OPTIMIZATION, {}))
-        zc = self.zero_config
-        if zc.zero_quantized_gradients or zc.zero_quantized_weights:
-            raise _not_ported("ZeRO++ quantized weights/gradients (qwZ/qgZ)")
-        self.zero_enabled = zc.stage > 0
+        self.zero_enabled = self.zero_config.stage > 0
         self.zero_allow_untested_optimizer = pd.get(
             C.ZERO_ALLOW_UNTESTED_OPTIMIZER, C.ZERO_ALLOW_UNTESTED_OPTIMIZER_DEFAULT)
         self.zero_force_ds_cpu_optimizer = pd.get(
@@ -181,8 +200,6 @@ class DeepSpeedConfig:
         # --- optimizer / scheduler ---
         opt = pd.get(C.OPTIMIZER, None)
         self.optimizer_name = opt[C.TYPE].lower() if opt and C.TYPE in opt else None
-        if self.optimizer_name in ONEBIT_OPTIMIZERS:
-            raise _not_ported(f"the 1-bit optimizer '{self.optimizer_name}'")
         self.optimizer_params = (opt or {}).get(C.OPTIMIZER_PARAMS, {})
         self.optimizer_legacy_fusion = (opt or {}).get(C.LEGACY_FUSION, C.LEGACY_FUSION_DEFAULT)
         sched = pd.get(C.SCHEDULER, None)
@@ -199,7 +216,7 @@ class DeepSpeedConfig:
             C.GRADIENT_PREDIVIDE_FACTOR, C.GRADIENT_PREDIVIDE_FACTOR_DEFAULT)
         self.sparse_gradients_enabled = pd.get(C.SPARSE_GRADIENTS, C.SPARSE_GRADIENTS_DEFAULT)
 
-        # --- communication dtypes (recorded; one card has no collectives) ---
+        # --- communication dtypes ---
         self.communication_data_type = pd.get(C.COMMUNICATION_DATA_TYPE,
                                               C.COMMUNICATION_DATA_TYPE_DEFAULT)
         self.seq_parallel_communication_data_type = pd.get(
@@ -257,8 +274,14 @@ class DeepSpeedConfig:
     # ------------------------------------------------------------------
     @property
     def dp_world_size(self) -> int:
-        """Data-parallel replica count: 1 on one card."""
-        return self.world_size
+        """Data-parallel replica count = world / (model*pipe*seq) (expert and
+        hpz are carved out of data)."""
+        m = self.mesh_config
+        denom = m.model * m.pipe * m.seq
+        if self.world_size % denom != 0:
+            raise ValueError(f"world size {self.world_size} not divisible by model({m.model})"
+                             f"*pipe({m.pipe})*seq({m.seq})")
+        return self.world_size // denom
 
     def _configure_train_batch_size(self):
         """Resolve the (train_batch, micro_batch, grad_acc) triple like the

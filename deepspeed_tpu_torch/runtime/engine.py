@@ -1,4 +1,4 @@
-"""The training engine on one device (counterpart of ``deepspeed_tpu/runtime/engine.py``).
+"""The training engine (counterpart of ``deepspeed_tpu/runtime/engine.py``).
 
 ``DeepSpeedEngine`` holds the model's parameters (fp32, or bf16/fp16 lp
 parameters with an fp32 master copy), the optimizer and its state, the loss
@@ -22,6 +22,24 @@ keeps the smallest leaves on the device, stepped by ``FusedAdam``. At stage
 (``ZeroShardedTier``) and stage 3 adds parameter residency
 (``_z3_release_and_prefetch``, ``_ensure_zero3_params``). Every offload
 byte rides one TransferEngine ledger.
+
+ZeRO across ranks. With a process group larger than one rank
+(``comm.init_distributed``, one process a rank), the engine is
+data-parallel over the topology's ZeRO axes (``runtime/zero/data_parallel.py``):
+every rank passes the global micro-batch and keeps its rows; each
+micro-step's gradient is reduce-scattered onto the stage-2 layout at every
+stage (one reduction order, so stages 1-3 reach stage 0's parameters bit
+for bit); stages 0 and 1 all-gather the reduced shards; from stage 1 the
+fp32 master and the moments are this rank's shard and the updated lp shard
+is all-gathered; at stage 3 the weights live as shards, gathered a layer
+before its forward and again before its backward. The gradient norm is the
+all-reduced sum of the shards' squares and an fp16 overflow is all-reduced,
+so every rank skips the same steps. ZeRO++ (qwZ, qgZ, hpZ) and the 1-bit
+optimizers' compressed all-reduce (``_onebit_active``) ride the same path.
+The offload tiers at N ranks all-reduce the gradient; the sharded tier
+then steps only this rank's ``PartitionPlan`` slice. A checkpoint keeps
+the JAX package's layout: rank 0 writes the module tree and the meta, each
+rank its moments' shard file.
 
 Where the JAX engine compiles programs, the port runs eagerly:
 
@@ -57,6 +75,7 @@ the flash kernels take, checked at construction. What the port does not run
 yet raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
+import inspect
 import os
 import time
 from typing import Union
@@ -66,6 +85,8 @@ import torch
 
 from ..accelerator import resolve_device
 from ..analysis.program_audit import audited_program
+from ..comm import comm as dist
+from ..comm.topology import ZERO_AXES, get_topology
 from ..ops.optimizers import OptState, build_optimizer
 from ..ops.transformer.flash_attention import check_kernel_config
 from ..resilience.errors import CheckpointCorruptError, EngineUsageError
@@ -191,6 +212,15 @@ def _offload_as_full(optim_sd, n):
             "m": gm, "v": gv}
 
 
+def _place(a, plan, j, rank):
+    """Rank ``rank``'s flat slice ``a`` of leaf ``j`` at its place in a
+    zero leaf (what the shard-file writer slices it from again)."""
+    out = np.zeros(plan.leaf_sizes[j], np.float32)
+    lo, hi = plan.bounds[j][rank], plan.bounds[j][rank + 1]
+    out[lo:hi] = np.asarray(a, np.float32).reshape(-1)
+    return out
+
+
 def _check_supported(config: DeepSpeedConfig, model) -> None:
     pld = config.progressive_layer_drop or {}
     routing = (config.data_efficiency_config or {}).get("data_routing", {})
@@ -287,13 +317,33 @@ class DeepSpeedEngine:
         self._zero_sharded_planned = bool(self.zero_stage >= 2 and off is not None
                                           and off.device == "cpu" and off.ratio == 1.0)
 
-        self.params = tree_map(lp, params)
-        # the master copy is rebound (never written in place) each step, so
-        # it may share storage with the caller's fp32 tensors; under offload
-        # it lives on the host (_setup_offload)
-        self.master_params = (tree_map(lambda p: torch.as_tensor(p).detach().to(
-            device=self.device, dtype=torch.float32), params)
-            if self._mixed and not self._offload_enabled else None)
+        # ---- data parallelism over the process group (engine.py:454-480) ----
+        self.topology = get_topology()
+        self.dp_world_size = config.dp_world_size
+        if self.topology.data_parallel_size != self.dp_world_size:
+            raise ValueError(
+                f"the config's data-parallel size {self.dp_world_size} differs from the "
+                f"topology's {self.topology.data_parallel_size}: build the engine through "
+                "deepspeed_tpu_torch.initialize, which joins the process group")
+        self._dpz = None  # the device path's shards and collectives at dp > 1
+        if self.dp_world_size > 1:
+            # each rank keeps its rows of the global micro-batch (batch_spec)
+            self._row_index = self.topology.rank_in(ZERO_AXES)
+            self._rows = None  # (first row, global rows) of the last forward
+            try:
+                self._apply_takes_rows = "rows" in inspect.signature(self._apply_fn).parameters
+            except (TypeError, ValueError):
+                self._apply_takes_rows = False
+        if self.dp_world_size > 1 and not self._offload_enabled:
+            self._setup_data_parallel(model, params)
+        else:
+            self.params = tree_map(lp, params)
+            # the master copy is rebound (never written in place) each step, so
+            # it may share storage with the caller's fp32 tensors; under offload
+            # it lives on the host (_setup_offload)
+            self.master_params = (tree_map(lambda p: torch.as_tensor(p).detach().to(
+                device=self.device, dtype=torch.float32), params)
+                if self._mixed and not self._offload_enabled else None)
 
         # the base key of every training-mode forward (engine.py:342)
         self._rng = prng.PRNGKey(config.seed, device=self.device)
@@ -309,6 +359,9 @@ class DeepSpeedEngine:
             self.optimizer = build_optimizer(config.optimizer_name, config.optimizer_params)
         else:
             self.optimizer = None
+        if self._dpz is not None:
+            self._check_data_parallel_optimizer()
+        self._ef_errors = None  # the 1-bit optimizers' error feedback, a leaf each
         self._offload_mgr = None
         self._transfer = None  # the offload tiers' TransferEngine
         self._zero_tier = None  # the sharded host tier (stage >= 2, cpu, ratio 1)
@@ -380,8 +433,9 @@ class DeepSpeedEngine:
             "model must be (params, apply_fn), or expose .params/.apply or .init_params/.apply")
 
     def _update_target(self):
-        """What the optimizer updates: the fp32 master, or the fp32 params."""
-        if self._mixed:
+        """What the optimizer updates: the fp32 master (at dp > 1 always this
+        rank's shards of it), or the fp32 params."""
+        if self._mixed or self._dpz is not None:
             return self.master_params
         return tree_map(lambda p: p.detach(), self.params)
 
@@ -413,6 +467,11 @@ class DeepSpeedEngine:
         self.timers(FORWARD_MICRO_TIMER).start()
         if self._z3_residency:
             self._ensure_zero3_params()
+        if self.dp_world_size > 1:
+            loss = self._dp_forward(batch, train=self._training)
+            self._cached = loss if self._training else None
+            self.timers(FORWARD_MICRO_TIMER).stop()
+            return loss
         batch = to_device(batch, self.device)
         if not self._training:
             with torch.no_grad():
@@ -448,6 +507,14 @@ class DeepSpeedEngine:
         self.timers(BACKWARD_MICRO_TIMER).start()
         gas = self.config.gradient_accumulation_steps
         cached = self._cached
+        if self._dpz is not None:
+            grads = self._fwd_bwd.end(
+                lambda: self._dp_grads(cached, self.scaler_state.cur_scale / gas))
+            self._cached = None
+            self._acc_grads = self._dp_fold(self._acc_grads, grads)
+            self.micro_steps += 1
+            self.timers(BACKWARD_MICRO_TIMER).stop()
+            return loss
         grads = self._fwd_bwd.end(
             lambda: self._grads_of(cached.float() * self.scaler_state.cur_scale / gas))
         self._cached = None
@@ -479,28 +546,44 @@ class DeepSpeedEngine:
     @torch.no_grad()
     def _apply_update(self, acc_grads, lr):
         """``step_fn`` (``engine.py:831-848``), or the offloaded step. Returns
-        (gnorm, overflow)."""
+        (gnorm, overflow). At dp > 1 the gradients are this rank's reduced
+        chunks (``DataParallel.step_grads``): the norm and the overflow flag
+        come from every rank's, the optimizer updates this rank's master
+        shards, and the lp parameters are gathered from the updated shards
+        where their layout differs."""
         if self._offload_mgr is not None:
             return self._step_offload(acc_grads, lr)
         cfg = self.config
+        dpz = self._dpz
         inv = 1.0 / self.scaler_state.cur_scale
-        grads = tree_map(lambda g: g.float() * inv, acc_grads)
-        overflow = has_overflow(grads) if cfg.fp16_enabled else self._no_overflow
-        gnorm = _global_norm(grads)
+        target = self._update_target()
+        if dpz is None:
+            grads = [g.float() * inv for g in tree_leaves(acc_grads)]
+            tree = tree_unflatten(acc_grads, grads)
+            overflow = has_overflow(tree) if cfg.fp16_enabled else None
+            gnorm = _global_norm(tree)
+        else:
+            # the accumulation is the step's own: unscaled (and clipped) in place
+            grads, counted = dpz.step_grads(acc_grads, inv)
+            gnorm, overflow = dpz.norm_and_overflow(counted, cfg.fp16_enabled)
+        if overflow is None:
+            overflow = self._no_overflow
         if cfg.gradient_clipping > 0:
             coef = torch.clamp(cfg.gradient_clipping / (gnorm + 1e-6), max=1.0)
-            grads = tree_map(lambda g: g * coef, grads)
-        target = self._update_target()
-        new_master, new_opt = self.optimizer.update(grads, self.opt_state, target, lr)
+            for g in grads:
+                g.mul_(coef)
+        new_master, new_opt = self.optimizer.update(tree_unflatten(target, grads),
+                                                    self.opt_state, target, lr)
         if cfg.fp16_enabled:  # skip the update entirely on overflow
             def keep(old, new):
                 return tree_map(lambda o, n: torch.where(overflow, o, n), old, new)
 
             new_master = keep(target, new_master)
             new_opt = type(new_opt)(*(keep(o, n) for o, n in zip(self.opt_state, new_opt)))
-        for p, n in zip(tree_leaves(self.params), tree_leaves(new_master)):
-            p.copy_(n)  # cast back to the lp dtype, in place
-        if self._mixed:
+        for j, (p, n) in enumerate(zip(tree_leaves(self.params), tree_leaves(new_master))):
+            # cast back to the lp dtype, in place
+            p.copy_(n if dpz is None else dpz.lp_leaf(j, n, self.compute_dtype))
+        if self._mixed or dpz is not None:
             self.master_params = new_master
         self.opt_state = new_opt
         self.scaler_state = self.loss_scaler.update(self.scaler_state, overflow)
@@ -579,7 +662,7 @@ class DeepSpeedEngine:
             losses.append(loss.detach().float())
         self.step()
         self.tput_timer.stop(global_step=True)
-        return torch.stack(losses).mean()
+        return self._mean_over_ranks(torch.stack(losses).mean())
 
     def _count_batches(self, inner):
         """The engine-owned iterator: every batch pulled moves
@@ -594,17 +677,203 @@ class DeepSpeedEngine:
         self.timers(STEP_MICRO_TIMER).start()
         if self._z3_residency:
             self._ensure_zero3_params()
-        batch = to_device(batch, self.device)
         lr = self.get_lr()[0]
-        loss = self._loss_of(self._fwd_bwd.begin(self._apply_fn, self.params, batch,
-                                                 self._micro_step_key()))
-        grads = self._fwd_bwd.end(
-            lambda: self._grads_of(loss.float() * self.scaler_state.cur_scale))
+        if self.dp_world_size > 1:
+            loss = self._dp_forward(batch, train=True)
+        else:
+            batch = to_device(batch, self.device)
+            loss = self._loss_of(self._fwd_bwd.begin(self._apply_fn, self.params, batch,
+                                                     self._micro_step_key()))
+        if self._dpz is not None:
+            grads = self._dp_fold(None, self._fwd_bwd.end(
+                lambda: self._dp_grads(loss, self.scaler_state.cur_scale)))
+        else:  # at dp > 1 under offload, the step reduces them
+            grads = self._fwd_bwd.end(
+                lambda: self._grads_of(loss.float() * self.scaler_state.cur_scale))
+        loss = loss.detach()  # the graph goes before the update's buffers come
         gnorm, overflow = self._apply_update(grads, lr)
         self.micro_steps += 1
         self._after_step(gnorm, overflow)
         self.timers(STEP_MICRO_TIMER).stop()
-        return loss.detach()
+        return self._mean_over_ranks(loss)
+
+    # ------------------------------------------------------------------
+    # ZeRO across data-parallel ranks (engine.py:454-480, 943-1120)
+    # ------------------------------------------------------------------
+    def _setup_data_parallel(self, model, params):
+        """This rank's shards: the lp parameters under ``stage_param_specs``
+        (whole below stage 3), the fp32 master under ``stage_opt_specs``
+        (kept at every stage and precision, so the update is one path), an
+        anchor a stage-3 sharded leaf (what autograd differentiates: the
+        gather's backward reduces the weight's gradient itself)."""
+        from .zero.data_parallel import DataParallel
+
+        zc = self.config.zero_config
+        # leaves the model stacks by layer: their gathers and reductions run
+        # a layer at a time
+        stacked = getattr(model, "stacked_leaves", None)
+        dpz = DataParallel(params, self.zero_stage, self.topology,
+                           persistence_threshold=zc.param_persistence_threshold,
+                           comm_dtype=self.config.communication_data_type,
+                           qgz=zc.zero_quantized_gradients, qwz=zc.zero_quantized_weights,
+                           stacked=stacked(params) if stacked is not None else None)
+        self._dpz = dpz
+        dev = self.device
+
+        def fresh(view, dtype):
+            return torch.empty(tuple(view.shape), dtype=dtype, device=dev).copy_(view)
+
+        leaves = [torch.as_tensor(p).detach() for p in tree_leaves(params)]
+        self.params = tree_unflatten(params, [
+            fresh(lay.take(t), self.compute_dtype).requires_grad_(not lay.sharded)
+            for t, lay in zip(leaves, dpz.param)])
+        self.master_params = tree_unflatten(params, [
+            fresh(lay.take(t), torch.float32) for t, lay in zip(leaves, dpz.opt)])
+        self._z3_anchors = [torch.zeros((), device=dev, requires_grad=True)
+                            if lay.sharded else None for lay in dpz.param]
+        self._z3_red = None  # the gathers' reduced gradients of one micro-step
+
+    def _check_data_parallel_optimizer(self):
+        from ..ops.adam.onebit_adam import OnebitLamb
+
+        if isinstance(self.optimizer, OnebitLamb) and self.zero_stage >= 1:
+            raise _not_ported("OnebitLamb at ZeRO stage >= 1 across ranks (its trust ratio "
+                              "is a norm over the whole leaf, the master a shard)",
+                              "ROADMAP.md Queue 1 item 13b")
+
+    def _apply_dp(self, params, batch, train=True, rng=None):
+        """The model's apply on this rank's rows; dropout draws those rows
+        of the global batch's masks where the apply takes ``rows``."""
+        if self._apply_takes_rows and self._rows is not None:
+            return self._apply_fn(params, batch, train=train, rng=rng, rows=self._rows)
+        return self._apply_fn(params, batch, train=train, rng=rng)
+
+    def _dp_forward(self, batch, train: bool):
+        """This rank's loss on its rows of the global micro-batch: in
+        training the autograd graph is kept (at stage 3 of the device path
+        over weights gathered just in time), in evaluation the mean over the
+        ranks."""
+        from .zero.data_parallel import batch_rows
+
+        dpz = self._dpz
+        rows, self._rows = batch_rows(batch, self.dp_world_size, self._row_index)
+        rows = to_device(rows, self.device)
+        params = self.params
+        stage3 = dpz is not None and self.zero_stage >= 3
+        if stage3:
+            self._z3_red = [None] * len(dpz.param)
+            params = dpz.stage3_tree(self.params, self._z3_anchors, self._z3_on_grad)
+        if not train:
+            with torch.no_grad():
+                loss = self._loss_of(self._apply_dp(params, rows, train=False)).float()
+            return self._mean_over_ranks(loss)
+        key = self._micro_step_key()
+        if stage3:
+            with dpz.saved_weights():
+                return self._loss_of(self._fwd_bwd.begin(self._apply_dp, params, rows, key))
+        return self._loss_of(self._fwd_bwd.begin(self._apply_dp, params, rows, key))
+
+    def _z3_on_grad(self, j, layer, grad):
+        """A gathered weight's gradient in the backward: reduced onto its
+        shard (a layer's slice of a stacked leaf into that layer's rows)."""
+        dpz = self._dpz
+        red = dpz.red[j]
+        if layer is None:
+            self._z3_red[j] = dpz.reduce_leaf(grad, red)
+            return
+        if self._z3_red[j] is None:
+            self._z3_red[j] = torch.zeros(red.chunk_shape(dpz.shapes[j]), dtype=dpz.comm_dtype,
+                                          device=grad.device)
+        self._z3_red[j][layer] = dpz.reduce_leaf(grad, red.layer())
+
+    def _onebit_active(self) -> bool:
+        """The 1-bit optimizers' compressed phase: at dp > 1, stage <= 1,
+        once ``freeze_step`` updates have been applied (overflow-skipped
+        steps do not warm the variance, so they do not count)."""
+        from ..ops.adam.onebit_adam import OnebitAdam
+
+        if not isinstance(self.optimizer, OnebitAdam) or self.zero_stage > 1:
+            return False
+        return (self.global_steps - self.skipped_steps) >= self.optimizer.freeze_step
+
+    def _dp_grads(self, loss, scale):
+        """One micro-step's gradients reduced over the ranks: (this rank's
+        chunk of each leaf's mean on the reduction layout, the whole means
+        where the path made them: the 1-bit all-reduce and qgZ at stages 0
+        and 1)."""
+        dpz = self._dpz
+        scaled = loss.float() * scale
+        leaves = list(tree_leaves(self.params))
+        if self.zero_stage >= 3:
+            inputs = [a if a is not None else p for a, p in zip(self._z3_anchors, leaves)]
+        else:
+            inputs = leaves
+        local = [torch.zeros_like(p) if g is None else g for p, g in
+                 zip(leaves, torch.autograd.grad(scaled, inputs, allow_unused=True))]
+        if self.zero_stage >= 3:
+            z3 = self._z3_red
+            self._z3_red = None
+            skip = {j for j, a in enumerate(self._z3_anchors) if a is not None}
+            shards = dpz.reduce_list(local, skip=skip)
+            for j in skip:  # a leaf the forward did not reach has zero gradients
+                shards[j] = z3[j] if z3[j] is not None else torch.zeros(
+                    dpz.red[j].chunk_shape(dpz.shapes[j]), dtype=dpz.comm_dtype,
+                    device=self.device)
+            return shards, None
+        if self._onebit_active():
+            return self._onebit_reduce(local, scale)
+        if dpz.qgz and self.zero_stage <= 1:
+            from .zero.zeropp import quantized_reduce_leaf
+
+            fulls = [quantized_reduce_leaf(g.to(dpz.comm_dtype), ZERO_AXES, dpz.dp)
+                     for g in local]
+            return [lay.take(f).contiguous() for f, lay in zip(fulls, dpz.red)], fulls
+        return dpz.reduce_list(local), None
+
+    def _onebit_reduce(self, local, scale):
+        """``_onebit_fwd_bwd`` (``engine.py:977``): the local gradients,
+        unscaled, through the error-feedback 1-bit all-reduce, rescaled; the
+        error is kept in unscaled units and cleared of non-finite values (an
+        fp16 overflow would poison it for good)."""
+        from .comm.compressed import compressed_allreduce
+
+        dpz = self._dpz
+        if self._ef_errors is None:
+            self._ef_errors = [torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+                               for g in local]
+        inv = 1.0 / scale
+        fulls = []
+        for j, g in enumerate(local):
+            red, err = compressed_allreduce(g.float() * inv, self._ef_errors[j], ZERO_AXES)
+            self._ef_errors[j] = torch.where(torch.isfinite(err), err, torch.zeros_like(err))
+            fulls.append(red * scale)
+        return [lay.take(f).contiguous() for f, lay in zip(fulls, dpz.red)], fulls
+
+    def _dp_fold(self, acc, grads):
+        """Fold one micro-step's reduced gradients into the accumulation
+        (``_grad_acc_dtype`` past the first micro-step, as one rank folds)."""
+        shards, fulls = grads
+        if self.config.gradient_accumulation_steps == 1 or acc is None:
+            if self.config.gradient_accumulation_steps > 1:
+                dt = self._grad_acc_dtype()
+                shards = [g.to(dt) for g in shards]
+                fulls = None if fulls is None else [g.to(dt) for g in fulls]
+            return {"shards": shards, "fulls": fulls}
+        add = lambda a, g: a + g.to(a.dtype)  # noqa: E731
+        return {"shards": [add(a, g) for a, g in zip(acc["shards"], shards)],
+                "fulls": None if fulls is None or acc["fulls"] is None
+                else [add(a, g) for a, g in zip(acc["fulls"], fulls)]}
+
+    def _mean_over_ranks(self, loss):
+        """A loss averaged over the data-parallel ranks (itself on one)."""
+        if self.dp_world_size == 1:
+            return loss
+        return dist.all_reduce(loss.detach().float().clone(), op="avg", group=ZERO_AXES,
+                               log_name="loss_mean")
+
+    def _dp_full(self, shards, layouts):
+        """Whole leaves (a tree) from this rank's shards: collective."""
+        return tree_unflatten(self.params, self._dpz.gather_list(list(shards), layouts))
 
     # ------------------------------------------------------------------
     # ZeRO-Offload / Offload++ / ZeRO-Infinity (engine.py:1119-1418)
@@ -623,6 +892,10 @@ class DeepSpeedEngine:
         if not isinstance(self.optimizer, FusedAdam):
             raise ValueError("offload_optimizer requires an Adam-family optimizer "
                              "(reference forces DeepSpeedCPUAdam)")
+        if self.zero_stage >= 3 and self.dp_world_size > 1:
+            raise _not_ported("ZeRO stage 3 with offload_optimizer across ranks (the "
+                              "weights sharded, and the tier's parameter residency)",
+                              "ROADMAP.md Queue 1 item 13b")
         leaves = list(tree_leaves(fp32_params))
         host_idx, dev_idx = split_by_ratio(leaves, off.ratio)
         if sanitize_enabled():
@@ -648,8 +921,11 @@ class DeepSpeedEngine:
 
             plan = PartitionPlan(host_leaves, self.config.dp_world_size,
                                  sanitize=sanitize_enabled())
+            # one rank of a group holds and steps its own slices
+            rank = self.topology.rank_in(ZERO_AXES) if self.dp_world_size > 1 else None
             host_state = ZeroShardedTier(host_leaves, plan, stage=self.zero_stage,
-                                         nvme_store=self._transfer.nvme if nvme_dir else None)
+                                         nvme_store=self._transfer.nvme if nvme_dir else None,
+                                         rank=rank)
             self._zero_tier = host_state
             self._z3_residency = self.zero_stage >= 3
         else:
@@ -675,17 +951,41 @@ class DeepSpeedEngine:
         mgr = self._offload_mgr
         cfg = self.config
         st = self.offload_stats
-        grads_flat = list(tree_leaves(acc_grads))
+        host_idx = mgr["host_idx"]
+        tier = self._zero_tier
+        # at dp > 1 the gradients are this rank's rows': a rank of the sharded
+        # tier steps its plan slices of their mean, the flat tier whole leaves
+        sliced = tier is not None and tier.rank is not None
+        if sliced:
+            from .zero.data_parallel import reduce_plan_slices
+
+            grads_flat = list(tree_leaves(acc_grads))
+            for j, i in enumerate(host_idx):
+                grads_flat[i] = reduce_plan_slices(grads_flat[i], tier.plan.bounds[j])
+        else:
+            if self.dp_world_size > 1:
+                acc_grads = tree_map(lambda g: dist.all_reduce(
+                    g.float(), op="avg", group=ZERO_AXES, log_name="grad_all_reduce"), acc_grads)
+            grads_flat = list(tree_leaves(acc_grads))
         t0 = time.perf_counter()
         inv_scale = 1.0 / float(self.scaler_state.cur_scale)
+        clip = cfg.gradient_clipping > 0
         # overflow covers every gradient, host and device leaves, and is
         # decided before any update runs
-        overflow = bool(has_overflow(acc_grads)) if cfg.fp16_enabled else False
+        if sliced:  # from every rank's slices
+            from .zero.data_parallel import chunks_norm_and_overflow
+
+            norm, bad = (chunks_norm_and_overflow(grads_flat, cfg.fp16_enabled, self.device)
+                         if clip or cfg.fp16_enabled else (None, None))
+            overflow = bad is not None and bool(bad)
+        else:
+            overflow = bool(has_overflow(acc_grads)) if cfg.fp16_enabled else False
+            norm = _global_norm(acc_grads) if clip else None
         gnorm = None
         clip_coef = 1.0
-        if cfg.gradient_clipping > 0:
+        if clip:
             # the norm of the scaled gradients on the device, unscaled on the host
-            gnorm = float(_global_norm(acc_grads)) * inv_scale
+            gnorm = float(norm) * inv_scale
             clip_coef = min(1.0, cfg.gradient_clipping / (gnorm + 1e-6))
         st["norm_s"] += time.perf_counter() - t0
         if overflow:
@@ -715,9 +1015,10 @@ class DeepSpeedEngine:
                 params_flat[i].copy_(t)  # cast into the lp parameter in place
             st["device_subset_s"] += time.perf_counter() - t0
 
-        host_idx = mgr["host_idx"]
         te = self._transfer
-        tier = self._zero_tier
+        # a rank of a group steps its slice: where each host leaf starts
+        offs = ([tier.plan.bounds[j][tier.rank] for j in range(len(host_idx))]
+                if sliced else [0] * len(host_idx))
         sched = self._z3_schedule
         record = tier is not None and len(sched) < len(host_idx)
         if record:
@@ -747,8 +1048,10 @@ class DeepSpeedEngine:
                 st["h2d_wait_s"] += t1 - t0
                 st["lp_cast_s"] += time.perf_counter() - t1
             t0 = time.perf_counter()
+            o = offs[j]
             uploads.append(te.submit_h2d(
-                src, out=params_flat[host_idx[j]].detach().view(-1)[lo:hi], settle=False))
+                src, out=params_flat[host_idx[j]].detach().view(-1)[o + lo:o + hi],
+                settle=False))
             st["h2d_s"] += time.perf_counter() - t0
             if ring:
                 ring[k][1] = uploads[-1]
@@ -760,8 +1063,9 @@ class DeepSpeedEngine:
             if record:
                 sched.append(j)
 
+        host_grads = [grads_flat[i] for i in host_idx]
         try:
-            mgr["host"].adam_step(mgr["cpu_opt"], [grads_flat[i] for i in host_idx], lr,
+            mgr["host"].adam_step(mgr["cpu_opt"], host_grads, lr,
                                   grad_scale=inv_scale, clip_coef=clip_coef,
                                   on_leaf=on_leaf, on_chunk=on_chunk)
         finally:
@@ -770,6 +1074,14 @@ class DeepSpeedEngine:
             st["h2d_wait_s"] += time.perf_counter() - t0
             for slot in ring:
                 te.release_staging(slot[0])
+        if sliced:
+            # every rank's updated slices into every rank's lp parameters
+            from .zero.data_parallel import gather_plan_slices
+
+            for j, i in enumerate(host_idx):
+                flat = params_flat[i].detach().view(-1)
+                flat.copy_(gather_plan_slices(flat[offs[j]:offs[j] + tier.master[j].size],
+                                              tier.plan.bounds[j]))
         if cfg.fp16_enabled:
             self.scaler_state = self.loss_scaler.update(self.scaler_state, self._no_overflow)
         from ..analysis.sanitizer import sanitize_enabled
@@ -921,15 +1233,18 @@ class DeepSpeedEngine:
         scaler, and the moments go one file a rank
         (``optim_states.shard<r>.ckpt``), each under the manifest-last
         protocol. The fp32 master is the module tree's. The slices are
-        copies: the async engine writes them later."""
+        copies: the async engine writes them later. One process writes every
+        rank's file; a rank of a group its own, and rank 0 the plan's."""
         from .checkpoint_engine.consolidate import shard_path
 
         optim_sd = {"zero_sharded": plan.describe(), "step": int(step),
                     "scaler": _gather_to_host(self.scaler_state._asdict())}
         m_flat = [np.asarray(m, np.float32).reshape(-1) for m in m_leaves]
         v_flat = [np.asarray(v, np.float32).reshape(-1) for v in v_leaves]
+        ranks = (range(plan.num_shards) if self.dp_world_size == 1
+                 else [self.topology.rank_in(ZERO_AXES)])
         shard_sds = []
-        for r in range(plan.num_shards):
+        for r in ranks:
             sl = plan.slices(r)
             shard_sds.append({
                 "rank": r, "num_shards": plan.num_shards,
@@ -938,22 +1253,30 @@ class DeepSpeedEngine:
             })
         from ..analysis.sanitizer import sanitize_enabled
 
-        if sanitize_enabled():
+        if sanitize_enabled() and self.dp_world_size == 1:
             from ..analysis.sanitizer import check_shard_conservation
 
             check_shard_conservation(plan.leaf_sizes, plan.bounds,
                                      [sd["m"] for sd in shard_sds], dtype=np.float32)
-        self.checkpoint_engine.save(optim_sd, optim_path)
-        for r, sd in enumerate(shard_sds):
-            self.checkpoint_engine.save(sd, shard_path(tag_dir, r))
+        if self.topology.rank == 0:
+            self.checkpoint_engine.save(optim_sd, optim_path)
+        for sd in shard_sds:
+            self.checkpoint_engine.save(sd, shard_path(tag_dir, sd["rank"]))
 
     def _offload_master_tree(self, copy=False):
         """The full fp32 master tree from the host tier (numpy leaves) and
         the device subset (tensors); ``copy`` snapshots the host leaves."""
         mgr = self._offload_mgr
+        tier = self._zero_tier
         flat = [None] * (len(mgr["host_idx"]) + len(mgr["dev_idx"]))
         for j, i in enumerate(mgr["host_idx"]):
             m = mgr["host"].master[j]
+            if tier is not None and tier.rank is not None:  # every rank's slices
+                from .zero.data_parallel import gather_plan_slices
+
+                whole = gather_plan_slices(torch.from_numpy(m), tier.plan.bounds[j])
+                flat[i] = whole.numpy().reshape(tier.plan.leaf_shapes[j])
+                continue
             flat[i] = np.array(m, copy=True) if copy else m
         if mgr["dev"] is not None:
             for j, i in enumerate(mgr["dev_idx"]):
@@ -980,8 +1303,11 @@ class DeepSpeedEngine:
         self.checkpoint_engine.create(tag)
         cfg = self.config
         snapshot = hasattr(self.checkpoint_engine, "enqueue_task")
+        dpz = self._dpz
         if self._offload_mgr is not None:
             module_state = self._offload_master_tree(copy=snapshot)
+        elif dpz is not None:  # every rank's shards: collective
+            module_state = self._dp_full(tree_leaves(self.master_params), dpz.opt)
         else:
             module_state = self.master_params if self._mixed else self.params
         model_sd = {
@@ -1006,7 +1332,26 @@ class DeepSpeedEngine:
         mgr = self._offload_mgr
         if self._zero_tier is not None:
             tier = self._zero_tier
-            sharded = (tier.plan, *tier.full_moments(), tier.step_count)
+            ms, vs = tier.full_moments()
+            if tier.rank is not None:  # this rank's slices in their places
+                ms, vs = ([_place(a, tier.plan, j, tier.rank) for j, a in enumerate(x)]
+                          for x in (ms, vs))
+            sharded = (tier.plan, ms, vs, tier.step_count)
+        elif dpz is not None and self.opt_state is not None and self.opt_state.m is not None:
+            # the moments whole (collective); stage >= 2 saves them a rank a file
+            m_full, v_full = (self._dp_full(tree_leaves(t), dpz.opt)
+                              for t in (self.opt_state.m, self.opt_state.v))
+            if self.zero_stage >= 2:
+                from .zero.partition import PartitionPlan
+
+                mv = _gather_to_host({"m": m_full, "v": v_full})
+                m_leaves = [t.numpy() for t in tree_leaves(mv["m"])]
+                v_leaves = [t.numpy() for t in tree_leaves(mv["v"])]
+                sharded = (PartitionPlan(m_leaves, self.dp_world_size), m_leaves, v_leaves,
+                           int(self.opt_state.step))
+            else:
+                optim_sd = {"step": self.opt_state.step, "m": m_full, "v": v_full,
+                            "scaler": self.scaler_state._asdict()}
         elif mgr is not None:
             optim_sd = {
                 "offload_host": mgr["host"].state_dict(),
@@ -1033,14 +1378,21 @@ class DeepSpeedEngine:
         if optim_sd is not None:
             optim_sd = _gather_to_host(optim_sd)
         self.ckpt_stats["gather_s"] += time.perf_counter() - t0
-        self.checkpoint_engine.save(model_sd, model_path)
-        if optim_sd is not None:
-            self.checkpoint_engine.save(optim_sd, optim_path)
+        lead = self.topology.rank == 0  # rank 0 writes the module tree (engine.py:2029)
+        if lead:
+            self.checkpoint_engine.save(model_sd, model_path)
+            if optim_sd is not None:
+                self.checkpoint_engine.save(optim_sd, optim_path)
         if sharded is not None:
             self._save_sharded_optim(d, optim_path, *sharded)
 
         self.checkpoint_engine.commit(tag)
-        if save_latest:
+        if self.dp_world_size > 1:
+            # every rank's files on disk before rank 0 moves `latest`
+            if hasattr(self.checkpoint_engine, "wait"):
+                self.checkpoint_engine.wait()
+            dist.barrier(group=ZERO_AXES)
+        if save_latest and lead:
             def _write_latest():
                 # tmp → os.replace: a crash mid-write must never leave a
                 # truncated `latest` shadowing the previous complete pointer
@@ -1109,6 +1461,9 @@ class DeepSpeedEngine:
             self.checkpoint_engine.wait(raise_errors=False)
         if self.config.load_universal_checkpoint and os.path.exists(
                 os.path.join(load_dir, "universal_meta.pkl")):
+            if self.dp_world_size > 1:
+                raise _not_ported("loading a universal checkpoint across ranks",
+                                  "ROADMAP.md Queue 1 item 13b")
             from ..checkpoint.universal import load_universal_into_engine
 
             load_universal_into_engine(self, load_dir)
@@ -1125,7 +1480,10 @@ class DeepSpeedEngine:
         want_optim = load_optimizer_states and not load_module_only
         tag, model_path, model_sd, optim_sd = self._read_tag(load_dir, tag, from_latest,
                                                              want_optim)
-        module = _match(self.params, model_sd["module"], "module")
+        # the whole leaves' shapes (at dp > 1 the parameters are shards)
+        template = self.params if self._dpz is None else tree_unflatten(
+            self.params, [torch.empty(s, device="meta") for s in self._dpz.shapes])
+        module = _match(template, model_sd["module"], "module")
         # the optimizer file in the form this engine restores (engine.py:2270-2290):
         # a consolidated sharded save, a device save into an offloaded
         # engine, an offloaded save into a device engine
@@ -1142,7 +1500,7 @@ class DeepSpeedEngine:
                 _offload_as_full(optim_sd, len(list(tree_leaves(self.params)))), module)
         m = v = None
         if optim_sd is not None and self.opt_state is not None:
-            m, v = (None if optim_sd[k] is None else _match(self.params, optim_sd[k], k)
+            m, v = (None if optim_sd[k] is None else _match(template, optim_sd[k], k)
                     for k in ("m", "v"))
         if optim_sd is not None and self._offload_mgr is not None:
             saved_h = optim_sd.get("host_idx")
@@ -1182,6 +1540,10 @@ class DeepSpeedEngine:
             self._restore_offload(optim_sd, module)
             self._restore_scaler(optim_sd.get("scaler"))
         elif optim_sd is not None and self.opt_state is not None:
+            if self._dpz is not None:  # this rank's shards of the moments
+                m, v = (None if t is None else tree_unflatten(self.params, [
+                    lay.take(_host_tensor(a).float()).contiguous()
+                    for a, lay in zip(tree_leaves(t), self._dpz.opt)]) for t in (m, v))
             self.opt_state = type(self.opt_state)(
                 step=torch.tensor(int(np.asarray(optim_sd["step"])), dtype=torch.int32,
                                   device=self.device),
@@ -1206,10 +1568,18 @@ class DeepSpeedEngine:
             with torch.no_grad():
                 for p, t in zip(tree_leaves(self.params), flat):
                     p.copy_(lp_cast(t, self.compute_dtype))
-            for j, i in enumerate(mgr["host_idx"]):
-                mgr["host"].master[j][...] = flat[i].numpy()
+            self._assign_host_master([flat[i].numpy() for i in mgr["host_idx"]])
             if mgr["dev"] is not None:
                 mgr["dev"]["master"] = [flat[i].to(self.device) for i in mgr["dev_idx"]]
+            return
+        if self._dpz is not None:  # this rank's shards of the module weights
+            dpz = self._dpz
+            whole = [_host_tensor(t).float() for t in tree_leaves(module)]
+            with torch.no_grad():
+                for p, t, lay in zip(tree_leaves(self.params), whole, dpz.param):
+                    p.copy_(lay.take(t))
+            self.master_params = tree_unflatten(self.params, [
+                lay.take(t).to(self.device).contiguous() for t, lay in zip(whole, dpz.opt)])
             return
         dev = self._to_device(tree_map(lambda t: t.float(), module))
         with torch.no_grad():
@@ -1241,7 +1611,8 @@ class DeepSpeedEngine:
                     # engine's own split
                     "offload_dev": None, "host_idx": list(range(n)), "dev_idx": [],
                     "scaler": sc}
-        shapes = [tuple(p.shape) for p in tree_leaves(self.params)]
+        shapes = ([tuple(p.shape) for p in tree_leaves(self.params)] if self._dpz is None
+                  else self._dpz.shapes)
         return {"step": step, "scaler": sc,
                 **{k: tree_unflatten(self.params, [flat32(a).reshape(s)
                                                    for a, s in zip(lst, shapes)])
@@ -1266,10 +1637,19 @@ class DeepSpeedEngine:
             self._reshard_offload_load(optim_sd, saved_h, saved_d)
         # the module weights are the master copies (the file's own agree)
         flat = [_host_tensor(t) for t in tree_leaves(module)]
-        for j, i in enumerate(mgr["host_idx"]):
-            mgr["host"].master[j][...] = flat[i].float().numpy()
+        self._assign_host_master([flat[i].float().numpy() for i in mgr["host_idx"]])
         if mgr["dev"] is not None:
             mgr["dev"]["master"] = [flat[i].float().to(self.device) for i in mgr["dev_idx"]]
+
+    def _assign_host_master(self, whole):
+        """The host tier's master from whole fp32 leaves (a rank of a group
+        keeps its slices)."""
+        host = self._offload_mgr["host"]
+        for j, a in enumerate(whole):
+            if self._zero_tier is not None:
+                self._zero_tier.assign_master(j, a)
+            else:
+                host.master[j][...] = a.reshape(host.master[j].shape)
 
     def _load_host_tier(self, host_sd):
         """``host_sd`` (the flat format: ``master``, ``m``/``v`` or ``mv``,
@@ -1329,10 +1709,14 @@ class DeepSpeedEngine:
         return self.zero_stage
 
     def get_fp32_params(self):
-        """Full-precision view of the module weights, as CPU fp32 tensors."""
+        """Full-precision view of the module weights, as CPU fp32 tensors
+        (at dp > 1 gathered from every rank's shards: a collective)."""
         if self._offload_mgr is not None:
             return tree_map(lambda p: _host_tensor(p).detach().float().cpu().clone(),
                             self._offload_master_tree())
+        if self._dpz is not None:
+            src = self._dp_full(tree_leaves(self.master_params), self._dpz.opt)
+            return tree_map(lambda p: p.detach().float().cpu(), src)
         src = self.master_params if self._mixed else self.params
         return tree_map(lambda p: p.detach().float().cpu(), src)
 

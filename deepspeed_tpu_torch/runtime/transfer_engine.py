@@ -69,7 +69,7 @@ MAX_INFLIGHT_BYTES = 32 * 1024 * 1024
 STAGING_POOL_DEPTH = 2
 
 # the ROADMAP.md item that lifts ``put_tree``'s sharding argument
-_ZERO_ITEM = "ROADMAP.md Queue 1 item 13b, multi-rank ZeRO and runtime/comm"
+_SHARDING_ITEM = "ROADMAP.md Queue 1 item 13c, tensor parallelism"
 
 
 class TransferCorruptError(Exception):
@@ -506,7 +506,7 @@ class TransferEngine:
         stream waits for the copy either way."""
         if sharding is not None:
             raise NotImplementedError(
-                f"TransferEngine.submit_h2d(sharding=...) is not ported ({_ZERO_ITEM})")
+                f"TransferEngine.submit_h2d(sharding=...) is not ported ({_SHARDING_ITEM})")
         src = host_tensor(host_arr)
         nb = _nbytes(src)
         tid = self._next_tid
@@ -633,7 +633,7 @@ class TransferEngine:
         chunks. Leaves already on the device pass through."""
         if sharding is not None:
             raise NotImplementedError(
-                f"TransferEngine.put_tree(sharding=...) is not ported ({_ZERO_ITEM})")
+                f"TransferEngine.put_tree(sharding=...) is not ported ({_SHARDING_ITEM})")
         limit = self.limit_bytes if limit_bytes is None else int(limit_bytes)
         out = []
         for leaf in tree_leaves(tree):

@@ -1,8 +1,8 @@
 """ZeRO config block (a copy of ``deepspeed_tpu/runtime/zero/config.py``).
 
-The port parses the whole block; its training engine runs stages 0-3 with
-``offload_optimizer`` on one card and ``runtime/config.py`` raises for
-``offload_param`` and the ZeRO++ knobs (ROADMAP.md Queue 1 items 17, 13b). Schema parity with reference ``deepspeed/runtime/zero/config.py`` (stage enum :73,
+The port parses the whole block; its training engine runs stages 0-3, with
+``offload_optimizer`` or ``offload_param``, and the ZeRO++ knobs across
+ranks. Schema parity with reference ``deepspeed/runtime/zero/config.py`` (stage enum :73,
 ZeRO++ knobs :264-280, offload configs in ``offload_config.py``). On TPU several CUDA
 mechanism knobs (bucket sizes, overlap_comm, stream counts) do not change the compiled
 program — XLA schedules collectives — so they are accepted, recorded, and surfaced via

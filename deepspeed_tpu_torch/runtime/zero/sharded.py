@@ -13,10 +13,12 @@ flat range ``[bounds[r], bounds[r+1])`` of every leaf. One step:
                      dtype and starts its upload, which runs while the
                      next chunk computes
 
-On one card the plan has one shard (the data-parallel size); the per-rank
-loop is the same code at any shard count. Storage is one contiguous fp32
-buffer a leaf with per-rank slice views; a sharded checkpoint still writes
-one file a rank (``shard_state_dict``).
+The plan has one shard a data-parallel rank. In one process (``rank``
+None) the tier holds every leaf whole and steps every rank's slice in
+turn, as the JAX tier does; one rank of a process group (``rank`` r) holds
+and steps only its own slices, ``[bounds[r], bounds[r+1])`` of each leaf,
+so the ranks' processes together do the one-process loop. A sharded
+checkpoint writes one file a rank (``shard_state_dict``).
 
 Stage 3 adds parameter residency in the engine (``stage3_*`` knobs): after
 each step the largest non-persistent leaves are released to a host cache of
@@ -30,7 +32,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from .offload import OffloadedAdamState
+from .offload import OffloadedAdamState, host_f32
 from .partition import PartitionPlan
 
 
@@ -44,7 +46,12 @@ class ZeroShardedTier(OffloadedAdamState):
     newest record falls back one slot (``nvme.counters['ring_fallbacks']``).
     Host RAM then holds only the fp32 master."""
 
-    def __init__(self, leaves: List, plan: PartitionPlan, stage: int = 2, nvme_store=None):
+    def __init__(self, leaves: List, plan: PartitionPlan, stage: int = 2, nvme_store=None,
+                 rank=None):
+        self.rank = rank
+        if rank is not None:
+            leaves = [host_f32(l).reshape(-1)[lo:hi] for l, (lo, hi)
+                      in zip(leaves, plan.slices(rank))]
         super().__init__(leaves, device="cpu")
         self.plan = plan
         self.stage = int(stage)
@@ -62,9 +69,8 @@ class ZeroShardedTier(OffloadedAdamState):
                 nvme_store.save(self._nvme_key(j), np.stack([self.m[j], self.v[j]]))
             self.m = self.v = None
 
-    @staticmethod
-    def _nvme_key(j: int) -> str:
-        return f"optshard_{j}"
+    def _nvme_key(self, j: int) -> str:
+        return f"optshard_{j}" if self.rank is None else f"optshard_r{self.rank}_{j}"
 
     def _moments(self, j: int):
         """Leaf ``j``'s (m, v) views plus the backing [m; v] buffer to save
@@ -80,7 +86,10 @@ class ZeroShardedTier(OffloadedAdamState):
 
     def _spans(self, j: int, n: int):
         """The plan's per-rank slices of leaf ``j``: ``step_flat`` runs per
-        (leaf, rank), elementwise, so bitwise the update of the whole leaf."""
+        (leaf, rank), elementwise, so bitwise the update of the whole leaf.
+        One rank of a group holds its slice alone: one span."""
+        if self.rank is not None:
+            return [(0, n)]
         b = self.plan.bounds[j]
         return list(zip(b[:-1], b[1:]))
 
@@ -107,7 +116,24 @@ class ZeroShardedTier(OffloadedAdamState):
             v_out.append(np.array(v, copy=True))
         return {"master": master, "m": m_out, "v": v_out, "step": self.step_count}
 
+    def _own(self, j: int, full) -> np.ndarray:
+        """Leaf ``j``'s whole flat fp32 values cut to what this tier holds."""
+        a = np.asarray(full, np.float32).reshape(-1)
+        if self.rank is None:
+            return a
+        lo, hi = self.plan.bounds[j][self.rank], self.plan.bounds[j][self.rank + 1]
+        return a[lo:hi]
+
+    def assign_master(self, j: int, full) -> None:
+        """Leaf ``j``'s master from its whole values."""
+        self.master[j].reshape(-1)[...] = self._own(j, full)
+
     def load_state_dict(self, sd: Dict):
+        """``sd`` holds whole leaves (``master``, ``m``, ``v``, ``step``)."""
+        if self.rank is not None:
+            sd = {"step": sd["step"],
+                  **{k: [self._own(j, a) for j, a in enumerate(sd[k])]
+                     for k in ("master", "m", "v")}}
         if self.nvme_store is None:
             return super().load_state_dict(sd)
         self.step_count = int(sd["step"])
@@ -122,9 +148,13 @@ class ZeroShardedTier(OffloadedAdamState):
     def shard_state_dict(self, rank: int) -> Dict:
         """Rank ``rank``'s slice of the moments: one sharded-checkpoint file.
         The fp32 master is not duplicated here: the checkpoint's module tree
-        carries it."""
+        carries it. One rank of a group gives its own file only."""
+        if self.rank is not None and rank != self.rank:
+            raise ValueError(f"this tier holds rank {self.rank}'s slices, not rank {rank}'s")
         out_m, out_v = [], []
         for j, (lo, hi) in enumerate(self.plan.slices(rank)):
+            if self.rank is not None:
+                lo, hi = 0, hi - lo
             m, v, _ = self._moments(j)
             out_m.append(np.array(m[lo:hi], copy=True))
             out_v.append(np.array(v[lo:hi], copy=True))
@@ -132,7 +162,8 @@ class ZeroShardedTier(OffloadedAdamState):
 
     def full_moments(self):
         """Every leaf's (m, v) as flat fp32 arrays (views of the RAM buffers,
-        or copies read from NVMe)."""
+        or copies read from NVMe): whole in one process, this rank's slices
+        in a group."""
         ms, vs = [], []
         for j in range(len(self.master)):
             m, v, _ = self._moments(j)
@@ -145,8 +176,7 @@ class ZeroShardedTier(OffloadedAdamState):
         per-rank views alias the full buffers; NVMe leaves write back)."""
         self.step_count = int(step)
         for j in range(len(self.master)):
-            mf = np.asarray(m_full[j], np.float32).reshape(-1)
-            vf = np.asarray(v_full[j], np.float32).reshape(-1)
+            mf, vf = self._own(j, m_full[j]), self._own(j, v_full[j])
             if self.nvme_store is None:
                 self.m[j][...] = mf
                 self.v[j][...] = vf
@@ -155,4 +185,4 @@ class ZeroShardedTier(OffloadedAdamState):
 
     def shard_bytes(self, rank: int = 0) -> int:
         """Optimizer-state bytes rank ``rank`` owns (master + m + v, fp32)."""
-        return 3 * self.plan.shard_bytes(rank, itemsize=4)
+        return 3 * self.plan.shard_bytes(rank if self.rank is None else self.rank, itemsize=4)

@@ -101,9 +101,12 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 
 
 def random_bits(key: torch.Tensor, shape: Sequence[int],
-                partitionable: bool = True) -> torch.Tensor:
+                partitionable: bool = True, offset: int = 0) -> torch.Tensor:
     """32-bit ``jax.random.bits``: ``(..., *shape)`` int64 tensor of uint32
-    values. Only the partitionable counter layout is implemented."""
+    values. Only the partitionable counter layout is implemented. The
+    counters are the elements' row-major indices, so ``offset`` (added to
+    them) draws a window of a larger draw: rows ``[r, r + shape[0])`` of a
+    draw whose rows hold ``m`` elements each are ``offset = r * m``."""
     if not partitionable:
         raise NotImplementedError(
             "threefry random bits in jax's non-partitionable mode "
@@ -112,7 +115,7 @@ def random_bits(key: torch.Tensor, shape: Sequence[int],
     n = 1
     for s in shape:
         n *= s
-    idx = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
+    idx = (torch.arange(n, dtype=torch.int64, device=key.device) + int(offset)).reshape(shape)
     hi, lo = idx >> 32, idx & _MASK
     expand = (...,) + (None,) * len(shape)
     b1, b2 = threefry_2x32(key[..., 0][expand], key[..., 1][expand], hi, lo)
@@ -120,9 +123,10 @@ def random_bits(key: torch.Tensor, shape: Sequence[int],
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """float32 ``jax.random.uniform`` on ``[minval, maxval)``."""
-    bits = random_bits(key, shape)
+            maxval: float = 1.0, offset: int = 0) -> torch.Tensor:
+    """float32 ``jax.random.uniform`` on ``[minval, maxval)`` (``offset`` as
+    for :func:`random_bits`)."""
+    bits = random_bits(key, shape, offset=offset)
     one = 0x3F800000  # the bits of 1.0f
     floats = (((bits >> 9) | one).to(torch.int32)).view(torch.float32) - 1.0
     # the bounds and their difference rounded to float32 first, as jax does
@@ -131,12 +135,13 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     return torch.clamp_min(floats * float(scale) + float(lo), float(lo))
 
 
-def bernoulli(key: torch.Tensor, p, shape: Sequence[int]) -> torch.Tensor:
+def bernoulli(key: torch.Tensor, p, shape: Sequence[int], offset: int = 0) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)`` for a float ``p`` (a number or
-    a tensor broadcasting against ``shape``): a bool tensor ``(..., *shape)``."""
+    a tensor broadcasting against ``shape``): a bool tensor ``(..., *shape)``
+    (``offset`` as for :func:`random_bits`)."""
     p32 = torch.as_tensor(np.float32(p) if not isinstance(p, torch.Tensor) else p,
                           device=key.device).to(torch.float32)
-    return uniform(key, shape) < p32
+    return uniform(key, shape, offset=offset) < p32
 
 
 def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

@@ -27,14 +27,16 @@ def tree_map(fn: Callable, tree, *rest):
 def tree_unflatten(tree, leaves):
     """A tree shaped like ``tree`` whose leaves, in sorted-key order, are
     ``leaves`` (the inverse of :func:`tree_leaves`)."""
-    it = iter(leaves)
+    return _build(tree, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
 
-    return build(tree)
+def _build(t, it):
+    # module-level, not a closure over ``it``: a nested recursive function
+    # is a reference cycle, which would keep ``leaves`` alive until the
+    # collector runs
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    return next(it)
 
 
 def tree_unzip(tree: Dict, n: int) -> Tuple[Dict, ...]:

@@ -2,16 +2,20 @@
 
 ``zero.Init`` (reference ``runtime/zero/partition_parameters.py:783``)
 partitions parameters as they are built so that a model larger than one
-device never exists whole on one. On one card there is nothing to partition
-across: parameters are born whole on the engine's device, in the dtype the
-context names, and ``initialize_params`` is a call of the model's own
-initializer. Multi-rank construction comes with ROADMAP.md Queue 1 item 13b.
+device never exists whole on one. ``initialize_params`` draws the model's
+parameters from the generator and, at stage 3 over more than one
+data-parallel rank, keeps this rank's shard of each leaf
+(``stage_param_specs``: the rank's chunk of the dimension the rules shard)
+and moves only the shards to ``device``: every leaf is whole on the host
+for a moment, never on the card. On one rank the parameters are whole, in
+the dtype the context names.
 """
 
 from typing import Optional
 
 import torch
 
+from ..comm.topology import get_topology
 from ..utils.tree import tree_map
 
 
@@ -72,10 +76,22 @@ def sharded_dual_init(model, generator, lp_dtype, param_shardings=None, opt_shar
 
 def initialize_params(model, generator, stage: int = 3, topology=None, dtype=None,
                       persistence_threshold: int = 0, device=None):
-    """``model``'s parameters from ``generator``, whole on ``device`` (the
-    generator's by default), in ``dtype`` or the active ``Init``'s, else
-    fp32 (the JAX ``initialize_params`` on one device)."""
+    """``model``'s parameters from ``generator`` in ``dtype`` or the active
+    ``Init``'s, else fp32 (the JAX ``initialize_params``): at stage 3 over
+    more than one rank of ``topology`` (the process's by default) this
+    rank's shard of each leaf, else whole; on ``device`` (the generator's
+    by default)."""
+    from ..runtime.zero.data_parallel import LeafShard
+    from ..runtime.zero.partition import stage_param_specs
+
     dt = dtype or (_active.dtype if _active is not None and _active.dtype else None)
-    lp, _ = sharded_dual_init(model, generator, dt if dt is not None else torch.float32,
-                              device=device)
-    return lp
+    dt = dt if dt is not None else torch.float32
+    topo = topology or get_topology()
+    if stage < 3 or topo.data_parallel_size == 1:
+        return sharded_dual_init(model, generator, dt, device=device)[0]
+    whole = model.init_params(generator)
+    specs = stage_param_specs(whole, stage, topo, persistence_threshold=persistence_threshold)
+    dev = device if device is not None else generator.device
+    return tree_map(lambda p, spec: LeafShard(spec, topo).take(p).to(device=dev, dtype=dt,
+                                                                       copy=True),
+                    whole, specs)

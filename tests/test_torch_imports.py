@@ -104,6 +104,20 @@ _TRAINING_MODULES = {
     "deepspeed_tpu_torch.analysis.lint",
     "deepspeed_tpu_torch.analysis.program_audit",
     "deepspeed_tpu_torch.analysis.rules",
+    # multi-rank ZeRO: the comm facade, the compressed collectives, ZeRO++
+    # and the 1-bit optimizers
+    "deepspeed_tpu_torch.comm",
+    "deepspeed_tpu_torch.comm.comm",
+    "deepspeed_tpu_torch.comm.comms_logging",
+    "deepspeed_tpu_torch.comm.topology",
+    "deepspeed_tpu_torch.runtime.comm",
+    "deepspeed_tpu_torch.runtime.comm.compressed",
+    "deepspeed_tpu_torch.runtime.zero.data_parallel",
+    "deepspeed_tpu_torch.runtime.zero.partition",
+    "deepspeed_tpu_torch.runtime.zero.zeropp",
+    "deepspeed_tpu_torch.ops.quantizer.quantizer",
+    "deepspeed_tpu_torch.ops.adam.onebit_adam",
+    "deepspeed_tpu_torch.zero",
 }
 
 

@@ -287,9 +287,13 @@ def test_zero_stage_and_offload_configs_train(zero):
     # holds the JAX package's ValueError below stage 3 and the engine at 3
     pytest.param("zero_optimization", {"stage": 1, "offload_param": {"device": "cpu"}},
                  "requires stage 3", id="zero_optimization-value0-item 17"),
-    ("zero_optimization", {"zero_quantized_weights": True}, "item 13b"),
-    ("mesh", {"data": 1}, "item 13b"),
-    ("optimizer", {"type": "OneBitAdam", "params": {}}, "item 13b"),
+    # ported since (multi-rank ZeRO): each case keeps its name, trains at one
+    # rank, and its mesh case holds the refusal of a tensor-parallel axis
+    pytest.param("zero_optimization", {"zero_quantized_weights": True}, "item 13c",
+                 id="zero_optimization-value1-item 13b"),
+    pytest.param("mesh", {"data": 1}, "item 13c", id="mesh-value2-item 13b"),
+    pytest.param("optimizer", {"type": "OneBitAdam", "params": {}}, "item 13c",
+                 id="optimizer-value3-item 13b"),
     ("steps_per_execution", 2, "item 17"),
     ("progressive_layer_drop", {"enabled": True}, "item 17"),
     ("compression_training", {"weight_quantization": {}}, "item 17"),
@@ -306,6 +310,12 @@ def test_unported_config_raises_naming_the_item(key, value, match):
         assert isinstance(eng, StreamedZeroEngine)
         loss = float(eng.train_batch(iter(_batches(512, 1, seed=6))))
         assert np.isfinite(loss) and eng.store.max_live_groups <= 2
+        return
+    if match == "item 13c":
+        eng = _port_engine("llama", _config(**{key: value}))
+        assert np.isfinite(float(eng.train_batch(iter(_batches(512, 1, seed=6)))))
+        with pytest.raises(NotImplementedError, match="item 13c, tensor parallelism"):
+            _port_engine("llama", _config(mesh={"data": 1, "model": 2}))
         return
     with pytest.raises(NotImplementedError, match=match):
         _port_engine("llama", _config(**{key: value}))
