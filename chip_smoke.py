@@ -324,13 +324,43 @@ m.  ZeRO across ranks, after p (``multirank_phase``): one process trains
     (qwZ + qgZ at stage 3) trains with at most half of stage 3's
     collective bytes; ``OnebitAdam`` (``freeze_step`` 2, 5 steps) lowers
     the loss at every compressed step, its sign bytes at most 1/16 of
-    stage 0's; each rank's flash launches 2 layers x the run's steps (the
+    stage 0's; ``OnebitLamb`` at stage 1 (its trust ratio's norms
+    all-reduced over the shards) likewise lowers the loss at every
+    compressed step; a universal directory (a narrow llama's one-process
+    stage-2 tag, converted) loads into each rank as its rows of one
+    process's load, master and moments bitwise; each rank's flash launches
+    2 layers x the run's steps (the
     counts set to 0 just before each run and read just after). A
     ``{"multirank_summary": ...}`` line: per-rank memory, step ms (two
     processes time-sharing one card: not a data-parallel rate) and bytes
     by collective record. ``torchrun --standalone --nproc_per_node 4
     chip_smoke.py --zero-nccl`` (not part of this run) trains llama-7b at
     32 layers under ZeRO-2 and ZeRO-3 over nccl on four cards.
+t.  tensor parallelism, after m (``tp_phase``), ranks sharing the card over
+    gloo as in m, each drawing its shards of the seeded tree
+    (``init_params(tp=...)``): (t1) TP 2 at stage 0 (one row) and data 2 x
+    model 2 at ZeRO-1 and ZeRO-3 (a row a data rank), llama-7b width at 2
+    layers, seq 2048, bf16, 3 steps, against one process on the same rows:
+    each step's loss within 9e-4, the TP ranks' replicated leaves bitwise
+    after every step, a rank's parameter bytes the replicated leaves plus
+    half the rest, flash launched 2 x 3 times a rank at 16 of 32 heads, and
+    the TP all-reduce bytes a step (2L + 1) x rows x 2048 x 4096 x 2 each
+    way as the comms logger counts them; (t2) ``init_inference`` at
+    ``tensor_parallel={"tp_size": 2}`` serving llama-7b at 32 layers
+    (batch 4, prompt 128, 32 greedy tokens) in bf16 and then int8 WOQ
+    (group 128), against the one-process TP 1 engine: both ranks' streams
+    equal, equal TP 1's up to a top-2 margin under 8 bf16 units; every
+    prompt position's logits and every token bitwise a witness's, the TP 1
+    engine with each projection run at a TP 2 rank's shapes, the row-parallel
+    halves rounded and added in bf16 (``t_split_halves``); 1024 slot-forward
+    launches a rank and 7168 ``woq_matmul`` (224 of them tiled); (t3) a
+    ``state_dict_factory`` set of the 2-layer tree saved at TP 2 merges
+    back bitwise and each rank's cut of it is its drawn shards.
+    A ``{"tp_summary": ...}`` line. ``torchrun --standalone
+    --nproc_per_node 4 chip_smoke.py --tp-nccl`` (not part of this run)
+    trains llama-7b at 32 layers at data 2 x model 2 (ZeRO-1; the first
+    step's loss against one card's forward of the same rows, the loss
+    falling at every step) and serves it at TP 4 over nccl.
 
 Then block-sparse attention:
 
@@ -392,9 +422,11 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1781,14 +1813,22 @@ SLOT_CASES = (
     ("256-row chunk at offset 256", 1, 256, (256,), (3,)),
     ("16-row bucket", 2, 16, (0, 1000), (5, 1)),
 )
+#: a TP 2 rank's 16 heads over the v1 engine's cache of phase t2 (4 slots of
+#: prompt 128 + 32 new tokens): the same fields, then heads, slots, length
+TP_SLOT_CASES = (
+    ("TP 2 prefill, 16 heads", 4, 128, (0, 0, 0, 0), None, 16, 4, 160),
+    ("TP 2 decode, 16 heads", 4, 1, (128, 137, 150, 159), None, 16, 4, 160),
+)
 
 
-def slot_case(B, Sq, offs, rows, dtype, dev, seed=0):
-    """q (B, Sq, 32, 128), a slot cache (8, 4096, 32, 128) for K and for V
-    from a seeded generator, and the offsets and kv rows on the card."""
+def slot_case(B, Sq, offs, rows, dtype, dev, seed=0, heads=32, slots=8, length=4096):
+    """q (B, Sq, heads, 128), a slot cache (slots, length, heads, 128) for K
+    and for V from a seeded generator, and the offsets and kv rows on the
+    card."""
     gen = torch.Generator(dev).manual_seed(seed)
     q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
-               for shape in ((B, Sq, 32, 128), (8, 4096, 32, 128), (8, 4096, 32, 128)))
+               for shape in ((B, Sq, heads, 128), (slots, length, heads, 128),
+                             (slots, length, heads, 128)))
     off = torch.tensor(offs, dtype=torch.int32, device=dev)
     kr = None if rows is None else torch.tensor(rows, dtype=torch.int32, device=dev)
     return q, k, v, off, kr
@@ -1799,9 +1839,11 @@ def slot_kernels_vs_plain(fa, dev):
     against its plain version, bf16 and fp32, each call repeated bitwise;
     with zero offsets, bitwise the forward without them (phase a's path)."""
     worst = 0.0
-    for label, B, Sq, offs, rows in SLOT_CASES:
+    for label, B, Sq, offs, rows, heads, slots, length in (
+            [c + (32, 8, 4096) for c in SLOT_CASES] + list(TP_SLOT_CASES)):
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v, off, kr = slot_case(B, Sq, offs, rows, dtype, dev)
+            q, k, v, off, kr = slot_case(B, Sq, offs, rows, dtype, dev, heads=heads,
+                                         slots=slots, length=length)
             out, lse = fa.flash_attention_fwd(q, k, v, q_offset=off, kv_rows=kr)
             again = fa.flash_attention_fwd(q, k, v, q_offset=off, kv_rows=kr)
             check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
@@ -1816,7 +1858,8 @@ def slot_kernels_vs_plain(fa, dev):
                   f"slot {label} {dtype}: zero offsets differ from the forward without them")
             worst = max(worst, err)
             log(f"kernel vs plain: flash forward with row offsets, {label} (B={B} Sq={Sq} "
-                f"offsets {list(offs)} rows {rows}) {str(dtype)[6:]}: max_abs_err {err:.3g}, "
+                f"offsets {list(offs)} rows {rows} heads {heads} cache ({slots}, {length})) "
+                f"{str(dtype)[6:]}: max_abs_err {err:.3g}, "
                 "bitwise repeatable, zero offsets bitwise the plain causal call ok")
             del q, k, v, ref
     return worst
@@ -2808,6 +2851,11 @@ def pool_phase(params, pa, dev, card):
 
 
 WOQ_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))  # (In, Out): wq/wk/wv/wo, w_gate/w_up, w_down
+# a TP 2 rank's int8 code shards of llama-7b (phase t2): wo (row-parallel),
+# wq/wk/wv, w_gate/w_up (column-parallel), w_down (row-parallel, 43 groups of
+# 128), each at t2's decode rows (its batch of 4) and its prefill (4 x 128)
+TP_WOQ_SHAPES = ((2048, 4096), (4096, 2048), (4096, 5504), (5504, 4096))
+TP_WOQ_ROWS = (4, 512)
 WOQ_TOL = (1e-4, 1e-5)  # atol, rtol: the JAX package's own (tests/unit/test_woq.py:169)
 
 
@@ -2829,9 +2877,10 @@ def woq_compare(out, ref):
 
 def woq_kernels_vs_plain(wq, dev):
     """Phase q1: the WOQ kernels against their plain version at the main
-    path's shapes (bf16 x at rows 1-300, fp32 at 1-256, fp16 at 37 and 256),
+    path's shapes (bf16 x at rows 1-512, fp32 at 1-256, fp16 at 37 and 256),
     8/6/4 bits; then group 64, a group that is not a power of two with a K
-    tail, and every byte value. 16-bit calls repeat bitwise."""
+    tail, a TP 2 rank's int8 shards (``TP_WOQ_SHAPES``) and every byte
+    value. 16-bit calls repeat bitwise."""
     from deepspeed_tpu_torch.ops.quantizer import woq
 
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -2854,7 +2903,8 @@ def woq_kernels_vs_plain(wq, dev):
         log(f"kernel vs plain: woq_matmul {label} int{bits} x {str(x.dtype)[6:]} "
             f"rows {x.shape[0]}: max_abs_err {err:.3g} ok")
 
-    main_rows = {torch.bfloat16: (1, 8, 37, 100, 129, 256, 300), torch.float32: (1, 8, 37, 256),
+    main_rows = {torch.bfloat16: (1, 8, 37, 100, 129, 256, 300, 512),
+                 torch.float32: (1, 8, 37, 256),
                  torch.float16: (37, 256)}
     cases = [(In, Out, 128) for In, Out in WOQ_SHAPES] + [(4096, 4096, 64), (4000, 1024, 128),
                                                         (4032, 1032, 96)]
@@ -2869,6 +2919,13 @@ def woq_kernels_vs_plain(wq, dev):
                 for rows in (main_rows[dtype] if main else (8,) if Out == 1032 else (8, 256)):
                     x = torch.randn(rows, In, device=dev, generator=gen).to(dtype)
                     case(f"({In}, {Out}) group {g}", x, codes, scale, bits)
+        del w
+    for In, Out in TP_WOQ_SHAPES:
+        w = torch.randn(In, Out, device=dev, generator=gen).mul_(0.02)
+        codes, scale = woq.quantize_leaf(w, 8, 128)
+        for rows in TP_WOQ_ROWS:
+            x = torch.randn(rows, In, device=dev, generator=gen).to(torch.bfloat16)
+            case(f"TP 2 shard ({In}, {Out}) group 128", x, codes, scale, 8)
         del w
     # every byte value, in every column and many rows, scales of the model's size
     for bits in (8, 6, 4):
@@ -3034,8 +3091,11 @@ def flash_vs_plain(fa, B, S, nh, kvh, hd, causal, dtype, dev, Skv=None):
 
 
 def flash_kernels_vs_plain(fa, dev):
-    """Phase a: the flash kernels against their plain versions."""
+    """Phase a: the flash kernels against their plain versions. Returns the
+    largest forward and backward errors."""
     cases = (("llama-7b heads", 2, 2048, 32, 32, 128, True, None),
+             ("llama-7b at TP 2 (16 of 32 heads a rank, phase t1)", 1, 2048, 16, 16, 128, True,
+              None),
              ("llama-70b GQA heads", 1, 1024, 64, 8, 128, True, None),
              ("head_dim 64, non-causal", 2, 512, 8, 4, 64, False, None),
              ("head_dim 256, GQA 4", 1, 512, 8, 2, 256, True, None),
@@ -3044,13 +3104,16 @@ def flash_kernels_vs_plain(fa, dev):
              ("S 130 (a 2-row tail), GQA 8", 2, 130, 16, 2, 128, True, None),
              ("head_dim 32 (llama-tiny), GQA 2", 2, 1000, 8, 4, 32, True, None),
              ("Sq 130 != Skv 1000, non-causal", 1, 130, 8, 2, 128, False, 1000))
+    worst = [0.0, 0.0]
     for label, B, S, nh, kvh, hd, causal, Skv in cases:
         for dtype in (torch.bfloat16, torch.float16, torch.float32):
             fe, be = flash_vs_plain(fa, B, S, nh, kvh, hd, causal, dtype, dev, Skv=Skv)
+            worst = [max(worst[0], fe), max(worst[1], be)]
             log(f"kernel vs plain: flash attention {label} B={B} S={S} Skv={Skv or S} nh={nh} "
                 f"kvh={kvh} hd={hd} causal={causal} {str(dtype)[6:]}: fwd max_abs_err {fe:.3g}, "
                 f"bwd max_abs_err {be:.3g}" + (", bitwise repeatable" if dtype != torch.float32
                                                  else "") + " ok")
+    return worst
 
 
 TRAIN_CONFIG = {
@@ -5195,7 +5258,14 @@ M_RUNS = (
                 "zero_quantized_gradients": True}, None, M_STEPS),
     ("onebit", {"stage": 1}, {"type": "OnebitAdam", "params": {
         "lr": 3e-5, "freeze_step": M_ONEBIT_FREEZE}}, M_ONEBIT_STEPS),
+    # 1-bit LAMB with its master in shards: the trust ratio's norms all-reduced
+    ("onebit_lamb", {"stage": 1}, {"type": "OneBitLamb", "params": {
+        "lr": 3e-5, "freeze_step": M_ONEBIT_FREEZE}}, M_ONEBIT_STEPS),
 )
+# the universal-checkpoint check of phase m: a narrow llama (the rows a rank
+# reads, not the width, are under test), stage 2, 2 steps, saved by one
+# process, converted, loaded by one process and by each rank
+M_UNIV_KW = dict(hidden_size=512, num_heads=4, intermediate_size=1024, vocab_size=4096)
 # each step's loss against the one-process run's on the same global batch,
 # absolute: bf16, the ranks' GEMMs run half the rows and the gradients sum
 # in another order. Measured on an H100 80GB HBM3 at 700 W: 1e-6, 6.4e-5 and
@@ -5209,14 +5279,18 @@ def m_batch(vocab, rows, seq=2048, seed=0):
         0, vocab, (rows, seq)).astype(np.int32)}
 
 
-def m_engine(dev, zero, optimizer=None, layers=M_LAYERS, model_kw=None, rows=2):
+def m_engine(dev, zero, optimizer=None, layers=M_LAYERS, model_kw=None, rows=2, mesh=None):
     """A llama-7b-width engine drawing its own weights (the device's
-    generator, seed 0: the same weights in every process), ``rows`` the
-    global batch. ``model_kw`` narrows the model for a rehearsal on the CPU."""
+    generator, seed 0: the same weights in every process; under a ``model``
+    axis each rank cuts its shards of them), ``rows`` the global batch,
+    ``mesh`` the config's mesh block. ``model_kw`` narrows the model for a
+    rehearsal on the CPU."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import build_model
 
     cfg = dict(M_CONFIG, zero_optimization=zero, train_batch_size=rows)
+    if mesh is not None:
+        cfg["mesh"] = dict(mesh)
     if optimizer is not None:
         cfg["optimizer"] = optimizer
     model = build_model("llama-7b", num_layers=layers, **(model_kw or {}))
@@ -5273,12 +5347,13 @@ def m_nbytes(tree):
     return sum(t.numel() * t.element_size() for t in tree_leaves_of(tree))
 
 
-def m_run(engine, batch, fa, steps=M_STEPS):
+def m_run(engine, batch, fa, steps=M_STEPS, fingerprint=None):
     """``steps`` train_batch calls: the losses, the time of the step before
     the last (host clock to a device synchronise; the last one runs with the
     comms logger on, which synchronises at every collective), the comms
     logger's bytes by record over the last step, the peak memory of the
-    steps and the flash launches."""
+    steps and the flash launches; ``fingerprint(engine)`` after every step
+    (default: the lp parameters' where the ranks hold replicas)."""
     from deepspeed_tpu_torch import comm as dist
 
     dev = engine.device
@@ -5299,7 +5374,9 @@ def m_run(engine, batch, fa, steps=M_STEPS):
         ms.append((time.perf_counter() - t0) * 1e3)
         if last:
             dist.configure(enabled=False)
-        if engine.zero_stage <= 2 and engine._dpz is not None:
+        if fingerprint is not None:
+            replicas.append(fingerprint(engine))
+        elif engine.zero_stage <= 2 and engine._dpz is not None:
             replicas.append(m_lp_local(engine))
     opt = engine.opt_state
     wire = {name: sum(size * rec[0] for size, rec in recs.items())
@@ -5361,7 +5438,52 @@ def m_gloo_native(dev, rank, world):
     return out
 
 
-def m_rank(rank, world, init, outq, layers, device="cuda", model_kw=None):
+def m_univ_engine(dev, load_universal=False):
+    """The universal check's engine: ``M_UNIV_KW`` at ``M_LAYERS``, stage 2."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import build_model
+
+    cfg = dict(M_CONFIG, zero_optimization={"stage": 2}, train_batch_size=2)
+    if load_universal:
+        cfg["checkpoint"] = {"load_universal": True}
+    model = build_model("llama-7b", num_layers=M_LAYERS, **M_UNIV_KW)
+    return deepspeed_tpu_torch.initialize(model=model, config=cfg, device=dev)[0]
+
+
+def m_univ_state(engine):
+    """This process's fp32 master and moments (its shards at 2 ranks) as
+    host arrays, and their layouts (None at one process)."""
+    opt = engine.opt_state
+    out = {k: [t.detach().float().cpu().numpy() for t in tree_leaves_of(tree)]
+           for k, tree in (("master", engine.master_params), ("m", opt.m), ("v", opt.v))}
+    out["step"] = int(opt.step)
+    out["layouts"] = (None if engine._dpz is None
+                      else [(lay.dim, lay.n, lay.index) for lay in engine._dpz.opt])
+    return out
+
+
+def m_univ_dir(dev, root):
+    """A universal directory from a one-process stage-2 tag after 2 steps,
+    and the state one process loads from it."""
+    from deepspeed_tpu_torch.checkpoint.universal import ds_to_universal
+
+    engine = m_univ_engine(dev)
+    batch = m_batch(M_UNIV_KW["vocab_size"], 2, seq=512)
+    for _ in range(2):
+        engine.train_batch(iter([batch]))
+    engine.save_checkpoint(os.path.join(root, "ck"))
+    del engine
+    gc.collect()
+    u = ds_to_universal(os.path.join(root, "ck"), os.path.join(root, "u"))
+    one = m_univ_engine(dev, load_universal=True)
+    one.load_checkpoint(u)
+    state = m_univ_state(one)
+    del one
+    gc.collect()
+    return u, state
+
+
+def m_rank(rank, world, init, outq, layers, device="cuda", model_kw=None, univ_dir=None):
     """One rank of phase m (a spawned process; ranks share card 0 over gloo)."""
     try:
         sys.path.insert(0, HERE)
@@ -5389,6 +5511,12 @@ def m_rank(rank, world, init, outq, layers, device="cuda", model_kw=None):
             gc.collect()  # an engine in a reference cycle lives until the collector runs
             m_empty(dev)
             comm.barrier()
+        if univ_dir is not None:
+            engine = m_univ_engine(dev, load_universal=True)
+            engine.load_checkpoint(univ_dir)
+            res["universal"] = m_univ_state(engine)
+            del engine
+            gc.collect()
         outq.put((rank, True, res))
         torch.distributed.destroy_process_group()
     except BaseException:  # the parent fails the phase with this traceback
@@ -5435,10 +5563,14 @@ def multirank_phase(fa, dev, card, model_kw=None):
     init = os.path.join(HERE, "build", f"m-rendezvous-{os.getpid()}")
     if os.path.exists(init):
         os.remove(init)
+    univ_root = os.path.join(HERE, "build", f"m-universal-{os.getpid()}")
+    shutil.rmtree(univ_root, ignore_errors=True)
+    univ_dir, univ_one = m_univ_dir(dev, univ_root)
+    m_empty(dev)
     ctx = mp.get_context("spawn")
     outq = ctx.Queue()
     procs = [ctx.Process(target=m_rank, args=(r, world, init, outq, M_LAYERS, dev.type,
-                                              model_kw), daemon=True)
+                                              model_kw, univ_dir), daemon=True)
              for r in range(world)]
     for p in procs:
         p.start()
@@ -5458,6 +5590,7 @@ def multirank_phase(fa, dev, card, model_kw=None):
                 p.join(timeout=10)
         if os.path.exists(init):
             os.remove(init)
+        shutil.rmtree(univ_root, ignore_errors=True)
     check(not any(p.is_alive() for p in procs), "m: a rank process is still running")
     r0, r1 = results[0], results[1]
     for r in (r0, r1):
@@ -5501,6 +5634,27 @@ def multirank_phase(fa, dev, card, model_kw=None):
           and all(b < a for a, b in zip(after, after[1:])),
           f"m: 1-bit Adam did not train past its freeze step {M_ONEBIT_FREEZE}: "
           f"{ob['losses']}")
+    lamb = runs0["onebit_lamb"]
+    after = lamb["losses"][M_ONEBIT_FREEZE:]
+    check(lamb["onebit_errors"] and all(np.isfinite(lamb["losses"])) and len(after) > 1
+          and all(b < a for a, b in zip(after, after[1:])),
+          f"m: 1-bit LAMB at stage 1 did not lower the loss at every compressed step past "
+          f"its freeze step {M_ONEBIT_FREEZE}: {lamb['losses']}")
+    # the universal tag: each rank's master and moments its rows of one
+    # process's load, bit for bit
+    univ_rows = 0
+    for r in (r0, r1):
+        got = r["universal"]
+        check(got["step"] == univ_one["step"] == 2, f"m: universal step {got['step']}")
+        for k in ("master", "m", "v"):
+            for whole, mine, (dim, n, index) in zip(univ_one[k], got[k], got["layouts"]):
+                if dim is not None:
+                    size = whole.shape[dim] // n
+                    whole = np.take(whole, range(index * size, (index + 1) * size), axis=dim)
+                    univ_rows += 1
+                check(np.array_equal(mine, whole),
+                      f"m: a rank's universal-loaded {k} differs from its rows of one process's")
+    check(univ_rows > 0, "m: no leaf of the universal check was sharded")
     # the compressed step's wire: a bit a gradient element, not stage 0's
     # fp32 reduce-scatter and gather (32 bits each way)
     full = runs0["stage0"]["wire"]["grad_reduce_scatter"] + runs0["stage0"]["wire"]["grad_gather"]
@@ -5510,6 +5664,7 @@ def multirank_phase(fa, dev, card, model_kw=None):
         "card": card, "ranks": world, "backend": "gloo", "layers": M_LAYERS, "seq": 2048,
         "rows_per_rank": 1, "steps": {name: steps for name, _, _, steps in M_RUNS},
         "onebit_freeze_step": M_ONEBIT_FREEZE, "gloo_native_on_cuda": r0["gloo_native"],
+        "universal_rows_checked": univ_rows,
         "one_process_losses": ref["losses"], "one_process_step_ms": ref["step_ms"],
         "loss_gap_vs_one_process": gaps,
         "note": "two processes time-share one card over gloo: step_ms is not a "
@@ -5527,7 +5682,543 @@ def multirank_phase(fa, dev, card, model_kw=None):
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# phase t: tensor parallelism (ranks sharing the card over gloo)
+# ---------------------------------------------------------------------------
+T_LAYERS = 2          # t1, t3: llama-7b width at 2 layers
+T_STEPS = 3
+T_TIMEOUT = 600       # seconds a group of ranks may take for its jobs
+# t1: (name, zero_optimization, mesh, global rows); the 2-rank run first,
+# then the 4-rank ones
+T_TRAIN_2 = (("tp2_stage0", {"stage": 0}, {"model": 2}, 1),)
+T_TRAIN_4 = (("dp2tp2_stage1", {"stage": 1}, {"data": 2, "model": 2}, 2),
+             ("dp2tp2_stage3", {"stage": 3}, {"data": 2, "model": 2}, 2))
+# each step's loss against the one-process run's on the same global batch,
+# absolute (bf16: the row-parallel all-reduces add the partial sums in bf16
+# and in another order than one process's GEMM). Measured on an H100 80GB
+# HBM3 at 700 W: at most 2.96e-4 (TP 2, step 2; the first step's 2.83e-4 is
+# the forward alone) and 1.09e-4 at data 2 x model 2; the bound is about
+# three times the largest
+T_LOSS_ATOL = 9e-4
+# t2: v1 serving of llama-7b at all 32 layers, TP 2
+T_SERVE_LAYERS = 32
+T_SERVE_BATCH, T_SERVE_PROMPT, T_SERVE_NEW = 4, 128, 32
+# a greedy token is held to TP 1's where TP 1's top-2 margin is at least
+# this many bf16 units of its top logit (phase 8's rule for engines whose
+# GEMMs differ)
+T_MARGIN_ULPS = 8
+# t2's witness (``t_split_halves``) is the one-process engine with every
+# projection run as a TP 2 pair runs it: TP 2's prefill logits at every
+# prompt position and its tokens must equal the witness's bit for bit.
+# Measured on an H100 80GB HBM3 at 700 W: bitwise in bf16 and int8 (the
+# int8 witness needs the column halves: at half the columns `woq_matmul`
+# plans another K split, 12.75 bf16 units from TP 2 without them)
+
+
+def t_replicated_fp(engine):
+    """This rank's replicated leaves' bits (lp parameters and fp32 master),
+    position-weighted, no collective: the TP ranks of one data coordinate
+    hold them equal."""
+    tp = engine._tp
+    total = 0
+    for tree in (engine.params, engine.master_params):
+        if tree is None:
+            continue
+        for j, p in enumerate(tree_leaves_of(tree)):
+            if tp.dims[j] is not None:
+                continue
+            t = p.detach().reshape(-1)
+            bits = t.view(torch.int16 if t.element_size() == 2 else torch.int32).to(torch.int64)
+            w = (torch.arange(bits.numel(), device=bits.device) * 40503 + j) & 0xFFFF
+            total += int((bits * w).sum())
+    return total
+
+
+def t_prompts(vocab=32000):
+    return np.random.default_rng(11).integers(
+        0, vocab, (T_SERVE_BATCH, T_SERVE_PROMPT)).astype(np.int32)
+
+
+def t_serve_model(model_kw=None):
+    from deepspeed_tpu_torch.models import build_model
+
+    return build_model("llama-7b", num_layers=T_SERVE_LAYERS, **(model_kw or {}))
+
+
+def t_generate(engine, prompts, wq, fa, dev):
+    """Greedy tokens of ``generate`` with the flash and WOQ launches it made,
+    its wall time, then the prompts' last-position logits (``forward``)."""
+    m_sync(dev)
+    fa.fwd_launches = fa.bwd_launches = 0
+    wq.launches = wq.tiled_launches = 0
+    t0 = time.perf_counter()
+    toks = engine.generate(prompts, max_new_tokens=T_SERVE_NEW, temperature=0.0)
+    m_sync(dev)
+    wall = time.perf_counter() - t0
+    out = {"tokens": toks.cpu().numpy(), "wall_s": wall,
+           "tokens_per_s": T_SERVE_BATCH * T_SERVE_NEW / wall,
+           "flash_fwd_launches": fa.fwd_launches, "flash_bwd_launches": fa.bwd_launches,
+           "woq_launches": wq.launches, "woq_tiled_launches": wq.tiled_launches}
+    out["prefill_logits"] = engine.forward(prompts).float().cpu().numpy()
+    return out
+
+
+@contextlib.contextmanager
+def t_split_halves():
+    """The TP 2 witness on one process: while open, the model's
+    ``_project`` runs every projection as a TP 2 rank pair does. The
+    row-parallel ``wo`` and ``w_down`` run as two K halves (half the input
+    features; of codes, half the groups), each rounded to the activations'
+    dtype and the two added in it, as the ranks' partial products and their
+    all-reduce are; the column-parallel ``wq/wk/wv/w_gate/w_up`` as two
+    halves of the output columns, each a GEMM (or ``woq_matmul``) of a
+    rank's shape, concatenated. Attention, the norms and the head are TP
+    1's."""
+    from deepspeed_tpu_torch.models import transformer as tr
+
+    orig = tr._project
+
+    def halves(blk, name, dim, lo):
+        return {key: w.narrow(dim, lo * (w.shape[dim] // 2), w.shape[dim] // 2).contiguous()
+                for key, w in blk.items() if key == name or key.startswith(name + "::")}
+
+    def project(h, blk, name):
+        if name in ("wo", "w_down"):
+            k = h.shape[-1] // 2
+            parts = [orig(h[..., lo * k:(lo + 1) * k].contiguous(), halves(blk, name, 0, lo),
+                          name) for lo in (0, 1)]
+            return parts[0] + parts[1]
+        return torch.cat([orig(h, halves(blk, name, -1, lo), name) for lo in (0, 1)], dim=-1)
+
+    tr._project = project
+    try:
+        yield
+    finally:
+        tr._project = orig
+
+
+def t_serve(engine_params, model, prompts, wq, fa, dev, tp):
+    """bf16 and then int8 WOQ (group 128) ``generate`` through
+    ``init_inference`` at ``tp`` over ``engine_params`` (the whole tree at
+    TP 1, this rank's shards at TP 2); the tree is dropped as it is
+    quantized. Returns each run's record and peak memory."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference.quantization import quantize_model
+
+    out = {}
+    for kind in ("bf16", "int8"):
+        if kind == "int8":
+            tq = time.perf_counter()
+            engine_params = quantize_model(model, engine_params, num_bits=8, group_size=128)[1]
+            m_empty(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        eng = init_inference(model, tensor_parallel={"tp_size": tp}, dtype="bf16",
+                             params=engine_params, device=dev)
+        rec = t_generate(eng, prompts, wq, fa, dev)
+        rec["shapes"] = {k: list(v.shape) for k, v in eng.params["blocks"].items()}
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+        if kind == "int8":
+            rec["quantize_s"] = time.perf_counter() - tq
+        if tp == 1:  # the margins of TP 1's own stream, by a forward over it; the witness
+            seq = np.concatenate([prompts, rec["tokens"]], axis=1)
+            lg = eng.forward(seq)[:, T_SERVE_PROMPT - 1:-1].float()
+            top2 = torch.topk(lg, 2, dim=-1).values
+            rec["margins"] = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+            rec["top"] = top2[..., 0].cpu().numpy()
+            del lg, top2
+            with t_split_halves():
+                wit = t_generate(eng, prompts, wq, fa, dev)
+            rec["witness"] = {k: wit[k] for k in ("tokens", "prefill_logits")}
+        del eng
+        gc.collect()
+        m_empty(dev)
+        out[kind] = rec
+    return out
+
+
+def t_set_template(model):
+    """Meta tensors of the whole bf16 tree: what ``load_mp_merged`` fills."""
+    from deepspeed_tpu_torch.utils.tree import tree_map
+
+    return tree_map(lambda s: torch.empty(s, dtype=torch.bfloat16, device="meta"),
+                    model.param_shapes())
+
+
+def t_collectives(dev, rank, world):
+    """TP's collectives on CUDA tensors through ``torch.distributed`` as they
+    are: a bf16 all-reduce sum, an fp32 all-reduce max, a bf16 all-gather."""
+    import torch.distributed as tdist
+
+    out = {}
+    x = torch.arange(8, dtype=torch.bfloat16, device=dev) + 4 * rank
+    try:
+        y = x.clone()
+        tdist.all_reduce(y)
+        want = sum(torch.arange(8, dtype=torch.float32) + 4 * r for r in range(world))
+        out["all_reduce_bf16"] = "ok" if torch.equal(y.float().cpu(), want) else "wrong"
+        z = x.float().clone()
+        tdist.all_reduce(z, op=tdist.ReduceOp.MAX)
+        out["all_reduce_max_fp32"] = "ok" if torch.equal(
+            z.cpu(), torch.arange(8.0) + 4 * (world - 1)) else "wrong"
+        g = torch.empty(8 * world, dtype=torch.bfloat16, device=dev)
+        tdist.all_gather_into_tensor(g, x)
+        out["all_gather_bf16"] = "ok" if torch.equal(g.float().cpu(), torch.cat(
+            [torch.arange(8.0) + 4 * r for r in range(world)])) else "wrong"
+        m_sync(dev)
+    except Exception as e:  # a refused op is recorded and fails the phase
+        out["error"] = f"{type(e).__name__}: {str(e)[:200]}"
+    return out
+
+
+def t_rank(rank, world, init, outq, jobs, device="cuda", model_kw=None, serve_kw=None,
+           set_dir=None):
+    """One rank of phase t (a spawned process; ranks share card 0 over gloo):
+    TP's collectives, then ``jobs``: t1 training runs (name, zero, mesh,
+    rows), t2 serving (``"serve"``) and t3 the checkpoint set (``"set"``)."""
+    try:
+        sys.path.insert(0, HERE)
+        dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(0)
+            torch.backends.cuda.matmul.allow_tf32 = False
+        else:
+            torch.set_num_threads(1)
+        from deepspeed_tpu_torch import comm
+        from deepspeed_tpu_torch.ops.quantizer import woq_gemm as wq
+        from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+        comm.init_distributed("gloo", init_method=f"file://{init}", rank=rank,
+                              world_size=world, verbose=False)
+        res = {"collectives": t_collectives(dev, rank, world), "runs": {}}
+        vocab = (model_kw or {}).get("vocab_size", 32000)
+        for job in jobs:
+            if job == "serve":
+                model = t_serve_model(serve_kw)
+                shards = model.init_params(torch.Generator(dev).manual_seed(0),
+                                           dtype=torch.bfloat16, device=dev, tp=(2, rank))
+                res["serve"] = t_serve(shards, model, t_prompts(model.config.vocab_size), wq,
+                                       fa, dev, 2)
+                del shards
+            elif job == "set":
+                from deepspeed_tpu_torch.models import build_model, tp_shard_params
+                from deepspeed_tpu_torch.runtime.state_dict_factory import load_mp_merged
+
+                model = build_model("llama-7b", num_layers=T_LAYERS, **(model_kw or {}))
+                drawn = model.init_params(torch.Generator(dev).manual_seed(0),
+                                          dtype=torch.bfloat16, device=dev, tp=(2, rank))
+                cut = tp_shard_params(load_mp_merged(set_dir, t_set_template(model)), model, 2,
+                                      rank)
+                res["set"] = all(torch.equal(a.to(dev), b) for a, b in
+                                 zip(tree_leaves_of(cut), tree_leaves_of(drawn)))
+                del drawn, cut
+            else:
+                name, zero, mesh, rows = job
+                engine = m_engine(dev, zero, layers=T_LAYERS, model_kw=model_kw, rows=rows,
+                                  mesh=mesh)
+                m_empty(dev)
+                run = m_run(engine, m_batch(vocab, rows), fa, T_STEPS,
+                            fingerprint=t_replicated_fp)
+                run["coords"] = dict(engine.topology.coords)
+                run["wq_heads"] = int(engine.params["blocks"]["wq"].shape[-1]
+                                      // engine.module.config.head_dim)
+                res["runs"][name] = run
+                del engine
+            gc.collect()
+            m_empty(dev)
+            comm.barrier(group=("data", "hpz", "expert", "model"))
+        outq.put((rank, True, res))
+        torch.distributed.destroy_process_group()
+    except BaseException:  # the parent fails the phase with this traceback
+        import traceback
+
+        outq.put((rank, False, traceback.format_exc()))
+
+
+def t_spawn(world, jobs, dev, model_kw, serve_kw, set_dir, tag):
+    """``world`` rank processes running ``jobs``; their results by rank."""
+    import multiprocessing as mp
+
+    init = os.path.join(HERE, "build", f"t-rendezvous-{os.getpid()}-{tag}")
+    if os.path.exists(init):
+        os.remove(init)
+    ctx = mp.get_context("spawn")
+    outq = ctx.Queue()
+    procs = [ctx.Process(target=t_rank, args=(r, world, init, outq, jobs, dev.type, model_kw,
+                                              serve_kw, set_dir), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in range(world):
+            rank, ok, res = outq.get(timeout=T_TIMEOUT)
+            check(ok, f"t: rank {rank} of {world} failed:\n{res}")
+            results[rank] = res
+    except SmokeFailure:
+        raise
+    except Exception as e:
+        raise SmokeFailure(f"t: the {world} ranks did not finish: {e}") from e
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+        if os.path.exists(init):
+            os.remove(init)
+    check(not any(p.is_alive() for p in procs), "t: a rank process is still running")
+    return results
+
+
+def t_repl_bytes(cfg, itemsize=2):
+    """The bytes of the leaves tensor parallelism replicates (llama: the
+    three RMSNorm scales)."""
+    return (2 * cfg.num_layers * cfg.hidden_size + cfg.hidden_size) * itemsize
+
+
+def bf16_unit(x):
+    """The spacing of bf16 values at magnitude ``x`` (its last mantissa bit)."""
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(x), 1e-30))) - 7)
+
+
+def t_logit_units(got, ref):
+    """The largest gap of ``got`` from ``ref`` (logits, last axis the
+    vocabulary) in bf16 units of each position's largest reference logit."""
+    return float((np.abs(got - ref) / bf16_unit(np.abs(ref).max(axis=-1, keepdims=True))).max())
+
+
+def t_margin_equal(got, want, margins, tops):
+    """Rows of ``got`` equal ``want`` (TP 1's) up to the first position whose
+    TP 1 top-2 margin is under ``T_MARGIN_ULPS`` bf16 units of its top
+    logit. Returns (positions checked, rows turning at a near tie)."""
+    checked, turned = 0, 0
+    for g, w, m, top in zip(got, want, margins, tops):
+        low = np.nonzero(m < T_MARGIN_ULPS * bf16_unit(top))[0]
+        n = len(w) if low.size == 0 else int(low[0])
+        check(np.array_equal(g[:n], w[:n]),
+              f"t2: TP 2 tokens {g.tolist()} differ from TP 1's {w.tolist()} before the "
+              f"first near tie (position {n})")
+        checked += n
+        turned += int(not np.array_equal(g, w))
+    return checked, turned
+
+
+def tp_phase(fa, wq, dev, card, model_kw=None, serve_kw=None):
+    """(t) Tensor parallelism on one card: ranks share it over gloo, as in
+    phase m. t1: llama-7b width at ``T_LAYERS`` layers, seq 2048, bf16,
+    ``T_STEPS`` steps: TP 2 (2 ranks, stage 0, one row) and data 2 x model 2
+    (4 ranks, ZeRO-1 and ZeRO-3, a row a data rank), each step's loss within
+    ``T_LOSS_ATOL`` of one process's on the same global batch, the TP ranks'
+    replicated leaves bitwise equal after every step, a rank's parameter
+    bytes the replicated leaves plus half the others, flash launched layers
+    x steps a rank at 16 of 32 heads, and the TP all-reduces' bytes a step
+    as the comms logger counts them ((2L + 1) activations each way). t2:
+    ``init_inference(tensor_parallel={"tp_size": 2})`` serving llama-7b at
+    all 32 layers, batch 4, prompt 128, 32 greedy tokens, bf16 then int8
+    WOQ: both ranks' streams equal, equal the one-process TP 1 engine's
+    under the margin rule, every prompt position's logits and every token
+    bitwise the witness's (``t_split_halves``), the slot-forward flash and
+    ``woq_matmul`` launches counted, a rank's peak.
+    t3: a ``state_dict_factory`` set saved at TP 2 (2 layers) merges back
+    bitwise, and each rank's cut of it is its drawn shards bitwise."""
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.runtime.state_dict_factory import load_mp_merged, save_mp_sharded
+
+    t0 = time.perf_counter()
+    vocab = (model_kw or {}).get("vocab_size", 32000)
+    refs = {}
+    for rows in (1, 2):
+        engine = m_engine(dev, {"stage": 0}, layers=T_LAYERS, model_kw=model_kw, rows=rows)
+        refs[rows] = m_run(engine, m_batch(vocab, rows), fa, T_STEPS)
+        cfg = engine.module.config
+        del engine
+        gc.collect()
+        m_empty(dev)
+    # t2's reference: the one-process engine over the whole tree
+    model = t_serve_model(serve_kw)
+    prompts = t_prompts(model.config.vocab_size)
+    whole = model.init_params(torch.Generator(dev).manual_seed(0), dtype=torch.bfloat16,
+                              device=dev)
+    one = t_serve(whole, model, prompts, wq, fa, dev, 1)
+    del whole
+    gc.collect()
+    m_empty(dev)
+    # t3: a set at TP 2 from the whole 2-layer tree
+    set_root = os.path.join(HERE, "build", f"t-set-{os.getpid()}")
+    shutil.rmtree(set_root, ignore_errors=True)
+    small = build_model("llama-7b", num_layers=T_LAYERS, **(model_kw or {}))
+    tree = small.init_params(torch.Generator(dev).manual_seed(0), dtype=torch.bfloat16,
+                             device=dev)
+    ts = time.perf_counter()
+    save_mp_sharded(tree, small.tp_specs, 2, set_root)
+    set_save_s = time.perf_counter() - ts
+    merged = load_mp_merged(set_root, t_set_template(small))
+    check(all(torch.equal(a, b.cpu()) for a, b in zip(tree_leaves_of(merged),
+                                                        tree_leaves_of(tree))),
+          "t3: the TP 2 set did not merge back to the tree bit for bit")
+    set_bytes = sum(os.path.getsize(os.path.join(set_root, f)) for f in os.listdir(set_root))
+    del tree, merged
+    gc.collect()
+    m_empty(dev)
+    try:
+        r2 = t_spawn(2, list(T_TRAIN_2) + ["serve", "set"], dev, model_kw, serve_kw, set_root,
+                     "2")
+        r4 = t_spawn(4, list(T_TRAIN_4), dev, model_kw, None, None, "4")
+    finally:
+        shutil.rmtree(set_root, ignore_errors=True)
+    for results in (r2, r4):
+        for r, res in results.items():
+            bad = {k: v for k, v in res["collectives"].items() if v != "ok"}
+            check(not bad, f"t: gloo refused or got wrong TP collectives on rank {r}: {bad}")
+    # t1
+    L, S, H = T_LAYERS, 2048, cfg.hidden_size
+    whole_bytes = refs[1]["param_bytes"]
+    repl = t_repl_bytes(cfg)
+    train = {}
+    launches = {"fwd": refs[1]["fwd_launches"] + refs[2]["fwd_launches"],
+                "bwd": refs[1]["bwd_launches"] + refs[2]["bwd_launches"], "woq": 0,
+                "woq_tiled": 0}
+    for results, specs in ((r2, T_TRAIN_2), (r4, T_TRAIN_4)):
+        world = len(results)
+        for name, zero, mesh, rows in specs:
+            runs = [results[r]["runs"][name] for r in range(world)]
+            a = runs[0]
+            for r, run in enumerate(runs):
+                check(run["losses"] == a["losses"], f"t1 {name}: rank {r}'s losses differ")
+                check(run["fwd_launches"] == run["bwd_launches"] == L * T_STEPS,
+                      f"t1 {name}: rank {r} launched flash {run['fwd_launches']}/"
+                      f"{run['bwd_launches']}, not {L * T_STEPS}")
+                check(run["wq_heads"] == cfg.num_heads // 2,
+                      f"t1 {name}: rank {r} holds {run['wq_heads']} heads of wq")
+                launches["fwd"] += run["fwd_launches"]
+                launches["bwd"] += run["bwd_launches"]
+            for r in range(0, world, 2):  # the TP pairs: consecutive ranks
+                check(runs[r]["replicas"] == runs[r + 1]["replicas"]
+                      and len(runs[r]["replicas"]) == T_STEPS,
+                      f"t1 {name}: TP ranks {r} and {r + 1} hold other replicated leaves")
+            check(all(np.isfinite(a["losses"])) and a["losses"][-1] < a["losses"][0],
+                  f"t1 {name}: losses {a['losses']}")
+            gaps = [abs(x - y) for x, y in zip(a["losses"], refs[rows]["losses"])]
+            check(max(gaps) <= T_LOSS_ATOL, f"t1 {name}: losses {a['losses']} vs one process "
+                  f"{refs[rows]['losses']}: {gaps} apart, a step more than {T_LOSS_ATOL}")
+            b = rows // mesh.get("data", 1)
+            act = (2 * L + 1) * b * S * H * 2
+            wire = a["wire"]
+            check(wire.get("tp_all_reduce") == act and wire.get("tp_grad_all_reduce") == act,
+                  f"t1 {name}: TP all-reduce bytes {wire.get('tp_all_reduce')} forward, "
+                  f"{wire.get('tp_grad_all_reduce')} backward, not (2L + 1) x {b} x S x H "
+                  f"x 2 = {act}")
+            want_par = repl + (whole_bytes - repl) // 2
+            if zero["stage"] < 3:
+                check(all(run["param_bytes"] == want_par for run in runs),
+                      f"t1 {name}: parameter bytes {[run['param_bytes'] for run in runs]}, "
+                      f"one process {whole_bytes}: not {want_par}")
+            else:
+                check(all(run["param_bytes"] < want_par for run in runs),
+                      f"t1 {name}: stage-3 parameter bytes {a['param_bytes']}")
+            train[name] = {"losses": a["losses"], "one_process_losses": refs[rows]["losses"],
+                           "loss_gap": gaps, "step_ms": [run["step_ms"] for run in runs],
+                           "peak_bytes": [run["peak_bytes"] for run in runs],
+                           "param_bytes": [run["param_bytes"] for run in runs],
+                           "opt_bytes": [run["opt_bytes"] for run in runs],
+                           "wire": wire, "flash_launches_per_rank": a["fwd_launches"]}
+    # t2
+    n_layers = model.config.num_layers
+    serve = {}
+    for kind in ("bf16", "int8"):
+        ranks = [r2[r]["serve"][kind] for r in range(2)]
+        ref = one[kind]
+        check(np.array_equal(ranks[0]["tokens"], ranks[1]["tokens"]),
+              f"t2 {kind}: the ranks' streams differ")
+        wit = ref["witness"]
+        checked, turned = t_margin_equal(ranks[0]["tokens"], ref["tokens"], ref["margins"],
+                                         ref["top"])
+        lg, rl, wl = ranks[0]["prefill_logits"], ref["prefill_logits"], wit["prefill_logits"]
+        check(lg.shape == rl.shape == wl.shape and np.isfinite(lg).all(),
+              f"t2 {kind}: prefill logits {lg.shape}, TP 1's {rl.shape}")
+        err = float(np.abs(lg - rl).max())
+        units, w_units, wit_units = t_logit_units(lg, rl), t_logit_units(lg, wl), \
+            t_logit_units(wl, rl)
+        check(np.array_equal(lg, wl), f"t2 {kind}: prefill logits {w_units} bf16 units from "
+              f"the witness's (TP 2's arithmetic on one process), not bitwise")
+        check(np.array_equal(ranks[0]["tokens"], wit["tokens"]),
+              f"t2 {kind}: TP 2 tokens {ranks[0]['tokens'].tolist()} differ from the witness's "
+              f"{wit['tokens'].tolist()}")
+        for r, rec in enumerate(ranks):
+            check(rec["flash_fwd_launches"] == n_layers * T_SERVE_NEW
+                  and rec["flash_bwd_launches"] == 0,
+                  f"t2 {kind}: rank {r} launched the slot forward {rec['flash_fwd_launches']} "
+                  f"times, not {n_layers * T_SERVE_NEW}")
+            want_woq = 7 * n_layers * T_SERVE_NEW if kind == "int8" else 0
+            check(rec["woq_launches"] == want_woq
+                  and rec["woq_tiled_launches"] == (7 * n_layers if kind == "int8" else 0),
+                  f"t2 {kind}: rank {r} launched woq_matmul {rec['woq_launches']} "
+                  f"({rec['woq_tiled_launches']} tiled), not {want_woq}")
+            launches["fwd"] += rec["flash_fwd_launches"]
+            launches["woq"] += rec["woq_launches"]
+            launches["woq_tiled"] += rec["woq_tiled_launches"]
+        launches["fwd"] += ref["flash_fwd_launches"]
+        launches["woq"] += ref["woq_launches"]
+        launches["woq_tiled"] += ref["woq_tiled_launches"]
+        serve[kind] = {"tokens_per_s": [rec["tokens_per_s"] for rec in ranks],
+                       "one_process_tokens_per_s": ref["tokens_per_s"],
+                       "peak_bytes": [rec["peak_bytes"] for rec in ranks],
+                       "one_process_peak_bytes": ref["peak_bytes"],
+                       "prefill_max_abs_err": err, "prefill_err_bf16_units": units,
+                       "prefill_vs_witness_bf16_units": w_units,
+                       "witness_vs_tp1_bf16_units": wit_units,
+                       "positions_checked": checked,
+                       "rows_turned_at_near_tie": turned,
+                       "tokens_vs_witness": "bitwise",
+                       "rank_shapes": {k: ranks[0]["shapes"][k] for k in ranks[0]["shapes"]
+                                       if k in ("wq", "w_down", "wq::q8", "w_down::q8")},
+                       "launches_per_rank": {k: ranks[0][k] for k in (
+                           "flash_fwd_launches", "woq_launches", "woq_tiled_launches")}}
+        if kind == "int8":
+            serve[kind]["quantize_s"] = [rec["quantize_s"] for rec in ranks]
+    # t3
+    check(all(r2[r]["set"] for r in range(2)),
+          "t3: a rank's cut of the merged set is not its drawn shards bit for bit")
+    summary = {"card": card, "backend": "gloo", "t1": {"layers": L, "seq": S,
+                                                       "steps": T_STEPS, "runs": train},
+               "t2": {"layers": n_layers, "batch": T_SERVE_BATCH, "prompt": T_SERVE_PROMPT,
+                      "new_tokens": T_SERVE_NEW, "tp": 2, **serve},
+               "t3": {"layers": L, "degree": 2, "set_bytes": set_bytes,
+                      "save_s": set_save_s, "bitwise": True},
+               "note": "ranks time-share one card over gloo: step and token rates are not "
+                       "a tensor-parallel rate",
+               "phase_s": time.perf_counter() - t0}
+    return launches, summary
+
 NCCL_LAYERS = 32  # the four-card run: llama-7b at full depth
+# --tp-nccl's training lr: at phase m's 3e-4 the 32-layer model overshot the
+# repeated batch (11.2109, 7.4412, 11.3700 over three steps); at a hundredth
+# of it the loss fell at every step (11.2109, 6.8134, 3.0314 on four H100
+# 80GB HBM3 at 700 W), the first 5.55e-4 from one card's forward
+T_NCCL_LR = 3e-6
+
+
+def t_one_card_loss(dev, batch, layers=NCCL_LAYERS):
+    """The loss of ``batch`` by one card's forward (no collective: the model
+    at its own layout of TP 1) over the weights every engine of this script
+    draws (fp32 from the device's generator at seed 0, cast to bf16); then
+    the same under ``t_split_halves`` (TP 2's arithmetic)."""
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.utils.tree import tree_map
+
+    model = build_model("llama-7b", num_layers=layers)
+    params = model.init_params(torch.Generator(dev).manual_seed(0), device=dev)
+    params = tree_map(lambda t: t.to(torch.bfloat16), params)
+    m_empty(dev)
+    ids = {"input_ids": torch.as_tensor(batch["input_ids"]).to(dev)}
+    with torch.no_grad():
+        loss = float(model.apply(params, ids, train=False))
+        with t_split_halves():
+            split = float(model.apply(params, ids, train=False))
+    del params
+    m_empty(dev)
+    return loss, split
 
 
 def zero_nccl_main():
@@ -5590,6 +6281,103 @@ def zero_nccl_main():
     torch.distributed.destroy_process_group()
 
 
+def tp_nccl_main():
+    """Tensor parallelism over ``nccl``, one card a rank: run by ``torchrun
+    --standalone --nproc_per_node 4 chip_smoke.py --tp-nccl`` (not by the
+    one-card smoke run). llama-7b at ``NCCL_LAYERS`` layers, data 2 x model
+    2, ZeRO-1, seq 2048, a row a data rank, bf16, ``M_STEPS`` steps at lr
+    ``T_NCCL_LR`` (the loss must fall at every step, and the first step's
+    within ``T_LOSS_ATOL`` of one card's forward of the same rows): step ms
+    (the second step, host clock to a device synchronise), tokens/s, the
+    model-FLOPs share of the cards' bf16 peak, each rank's peak memory and
+    the bytes of each collective record; then ``init_inference`` at
+    ``tensor_parallel={"tp_size": 4}`` in bf16 (batch 4, prompt 128, 32
+    greedy tokens): tokens/s and each rank's peak. Rank 0 prints a
+    ``{"tp_nccl": ...}`` line."""
+    sys.path.insert(0, HERE)
+    local = int(os.environ["LOCAL_RANK"])
+    torch.cuda.set_device(local)
+    dev = torch.device("cuda", local)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from deepspeed_tpu_torch import comm, init_inference
+    from deepspeed_tpu_torch.ops.op_builder import FlashAttentionBuilder
+    from deepspeed_tpu_torch.ops.quantizer import woq_gemm as wq
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    FlashAttentionBuilder().build()
+    comm.init_distributed()  # nccl, from the environment torchrun sets
+    rank, world = comm.get_rank(), comm.get_world_size()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+                          "-i", str(local)], capture_output=True, text=True, timeout=60,
+                         check=True).stdout.strip()
+    mesh = {"data": world // 2, "model": 2}
+    rows = mesh["data"]
+    t0 = time.perf_counter()
+    engine = m_engine(dev, {"stage": 1}, layers=NCCL_LAYERS, rows=rows, mesh=mesh,
+                      optimizer={"type": "AdamW", "params": {"lr": T_NCCL_LR,
+                                                             "weight_decay": 0.1}})
+    shapes, cfg = engine._tp.global_shapes, engine.module.config
+    m_empty(dev)
+    run = m_run(engine, m_batch(32000, rows), fa, fingerprint=t_replicated_fp)
+    check(run["fwd_launches"] == run["bwd_launches"] == NCCL_LAYERS * M_STEPS,
+          f"tp nccl: flash launched {run['fwd_launches']}/{run['bwd_launches']}")
+    losses = run["losses"]
+    world_axes = comm.MESH_AXES  # every rank (the facade's default group is the ZeRO axes)
+    fps = comm.inprog_all_gather(torch.tensor([run["replicas"][-1] % (1 << 62)], device=dev),
+                                 world_axes)
+    check(fps[0] == fps[1] and fps[2] == fps[3], f"tp nccl: TP pairs' replicated leaves {fps}")
+    del engine
+    gc.collect()
+    m_empty(dev)
+    peaks = comm.inprog_all_gather(torch.tensor([run["peak_bytes"]], device=dev), world_axes)
+    # the first step's loss (its forward) against one card's forward of the
+    # same rows, on rank 0 while the others wait
+    one_card = split = gap = None
+    if rank == 0:
+        one_card, split = t_one_card_loss(dev, m_batch(32000, rows))
+        gap = abs(losses[0] - one_card)
+    comm.barrier(group=world_axes)
+    n_params = sum(int(np.prod(s)) for s in shapes)
+    embed = cfg.vocab_size * cfg.hidden_size
+    flops_tok = 6 * (n_params - embed) + 6 * NCCL_LAYERS * 2048 * cfg.hidden_size
+    tok_s = rows * 2048 / (run["step_ms"] / 1e3)
+    train = {"mesh": mesh, "zero_stage": 1, "lr": T_NCCL_LR, "losses": losses,
+             "one_card_first_loss": one_card, "first_loss_gap": gap,
+             "one_card_split_rows_first_loss": split,
+             "step_ms": run["step_ms"],
+             "tokens_per_s": tok_s, "model_flops_per_token": flops_tok,
+             "mfu": tok_s * flops_tok / (world * PEAK_FLOPS[torch.bfloat16]),
+             "peak_bytes": peaks.tolist(), "wire": run["wire"],
+             "build_and_run_s": time.perf_counter() - t0}
+    # serving at TP 4
+    model = t_serve_model()
+    shards = model.init_params(torch.Generator(dev).manual_seed(0), dtype=torch.bfloat16,
+                               device=dev, tp=(world, rank))
+    torch.cuda.reset_peak_memory_stats()
+    eng = init_inference(model, tensor_parallel={"tp_size": world}, dtype="bf16",
+                         params=shards, device=dev)
+    del shards
+    eng.generate(t_prompts()[:, :8], max_new_tokens=2, temperature=0.0)  # warm-up
+    rec = t_generate(eng, t_prompts(), wq, fa, dev)
+    toks = comm.inprog_all_gather(torch.from_numpy(rec["tokens"]).to(dev)[None], world_axes,
+                                  tiled=False)
+    check(all(torch.equal(toks[0], t) for t in toks), "tp nccl: the ranks' streams differ")
+    speaks = comm.inprog_all_gather(torch.tensor([torch.cuda.max_memory_allocated()],
+                                                 device=dev), world_axes)
+    serve = {"tp": world, "tokens_per_s": rec["tokens_per_s"], "wall_s": rec["wall_s"],
+             "flash_fwd_launches": rec["flash_fwd_launches"], "peak_bytes": speaks.tolist()}
+    if rank == 0:
+        log(json.dumps({"tp_nccl": {"card": smi, "ranks": world, "backend": "nccl",
+                                    "layers": NCCL_LAYERS, "seq": 2048, "steps": M_STEPS,
+                                    "train": train, "serve": serve}}))
+        # checked after the line is printed, so a failed run still reports
+        check(all(np.isfinite(losses)) and all(b < a for a, b in zip(losses, losses[1:])),
+              f"tp nccl: losses {losses} do not fall at every step")
+        check(gap <= T_LOSS_ATOL, f"tp nccl: the first step's loss {losses[0]} is {gap} from "
+              f"one card's forward {one_card}, more than {T_LOSS_ATOL}")
+    torch.distributed.destroy_process_group()
+
+
 def main():
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: this script needs an "
@@ -5620,7 +6408,13 @@ def main():
                          capture_output=True, text=True, timeout=60, check=True)
     log(smi.stdout.strip())
     t0 = time.perf_counter()
+    marks = [("start", t0)]
+
+    def mark(name):  # each phase's wall seconds, printed before the kernels line
+        marks.append((name, time.perf_counter()))
+
     build_all()  # one nvcc (or g++) per source, all started together
+    mark("build")
     log(f"set-up: CUDA kernels and host libraries built in {time.perf_counter() - t0:.1f} s "
         f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
 
@@ -5659,6 +6453,7 @@ def main():
     log(json.dumps({"tier_summary": dict(card=smi.stdout.strip(), **tier_summary)}))
     pool_summary, pool_launches = pool_phase(params, pa, dev, smi.stdout.strip())
     log(json.dumps({"pool_summary": pool_summary}))
+    mark("serving_1-10")
     del params
     torch.cuda.empty_cache()
     fa.fwd_launches = fa.bwd_launches = 0  # phases 7-8 ran flash; WOQ serving must not
@@ -5681,28 +6476,44 @@ def main():
     woq_times = woq_timing(wq, dev)
     log(json.dumps({"woq_summary": woq_summary}))
     log(json.dumps({"woq_timing": woq_times}))
+    mark("woq_q")
     woq_k, woq_p = (next(r for r in woq_times if (r["bits"], r["rows"], r["in"], r["out"])
                          == (8, rows, 4096, 11008)) for rows in (8, 256))
 
-    flash_kernels_vs_plain(fa, dev)
+    flash_gate_errs = flash_kernels_vs_plain(fa, dev)
     small_train_vs_cpu(fa, dev)
     train_launches, train_summary = train_main_path(fa, pa, dev)
     fwd, bwd, extra = flash_timing(fa, dev)
     train_summary["flash"] = {"fwd": fwd, "bwd": bwd, **extra}
+    # the kernels line's errors: the timed calls' and every gate's (phase a's
+    # cases, 16 heads a rank among them, and phase 8's offset cases)
+    fwd = dict(fwd, max_abs_err=max(fwd["max_abs_err"], flash_gate_errs[0],
+                                    slot_summary["kernel_max_abs_err"]))
+    bwd = dict(bwd, max_abs_err=max(bwd["max_abs_err"], flash_gate_errs[1]))
     log(json.dumps({"train_summary": train_summary}))
+    mark("train_c")
     dropout_launches, dropout_summary = dropout_train_path(fa, dev, train_summary)
     log(json.dumps({"dropout_summary": dict(card=smi.stdout.strip(), **dropout_summary)}))
+    mark("dropout_c2")
     remat_launches, remat_summary = remat_phase(fa, dev, smi.stdout.strip(), train_summary,
                                                 dropout_summary)
     log(json.dumps({"remat_summary": remat_summary}))
+    mark("remat_r")
     ckpt_launches, ckpt_summary = ckpt_phase(fa, dev, smi.stdout.strip())
     log(json.dumps({"ckpt_summary": ckpt_summary}))
+    mark("ckpt_c3")
     zero_launches, zero_summary = zero_phase(fa, pa, dev, smi.stdout.strip())
     log(json.dumps({"zero_summary": zero_summary}))
+    mark("zero_z")
     stream_launches, stream_summary = stream_phase(fa, pa, dev, smi.stdout.strip())
     log(json.dumps({"stream_summary": stream_summary}))
+    mark("stream_p")
     m_launches, m_summary = multirank_phase(fa, dev, smi.stdout.strip())
     log(json.dumps({"multirank_summary": m_summary}))
+    mark("multirank_m")
+    t_launches, t_summary = tp_phase(fa, wq, dev, smi.stdout.strip())
+    log(json.dumps({"tp_summary": t_summary}))
+    mark("tp_t")
 
     sparse_fe, sparse_be = sparse_kernels_vs_plain(bs, dev)
     sparse_launches, path_errs, path_stats = sparse_main_path(bs, fa, dev)
@@ -5723,11 +6534,15 @@ def main():
     ce_launches, ce_path_errs, ce_stats = ce_main_path(fc, counters, dev)
     ce_times = ce_timing(fc, dev)
     log(json.dumps({"ce_summary": {"path": ce_stats, **ce_times}}))
+    mark("sparse_ce")
     ce_k = {d: dict({k: ce_times["llama-7b"][d][k] for k in keys[1:]},
                     max_abs_err=max(e1, e2))
             for d, e1, e2 in (("fwd", ce_fe, ce_path_errs[0]), ("bwd", ce_be, ce_path_errs[1]))}
     ce_src = "deepspeed_tpu_torch/csrc/fused_ce.cu"
 
+    log(json.dumps({"phase_s": {name: round(t - marks[i][1], 1)
+                                for i, (name, t) in enumerate(marks[1:])},
+                    "total_s": round(time.perf_counter() - t0, 1)}))
     flash_src = "deepspeed_tpu_torch/csrc/flash_attention.cu"
     sparse_src = "deepspeed_tpu_torch/csrc/block_sparse_attention.cu"
     log(json.dumps({"kernels": [
@@ -5742,24 +6557,26 @@ def main():
              replaces="deepspeed_tpu/ops/transformer/flash_attention.py:43",
              launches=train_launches["fwd"] + dropout_launches["fwd"] + remat_launches["fwd"]
              + ckpt_launches["fwd"] + zero_launches["fwd"] + stream_launches["fwd"]
-             + m_launches["fwd"] + slot_launches, **fwd),
+             + m_launches["fwd"] + t_launches["fwd"] + slot_launches, **fwd),
         dict(name="flash_attention_bwd", route="cuda", source=flash_src,
              replaces="deepspeed_tpu/ops/transformer/flash_attention.py:124",
              launches=train_launches["bwd"] + dropout_launches["bwd"] + remat_launches["bwd"]
              + ckpt_launches["bwd"] + zero_launches["bwd"] + stream_launches["bwd"]
-             + m_launches["bwd"], **bwd),
+             + m_launches["bwd"] + t_launches["bwd"], **bwd),
         # int8 on w_gate/w_up's (4096, 11008): woq_matmul at decode rows (8,
         # woq_gemv_kernel; launches of every row count), woq_matmul_prefill
         # at 256 rows (woq_mma_kernel; the tiled launches); every shape,
         # width and row count is on the woq_timing line
         dict(name="woq_matmul", route="cuda", source="deepspeed_tpu_torch/csrc/woq_gemm.cu",
-             replaces="deepspeed_tpu/ops/quantizer/woq_gemm.py:39", launches=woq_launches,
+             replaces="deepspeed_tpu/ops/quantizer/woq_gemm.py:39",
+             launches=woq_launches + t_launches["woq"],
              max_abs_err=max(woq_worst, max(r["max_abs_err"] for r in woq_times)),
              **{k: woq_k[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")}),
         dict(name="woq_matmul_prefill", route="cuda",
              source="deepspeed_tpu_torch/csrc/woq_gemm.cu",
-             replaces="deepspeed_tpu/ops/quantizer/woq_gemm.py:39", launches=woq_tiled,
+             replaces="deepspeed_tpu/ops/quantizer/woq_gemm.py:39",
+             launches=woq_tiled + t_launches["woq_tiled"],
              max_abs_err=max(woq_worst, max(r["max_abs_err"] for r in woq_times)),
              **{k: woq_p[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")}),
@@ -5785,7 +6602,12 @@ def main():
 
 if __name__ == "__main__":
     try:
-        zero_nccl_main() if "--zero-nccl" in sys.argv[1:] else main()
+        if "--zero-nccl" in sys.argv[1:]:
+            zero_nccl_main()
+        elif "--tp-nccl" in sys.argv[1:]:
+            tp_nccl_main()
+        else:
+            main()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         sys.exit(1)

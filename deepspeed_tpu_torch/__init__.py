@@ -22,12 +22,17 @@ activation checkpointing under the seven remat policies
 (``TransformerConfig.remat``, ``checkpointing``), and its flash-attention
 forward and backward CUDA kernels; and weight-only-quantized serving
 (``inference.quantization.quantize_model`` into the paged engine) with its
-``woq_matmul`` CUDA kernel.
+``woq_matmul`` CUDA kernel. Tensor parallelism over the mesh's ``model``
+axis (``runtime.tensor_parallel``): training through ``initialize(...,
+mesh_config={"model": N})`` under ZeRO on the data axis, and the v1
+``init_inference(model, tensor_parallel={"tp_size": N})`` serving bf16 or
+weight-only-quantized weights, with TP checkpoint sets
+(``runtime.state_dict_factory``).
 """
 
 __version__ = "0.1.0"
 
-_TP_ITEM = "ROADMAP.md Queue 1 item 13c, tensor parallelism"
+_HOST_TIERS_ITEM = "ROADMAP.md Queue 1 item 13d, host tiers across ranks"
 _MODEL_ITEM = "ROADMAP.md Queue 1 item 17, runtime/pipe"
 
 
@@ -49,11 +54,14 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     from ``models.params_from_jax``). ``device`` as for every entry point of
     the port: the card unless ``"cpu"`` is asked for.
 
-    Data parallelism: when a process group is up (``comm.init_distributed``,
-    which takes the backend by name) or ``WORLD_SIZE`` is above 1 (then the
-    group is joined here over ``nccl``, one card a rank), the engine shards
-    over the ranks per the ``mesh`` block (``data``, ``hpz``) and
-    ``zero_hpz_partition_size``; each rank passes the global batch.
+    Data and tensor parallelism: when a process group is up
+    (``comm.init_distributed``, which takes the backend by name) or
+    ``WORLD_SIZE`` is above 1 (then the group is joined here over ``nccl``,
+    one card a rank), the engine shards over the ranks per the ``mesh``
+    block or ``mesh_config`` (``data``, ``hpz``, ``model``) and
+    ``zero_hpz_partition_size``; each rank passes the global batch. ``mpu``
+    is accepted and ignored, as in the JAX package: tensor parallelism
+    comes from the mesh.
     """
     import os
 
@@ -75,8 +83,11 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         raise ValueError("DeepSpeed requires --deepspeed_config to specify configuration "
                          "file, or a config= dict/path argument")
     if mpu is not None:
-        raise NotImplementedError(
-            f"initialize(mpu=...) is not ported to deepspeed_tpu_torch ({_TP_ITEM})")
+        from .utils.logging import logger
+
+        logger.warning(
+            "mpu argument is accepted for parity but ignored: tensor parallelism is "
+            "configured via the 'mesh' config block")
     if type(model).__name__ in ("PipelinedLM", "PipelineModule"):
         raise NotImplementedError(
             f"pipeline models are not ported to deepspeed_tpu_torch ({_MODEL_ITEM})")
@@ -128,10 +139,10 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                 f"{given} argument(s): the optimizer is the host CPUAdam from "
                 "the config's optimizer block, and data is passed to "
                 "train_batch(data_iter) directly")
-        if ds_config.dp_world_size > 1:
+        if ds_config.world_size > 1:
             raise NotImplementedError(
                 "the layer-streamed engine (offload_param) across ranks is not ported to "
-                f"deepspeed_tpu_torch ({_TP_ITEM})")
+                f"deepspeed_tpu_torch ({_HOST_TIERS_ITEM})")
         from .runtime.swap_tensor import StreamedZeroEngine
 
         engine = StreamedZeroEngine(model, ds_config, lr_scheduler=lr_scheduler, device=device)
@@ -141,3 +152,12 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                              collate_fn=collate_fn, model_params=model_parameters,
                              device=device)
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
+
+
+def init_inference(model, config=None, **kwargs):
+    """Build the v1 inference engine (``deepspeed_tpu/__init__.py:182``):
+    ``inference.engine.init_inference``, tensor-parallel over
+    ``tensor_parallel={"tp_size": N}`` ranks."""
+    from .inference.engine import init_inference as _init_inference
+
+    return _init_inference(model, config=config, **kwargs)

@@ -6,7 +6,10 @@ array, so ``ds_to_universal`` only writes one directory a parameter
 where the checkpoint holds Adam's moments, a sharded JAX stage>=2 save
 consolidated first) and ``universal_meta.pkl``, and
 ``load_universal_into_engine`` reads them back into an engine, reshaping a
-leaf whose stacking differs. The files are the JAX package's layout, and
+leaf whose stacking differs. Across ranks each rank reads its slice of each
+file on the model axis (a memory-mapped read of its TP shard) and keeps its
+ZeRO rows on the data axis, so a directory written at any rank count or
+TP degree loads at any other. The files are the JAX package's layout, and
 the metadata pickle holds plain Python and numpy values only, so either
 package reads the other's output.
 """
@@ -107,19 +110,25 @@ def ds_to_universal(checkpoint_dir: str, output_dir: str, tag: Optional[str] = N
 def load_universal_into_engine(engine, universal_dir: str):
     """Elastic reload into the port's engine (reference
     ``load_universal_checkpoint`` engine flag, ``engine.py:822``): the lp
-    parameters written in place, the master copy and the moments rebound;
-    under optimizer offload the host tier's master and moments written."""
+    parameters written in place, the master copy and the moments rebound
+    (at dp > 1 this rank's ZeRO shards of them, under tensor parallelism
+    of its TP slices); under optimizer offload the host tier's master and
+    moments written."""
     with open(os.path.join(universal_dir, "universal_meta.pkl"), "rb") as f:
         meta = pickle.load(f)
     zdir = os.path.join(universal_dir, UNIVERSAL_DIRNAME)
 
+    from ..runtime.tensor_parallel import shard_leaf
+
+    tp = getattr(engine, "_tp", None)
     host_w, host_m, host_v = [], [], []
     have_moments = True
-    for name, tmpl in _leaf_items(engine.params):
+    for j, (name, tmpl) in enumerate(_leaf_items(engine.global_template())):
         pdir = os.path.join(zdir, name.replace("/", "."))
         tmpl_shape = tuple(tmpl.shape)
 
-        def fit(w, name=name, tmpl_shape=tmpl_shape):
+        def fit(path, j=j, name=name, tmpl_shape=tmpl_shape):
+            w = np.load(path, mmap_mode="r")
             # same values, different stacking: only the leading dims split
             if tuple(w.shape) != tmpl_shape:
                 if w.size != int(np.prod(tmpl_shape)):
@@ -128,13 +137,15 @@ def load_universal_into_engine(engine, universal_dir: str):
                         f"{w.size} elements but the engine expects "
                         f"{tmpl_shape}")
                 w = w.reshape(tmpl_shape)
-            return torch.from_numpy(np.ascontiguousarray(w, np.float32))
+            if tp is not None:  # this rank's TP slice, read alone
+                w = shard_leaf(w, tp.dims[j], tp.n, tp.rank, name)
+            return torch.from_numpy(np.array(w, np.float32))
 
-        host_w.append(fit(np.load(os.path.join(pdir, "fp32.npy"))))
+        host_w.append(fit(os.path.join(pdir, "fp32.npy")))
         m_path = os.path.join(pdir, "exp_avg.npy")
         if os.path.exists(m_path):
-            host_m.append(fit(np.load(m_path)))
-            host_v.append(fit(np.load(os.path.join(pdir, "exp_avg_sq.npy"))))
+            host_m.append(fit(m_path))
+            host_v.append(fit(os.path.join(pdir, "exp_avg_sq.npy")))
         else:
             have_moments = False
 
@@ -162,10 +173,8 @@ def load_universal_into_engine(engine, universal_dir: str):
                 if k == "master" or have_moments:
                     mgr["dev"][k] = [src[i].to(engine.device) for i in mgr["dev_idx"]]
     elif engine.opt_state is not None and have_moments:
-        engine.opt_state = type(engine.opt_state)(
-            step=torch.tensor(int(opt_step), dtype=torch.int32, device=engine.device),
-            m=engine._to_device(tree_unflatten(engine.params, host_m)),
-            v=engine._to_device(tree_unflatten(engine.params, host_v)))
+        engine._restore_moments(tree_unflatten(engine.params, host_m),
+                                tree_unflatten(engine.params, host_v), int(opt_step))
     engine.global_steps = meta["step"]
     engine.global_samples = meta.get("global_samples", 0)
     sc = meta.get("scaler")

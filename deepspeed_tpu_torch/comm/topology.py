@@ -13,9 +13,11 @@ The data-parallel degree that ZeRO shards over is ``data * hpz * expert``.
 (``runtime/config.py:75``): when it is larger than 1, stage-3 weights shard
 over the ``hpz`` ranks alone, so their gathers stay inside an hpz group,
 while the gradients and the optimizer state still shard over the whole
-data-parallel degree. ``data`` and ``hpz`` are ported; ``model`` larger
-than 1 (tensor parallelism) and ``seq``, ``pipe`` and ``expert`` larger
-than 1 raise ``NotImplementedError`` naming their ROADMAP.md items.
+data-parallel degree. ``model`` is the tensor-parallel axis, the innermost,
+so a TP group is consecutive ranks and the ZeRO groups join the ranks of
+one model coordinate (``runtime/tensor_parallel.py``). ``data``, ``hpz`` and
+``model`` are ported; ``seq``, ``pipe`` and ``expert`` larger than 1 raise
+``NotImplementedError`` naming their ROADMAP.md items.
 """
 
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -36,7 +38,6 @@ HPZ_AXIS = "hpz"
 ZERO_AXES = ("data", "hpz", "expert")
 
 _UNPORTED_AXES = {
-    "model": "ROADMAP.md Queue 1 item 13c, tensor parallelism",
     "seq": "ROADMAP.md Queue 1 item 17, sequence parallelism",
     "pipe": "ROADMAP.md Queue 1 item 17, runtime/pipe",
     "expert": "ROADMAP.md Queue 1 item 17, moe/",

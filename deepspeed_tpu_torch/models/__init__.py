@@ -9,4 +9,4 @@ from .transformer import (  # noqa: F401
     llama_config,
     sample_or_argmax,
 )
-from .weights import params_from_jax, params_to_numpy  # noqa: F401
+from .weights import params_from_jax, params_to_numpy, tp_layout, tp_shard_params  # noqa: F401

@@ -23,8 +23,24 @@ that need anything else raise ``NotImplementedError`` naming the field: at
 construction, or for the training-only fields (PLD, random-LTD) in
 ``apply``. ``remat`` reruns each block in the backward under the JAX
 package's seven ``remat_policy`` values (:meth:`TransformerLM._ckpt`).
+
+Tensor parallelism: a model returned by :meth:`TransformerLM.with_tp`
+(``tp`` = (degree, model coordinate), which the engines take from their
+topology; ``runtime/tensor_parallel.py``) takes this rank's shards of the
+leaves by :attr:`TransformerLM.tp_specs` (the JAX property's tree) and runs
+Megatron's layout: the norms' outputs enter the column-parallel
+``wq/wk/wv/w_up/w_gate`` through ``copy_to_model`` (its backward
+all-reduces), ``wo`` and ``w_down`` are row-parallel and their
+partial sums all-reduced, ``wte`` and ``lm_head`` are vocabulary-parallel
+(the embedding masked and all-reduced, the training loss
+``vocab_parallel_nll``), and logits that leave the model are all-gathered
+over the vocabulary. Attention runs at ``num_heads / N`` and ``kv_heads /
+N`` heads a rank; the slot cache holds a rank's KV heads. Dropout acts on
+the replicated ``(B, S, H)`` tensors after the all-reduces, so every rank
+draws the same masks.
 """
 
+import copy
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Union
 
@@ -36,6 +52,7 @@ from ..accelerator import resolve_device
 from ..ops.quantizer.woq_gemm import woq_matmul
 from ..ops.transformer.attention import attention as _attention_op
 from ..ops.transformer.paged_attention import paged_decode_attention
+from ..runtime import tensor_parallel as _tp
 from ..runtime.activation_checkpointing import policies as _remat
 from ..utils import prng
 from ..utils.tree import tree_leaves
@@ -276,10 +293,25 @@ class TransformerLM:
     def __init__(self, config: TransformerConfig):
         _check_supported(config)
         self.config = config
+        #: (degree, this rank's coordinate) of the ``model`` axis the
+        #: functions run over: (1, 0) unless :meth:`with_tp` set it
+        self.tp = (1, 0)
+
+    def with_tp(self, n: int, rank: int) -> "TransformerLM":
+        """This model over a ``model`` axis of ``n``, as its coordinate
+        ``rank``: a copy whose functions take that rank's shards of the
+        leaves (:attr:`tp_specs`) and run the collectives on the ``model``
+        group. The engines call it with their topology's layout; ``self``
+        is left as it is."""
+        self.check_tp(n)
+        out = copy.copy(self)
+        out.tp = (int(n), int(rank))
+        return out
 
     # ------------------------------------------------------------------
     def init_params(self, generator: torch.Generator, dtype: Optional[torch.dtype] = None,
-                    device: Optional[Union[str, torch.device]] = None) -> Dict[str, Any]:
+                    device: Optional[Union[str, torch.device]] = None,
+                    tp: Optional[tuple] = None) -> Dict[str, Any]:
         """Random parameters with the JAX package's leaf names and shapes
         (``transformer.py:312-402``), drawn from ``generator`` on its device
         in ``dtype`` (default ``config.param_dtype``). ``device``, when
@@ -287,8 +319,17 @@ class TransformerLM:
         device and moved there before the next is drawn (the same values;
         the generator's device holds one leaf at a time). The values differ
         from the JAX package's for the same seed: tests convert the JAX
-        parameters with ``models.weights.params_from_jax`` instead."""
+        parameters with ``models.weights.params_from_jax`` instead.
+
+        ``tp`` ``(N, c)``: the leaves of model coordinate ``c`` over a
+        ``model`` axis of ``N`` (:attr:`tp_specs`), each drawn whole on the
+        generator's device, cut, and only the shard moved to ``device``:
+        every coordinate's shards are the one tree's, and no process holds
+        more than one whole leaf at a time."""
         cfg = self.config
+        specs = self.tp_specs
+        if tp is not None:
+            self.check_tp(tp[0])
         H, L, V, I = cfg.hidden_size, cfg.num_layers, cfg.vocab_size, cfg.mlp_dim
         nh, kvh, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
         dt = dtype or cfg.param_dtype
@@ -296,42 +337,116 @@ class TransformerLM:
         out = dev if device is None else torch.device(device)
         resid_std = 0.02 / (2 * L) ** 0.5  # depth-scaled residual projections
 
-        def normal(shape, std=0.02):
-            return torch.randn(shape, generator=generator, device=dev, dtype=dt).mul_(std).to(out)
+        def cut(t, spec):
+            if tp is None:
+                return t.to(out)
+            return _tp.shard_leaf(t, _tp.spec_dim(spec), tp[0], tp[1]).to(out).contiguous()
+
+        def normal(shape, std=0.02, spec=None):
+            return cut(torch.randn(shape, generator=generator, device=dev, dtype=dt).mul_(std),
+                       spec)
 
         def ones(shape):
             return torch.ones(shape, device=out, dtype=dt)
 
-        def zeros(shape):
-            return torch.zeros(shape, device=out, dtype=dt)
+        def zeros(shape, spec=None):
+            return cut(torch.zeros(shape, device=dev, dtype=dt), spec)
+
+        bs = specs["blocks"]
 
         blocks: Dict[str, torch.Tensor] = {
             "ln1_scale": ones((L, H)),
-            "wq": normal((L, H, nh * hd)),
-            "wk": normal((L, H, kvh * hd)),
-            "wv": normal((L, H, kvh * hd)),
-            "wo": normal((L, nh * hd, H), resid_std),
+            "wq": normal((L, H, nh * hd), spec=bs["wq"]),
+            "wk": normal((L, H, kvh * hd), spec=bs["wk"]),
+            "wv": normal((L, H, kvh * hd), spec=bs["wv"]),
+            "wo": normal((L, nh * hd, H), resid_std, spec=bs["wo"]),
             "ln2_scale": ones((L, H)),
-            "w_down": normal((L, I, H), resid_std),
+            "w_down": normal((L, I, H), resid_std, spec=bs["w_down"]),
         }
-        params: Dict[str, Any] = {"wte": normal((V, H)), "blocks": blocks,
+        params: Dict[str, Any] = {"wte": normal((V, H), spec=specs["wte"]), "blocks": blocks,
                                   "lnf_scale": ones((H,))}
         if cfg.activation == "swiglu":
-            blocks["w_gate"] = normal((L, H, I))
-        blocks["w_up"] = normal((L, H, I))
+            blocks["w_gate"] = normal((L, H, I), spec=bs["w_gate"])
+        blocks["w_up"] = normal((L, H, I), spec=bs["w_up"])
         if cfg.norm == "layernorm":
             blocks["ln1_bias"] = zeros((L, H))
             blocks["ln2_bias"] = zeros((L, H))
             blocks["attn_bias"] = zeros((L, H))
             blocks["mlp_bias"] = zeros((L, H))
             if cfg.activation != "swiglu":
-                blocks["mlp_up_bias"] = zeros((L, I))
+                blocks["mlp_up_bias"] = zeros((L, I), spec=bs["mlp_up_bias"])
             params["lnf_bias"] = zeros((H,))
         if cfg.pos_embedding == "learned":
             params["wpe"] = normal((cfg.max_seq_len, H))
         if not cfg.tie_embeddings:
-            params["lm_head"] = normal((H, V))
+            params["lm_head"] = normal((H, V), spec=specs.get("lm_head"))
         return params
+
+    def param_shapes(self) -> Dict[str, Any]:
+        """The whole leaves' shapes, the tree :meth:`init_params` draws."""
+        cfg = self.config
+        H, L, V, I = cfg.hidden_size, cfg.num_layers, cfg.vocab_size, cfg.mlp_dim
+        nh, kvh, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+        blocks = {"ln1_scale": (L, H), "wq": (L, H, nh * hd), "wk": (L, H, kvh * hd),
+                  "wv": (L, H, kvh * hd), "wo": (L, nh * hd, H), "ln2_scale": (L, H),
+                  "w_down": (L, I, H), "w_up": (L, H, I)}
+        shapes: Dict[str, Any] = {"wte": (V, H), "blocks": blocks, "lnf_scale": (H,)}
+        if cfg.activation == "swiglu":
+            blocks["w_gate"] = (L, H, I)
+        if cfg.norm == "layernorm":
+            for k in ("ln1_bias", "ln2_bias", "attn_bias", "mlp_bias"):
+                blocks[k] = (L, H)
+            if cfg.activation != "swiglu":
+                blocks["mlp_up_bias"] = (L, I)
+            shapes["lnf_bias"] = (H,)
+        if cfg.pos_embedding == "learned":
+            shapes["wpe"] = (cfg.max_seq_len, H)
+        if not cfg.tie_embeddings:
+            shapes["lm_head"] = (H, V)
+        return shapes
+
+    @property
+    def tp_specs(self) -> Dict[str, Any]:
+        """Tensor parallelism over the ``model`` axis (``transformer.py:406-485``),
+        for the branches the port runs: column-parallel ``wq/wk/wv/w_up/w_gate``
+        (and gpt2's ``mlp_up_bias``), row-parallel ``wo/w_down``,
+        vocabulary-parallel ``wte`` and ``lm_head``; norms, the other biases
+        and ``wpe`` replicated. A spec is a tuple, one entry a dimension;
+        block leaves lead with the layer axis."""
+        cfg = self.config
+        m = _tp.MODEL_AXIS
+        blocks: Dict[str, Any] = {
+            "ln1_scale": (None, None), "wq": (None, None, m), "wk": (None, None, m),
+            "wv": (None, None, m), "wo": (None, m, None), "ln2_scale": (None, None),
+            "w_down": (None, m, None), "w_up": (None, None, m),
+        }
+        specs: Dict[str, Any] = {"wte": (m, None), "blocks": blocks, "lnf_scale": (None,)}
+        if cfg.activation == "swiglu":
+            blocks["w_gate"] = (None, None, m)
+        if cfg.norm == "layernorm":
+            for k in ("ln1_bias", "ln2_bias", "attn_bias", "mlp_bias"):
+                blocks[k] = (None, None)
+            if cfg.activation != "swiglu":
+                blocks["mlp_up_bias"] = (None, m)
+            specs["lnf_bias"] = (None,)
+        if cfg.pos_embedding == "learned":
+            specs["wpe"] = (None, None)
+        if not cfg.tie_embeddings:
+            specs["lm_head"] = (None, m)
+        return specs
+
+    def check_tp(self, n: int) -> None:
+        """``ValueError`` naming the leaf and the degree where a model axis
+        of ``n`` does not divide what it shards: the heads (K/V heads are
+        never replicated), the MLP width, the vocabulary."""
+        cfg = self.config
+        for leaf, what, size in (("blocks/wq", "num_heads", cfg.num_heads),
+                                 ("blocks/wk", "kv_heads", cfg.kv_heads),
+                                 ("blocks/w_up", "mlp_dim", cfg.mlp_dim),
+                                 ("wte", "vocab_size", cfg.vocab_size)):
+            if size % n:
+                raise ValueError(f"tensor parallelism: leaf '{leaf}' shards {what}={size}, "
+                                 f"which a model degree of {n} does not divide")
 
     @staticmethod
     def stacked_leaves(params) -> List[bool]:
@@ -357,26 +472,38 @@ class TransformerLM:
                       dtype: torch.dtype = torch.bfloat16,
                       device: Union[str, torch.device] = "cuda"):
         """Dense slot cache ``(L, batch_size, max_len, kvh, hd)`` for K and for
-        V (``transformer.py:1026``): one row a slot."""
+        V (``transformer.py:1026``): one row a slot; under tensor
+        parallelism a rank's ``kv_heads / N`` heads."""
         cfg = self.config
         dev = resolve_device(device)
-        shape = (cfg.num_layers, batch_size, max_len, cfg.kv_heads, cfg.head_dim)
+        shape = (cfg.num_layers, batch_size, max_len, cfg.kv_heads // self.tp[0],
+                 cfg.head_dim)
         return (torch.zeros(shape, dtype=dtype, device=dev),
                 torch.zeros(shape, dtype=dtype, device=dev))
 
     # ------------------------------------------------------------------
     def _embed(self, params, input_ids, positions, dtype):
         cfg = self.config
-        x = params["wte"][input_ids].to(dtype)
+        n = self.tp[0]
+        wte = params["wte"]
+        if wte.shape[0] * n != cfg.vocab_size:
+            raise ValueError(
+                f"wte has {wte.shape[0]} rows: a model degree of {n} takes the "
+                f"vocabulary's {cfg.vocab_size // n}-row shards (models.weights.tp_shard_params)")
+        x = _tp.vocab_parallel_embed(wte, input_ids, self.tp).to(dtype)
         if cfg.pos_embedding == "learned":
             x = x + params["wpe"][positions].to(dtype)
         return x
 
-    def _head(self, params, x):
+    def _head(self, params, x, gather=True):
+        """The final norm and the vocabulary projection; under tensor
+        parallelism this rank's vocabulary shard, all-gathered unless
+        ``gather`` is False (the training loss takes the shard)."""
         cfg = self.config
         x = _norm(x, params["lnf_scale"], params.get("lnf_bias"), cfg.norm, cfg.norm_eps)
         w = params["wte"].T if cfg.tie_embeddings else params["lm_head"]
-        return x @ w.to(x.dtype)
+        lg = _tp.copy_to_model(x, self.tp) @ w.to(x.dtype)
+        return _tp.gather_from_model(lg, self.tp) if gather else lg
 
     def _qkv(self, x, blk, positions, named=False):
         """The pre-LN block's input norm and q/k/v projections, with RoPE
@@ -384,14 +511,15 @@ class TransformerLM:
         ``named``: the norm's output goes through ``checkpoint_name`` as
         ``ln_out``, for a remat policy to keep."""
         cfg = self.config
-        nh, kvh, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+        hd = cfg.head_dim
         B, S, _ = x.shape
         h = _norm(x, blk["ln1_scale"], blk.get("ln1_bias"), cfg.norm, cfg.norm_eps)
         if named:
             h = _remat.checkpoint_name(h, "ln_out")
-        q = _project(h, blk, "wq").reshape(B, S, nh, hd)
-        kk = _project(h, blk, "wk").reshape(B, S, kvh, hd)
-        v = _project(h, blk, "wv").reshape(B, S, kvh, hd)
+        h = _tp.copy_to_model(h, self.tp)
+        q = _project(h, blk, "wq").reshape(B, S, -1, hd)
+        kk = _project(h, blk, "wk").reshape(B, S, -1, hd)
+        v = _project(h, blk, "wv").reshape(B, S, -1, hd)
         if cfg.pos_embedding == "rope":
             q, kk = _rope(q, kk, positions, hd, cfg.rope_theta)
         return q, kk, v
@@ -406,7 +534,7 @@ class TransformerLM:
         cfg = self.config
         B, S, _ = x.shape
         dt = x.dtype
-        attn_out = _project(attn.reshape(B, S, cfg.num_heads * cfg.head_dim), blk, "wo")
+        attn_out = _tp.reduce_from_model(_project(attn.reshape(B, S, -1), blk, "wo"), self.tp)
         if "attn_bias" in blk:
             attn_out = attn_out + blk["attn_bias"].to(dt)
         if rng is not None:
@@ -417,6 +545,7 @@ class TransformerLM:
         h2 = _norm(x, blk["ln2_scale"], blk.get("ln2_bias"), cfg.norm, cfg.norm_eps)
         if named:
             h2 = _remat.checkpoint_name(h2, "ln_out")
+        h2 = _tp.copy_to_model(h2, self.tp)
         if cfg.activation == "swiglu":
             inter = F.silu(_project(h2, blk, "w_gate")) * _project(h2, blk, "w_up")
         else:  # tanh-approximated GELU, as jax.nn.gelu's default
@@ -426,7 +555,7 @@ class TransformerLM:
             inter = F.gelu(up, approximate="tanh")
         if named:
             inter = _remat.checkpoint_name(inter, "mlp_act")
-        mlp_out = _project(inter, blk, "w_down")
+        mlp_out = _tp.reduce_from_model(_project(inter, blk, "w_down"), self.tp)
         if "mlp_bias" in blk:
             mlp_out = mlp_out + blk["mlp_bias"].to(dt)
         if rng is not None:
@@ -744,7 +873,7 @@ class TransformerLM:
         return x
 
     def _logits_aux(self, params, input_ids, positions=None, train=False, rng=None,
-                    rows=None):
+                    rows=None, gather=True):
         """(B, S, V) logits and the MoE aux loss, always 0 here
         (``transformer.py:934-963``). The compute dtype is that of the first
         floating leaf, in the JAX package's sorted-key order."""
@@ -759,7 +888,8 @@ class TransformerLM:
         if rng is not None:
             rng = rng.to(x.device)
         x = self._trunk(params, x, positions, rng, train, rows)
-        return self._head(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+        return (self._head(params, x, gather),
+                torch.zeros((), dtype=torch.float32, device=x.device))
 
     def logits(self, params, input_ids, positions=None, train=False, rng=None,
                attention_mask=None, token_type_ids=None):
@@ -801,7 +931,7 @@ class TransformerLM:
         else:
             input_ids, labels, positions = batch, None, None
         lg, _ = self._logits_aux(params, input_ids, positions=positions, train=train, rng=rng,
-                                 rows=rows)
+                                 rows=rows, gather=False)
         if labels is None:
             if not self.config.causal:
                 raise ValueError(
@@ -809,12 +939,8 @@ class TransformerLM:
                     "next-token shifting only applies to causal LMs")
             labels = torch.cat([input_ids[:, 1:], torch.full_like(input_ids[:, :1], -100)],
                                dim=1)
-        lg = lg.float()
         mask = labels != -100
-        safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
-        logz = torch.logsumexp(lg, dim=-1)
-        gold = lg.gather(-1, safe[..., None])[..., 0]
-        nll = (logz - gold) * mask
+        nll = _tp.vocab_parallel_nll(lg, labels, self.tp) * mask
         return nll.sum() / mask.sum().clamp(min=1)
 
 

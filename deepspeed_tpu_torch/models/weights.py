@@ -10,7 +10,7 @@ Weight-only-quantized leaves (``<name>::q8|q6|q4`` int8 codes and
 for bit.
 """
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -55,3 +55,41 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
     casts them to its device and dtype."""
     return {k: params_from_jax(v) if isinstance(v, dict) else _to_tensor(k, v)
             for k, v in tree.items()}
+
+
+def tp_layout(model, tp_size: int, tp_rank: int, params: Optional[Dict[str, Any]] = None):
+    """Model coordinate ``tp_rank``'s ``TensorParallel`` layout over a
+    ``model`` axis of ``tp_size``: ``model.tp_specs`` over its whole leaves'
+    shapes, or, for a weight-only-quantized ``params`` (whole or a rank's
+    shards), ``quantized_tp_specs`` over the whole codes' and scales'
+    shapes. A dimension the degree does not divide raises ``ValueError``
+    naming the leaf and the degree."""
+    from ..ops.quantizer.woq import group_of, quantized_tp_specs
+    from ..runtime.tensor_parallel import TensorParallel
+
+    model.check_tp(tp_size)
+    specs, shapes = model.tp_specs, model.param_shapes()
+    blocks = (params or {}).get("blocks", {})
+    if any("::q" in k for k in blocks):
+        specs = quantized_tp_specs(specs, params)
+        dense, qshapes = shapes["blocks"], {}
+        for k, v in blocks.items():
+            base, _, suffix = k.partition("::")
+            if not suffix:
+                qshapes[k] = dense[k]
+            elif suffix != "scale":
+                *lead, n_in, n_out = dense[base]
+                g = group_of(int(suffix[1:]), v.shape[-2])
+                qshapes[k] = (*lead, n_in // g, v.shape[-2], n_out)
+                qshapes[base + "::scale"] = (*lead, n_in // g, 1, n_out)
+        shapes = dict(shapes, blocks=qshapes)
+    return TensorParallel(specs, shapes, tp_size, tp_rank)
+
+
+def tp_shard_params(params: Dict[str, Any], model, tp_size: int, tp_rank: int) -> Dict[str, Any]:
+    """Model coordinate ``tp_rank``'s shards of a whole parameter tree (numpy
+    arrays, e.g. the JAX package's, or tensors from :func:`params_from_jax`)
+    over a ``model`` axis of ``tp_size``, cut by :func:`tp_layout` as the JAX
+    package places them. A tensor shard is a contiguous copy, so the whole
+    tree can be dropped."""
+    return tp_layout(model, tp_size, tp_rank, params).local(params, copy=True)

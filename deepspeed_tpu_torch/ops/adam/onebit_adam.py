@@ -11,7 +11,7 @@ in the JAX package's arithmetic order.
 
 import torch
 
-from ...utils.tree import tree_map, tree_unzip
+from ...utils.tree import tree_leaves, tree_map, tree_unflatten, tree_unzip
 from ..optimizers import FusedAdam, OptState
 
 
@@ -84,12 +84,53 @@ class ZeroOneAdam(OnebitAdam):
 
 class OnebitLamb(OnebitAdam):
     """1-bit LAMB: the frozen-variance Adam update with a per-tensor trust
-    ratio on the applied step."""
+    ratio on the applied step.
+
+    Where the engine holds the leaves in shards (ZeRO stage >= 1 across
+    ranks, or tensor parallelism) it sets ``reduce_squares``: a function
+    from the (2, leaves) squared sums of this rank's shards of the weights
+    and the updates to the whole leaves' (all-reduced over each shard's
+    groups); the trust ratio then comes from their square roots, with the
+    same clamps."""
 
     def __init__(self, *args, max_coeff=10.0, min_coeff=0.01, **kw):
         super().__init__(*args, **kw)
         self.max_coeff = max_coeff
         self.min_coeff = min_coeff
+        self.reduce_squares = None
+
+    def _trust(self, w_norm, u_norm):
+        return torch.where((w_norm > 0) & (u_norm > 0),
+                           torch.clamp(w_norm / u_norm, self.min_coeff, self.max_coeff),
+                           torch.ones_like(w_norm))
+
+    def update(self, grads, state: OptState, master_params, lr, weight_decay_mask=None):
+        if self.reduce_squares is None:
+            return super().update(grads, state, master_params, lr, weight_decay_mask)
+        b1, b2 = self.betas
+        step = state.step + 1
+        bc1, bc2 = self._bias(step)
+        frozen = self._frozen(step)
+        lr = torch.as_tensor(lr, dtype=torch.float32, device=step.device)
+        wd = self._wd_tree(master_params, weight_decay_mask)
+        ps, ms, vs, us = [], [], [], []
+        for p, g, m, v, w in zip(*(tree_leaves(t) for t in (master_params, grads, state.m,
+                                                            state.v, wd))):
+            g = g.float()
+            m_ = b1 * m + (1.0 - b1) * g
+            v_ = torch.where(frozen, v, b2 * v + (1.0 - b2) * (g * g))
+            ps.append(p)
+            ms.append(m_)
+            vs.append(v_)
+            us.append((m_ / bc1) / (torch.sqrt(v_ / bc2) + self.eps) + w * p)
+        sq = torch.stack([torch.stack([torch.sum(torch.square(t)) for t in ts])
+                          for ts in (ps, us)])
+        norms = torch.sqrt(self.reduce_squares(sq))
+        new_p = [p - lr * self._trust(norms[0, j], norms[1, j]) * u
+                 for j, (p, u) in enumerate(zip(ps, us))]
+        return (tree_unflatten(master_params, new_p),
+                OptState(step=step, m=tree_unflatten(master_params, ms),
+                         v=tree_unflatten(master_params, vs)))
 
     def _leaf(self, frozen, bc1, bc2, lr):
         b1, b2 = self.betas
@@ -101,9 +142,6 @@ class OnebitLamb(OnebitAdam):
             update = (m_ / bc1) / (torch.sqrt(v_ / bc2) + self.eps) + w * p
             w_norm = torch.linalg.vector_norm(p.reshape(-1))
             u_norm = torch.linalg.vector_norm(update.reshape(-1))
-            trust = torch.where((w_norm > 0) & (u_norm > 0),
-                                torch.clamp(w_norm / u_norm, self.min_coeff, self.max_coeff),
-                                torch.ones_like(w_norm))
-            return p - lr * trust * update, m_, v_
+            return p - lr * self._trust(w_norm, u_norm) * update, m_, v_
 
         return upd

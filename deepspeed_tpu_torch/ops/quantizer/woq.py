@@ -28,8 +28,6 @@ DEFAULT_TARGETS = frozenset(
 #: codes per packing unit (rows of K a unit spans) and bytes a unit takes
 PACK_UNIT = {8: (1, 1), 6: (4, 3), 4: (2, 1)}
 
-_TP_ITEM = "ROADMAP.md Queue 1 items 13 and 17, tensor parallelism"
-
 
 def _group_size(in_dim: int, requested: int, num_bits: int) -> int:
     """Largest divisor of ``in_dim`` that is <= requested (and compatible with
@@ -165,6 +163,23 @@ def quantize_param_tree(params: Dict, num_bits: int = 8, group_size: int = 128,
 
 
 def quantized_tp_specs(tp_specs: Dict, qparams: Dict) -> Dict:
-    raise NotImplementedError(
-        f"quantized_tp_specs (sharding a quantized tree) is not ported to "
-        f"deepspeed_tpu_torch ({_TP_ITEM})")
+    """A model's ``tp_specs`` mapped onto a quantized tree (``woq.py:148-172``):
+    codes ``(..., ng, g, out)`` keep the weight's spec with its ``in`` entry
+    on ``ng`` and an unsharded group dimension; the scales take the same
+    spec. A spec is a tuple, one entry a dimension."""
+    out = dict(tp_specs)
+    blocks = dict(tp_specs.get("blocks", {}))
+    new_blocks = {}
+    for k in qparams["blocks"]:
+        if k.endswith("::scale"):
+            continue
+        if "::q" in k:
+            base = k.rsplit("::", 1)[0]
+            entries = list(blocks.get(base) or ())
+            qspec = (*entries[:-1], None, entries[-1]) if len(entries) >= 2 else ()
+            new_blocks[k] = qspec
+            new_blocks[base + "::scale"] = qspec
+        else:
+            new_blocks[k] = blocks.get(k, ())
+    out["blocks"] = new_blocks
+    return out

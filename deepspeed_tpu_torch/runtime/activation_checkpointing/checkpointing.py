@@ -17,9 +17,9 @@ RNG tracker onto named functional keys. Here:
   and ``fork`` give the JAX tracker's keys bit for bit, and a recompute that
   forks the same stream replays the same masks.
 
-The port runs no model axis (a ``model`` axis raises, ROADMAP.md Queue 1
-item 13c), so ``model_parallel_cuda_manual_seed`` seeds model-parallel rank
-0's stream.
+``model_parallel_cuda_manual_seed`` seeds the model-parallel stream at
+``seed + 2718 + c`` for this rank's coordinate ``c`` on the topology's
+``model`` axis, as the JAX function does for a device at that coordinate.
 """
 
 from typing import Any, Callable, Dict
@@ -117,7 +117,12 @@ def get_cuda_rng_tracker() -> RNGStatesTracker:  # parity name
 
 def model_parallel_cuda_manual_seed(seed: int):
     """reference ``model_parallel_cuda_manual_seed``: the model-parallel
-    stream at ``seed + 2718 + mp_rank``, rank 0 on one card."""
+    stream at ``seed + 2718 + mp_rank``, ``mp_rank`` this rank's model
+    coordinate (0 without a topology)."""
+    from ...comm.topology import MODEL_AXIS, get_topology
+
+    topo = get_topology(required=False)
     _RNG_TRACKER.reset()
-    _RNG_TRACKER.add("model-parallel-rng", seed + 2718)
+    _RNG_TRACKER.add("model-parallel-rng",
+                     seed + 2718 + (0 if topo is None else topo.coords[MODEL_AXIS]))
     return seed

@@ -8,9 +8,10 @@ or ``nvme`` (and ``ratio``), ``offload_param`` to ``cpu`` or ``nvme`` at
 stage 3 (``initialize`` then builds the layer-streamed
 ``StreamedZeroEngine``), the ZeRO++ knobs (``zero_quantized_weights``,
 ``zero_quantized_gradients``, ``zero_hpz_partition_size``) and the 1-bit
-optimizers. The ``mesh`` block takes ``data`` and ``hpz``; a ``model``,
-``seq``, ``pipe`` or ``expert`` axis larger than 1 raises
-``NotImplementedError`` naming its ROADMAP.md item, and so does the
+optimizers. The ``mesh`` block takes ``data``, ``hpz`` and ``model`` (tensor
+parallelism: the batch splits over the data degree, ``world / (model x pipe
+x seq)``, alone); a ``seq``, ``pipe`` or ``expert`` axis larger than 1
+raises ``NotImplementedError`` naming its ROADMAP.md item, and so does the
 ``pipeline`` block.
 """
 

@@ -61,6 +61,20 @@ Where the JAX engine compiles programs, the port runs eagerly:
   ``fold_in(PRNGKey(config.seed), micro_steps)`` (``engine.py:752``,
   ``:870``), so dropout draws the JAX engine's masks; evaluation takes none.
 
+Tensor parallelism. With a ``model`` axis larger than 1 (the ``mesh``
+block, one process a rank) the engine holds this rank's TP shards of the
+leaves by the model's ``tp_specs`` (``runtime/tensor_parallel.py``; a whole
+tree given is cut, a tree of shards taken as it is), and ZeRO shards those
+over the data group. The model runs its collectives on the model group; the
+gradients of replicated leaves are the same on every TP rank (their inputs
+are, after the all-reduces) and are not reduced over it. The gradient norm
+and the fp16 overflow count a TP-sharded leaf on every rank and a
+replicated one once; 1-bit LAMB's trust ratio takes its norms over the
+shard's groups. Checkpoints gather the model axis as well as the ZeRO
+shards, so the files hold the JAX package's global leaves, and a load
+slices them. The offload tiers under tensor parallelism are ROADMAP.md
+Queue 1 item 13d and raise.
+
 ``save_checkpoint`` / ``load_checkpoint`` write and read the JAX
 package's checkpoint format (``runtime/checkpoint_engine``): a tag saved by
 either package loads in the other. A save copies every tensor into a fresh
@@ -86,7 +100,7 @@ import torch
 from ..accelerator import resolve_device
 from ..analysis.program_audit import audited_program
 from ..comm import comm as dist
-from ..comm.topology import ZERO_AXES, get_topology
+from ..comm.topology import MESH_AXES, MODEL_AXIS, ZERO_AXES, get_topology
 from ..ops.optimizers import OptState, build_optimizer
 from ..ops.transformer.flash_attention import check_kernel_config
 from ..resilience.errors import CheckpointCorruptError, EngineUsageError
@@ -105,6 +119,7 @@ from .lr_schedules import build_lr_scheduler
 
 _FEATURE_ITEM = "ROADMAP.md Queue 1 item 17"
 _PERIPHERY_ITEM = "ROADMAP.md Queue 1 item 18, periphery"
+_HOST_TIERS_ITEM = "ROADMAP.md Queue 1 item 13d, host tiers across ranks"
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -298,9 +313,20 @@ class DeepSpeedEngine:
 
         # ---- model params + apply fn ----
         params, self._apply_fn = self._extract_model(model, model_params)
+        self.topology = get_topology()
+        # tensor parallelism: this rank's shards by the model's tp_specs
+        # (engine.py:354-358, 476-480)
+        self._tp = self._setup_tensor_parallel(model)
+        tp_n = 1 if self._tp is None else self._tp.n
+        if self._tp is not None:
+            params = self._tp.local(params)
+            # the model runs over this rank's layout, not the process's
+            self.module = model = model.with_tp(self._tp.n, self._tp.rank)
+            self._apply_fn = model.apply
         mc = getattr(model, "config", None)
         if self.device.type == "cuda" and mc is not None and hasattr(mc, "head_dim"):
-            check_kernel_config(mc.num_heads, mc.kv_heads, mc.head_dim, self.compute_dtype)
+            check_kernel_config(mc.num_heads // tp_n, mc.kv_heads // tp_n, mc.head_dim,
+                                self.compute_dtype)
 
         def lp(p):  # a fresh tensor: the lp params are updated in place
             t = torch.as_tensor(p).detach()
@@ -316,9 +342,11 @@ class DeepSpeedEngine:
         # host RAM; partial (ratio < 1) or NVMe offload takes the flat tier
         self._zero_sharded_planned = bool(self.zero_stage >= 2 and off is not None
                                           and off.device == "cpu" and off.ratio == 1.0)
+        if self._offload_enabled and self._tp is not None:
+            raise _not_ported("offload_optimizer under tensor parallelism (a host tier a "
+                              "rank)", _HOST_TIERS_ITEM)
 
         # ---- data parallelism over the process group (engine.py:454-480) ----
-        self.topology = get_topology()
         self.dp_world_size = config.dp_world_size
         if self.topology.data_parallel_size != self.dp_world_size:
             raise ValueError(
@@ -359,8 +387,7 @@ class DeepSpeedEngine:
             self.optimizer = build_optimizer(config.optimizer_name, config.optimizer_params)
         else:
             self.optimizer = None
-        if self._dpz is not None:
-            self._check_data_parallel_optimizer()
+        self._setup_sharded_norms()
         self._ef_errors = None  # the 1-bit optimizers' error feedback, a leaf each
         self._offload_mgr = None
         self._transfer = None  # the offload tiers' TransferEngine
@@ -407,6 +434,7 @@ class DeepSpeedEngine:
         if training_data is not None:
             self.training_dataloader = self.deepspeed_io(training_data, collate_fn=collate_fn)
 
+        self.static_state_bytes = self._memory_preflight()
         log_dist(
             f"DeepSpeedEngine: zero_stage={self.zero_stage} dtype={self.compute_dtype} "
             f"device={self.device} offload={off.device if self._offload_enabled else 'none'} "
@@ -557,7 +585,14 @@ class DeepSpeedEngine:
         dpz = self._dpz
         inv = 1.0 / self.scaler_state.cur_scale
         target = self._update_target()
-        if dpz is None:
+        if dpz is None and self._tp is not None:
+            from .zero.data_parallel import chunks_norm_and_overflow
+
+            grads = [g.float() * inv for g in tree_leaves(acc_grads)]
+            gnorm, overflow = chunks_norm_and_overflow(
+                [g if self._tp.counts(j) else None for j, g in enumerate(grads)],
+                cfg.fp16_enabled, self.device, groups=(MODEL_AXIS,))
+        elif dpz is None:
             grads = [g.float() * inv for g in tree_leaves(acc_grads)]
             tree = tree_unflatten(acc_grads, grads)
             overflow = has_overflow(tree) if cfg.fp16_enabled else None
@@ -716,7 +751,8 @@ class DeepSpeedEngine:
                            persistence_threshold=zc.param_persistence_threshold,
                            comm_dtype=self.config.communication_data_type,
                            qgz=zc.zero_quantized_gradients, qwz=zc.zero_quantized_weights,
-                           stacked=stacked(params) if stacked is not None else None)
+                           stacked=stacked(params) if stacked is not None else None,
+                           tp=self._tp)
         self._dpz = dpz
         dev = self.device
 
@@ -733,13 +769,77 @@ class DeepSpeedEngine:
                             if lay.sharded else None for lay in dpz.param]
         self._z3_red = None  # the gathers' reduced gradients of one micro-step
 
-    def _check_data_parallel_optimizer(self):
+    def _memory_preflight(self) -> float:
+        """The per-rank static state (weights, gradients, fp32 master and
+        moments) under the ZeRO rules and the model degree, as the JAX
+        engine's preflight estimates it (``engine.py:620-675``); a warning
+        when it passes 92% of the card's memory. Returns the bytes."""
+        from .zero.partition import estimate_static_state_per_chip
+
+        topo = self.topology
+        shapes = [tuple(t.shape) for t in tree_leaves(self.global_template())]
+        n_params = sum(int(np.prod(s)) for s in shapes)
+        zero_degree = max(1, topo.data_parallel_size)
+        hpz = topo.get_dim("hpz")
+        off = self.config.zero_config.offload_optimizer
+        off_frac = (max(0.0, min(1.0, off.ratio)) if self._offload_enabled else 0.0)
+        est = estimate_static_state_per_chip(
+            n_params, self.zero_stage, zero_degree=zero_degree, mp=topo.model_parallel_size,
+            dtype_bytes=2 if self._mixed else 4, offload_opt_fraction=off_frac,
+            weight_shard_degree=hpz if hpz > 1 else zero_degree, has_master=self._mixed)
+        if self.device.type == "cuda":
+            cap = float(torch.cuda.get_device_properties(self.device).total_memory)
+            if est > 0.92 * cap:
+                logger.warning(
+                    f"memory preflight: static state needs ~{est / 2**30:.1f} GiB a rank "
+                    f"(params {n_params / 1e6:.0f}M, stage {self.zero_stage}, zero_degree "
+                    f"{zero_degree}, mp {topo.model_parallel_size}) vs ~{cap / 2**30:.1f} "
+                    "GiB on the card; activations come on top")
+        return est
+
+    def _setup_tensor_parallel(self, model):
+        """This rank's ``TensorParallel`` layout over a ``model`` axis larger
+        than 1 (None otherwise): the model's ``tp_specs`` over its whole
+        leaves' shapes, the heads and widths checked."""
+        n = self.topology.model_parallel_size
+        if n == 1:
+            return None
+        from ..models.weights import tp_layout
+
+        if not hasattr(model, "with_tp"):
+            raise ValueError("a 'model' axis larger than 1 needs a model with tp_specs "
+                             "(models.TransformerLM)")
+        return tp_layout(model, n, self.topology.coords[MODEL_AXIS])
+
+    def _setup_sharded_norms(self):
+        """1-bit LAMB over leaves held in shards (ZeRO stage >= 1 across
+        ranks, or tensor parallelism): its trust ratio's two norms are the
+        squares summed over each shard's groups (``onebit_adam.py:100-140``
+        on the whole leaf)."""
         from ..ops.adam.onebit_adam import OnebitLamb
 
-        if isinstance(self.optimizer, OnebitLamb) and self.zero_stage >= 1:
-            raise _not_ported("OnebitLamb at ZeRO stage >= 1 across ranks (its trust ratio "
-                              "is a norm over the whole leaf, the master a shard)",
-                              "ROADMAP.md Queue 1 item 13b")
+        if not isinstance(self.optimizer, OnebitLamb):
+            return
+        dp_sharded = ([lay.sharded for lay in self._dpz.opt] if self._dpz is not None
+                      else None)
+        if dp_sharded is None and self._tp is None:
+            return
+        tp = self._tp
+        first_dp = self._dpz is None or self._dpz.row_index == 0
+
+        def reduce_squares(sq):  # (k, leaves) squared sums of this rank's shards
+            n = sq.shape[-1]
+            keep = torch.tensor([(dp_sharded is None or dp_sharded[j] or first_dp)
+                                 and (tp is None or tp.counts(j)) for j in range(n)],
+                                device=sq.device)
+            sq = torch.where(keep, sq, torch.zeros_like(sq))
+            if dp_sharded is not None:
+                sq = dist.all_reduce(sq, group=ZERO_AXES, log_name="lamb_norms")
+            if tp is not None:
+                sq = dist.all_reduce(sq, group=MODEL_AXIS, log_name="lamb_norms")
+            return sq
+
+        self.optimizer.reduce_squares = reduce_squares
 
     def _apply_dp(self, params, batch, train=True, rng=None):
         """The model's apply on this rank's rows; dropout draws those rows
@@ -895,7 +995,7 @@ class DeepSpeedEngine:
         if self.zero_stage >= 3 and self.dp_world_size > 1:
             raise _not_ported("ZeRO stage 3 with offload_optimizer across ranks (the "
                               "weights sharded, and the tier's parameter residency)",
-                              "ROADMAP.md Queue 1 item 13b")
+                              _HOST_TIERS_ITEM)
         leaves = list(tree_leaves(fp32_params))
         host_idx, dev_idx = split_by_ratio(leaves, off.ratio)
         if sanitize_enabled():
@@ -1260,8 +1360,20 @@ class DeepSpeedEngine:
                                      [sd["m"] for sd in shard_sds], dtype=np.float32)
         if self.topology.rank == 0:
             self.checkpoint_engine.save(optim_sd, optim_path)
+        if self._tp is not None and self._tp.rank != 0:
+            return  # model coordinate 0 writes its data group's files
         for sd in shard_sds:
             self.checkpoint_engine.save(sd, shard_path(tag_dir, sd["rank"]))
+
+    def _tp_full(self, tree):
+        """``tree`` (this rank's TP-local leaves) with every TP-sharded leaf
+        all-gathered whole over the model group: collective; the tree itself
+        without tensor parallelism."""
+        if self._tp is None or tree is None:
+            return tree
+        with torch.no_grad():
+            return tree_unflatten(self.params, self._tp.full(
+                [t.detach() for t in tree_leaves(tree)]))
 
     def _offload_master_tree(self, copy=False):
         """The full fp32 master tree from the host tier (numpy leaves) and
@@ -1310,6 +1422,7 @@ class DeepSpeedEngine:
             module_state = self._dp_full(tree_leaves(self.master_params), dpz.opt)
         else:
             module_state = self.master_params if self._mixed else self.params
+        module_state = self._tp_full(module_state)
         model_sd = {
             "module": module_state,
             "dtype": str(self.compute_dtype).replace("torch.", ""),
@@ -1339,7 +1452,7 @@ class DeepSpeedEngine:
             sharded = (tier.plan, ms, vs, tier.step_count)
         elif dpz is not None and self.opt_state is not None and self.opt_state.m is not None:
             # the moments whole (collective); stage >= 2 saves them a rank a file
-            m_full, v_full = (self._dp_full(tree_leaves(t), dpz.opt)
+            m_full, v_full = (self._tp_full(self._dp_full(tree_leaves(t), dpz.opt))
                               for t in (self.opt_state.m, self.opt_state.v))
             if self.zero_stage >= 2:
                 from .zero.partition import PartitionPlan
@@ -1365,14 +1478,16 @@ class DeepSpeedEngine:
             # device-resident stage >= 2 moments are saved per shard too
             from .zero.partition import PartitionPlan
 
-            mv = _gather_to_host({"m": self.opt_state.m, "v": self.opt_state.v})
+            mv = _gather_to_host({"m": self._tp_full(self.opt_state.m),
+                                  "v": self._tp_full(self.opt_state.v)})
             m_leaves = [t.numpy() for t in tree_leaves(mv["m"])]
             v_leaves = [t.numpy() for t in tree_leaves(mv["v"])]
             sharded = (PartitionPlan(m_leaves, cfg.dp_world_size), m_leaves, v_leaves,
                        int(self.opt_state.step))
         elif self.opt_state is not None:
-            optim_sd = {"step": self.opt_state.step, "m": self.opt_state.m,
-                        "v": self.opt_state.v, "scaler": self.scaler_state._asdict()}
+            optim_sd = {"step": self.opt_state.step, "m": self._tp_full(self.opt_state.m),
+                        "v": self._tp_full(self.opt_state.v),
+                        "scaler": self.scaler_state._asdict()}
         t0 = time.perf_counter()
         model_sd = _gather_to_host(model_sd)
         if optim_sd is not None:
@@ -1387,11 +1502,11 @@ class DeepSpeedEngine:
             self._save_sharded_optim(d, optim_path, *sharded)
 
         self.checkpoint_engine.commit(tag)
-        if self.dp_world_size > 1:
+        if self.topology.world_size > 1:
             # every rank's files on disk before rank 0 moves `latest`
             if hasattr(self.checkpoint_engine, "wait"):
                 self.checkpoint_engine.wait()
-            dist.barrier(group=ZERO_AXES)
+            dist.barrier(group=MESH_AXES)
         if save_latest and lead:
             def _write_latest():
                 # tmp → os.replace: a crash mid-write must never leave a
@@ -1461,9 +1576,9 @@ class DeepSpeedEngine:
             self.checkpoint_engine.wait(raise_errors=False)
         if self.config.load_universal_checkpoint and os.path.exists(
                 os.path.join(load_dir, "universal_meta.pkl")):
-            if self.dp_world_size > 1:
-                raise _not_ported("loading a universal checkpoint across ranks",
-                                  "ROADMAP.md Queue 1 item 13b")
+            if self.dp_world_size > 1 and self._offload_mgr is not None:
+                raise _not_ported("loading a universal checkpoint into the offload tiers "
+                                  "across ranks", _HOST_TIERS_ITEM)
             from ..checkpoint.universal import load_universal_into_engine
 
             load_universal_into_engine(self, load_dir)
@@ -1480,9 +1595,7 @@ class DeepSpeedEngine:
         want_optim = load_optimizer_states and not load_module_only
         tag, model_path, model_sd, optim_sd = self._read_tag(load_dir, tag, from_latest,
                                                              want_optim)
-        # the whole leaves' shapes (at dp > 1 the parameters are shards)
-        template = self.params if self._dpz is None else tree_unflatten(
-            self.params, [torch.empty(s, device="meta") for s in self._dpz.shapes])
+        template = self.global_template()
         module = _match(template, model_sd["module"], "module")
         # the optimizer file in the form this engine restores (engine.py:2270-2290):
         # a consolidated sharded save, a device save into an offloaded
@@ -1502,6 +1615,8 @@ class DeepSpeedEngine:
         if optim_sd is not None and self.opt_state is not None:
             m, v = (None if optim_sd[k] is None else _match(template, optim_sd[k], k)
                     for k in ("m", "v"))
+        if self._tp is not None:  # this rank's TP slices of the global leaves
+            module, m, v = (None if t is None else self._tp.local(t) for t in (module, m, v))
         if optim_sd is not None and self._offload_mgr is not None:
             saved_h = optim_sd.get("host_idx")
             saved_d = optim_sd.get("dev_idx") or []
@@ -1540,20 +1655,36 @@ class DeepSpeedEngine:
             self._restore_offload(optim_sd, module)
             self._restore_scaler(optim_sd.get("scaler"))
         elif optim_sd is not None and self.opt_state is not None:
-            if self._dpz is not None:  # this rank's shards of the moments
-                m, v = (None if t is None else tree_unflatten(self.params, [
-                    lay.take(_host_tensor(a).float()).contiguous()
-                    for a, lay in zip(tree_leaves(t), self._dpz.opt)]) for t in (m, v))
-            self.opt_state = type(self.opt_state)(
-                step=torch.tensor(int(np.asarray(optim_sd["step"])), dtype=torch.int32,
-                                  device=self.device),
-                m=None if m is None else self._to_device(m),
-                v=None if v is None else self._to_device(v))
+            self._restore_moments(m, v, int(np.asarray(optim_sd["step"])))
             self._restore_scaler(optim_sd.get("scaler"))
         self.ckpt_stats["restore_s"] += time.perf_counter() - t0
         self.loaded_checkpoint_tag = tag
         log_dist(f"loaded checkpoint {tag} from {load_dir}", ranks=[0])
         return model_path, model_sd.get("client_state", {})
+
+    def global_template(self):
+        """The parameter tree's whole leaves as meta tensors: what a
+        checkpoint holds (at dp > 1 the parameters are ZeRO shards, under
+        tensor parallelism TP shards)."""
+        if self._tp is not None:
+            shapes = self._tp.global_shapes
+        elif self._dpz is not None:
+            shapes = self._dpz.shapes
+        else:
+            return self.params
+        return tree_unflatten(self.params, [torch.empty(s, device="meta") for s in shapes])
+
+    def _restore_moments(self, m, v, step: int):
+        """The optimizer state from whole (TP-local) moment trees of host
+        leaves: at dp > 1 this rank's ZeRO shards of them."""
+        if self._dpz is not None:
+            m, v = (None if t is None else tree_unflatten(self.params, [
+                lay.take(_host_tensor(a).float()).contiguous()
+                for a, lay in zip(tree_leaves(t), self._dpz.opt)]) for t in (m, v))
+        self.opt_state = type(self.opt_state)(
+            step=torch.tensor(int(step), dtype=torch.int32, device=self.device),
+            m=None if m is None else self._to_device(m),
+            v=None if v is None else self._to_device(v))
 
     def _restore_params(self, module):
         """Write a tree of host fp32 leaves (the params' structure) into the
@@ -1611,8 +1742,7 @@ class DeepSpeedEngine:
                     # engine's own split
                     "offload_dev": None, "host_idx": list(range(n)), "dev_idx": [],
                     "scaler": sc}
-        shapes = ([tuple(p.shape) for p in tree_leaves(self.params)] if self._dpz is None
-                  else self._dpz.shapes)
+        shapes = [tuple(p.shape) for p in tree_leaves(module)]
         return {"step": step, "scaler": sc,
                 **{k: tree_unflatten(self.params, [flat32(a).reshape(s)
                                                    for a, s in zip(lst, shapes)])
@@ -1710,15 +1840,16 @@ class DeepSpeedEngine:
 
     def get_fp32_params(self):
         """Full-precision view of the module weights, as CPU fp32 tensors
-        (at dp > 1 gathered from every rank's shards: a collective)."""
+        (at dp > 1 or under tensor parallelism gathered from every rank's
+        shards: a collective)."""
         if self._offload_mgr is not None:
             return tree_map(lambda p: _host_tensor(p).detach().float().cpu().clone(),
                             self._offload_master_tree())
         if self._dpz is not None:
             src = self._dp_full(tree_leaves(self.master_params), self._dpz.opt)
-            return tree_map(lambda p: p.detach().float().cpu(), src)
-        src = self.master_params if self._mixed else self.params
-        return tree_map(lambda p: p.detach().float().cpu(), src)
+        else:
+            src = self.master_params if self._mixed else self.params
+        return tree_map(lambda p: p.detach().float().cpu(), self._tp_full(src))
 
     @property
     def train_batch_size(self):

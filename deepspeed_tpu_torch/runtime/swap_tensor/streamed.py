@@ -35,7 +35,7 @@ random-LTD), bf16 or fp32, no fp16. Dropout keys are
 ``fold_in(fold_in(PRNGKey(seed), micro_steps), m)`` then ``fold_in(., layer)``
 (``streamed.py:231-232, 277-279``): the JAX streamed engine's masks bit for
 bit, by design not the resident engine's. Multi-rank streaming (the JAX
-engine's ``_dp > 1``) is ROADMAP.md Queue 1 item 13c: ``initialize`` raises
+engine's ``_dp > 1``) is ROADMAP.md Queue 1 item 13d: ``initialize`` raises
 for it. Checkpoints through ``state_dict`` / ``load_state_dict`` on the host
 state.
 """

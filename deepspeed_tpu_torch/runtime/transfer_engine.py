@@ -69,7 +69,7 @@ MAX_INFLIGHT_BYTES = 32 * 1024 * 1024
 STAGING_POOL_DEPTH = 2
 
 # the ROADMAP.md item that lifts ``put_tree``'s sharding argument
-_SHARDING_ITEM = "ROADMAP.md Queue 1 item 13c, tensor parallelism"
+_SHARDING_ITEM = "ROADMAP.md Queue 1 item 13d, host tiers across ranks"
 
 
 class TransferCorruptError(Exception):

@@ -24,6 +24,13 @@ rules into this rank's shards and eager collectives (``comm``):
   and block scales (``zeropp.gather_param_leaf``); hpZ runs them inside
   the ``hpz`` group.
 
+Under tensor parallelism the leaves are a rank's TP shards
+(``runtime/tensor_parallel.py``): ZeRO shards each one on the largest
+dimension its TP spec left unsharded that divides by the ZeRO degree (the
+JAX rule, ``partition.py:51-79``), its collectives run on the data group
+(the ranks of one model coordinate), and the gradient norm sums a
+TP-sharded leaf's squares over the model group too, a replicated one once.
+
 Bucketing and overlap of the collectives with the backward are not done:
 one collective a leaf (a layer's slice at stage 3), in leaf order.
 """
@@ -35,8 +42,9 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from ...comm import comm as dist
-from ...comm.topology import ZERO_AXES, get_topology
+from ...comm.topology import MODEL_AXIS, ZERO_AXES, get_topology
 from ...utils.tree import tree_leaves, tree_unflatten
+from ..tensor_parallel import strip_model
 from .partition import shard_leaf_spec, stage_opt_specs, stage_param_specs
 from .zeropp import gather_param_leaf, quantized_reduce_leaf
 
@@ -99,18 +107,26 @@ class DataParallel:
 
     def __init__(self, params, stage: int, topo, persistence_threshold: int = 0,
                  comm_dtype: Optional[str] = None, qgz: bool = False, qwz: bool = False,
-                 stacked: Optional[Sequence[bool]] = None):
+                 stacked: Optional[Sequence[bool]] = None, tp=None):
         self.stage = int(stage)
         self.dp = topo.data_parallel_size
         self.qgz, self.qwz = bool(qgz), bool(qwz) and self.stage >= 3
         self.comm_dtype = _COMM_DTYPES[comm_dtype]
         self.shapes = [tuple(p.shape) for p in tree_leaves(params)]
-        self.red = [LeafShard(shard_leaf_spec(s, None, topo), topo) for s in self.shapes]
-        self.opt = [LeafShard(s, topo)
-                    for s in _spec_leaves(stage_opt_specs(params, self.stage, topo))]
-        self.param = [LeafShard(s, topo) for s in _spec_leaves(stage_param_specs(
-            params, self.stage, topo,
-            persistence_threshold=persistence_threshold if self.stage >= 3 else 0))]
+        #: the rank's tensor-parallel layout (``TensorParallel``), or None
+        self.tp = tp
+        tps = None if tp is None else tree_unflatten(params, tp.spec_leaves())
+
+        def local(specs):  # the TP-local leaves' layouts: the model axis is this rank's
+            return [LeafShard(strip_model(s), topo) for s in _spec_leaves(specs)]
+
+        self.red = local(tree_unflatten(params, [
+            shard_leaf_spec(s, t, topo) for s, t in zip(
+                self.shapes, tp.spec_leaves() if tp is not None else [None] * len(self.shapes))]))
+        self.opt = local(stage_opt_specs(params, self.stage, topo, tps))
+        self.param = local(stage_param_specs(
+            params, self.stage, topo, tps,
+            persistence_threshold=persistence_threshold if self.stage >= 3 else 0))
         #: the rank's rows of a global batch start at row_index * rows
         self.row_index = topo.rank_in(ZERO_AXES)
         #: leaves stacked by layer (the model's ``stacked_leaves``): their
@@ -191,11 +207,14 @@ class DataParallel:
     def norm_and_overflow(self, shards, fp16: bool):
         """(global gradient norm, overflow flag or None) from the reduced
         chunks on the reduction layout: a whole leaf counts on group rank 0
-        only."""
+        only, and under tensor parallelism a replicated leaf on model
+        coordinate 0 only."""
         first = self.row_index == 0
-        return chunks_norm_and_overflow(
-            [s if lay.sharded or first else None for s, lay in zip(shards, self.red)],
-            fp16, shards[0].device)
+        tp = self.tp
+        chunks = [s if (lay.sharded or first) and (tp is None or tp.counts(j)) else None
+                  for j, (s, lay) in enumerate(zip(shards, self.red))]
+        groups = (ZERO_AXES,) if tp is None else (ZERO_AXES, MODEL_AXIS)
+        return chunks_norm_and_overflow(chunks, fp16, shards[0].device, groups=groups)
 
     def step_grads(self, acc, inv: float):
         """The step's gradients from the accumulated reduced ones (``acc``,
@@ -304,18 +323,20 @@ def _own_f32(g: torch.Tensor) -> torch.Tensor:
     return g if g.dtype == torch.float32 else g.float()
 
 
-def chunks_norm_and_overflow(chunks, fp16: bool, device, group=ZERO_AXES):
+def chunks_norm_and_overflow(chunks, fp16: bool, device, groups=(ZERO_AXES,)):
     """(norm, overflow flag or None) of a gradient whose chunks the ranks of
-    ``group`` hold without overlap (a chunk None: counted on another rank):
+    ``groups`` hold without overlap (a chunk None: counted on another rank):
     each chunk's sum of squares, and under fp16 the count of non-finite
-    elements, all-reduced in one vector, so every rank holds the same
-    values."""
+    elements, all-reduced in one vector over each group in turn, so every
+    rank holds the same values."""
     zero = torch.zeros((), device=device)
     sq = [zero if c is None else torch.sum(torch.square(c.float())) for c in chunks]
     if fp16:
         sq.append(torch.stack([zero if c is None else (~torch.isfinite(c)).sum().float()
                                for c in chunks]).sum())
-    v = dist.all_reduce(torch.stack(sq), group=group, log_name="grad_norm")
+    v = torch.stack(sq)
+    for group in groups:
+        v = dist.all_reduce(v, group=group, log_name="grad_norm")
     if fp16:
         return torch.sqrt(v[:-1].sum()), v[-1] > 0
     return torch.sqrt(v.sum()), None

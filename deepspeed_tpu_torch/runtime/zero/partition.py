@@ -161,3 +161,29 @@ class PartitionPlan:
             "leaf_shapes": [list(s) for s in self.leaf_shapes],
             "bounds": [list(b) for b in self.bounds],
         }
+
+
+def estimate_static_state_per_chip(n_params: int, zero_stage: int, zero_degree: int, mp: int,
+                                   dtype_bytes: int = 2, offload_opt_fraction: float = 0.0,
+                                   weight_shard_degree: int = 0,
+                                   has_master: bool = True) -> float:
+    """Per-rank bytes of the static training state (weights, gradients, fp32
+    master and Adam moments) under the ZeRO rules and a model degree ``mp``
+    (a copy of the JAX package's ``autotuning/autotuner.py:42``, the model
+    its engine's memory preflight uses). ``zero_degree`` is the ZeRO degree
+    gradients (stage >= 2) and optimizer state (stage >= 1) shard over;
+    ``weight_shard_degree`` what stage-3 weights shard over (the hpz size
+    when hpz > 1; 0: the ZeRO degree); ``offload_opt_fraction`` the share of
+    the optimizer state offloaded; ``has_master``: a mixed-precision run
+    keeps an fp32 master beside the moments (12 bytes a parameter, else 8)."""
+    p = n_params / max(1, mp)
+    weights = p * dtype_bytes
+    grads = p * 4
+    opt = p * (12 if has_master else 8) * max(0.0, 1.0 - offload_opt_fraction)
+    if zero_stage >= 1:
+        opt /= zero_degree
+    if zero_stage >= 2:
+        grads /= zero_degree
+    if zero_stage >= 3:
+        weights /= (weight_shard_degree or zero_degree)
+    return weights + grads + opt

@@ -31,7 +31,7 @@ def chunked_device_put(tree: Any, sharding=None, *,
                        limit_bytes: int = MAX_INFLIGHT_BYTES) -> Any:
     """Copy a tree of host leaves to the card with bounded bytes a flight
     (``TransferEngine.put_tree``); ``sharding`` raises ``NotImplementedError``
-    (ROADMAP.md Queue 1 item 13c)."""
+    (ROADMAP.md Queue 1 item 13d)."""
     return default_engine().put_tree(tree, sharding, limit_bytes=limit_bytes)
 
 

@@ -287,12 +287,13 @@ def test_zero_stage_and_offload_configs_train(zero):
     # holds the JAX package's ValueError below stage 3 and the engine at 3
     pytest.param("zero_optimization", {"stage": 1, "offload_param": {"device": "cpu"}},
                  "requires stage 3", id="zero_optimization-value0-item 17"),
-    # ported since (multi-rank ZeRO): each case keeps its name, trains at one
-    # rank, and its mesh case holds the refusal of a tensor-parallel axis
-    pytest.param("zero_optimization", {"zero_quantized_weights": True}, "item 13c",
+    # ported since (multi-rank ZeRO, then tensor parallelism): each case keeps
+    # its name, trains at one rank, and holds the ValueError of a model axis
+    # larger than the world and the acceptance of ``mpu``
+    pytest.param("zero_optimization", {"zero_quantized_weights": True}, "model axis",
                  id="zero_optimization-value1-item 13b"),
-    pytest.param("mesh", {"data": 1}, "item 13c", id="mesh-value2-item 13b"),
-    pytest.param("optimizer", {"type": "OneBitAdam", "params": {}}, "item 13c",
+    pytest.param("mesh", {"data": 1}, "model axis", id="mesh-value2-item 13b"),
+    pytest.param("optimizer", {"type": "OneBitAdam", "params": {}}, "model axis",
                  id="optimizer-value3-item 13b"),
     ("steps_per_execution", 2, "item 17"),
     ("progressive_layer_drop", {"enabled": True}, "item 17"),
@@ -311,11 +312,15 @@ def test_unported_config_raises_naming_the_item(key, value, match):
         loss = float(eng.train_batch(iter(_batches(512, 1, seed=6))))
         assert np.isfinite(loss) and eng.store.max_live_groups <= 2
         return
-    if match == "item 13c":
+    if match == "model axis":
         eng = _port_engine("llama", _config(**{key: value}))
         assert np.isfinite(float(eng.train_batch(iter(_batches(512, 1, seed=6)))))
-        with pytest.raises(NotImplementedError, match="item 13c, tensor parallelism"):
+        with pytest.raises(ValueError, match=r"world size 1 not divisible by model\(2\)"):
             _port_engine("llama", _config(mesh={"data": 1, "model": 2}))
+        preset, mkw = MODELS["llama"]
+        eng = deepspeed_tpu_torch.initialize(model=build_model(preset, **mkw), mpu=object(),
+                                             config=_config(**{key: value}), device="cpu")[0]
+        assert eng.topology.model_parallel_size == 1
         return
     with pytest.raises(NotImplementedError, match=match):
         _port_engine("llama", _config(**{key: value}))

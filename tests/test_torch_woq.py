@@ -111,8 +111,24 @@ def test_quantize_param_tree_rejects_bad_bits_and_trees():
         woq.quantize_param_tree({"wte": torch.zeros(2, 2)})
     with pytest.raises(ValueError):
         woq._group_size(30, 16, 6)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 items 13 and 17"):
-        woq.quantized_tp_specs({}, {"blocks": {}})
+    # ported since (tensor parallelism): the JAX mapping of a model's specs
+    # onto a quantized tree, entry for entry
+    from jax.sharding import PartitionSpec as P
+
+    from deepspeed_tpu.ops.quantizer import woq as jwoq
+
+    q = {"blocks": {"wq::q8": 0, "wq::scale": 0, "w_down::q8": 0, "w_down::scale": 0,
+                    "ln1_scale": 0, "extra": 0}, "wte": 0}
+    tp = {"wte": ("model", None), "blocks": {"wq": (None, None, "model"),
+                                             "w_down": (None, "model", None),
+                                             "ln1_scale": (None, None)}}
+    got = woq.quantized_tp_specs(tp, q)
+    want = jwoq.quantized_tp_specs({"wte": P("model", None), "blocks": {
+        k: P(*v) for k, v in tp["blocks"].items()}}, q)
+    assert got["wte"] == ("model", None)
+    assert sorted(got["blocks"]) == sorted(want["blocks"])
+    for k, spec in want["blocks"].items():
+        assert tuple(got["blocks"][k]) == tuple(spec), k
 
 
 def _gemm_case(B, In, Out, group, bits, seed=0):

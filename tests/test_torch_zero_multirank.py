@@ -27,7 +27,11 @@ the global batch of 8 sequences a micro-step:
   summation-order tolerances above;
 - checkpoints: a 2-rank stage-3 tag loads at 1 rank and in the JAX engine
   with every master and moment bitwise, and a JAX tag loads at 2 ranks
-  bitwise.
+  bitwise; a universal directory loads into 2 ranks at stage 2 as each
+  rank's rows of the one-rank load, bitwise;
+- ``OnebitLamb`` at stages 1 and 2, its trust ratio's norms all-reduced
+  over the master's shards, against the JAX engine before its freeze step,
+  and lowering the loss at every compressed step after it (stage 1).
 
 Adam's eps is 1e-6, as in ``test_torch_train_engine.py``: the first steps'
 updates of tiny gradients keep their sign under last-bit differences.
@@ -307,7 +311,65 @@ def test_stage3_offload_across_ranks_raises_naming_its_item(ranks2):
     cfg = _config(3, zero_optimization={"offload_optimizer": {"device": "cpu"}})
     for msg in ranks2.run(unported, PRESET, MODEL_KW, cfg, _jax_params()[1]):
         assert msg is not None and "stage 3 with offload_optimizer across ranks" in msg
-        assert "item 13b" in msg
+        assert "item 13d" in msg
+
+
+@pytest.mark.parametrize("stage", [1, 2])
+def test_onebit_lamb_across_ranks_matches_jax(ranks2, stage):
+    """``OnebitLamb`` with its master in shards: the trust ratio's two norms
+    are the shards' squares all-reduced. Before ``freeze_step`` (here past
+    the run) it is the JAX engine's LAMB on ``{"data": 8}`` over the same
+    global batches, to this file's summation-order tolerances; at stage 1
+    with a freeze at step 2 the compressed steps lower the loss at every
+    step, and the ranks stay bitwise equal."""
+    import deepspeed_tpu
+
+    jm, params = _jax_params()
+    opt = {"type": "OneBitLamb", "params": {"lr": 1e-3, "freeze_step": 100, "eps": 1e-6}}
+    cfg = _config(stage, optimizer=opt)
+    got = ranks2.run(train, PRESET, MODEL_KW, cfg, params, _batches(), 3)
+    jeng = deepspeed_tpu.initialize(model=jm, model_parameters=params,
+                                    config=dict(cfg, mesh={"data": 8}))[0]
+    batches = _batches()
+    jl = [float(jeng.train_batch(iter([batches[i]]))) for i in range(3)]
+    import jax
+
+    np.testing.assert_allclose(got[0]["losses"], jl, rtol=1e-5)
+    for a, b in zip(_leaves(got[0]["master"]), _leaves(jax.tree.map(np.asarray, jeng.params))):
+        np.testing.assert_allclose(a, b, atol=1e-5)
+    assert got[0]["states"] == got[1]["states"]
+    if stage == 1:
+        comp = dict(opt, params=dict(opt["params"], freeze_step=2))
+        run = ranks2.run(train, PRESET, MODEL_KW, _config(1, optimizer=comp),
+                         params, _batches(n=1), 5)
+        losses = run[0]["losses"]
+        assert all(b < a for a, b in zip(losses[2:], losses[3:])), losses
+        assert run[0]["states"] == run[1]["states"]
+
+
+def test_universal_tag_loads_into_two_ranks_as_the_one_rank_loads_rows(ranks2, tmp_path):
+    """A universal directory (from a one-rank stage-2 tag) loaded at stage 2
+    into two ranks: each rank's fp32 master and moments are its rows of
+    the one-rank load's, bit for bit, at the same step."""
+    from deepspeed_tpu_torch.checkpoint.universal import ds_to_universal
+    from tests.torch_multirank import universal_load
+
+    params, cfg = _jax_params()[1], _config(2)
+    checkpoint_cycle(0, PRESET, MODEL_KW, cfg, params, _batches(), 2, str(tmp_path / "ck"))
+    u = ds_to_universal(str(tmp_path / "ck"), str(tmp_path / "u"))
+    one = universal_load(0, PRESET, MODEL_KW, cfg, params, u)
+    two = ranks2.run(universal_load, PRESET, MODEL_KW, cfg, params, u)
+    assert one["step"] == 2 and all(o["step"] == 2 and o["global_steps"] == 2 for o in two)
+    sharded = 0
+    for o in two:
+        for k in ("master", "m", "v"):
+            for whole, mine, (dim, n, index) in zip(one[k], o[k], o["layouts"]):
+                if dim is not None:
+                    size = whole.shape[dim] // n
+                    whole = np.take(whole, range(index * size, (index + 1) * size), axis=dim)
+                    sharded += 1
+                np.testing.assert_array_equal(mine, whole)
+    assert sharded > 0
 
 
 def _assert_state(a, b):

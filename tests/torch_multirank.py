@@ -48,16 +48,17 @@ class Ranks:
     def run(self, fn, *args):
         for q in self._ins:
             q.put((fn.__module__, fn.__name__, args))
-        got = {}
+        got, failed = {}, {}
         for _ in range(self.n):
             try:
                 rank, ok, out = self._out.get(timeout=self.timeout)
             except queue.Empty:
                 raise RankError(f"{fn.__name__}: a rank gave no result in {self.timeout} s "
                                 f"(alive: {[p.is_alive() for p in self._procs]})") from None
-            if not ok:
-                raise RankError(f"{fn.__name__} failed in rank {rank}:\n{out}")
-            got[rank] = out
+            (got if ok else failed)[rank] = out
+        if failed:  # every rank's result taken first, so none is left for the next run
+            rank = min(failed)
+            raise RankError(f"{fn.__name__} failed in rank {rank}:\n{failed[rank]}")
         return [got[r] for r in range(self.n)]
 
     def close(self):
@@ -375,3 +376,165 @@ def wire_bytes(rank, preset, model_kw, config, params_np, batch):
         dist.configure(enabled=False)
     return {name: sum(size * rec[0] for size, rec in recs.items())
             for name, recs in dist.comms_logger.comms_dict.items()}
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism
+# ---------------------------------------------------------------------------
+
+def _replicated_bytes(eng):
+    """The bytes of this rank's copies of the leaves that tensor
+    parallelism replicates (its lp parameters and fp32 master)."""
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+
+    tp = eng._tp
+    keep = [j for j in range(len(tp.dims)) if tp.dims[j] is None]
+    out = b""
+    for tree in (eng.params, eng.master_params):
+        if tree is None:
+            continue
+        leaves = list(tree_leaves(tree))
+        out += b"".join(leaves[j].detach().float().numpy().tobytes() for j in keep)
+    return out
+
+
+def tp_train(rank, preset, model_kw, config, params_np, batches, steps, inject=None):
+    """Training over the config's ``mesh`` (a ``model`` axis): losses, the
+    global fp32 master after the last step, the gradient norm and the
+    bytes of this rank's replicated leaves after every step, the loss
+    scale, the skipped steps, this rank's parameter bytes and its
+    coordinates. ``inject`` ``(rank, step)``: that rank's loss is infinite
+    at that step (fp16)."""
+    import torch
+
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+
+    eng = engine(preset, model_kw, config, params_np)
+    if inject is not None:
+        inner = eng._apply_fn
+
+        def apply(*a, **k):
+            out = inner(*a, **k)
+            bad = rank == inject[0] and eng.global_steps == inject[1]
+            return out * float("inf") if bad else out
+
+        eng._apply_fn = apply
+    losses, norms, repl, scales, states = [], [], [], [], []
+    it = itertools.cycle(batches)
+    for _ in range(steps):
+        losses.append(float(eng.train_batch(it)))
+        norms.append(float(eng.get_global_grad_norm()))
+        repl.append(_replicated_bytes(eng) if eng._tp is not None else b"")
+        scales.append(eng.loss_scale())
+        states.append(flat_bytes(_numpy_tree(eng.get_fp32_params())))
+    return {"losses": losses, "norms": norms, "repl": repl, "scales": scales,
+            "states": states, "master": _numpy_tree(eng.get_fp32_params()),
+            "skipped": eng.skipped_steps, "coords": dict(eng.topology.coords),
+            "static_state_bytes": eng.static_state_bytes,
+            "param_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(eng.params)
+                               if isinstance(t, torch.Tensor))}
+
+
+def tp_refusal(rank, preset, model_kw, config, params_np, **kw):
+    """The message of the ``ValueError`` or ``NotImplementedError`` building
+    the engine raises (None if it builds)."""
+    try:
+        engine(preset, model_kw, config, params_np, **kw)
+    except (ValueError, NotImplementedError) as e:
+        return f"{type(e).__name__}: {e}"
+    return None
+
+
+def tp_layout_is_the_models(rank, preset, model_kw, config, params_np, batch):
+    """The loss of the whole tree through a model built here, before and
+    after a TP engine of the same model joins this rank to a ``model``
+    axis (the TP engine runs a copy at its layout; the model keeps TP 1's),
+    then the TP engine's own evaluation loss; and both layouts."""
+    import torch
+
+    from deepspeed_tpu_torch.models import build_model, params_from_jax
+
+    model = build_model(preset, **model_kw)
+    whole = params_from_jax(params_np)
+    ids = {"input_ids": torch.as_tensor(batch["input_ids"])}
+    before = float(model.apply(whole, ids, train=False))
+    eng = engine(preset, model_kw, config, params_np)
+    after = float(model.apply(whole, ids, train=False))
+    eng.eval()
+    tp_loss = float(eng(ids))
+    return {"before": before, "after": after, "tp": tp_loss, "model_tp": model.tp,
+            "engine_tp": eng.module.tp, "topology_tp": eng.topology.model_parallel_size}
+
+
+def tp_checkpoint(rank, preset, model_kw, config, params_np, batches, steps, save_dir=None,
+                  load_dir=None):
+    """``checkpoint_cycle`` for any mesh: load ``load_dir``'s latest tag (if
+    given), the whole state, ``steps`` steps, save to ``save_dir`` (if
+    given). The state's master and moments are global (gathered over the
+    ZeRO and model axes: collective)."""
+    eng = engine(preset, model_kw, config, params_np)
+    if load_dir is not None:
+        eng.load_checkpoint(load_dir)
+    loaded = _tp_state(eng)
+    it = itertools.cycle(batches)
+    losses = [float(eng.train_batch(it)) for _ in range(steps)]
+    if save_dir is not None:
+        eng.save_checkpoint(save_dir)
+    return {"loaded": loaded, "trained": _tp_state(eng), "losses": losses}
+
+
+def _tp_state(eng):
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+
+    opt = eng.opt_state
+    if eng._dpz is not None:
+        m, v = (eng._dp_full(tree_leaves(t), eng._dpz.opt) for t in (opt.m, opt.v))
+    else:
+        m, v = opt.m, opt.v
+    return {"master": _numpy_tree(eng.get_fp32_params()), "m": _numpy_tree(eng._tp_full(m)),
+            "v": _numpy_tree(eng._tp_full(v)), "step": int(opt.step),
+            "global_steps": eng.global_steps}
+
+
+def universal_load(rank, preset, model_kw, config, params_np, universal_dir):
+    """An engine loading a universal directory: this rank's fp32 master and
+    moments (its shards, as the engine holds them) and the step."""
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+
+    eng = engine(preset, model_kw, dict(config, checkpoint={"load_universal": True}), params_np)
+    eng.load_checkpoint(universal_dir)
+    opt = eng.opt_state
+    own = eng.master_params if eng.master_params is not None else eng.params
+    return {"master": [t.detach().float().numpy() for t in tree_leaves(own)],
+            "m": [t.numpy() for t in tree_leaves(opt.m)],
+            "v": [t.numpy() for t in tree_leaves(opt.v)], "step": int(opt.step),
+            "global_steps": eng.global_steps,
+            "layouts": None if eng._dpz is None else [
+                (lay.dim, lay.n, lay.index) for lay in eng._dpz.opt]}
+
+
+def tp_generate(rank, preset, model_kw, params_np, tp, prompts, gen_kw, set_dir=None,
+                forward=False):
+    """``init_inference`` at ``tensor_parallel={"tp_size": tp}`` in fp32 on
+    the CPU over the whole tree ``params_np`` (or the set in ``set_dir``,
+    merged), tokens of ``generate(prompts, **gen_kw)``; with ``forward``
+    the logits of ``forward(prompts)`` too. Returns the tokens, the logits
+    and this rank's leaves' shapes and dtypes."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models import build_model, params_from_jax
+
+    model = build_model(preset, **model_kw)
+    params = params_from_jax(params_np)
+    if set_dir is not None:
+        from deepspeed_tpu_torch.runtime.state_dict_factory import load_mp_merged
+
+        params = load_mp_merged(set_dir, params)
+    eng = init_inference(model, tensor_parallel={"tp_size": tp}, dtype="fp32", params=params,
+                         device="cpu")
+    out = {"tokens": eng.generate(prompts, **gen_kw).numpy(),
+           "shapes": {k: tuple(v.shape) for k, v in eng.params["blocks"].items()},
+           "dtypes": {k: str(v.dtype) for k, v in eng.params["blocks"].items()},
+           "tp": eng.topology.model_parallel_size}
+    if forward:
+        out["logits"] = eng.forward(prompts).numpy()
+    return out
